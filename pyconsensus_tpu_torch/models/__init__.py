@@ -1,0 +1,1 @@
+"""Part of the pyconsensus_tpu_torch port (see the package docstring)."""
