@@ -13,12 +13,17 @@ Phases, each printing its seconds:
    goes to ``chiprun_out/chip_smoke_build.log``);
 3. hold each kernel against its plain torch version on the card at full
    size, on int8 sentinel storage and on float32+NaN storage, and time
-   both with CUDA events;
-4. drive the main path, ``sharded_consensus`` on pre-encoded int8 storage
-   with the default device, at ``max_iterations`` 1 and 3, with the
-   launch counts set to 0 just before and read just after; every kernel
-   must have launched;
-5. run the same path at a middle size on the card and with
+   both with CUDA events: the sztorc sweeps, resolve, the block
+   covariance at k = 5 with and without its centered projections, the
+   rows product at k = 6 and the fill statistics;
+4. drive the main paths, ``sharded_consensus`` on pre-encoded int8
+   storage with the default device and ``pca_method="auto"``, at
+   ``max_iterations`` 1 and 3: sztorc, then fixed-variance and ica (which
+   must resolve to the fused path), each with the launch counts set to 0
+   just before and read just after; every kernel of a path must have
+   launched. Then sztorc again with the fill-statistics kernel gated on,
+   as an A/B against the plain fill statistics;
+5. run the same paths at a middle size on the card and with
    ``device="cpu"`` and compare the two;
 6. print the ``kernels`` JSON line, then the result line.
 
@@ -50,6 +55,13 @@ F32_FLOPS = 67e12
 FULL_RTOL = 3e-5
 #: card-vs-CPU pipeline check at the middle size (the CPU tests' atol)
 MID_ATOL = 1e-5
+#: card-vs-CPU band of the multi-component paths: their orthogonal
+#: iteration's exit is not pinned to a sweep count (the CPU tests hold the
+#: port to the reference within the same band)
+MULTI_ATOL = 2e-3
+#: component counts of the block-kernel checks: fixed-variance's default
+#: five components, and the direction fix's k + 1 rows
+BLOCK_K = 5
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
@@ -62,6 +74,24 @@ KERNELS = {
     "resolve_certainty_fused": (
         "pyconsensus_tpu_torch/csrc/resolve.cu",
         "pyconsensus_tpu/ops/pallas_kernels.py:1275"),
+    "apply_weighted_cov_block": (
+        "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
+        "pyconsensus_tpu/ops/pallas_kernels.py:853"),
+    "storage_rows_matmat": (
+        "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
+        "pyconsensus_tpu/ops/pallas_kernels.py:978"),
+    "fill_stats_pass": (
+        "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
+        "pyconsensus_tpu/ops/pallas_kernels.py:627"),
+}
+#: the kernels each main path must launch
+PATH_KERNELS = {
+    "sztorc": ("apply_weighted_cov", "scores_dirfix_pass",
+               "resolve_certainty_fused"),
+    "fixed-variance": ("apply_weighted_cov_block", "storage_rows_matmat",
+                       "resolve_certainty_fused"),
+    "ica": ("apply_weighted_cov_block", "storage_rows_matmat",
+            "resolve_certainty_fused"),
 }
 
 
@@ -142,9 +172,11 @@ def run(args) -> int:
     sys.path.insert(0, here)
     try:
         from pyconsensus_tpu_torch import ConsensusParams, sharded_consensus
+        from pyconsensus_tpu_torch.models import pipeline
         from pyconsensus_tpu_torch.models.pipeline import _fill_stats
         from pyconsensus_tpu_torch.ops import build
         from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+        from pyconsensus_tpu_torch.parallel.sharded import resolve_params
     except ImportError as exc:
         print(f"chip_smoke: the pyconsensus_tpu_torch package is not beside "
               f"this script ({exc})", file=sys.stderr)
@@ -174,10 +206,11 @@ def run(args) -> int:
         for src, path in libs.items():
             log(f"built {src} -> {os.path.relpath(path, here)}")
         os.makedirs(os.path.join(here, OUT_DIR), exist_ok=True)
-        with open(os.path.join(here, OUT_DIR, "chip_smoke_build.log"),
-                  "w") as f:
-            for src, text in build.build_log().items():
-                f.write(f"--- {src}\n{text}\n")
+        if build.build_log():       # empty when every library was built
+            with open(os.path.join(here, OUT_DIR, "chip_smoke_build.log"),
+                      "w") as f:
+                for src, text in build.build_log().items():
+                    f.write(f"--- {src}\n{text}\n")
         spills = [ln.strip() for text in build.build_log().values()
                   for ln in text.splitlines()
                   if "spill" in ln and not ln.strip().startswith(
@@ -197,6 +230,8 @@ def run(args) -> int:
         _, fill, tw, numer = _fill_stats(x8, rep, 0.1, "int8")
         mu = numer + (rep.sum() - tw) * fill
         v = torch.randn(E, generator=g, device=dev)
+        V = torch.randn((E, BLOCK_K), generator=g, device=dev)
+        W = torch.randn((BLOCK_K + 1, R), generator=g, device=dev)
         xf = torch.where(x8 < 0, torch.full((), float("nan"), device=dev),
                          x8.to(torch.float32) * 0.5)
         for storage, x in (("int8", x8), ("float32", xf)):
@@ -216,12 +251,39 @@ def run(args) -> int:
                     lambda: ck.resolve_certainty_fused_plain(x, rep, fill,
                                                              1.0, 0.1),
                     nb + 4 * (E + R) + 4 * (4 * E + 2 * R), 10 * R * E),
+                # the loop's sweeps (no projections out); the final
+                # Rayleigh-Ritz form is checked and timed below
+                "apply_weighted_cov_block": (
+                    lambda: ck.apply_weighted_cov_block(x, mu, rep, V, fill),
+                    lambda: ck.apply_weighted_cov_block_plain(x, mu, rep, V,
+                                                              fill),
+                    nb + 4 * (2 * E + R + BLOCK_K * E) + 4 * BLOCK_K * E,
+                    4 * BLOCK_K * R * E),
+                "apply_weighted_cov_block emit_t": (
+                    lambda: ck.apply_weighted_cov_block(x, mu, rep, V, fill,
+                                                        emit_t=True),
+                    lambda: ck.apply_weighted_cov_block_plain(
+                        x, mu, rep, V, fill, emit_t=True),
+                    nb + 4 * (2 * E + R + BLOCK_K * E)
+                    + 4 * BLOCK_K * (E + R), 4 * BLOCK_K * R * E),
+                "storage_rows_matmat": (
+                    lambda: ck.storage_rows_matmat(x, W, fill),
+                    lambda: ck.storage_rows_matmat_plain(x, W, fill),
+                    nb + 4 * ((BLOCK_K + 1) * R + E)
+                    + 4 * (BLOCK_K + 1) * E, 2 * (BLOCK_K + 1) * R * E),
+                "fill_stats_pass": (
+                    lambda: ck.fill_stats_pass(x, rep),
+                    lambda: ck.fill_stats_pass_plain(x, rep),
+                    nb + 4 * R + 4 * 2 * E, 5 * R * E),
             }
-            for kname, (kern, plain, n_bytes, n_flops) in checks.items():
+            for check, (kern, plain, n_bytes, n_flops) in checks.items():
+                kname = check.split()[0]
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 ref = ref if isinstance(ref, tuple) else (ref,)
+                got = tuple(a for a in got if a is not None)
+                ref = tuple(b for b in ref if b is not None)
                 worst_abs, worst_rel = 0.0, 0.0
                 for a, b in zip(got, ref):
                     if not bool(torch.isfinite(a).all()):
@@ -239,18 +301,18 @@ def run(args) -> int:
                                 f"{kname} [{storage}]: {n} {what} differ "
                                 "from the plain version")
                 ok = worst_rel <= FULL_RTOL
-                log(f"{kname} [{storage}]: max_abs_err {worst_abs:.3e}, "
+                log(f"{check} [{storage}]: max_abs_err {worst_abs:.3e}, "
                     f"max err / max(max|ref|, 1) {worst_rel:.3e} (limit "
                     f"{FULL_RTOL:.0e}) {'ok' if ok else 'MISMATCH'}")
                 if not ok:
-                    raise RuntimeError(f"{kname} [{storage}] disagrees with "
+                    raise RuntimeError(f"{check} [{storage}] disagrees with "
                                        "its plain version")
                 k_ms = time_ms(torch, kern, args.reps)
                 p_ms = time_ms(torch, plain, max(3, args.reps // 3))
                 b_ms, b_by = bound_ms(n_bytes, n_flops)
-                log(f"{kname} [{storage}]: kernel {k_ms:.4f} ms, plain "
+                log(f"{check} [{storage}]: kernel {k_ms:.4f} ms, plain "
                     f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on {card}")
-                if storage == "int8":
+                if storage == "int8" and check == kname:
                     stats[kname].update(ms=k_ms, plain_ms=p_ms,
                                         bound_ms=b_ms, bound_by=b_by)
                 stats[kname]["max_abs_err"] = max(
@@ -259,55 +321,95 @@ def run(args) -> int:
         torch.cuda.empty_cache()
 
     launches = {k: 0 for k in KERNELS}
-    with phase(f"main path {R}x{E} int8"):
-        truth = None
+
+    def drive(x, p, label):
+        """One main path: a warm-up, then ``args.resolutions`` timed
+        resolutions with the launch counts set to 0 just before and read
+        just after. Returns ``(out, resolutions/s, counts)``."""
+        out = sharded_consensus(x, params=p)                 # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(args.resolutions):
+            out = sharded_consensus(x, params=p)
+        torch.cuda.synchronize()
+        rate = args.resolutions / (time.perf_counter() - t0)
+        counts = ck.launch_counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        missing = [k for k in PATH_KERNELS[p.algorithm] if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"{label}: kernels of the path never "
+                               f"launched: {missing} ({counts})")
+        return out, rate, counts
+
+    with phase(f"main paths {R}x{E} int8"):
         x8, truth = gen_reports(torch, R, E, args.seed + 2, dev)
         torch.cuda.synchronize()
-        for mi in (1, 3):
-            # "auto" picks fused power iteration above 4096 reporters (the
-            # Gram eigh below it is not ported); a smaller rehearsal names it
-            p = ConsensusParams(storage_dtype="int8", max_iterations=mi,
-                                power_tol=1e-5,
-                                pca_method="auto" if R > 4096
-                                else "power-fused")
-            out = sharded_consensus(x8, params=p)            # warm-up
-            torch.cuda.synchronize()
-            ck.reset_launch_counts()
-            t0 = time.perf_counter()
-            for _ in range(args.resolutions):
-                out = sharded_consensus(x8, params=p)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            counts = ck.launch_counts()
-            for k in KERNELS:
-                launches[k] += counts[k]
-            check_result(torch, out, R, E)
-            correct = (out["outcomes_adjusted"] == truth).float().mean()
-            log(f"max_iterations={mi}: {args.resolutions / dt:.4f} "
-                f"resolutions/s ({dt / args.resolutions * 1e3:.3f} ms each) "
-                f"on {card}; iterations {int(out['iterations'])}, "
-                f"converged {bool(out['convergence'])}, outcomes == truth "
-                f"{float(correct):.6f}; launches {counts}")
-            if any(counts[k] == 0 for k in KERNELS):
-                raise RuntimeError(f"a kernel of the main path never "
-                                   f"launched: {counts}")
-            if float(correct) < 0.99:
-                raise RuntimeError("the outcomes do not recover the truth")
+        for algo in ("sztorc", "fixed-variance", "ica"):
+            for mi in (1, 3):
+                # "auto" picks fused power or orthogonal iteration above
+                # 4096 reporters (the exact eigh below it is not ported);
+                # a smaller rehearsal names the iteration
+                small = "power-fused" if algo == "sztorc" else "power"
+                p = ConsensusParams(algorithm=algo, storage_dtype="int8",
+                                    max_iterations=mi, power_tol=1e-5,
+                                    pca_method="auto" if R > 4096 else small)
+                resolved = resolve_params(p._replace(any_scaled=False), R,
+                                          E, dev)
+                if not resolved.fused_resolution:
+                    raise RuntimeError(f"{algo}: pca_method={p.pca_method} "
+                                       "did not open the fused path")
+                label = f"{algo} max_iterations={mi}"
+                out, rate, counts = drive(x8, p, label)
+                check_result(torch, out, R, E, algo)
+                correct = float((out["outcomes_adjusted"] == truth)
+                                .float().mean())
+                iters = int(out["iterations"])
+                extra = ""
+                if algo != "sztorc":
+                    sweeps = (counts["apply_weighted_cov_block"]
+                              / (args.resolutions * iters) - 1)
+                    extra = f", orth-iter sweeps per scoring {sweeps:.2f}"
+                if algo == "ica":
+                    extra += f", ica_converged {bool(out['ica_converged'])}"
+                log(f"{label} (pca_method {resolved.pca_method}): "
+                    f"{rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) "
+                    f"on {card}; iterations {iters}, converged "
+                    f"{bool(out['convergence'])}, outcomes == truth "
+                    f"{correct:.6f}{extra}; launches {counts}")
+                if correct < 0.99:
+                    raise RuntimeError(f"{label}: the outcomes do not "
+                                       "recover the truth")
+        fill_stats_ab(torch, pipeline, drive, x8, card)
         if args.profile:
-            profile_resolution(torch, sharded_consensus, x8,
-                               p._replace(max_iterations=1), card)
+            for algo in ("sztorc", "fixed-variance", "ica"):
+                profile_resolution(torch, sharded_consensus, x8,
+                                   ConsensusParams(algorithm=algo,
+                                                   storage_dtype="int8",
+                                                   power_tol=1e-5,
+                                                   pca_method="auto"), card)
         del x8
         torch.cuda.empty_cache()
 
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
         xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
         xm_cpu = xm.cpu()
-        for mi in (1, 3):
-            p = ConsensusParams(storage_dtype="int8", max_iterations=mi,
-                                pca_method="power", power_tol=1e-5)
-            a = sharded_consensus(xm, params=p)
-            b = sharded_consensus(xm_cpu, params=p, device="cpu")
-            compare_card_cpu(torch, a, b, mi)
+        for algo, atol in (("sztorc", MID_ATOL), ("fixed-variance",
+                                                  MULTI_ATOL),
+                           ("ica", MULTI_ATOL)):
+            for mi in (1, 3):
+                p = ConsensusParams(algorithm=algo, storage_dtype="int8",
+                                    max_iterations=mi, pca_method="power",
+                                    power_tol=1e-5)
+                a = sharded_consensus(xm, params=p)
+                b = sharded_consensus(xm_cpu, params=p, device="cpu")
+                worst = compare_outputs(torch, a, b, atol,
+                                        f"card vs cpu {algo} "
+                                        f"max_iterations={mi}")
+                log(f"{algo} max_iterations={mi}: card and cpu agree (exact "
+                    f"keys equal, continuous max |diff| {worst:.3e} <= "
+                    f"{atol}); iterations {int(a['iterations'])}")
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -326,7 +428,7 @@ def run(args) -> int:
 def profile_resolution(torch, sharded_consensus, x, p, card):
     """One resolution under ``torch.profiler``: wall time, the device's
     kernel time and busy share, and device time by kernel name (the full
-    table goes to ``chiprun_out/profile.txt``)."""
+    table goes to ``profile_<algorithm>.txt`` under ``OUT_DIR``)."""
     from torch.profiler import ProfilerActivity, profile
 
     sharded_consensus(x, params=p)
@@ -344,23 +446,65 @@ def profile_resolution(torch, sharded_consensus, x, p, card):
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    log(f"profile max_iterations={p.max_iterations}: wall {wall_ms:.3f} ms, "
+    log(f"profile {p.algorithm} max_iterations={p.max_iterations}: wall "
+        f"{wall_ms:.3f} ms, "
         f"device kernels {busy_ms:.3f} ms, busy share "
         f"{busy_ms / wall_ms:.4f} on {card}")
     for ms, n, key in rows[:14]:
         log(f"  {ms:9.3f} ms  x{n:<4d} {key[:110]}")
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(here, OUT_DIR, f"profile_{p.algorithm}.txt"),
+              "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
 
 
-def check_result(torch, out, R, E):
+def fill_stats_ab(torch, pipeline, drive, x, card):
+    """sztorc at ``max_iterations=1`` with the plain fill statistics and
+    with ``fill_stats_pass`` (the pipeline's import-time gate set in
+    place), timed in turns plain, kernel, kernel, plain. Outcomes must be
+    equal and the continuous keys within ``MID_ATOL``."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    p = ConsensusParams(storage_dtype="int8", power_tol=1e-5,
+                        pca_method="auto" if x.shape[0] > 4096
+                        else "power-fused")
+    rates = {False: [], True: []}
+    outs = {}
+    try:
+        for gate in (False, True, True, False):
+            pipeline._FILL_STATS_KERNEL = gate
+            label = f"sztorc fill statistics {'kernel' if gate else 'plain'}"
+            outs[gate], rate, counts = drive(x, p, label)
+            rates[gate].append(rate)
+            if gate and counts["fill_stats_pass"] == 0:
+                raise RuntimeError("fill_stats_pass never launched with the "
+                                   "gate on")
+            if not gate and counts["fill_stats_pass"] != 0:
+                raise RuntimeError("fill_stats_pass launched with the gate "
+                                   "off")
+    finally:
+        pipeline._FILL_STATS_KERNEL = False
+    worst = compare_outputs(torch, outs[True], outs[False], MID_ATOL,
+                            "fill statistics kernel vs plain")
+    log("fill statistics A/B, sztorc max_iterations=1 (plain, kernel, "
+        "kernel, plain): plain " + ", ".join(f"{r:.4f}" for r in rates[False])
+        + " resolutions/s; kernel " + ", ".join(f"{r:.4f}"
+                                                for r in rates[True])
+        + f" resolutions/s on {card}; outcomes equal, continuous max |diff| "
+        f"{worst:.3e} <= {MID_ATOL}")
+
+
+def check_result(torch, out, R, E, algorithm="sztorc"):
     """Finite values of the expected shapes, outcomes on the lattice."""
     shapes = {"smooth_rep": (R,), "this_rep": (R,), "na_row": (R,),
               "outcomes_adjusted": (E,), "certainty": (E,),
               "participation_columns": (E,), "reporter_bonus": (R,),
-              "author_bonus": (E,), "first_loading": (E,)}
+              "author_bonus": (E,)}
+    if algorithm == "ica":
+        shapes["ica_converged"] = ()
+    else:
+        shapes["first_loading"] = (E,)
     for key, shape in shapes.items():
         v = out[key]
         if tuple(v.shape) != shape:
@@ -374,28 +518,30 @@ def check_result(torch, out, R, E):
         raise RuntimeError("reputation does not sum to 1")
 
 
-def compare_card_cpu(torch, a, b, mi):
+def compare_outputs(torch, a, b, atol, what):
+    """Exact keys equal, the others within ``atol`` (``first_loading`` up
+    to sign). Returns the largest continuous difference."""
     exact = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
-             "convergence")
+             "convergence", "ica_converged")
+    if set(a) != set(b):
+        raise RuntimeError(f"{what}: keys differ")
     worst = 0.0
     for key, va in a.items():
         if not isinstance(va, torch.Tensor):
             continue
-        va, vb = va.cpu(), b[key]
+        va, vb = va.cpu(), b[key].cpu()
         if key in exact:
             if not torch.equal(va, vb):
-                raise RuntimeError(f"card vs cpu: {key} differs")
+                raise RuntimeError(f"{what}: {key} differs")
             continue
         if key == "first_loading":
             va, vb = va.abs(), vb.abs()
         d = (va.double() - vb.double()).abs().max().item()
         worst = max(worst, d)
-        if d > MID_ATOL:
-            raise RuntimeError(f"card vs cpu: {key} differs by {d:.3e} "
-                               f"(atol {MID_ATOL})")
-    log(f"max_iterations={mi}: card and cpu agree (exact keys equal, "
-        f"continuous max |diff| {worst:.3e} <= {MID_ATOL}); iterations "
-        f"{int(a['iterations'])}")
+        if d > atol:
+            raise RuntimeError(f"{what}: {key} differs by {d:.3e} (atol "
+                               f"{atol})")
+    return worst
 
 
 def main(argv=None) -> int:

@@ -1,12 +1,22 @@
 """The light fused consensus pipeline in torch
-(``pyconsensus_tpu/models/pipeline.py``, fused sztorc branch).
+(``pyconsensus_tpu/models/pipeline.py``, ``_consensus_core_fused``).
 
 Data flow of one resolution on NaN-threaded storage (int8 sentinel or
 float with NaN):
 
-    fill stats (plain torch) -> [power iteration over apply_weighted_cov
-    -> scores_dirfix_pass -> direction fix -> row reward -> smooth]
-    x iterations -> resolve_certainty_fused -> bonuses (plain torch)
+    fill stats (plain torch, or fill_stats_pass under the gate) ->
+    [scoring -> row reward -> smooth] x iterations ->
+    resolve_certainty_fused -> bonuses (plain torch)
+
+The scoring step is, by algorithm:
+
+- ``sztorc``: power iteration over apply_weighted_cov, then
+  scores_dirfix_pass and the direction fix;
+- ``fixed-variance``: orthogonal iteration over apply_weighted_cov_block,
+  then one storage_rows_matmat for all k direction fixes, blended by
+  explained variance;
+- ``ica``: the same subspace, FastICA on the whitened scores, and one
+  storage_rows_matmat for the extracted component's direction fix.
 
 The filled matrix never exists: every kernel reconstructs absent entries
 from the per-column fill vector. The accumulation dtype is the
@@ -15,13 +25,16 @@ reputation's dtype, as in the reference; the kernels compute in float32.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import torch_kernels as tk
-from ..ops.cuda_kernels import resolve_certainty_fused
+from ..ops.cuda_kernels import fill_stats_pass, resolve_certainty_fused
+from .ica import ica_k, ica_scores_storage
+from .sztorc import fixed_variance_k, fixed_variance_scores_storage
 
 __all__ = ["ConsensusParams", "encode_reports", "encode_reports_host",
            "decode_reports", "lattice_exact", "ROADMAP_SCALED",
@@ -32,6 +45,20 @@ ROADMAP_PLAIN = ("ROADMAP.md §A.2 (plain Oracle/_consensus_core: eigh PCA, "
                  "the XLA-path pipeline and every other algorithm)")
 ROADMAP_SCALED = ("ROADMAP.md §A.2 (scaled events: rescale and the "
                   "weighted-median tail)")
+#: the algorithms the fused path scores
+FUSED_ALGORITHMS = ("sztorc", "fixed-variance", "ica")
+
+#: thread the whitening subspace into iterated ica as the orthogonal
+#: iteration's warm start. Off, as in the reference: the warm basis moves
+#: ica's near-degenerate bulk columns and FastICA amplifies that, so
+#: iterated ica starts cold every iteration. Read once at import.
+_ICA_WARM_START = os.environ.get("PYCONSENSUS_ICA_WARM_START", "0") == "1"
+
+#: take the int8 fill statistics from the fill_stats_pass kernel instead of
+#: the plain reduction. Off by default, as in the reference; read once at
+#: import (launchers set the environment before importing).
+_FILL_STATS_KERNEL = os.environ.get(
+    "PYCONSENSUS_FILL_STATS_KERNEL", "0") == "1"
 
 
 class ConsensusParams(NamedTuple):
@@ -83,6 +110,9 @@ def _fill_stats(reports: torch.Tensor, reputation: torch.Tensor,
     acc = reputation.dtype
     if storage_dtype == "int8":
         x = reports if reports.dtype == torch.int8 else encode_reports(reports)
+        if _FILL_STATS_KERNEL:
+            tw, numer = fill_stats_pass(x, reputation)
+            return (x, *_snap_fill(tw.to(acc), numer.to(acc), tolerance))
         # a present entry holds x * 0.5 and an absent one counts 0: clamp
         # the sentinel to 0 and fold the 0.5 into the weights (a power of
         # two, so every product rounds as it would on the decoded value)
@@ -154,11 +184,31 @@ def _masked_mu(x: torch.Tensor, fill: torch.Tensor,
     return reputation @ tk._decode_storage(x, fill, reputation.dtype)
 
 
+def _subspace_carry_shape(p: ConsensusParams, R: int, E: int):
+    """Shape of the warm-start carry between redistribution iterations:
+    fixed-variance's (E, k) block, otherwise an (E,) vector (ica runs its
+    whitening cold unless ``_ICA_WARM_START``, and then carries nothing)."""
+    if p.algorithm == "fixed-variance":
+        return (E, fixed_variance_k(R, E, p.max_components))
+    if p.algorithm == "ica" and _ICA_WARM_START:
+        return (E, ica_k(R, E, p.max_components))
+    return (E,)
+
+
+def _reported_loading(p: ConsensusParams, loading: torch.Tensor):
+    """The (E,) loading the result reports: column 0 of fixed-variance's
+    block, the carry itself otherwise."""
+    if p.algorithm == "fixed-variance":
+        return loading[:, 0]
+    return loading
+
+
 def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
                           p: ConsensusParams) -> dict:
-    """The light pipeline on the fused kernel path, sztorc branch
-    (``pipeline._consensus_core_fused``). ``scaled``/``mins``/``maxs`` are
-    accepted for the reference's signature; scaled events raise."""
+    """The light pipeline on the fused kernel path
+    (``pipeline._consensus_core_fused``) for sztorc, fixed-variance and
+    ica. ``scaled``/``mins``/``maxs`` are accepted for the reference's
+    signature; scaled events raise."""
     if reports.dtype == torch.int8 and (p.storage_dtype != "int8"
                                         or p.any_scaled):
         raise ValueError(
@@ -174,9 +224,9 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
     if p.any_scaled or p.n_scaled:
         raise NotImplementedError(f"scaled events are not ported yet: "
                                   f"{ROADMAP_SCALED}")
-    if p.algorithm != "sztorc":
+    if p.algorithm not in FUSED_ALGORITHMS:
         raise NotImplementedError(
-            f"the fused path of this port scores sztorc only, got "
+            f"the fused path scores {'/'.join(FUSED_ALGORITHMS)} only, got "
             f"algorithm={p.algorithm!r}: {ROADMAP_PLAIN}")
     old_rep = tk.normalize(reputation)
     acc = old_rep.dtype
@@ -185,15 +235,33 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
     full0 = torch.sum(old_rep)
     mu1 = numer0 + (full0 - tw0) * fill
     xs = tk.matvec_narrow(x, p.matvec_dtype)
-    E = x.shape[1]
+    R, E = x.shape
 
-    def scores_at(rep_k, mu_k, v_init=None):
-        return tk.sztorc_scores_power_fused(
-            xs, rep_k, p.power_iters, p.power_tol, "", fill=fill, mu=mu_k,
-            v_init=v_init)
+    # scores_at returns (adj, warm-start carry or None, ica flag or None)
+    if p.algorithm == "sztorc":
+        def scores_at(rep_k, mu_k, v_init=None):
+            return (*tk.sztorc_scores_power_fused(
+                xs, rep_k, p.power_iters, p.power_tol, "", fill=fill,
+                mu=mu_k, v_init=v_init), None)
+    elif p.algorithm == "fixed-variance":
+        def scores_at(rep_k, mu_k, v_init=None):
+            return (*fixed_variance_scores_storage(
+                xs, fill, mu_k, rep_k, p.variance_threshold,
+                p.max_components, v_init=v_init), None)
+    else:
+        def scores_at(rep_k, mu_k, v_init=None):
+            adj, conv, loadings = ica_scores_storage(
+                xs, fill, mu_k, rep_k, p.max_components,
+                v_init=v_init if _ICA_WARM_START else None)
+            return adj, (loadings if _ICA_WARM_START else None), conv
 
+    ica_conv = True
     if p.max_iterations <= 1:
-        adj, loading = scores_at(old_rep, mu1)
+        adj, loading, ica_c = scores_at(old_rep, mu1)
+        if loading is None:                      # ica: nothing to report
+            loading = torch.zeros(E, dtype=acc, device=x.device)
+        if ica_c is not None:
+            ica_conv = ica_c
         this_rep = tk.row_reward_weighted(adj, old_rep)
         rep = tk.smooth(this_rep, old_rep, p.alpha)
         converged = _le(torch.max(torch.abs(rep - old_rep)),
@@ -204,13 +272,20 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
         # step changes nothing, so the loop stops at the first converged
         # state
         rep, this_rep = old_rep, old_rep
-        loading = torch.zeros(E, dtype=acc, device=x.device)
+        # zeros on iteration 1: the cold start of the power loop and of
+        # the orthogonal iteration's blend
+        loading = torch.zeros(_subspace_carry_shape(p, R, E), dtype=acc,
+                              device=x.device)
         conv, iters = False, 0
         for _ in range(p.max_iterations):
             if conv:
                 break
-            adj, loading = scores_at(rep, _masked_mu(x, fill, rep),
-                                     v_init=loading)
+            adj, carry, ica_c = scores_at(rep, _masked_mu(x, fill, rep),
+                                          v_init=loading)
+            if carry is not None:
+                loading = carry
+            if ica_c is not None:
+                ica_conv = ica_c
             this_rep = tk.row_reward_weighted(adj, rep)
             new_rep = tk.smooth(this_rep, rep, p.alpha)
             delta = torch.max(torch.abs(new_rep - rep))
@@ -219,6 +294,7 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
             conv = bool(_le(delta, p.convergence_tolerance).item())
         converged = torch.tensor(conv, device=x.device)
     iters = torch.tensor(iters, dtype=torch.int32, device=x.device)
+    loading = _reported_loading(p, loading)
 
     raw, adjusted, certainty, pcol, prow, narow = resolve_certainty_fused(
         x, rep, fill, torch.sum(rep), float(p.catch_tolerance))
@@ -239,7 +315,7 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
     na_bonus_cols = tk.normalize(participation_columns)
     author_bonus = (na_bonus_cols * percent_na
                     + consensus_reward * (1.0 - percent_na))
-    return {
+    result = {
         "old_rep": old_rep,
         "this_rep": this_rep,
         "smooth_rep": rep,
@@ -259,8 +335,13 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
         "reporter_bonus": reporter_bonus,
         "na_bonus_cols": na_bonus_cols,
         "author_bonus": author_bonus,
-        "first_loading": tk.canon_sign(loading),
     }
+    if p.algorithm == "ica":                     # ica reports no loading
+        result["ica_converged"] = torch.tensor(bool(ica_conv),
+                                               device=x.device)
+    else:
+        result["first_loading"] = tk.canon_sign(loading)
+    return result
 
 
 def _consensus_core_light(reports, reputation, scaled, mins, maxs,

@@ -38,6 +38,10 @@ _SIGNATURES = {
         "pyc_row_pass": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P),
         # x, is_int8, R, E, m, a, w, k, n_chunks, partial, out, stream
         "pyc_col_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _LL, _P, _P, _P),
+        # x, is_int8, R, E, m, a, vt, k, t, stream
+        "pyc_row_block_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _P, _P),
+        # x, is_int8, R, E, rep, n_chunks, partial, out, stream
+        "pyc_fill_stats": (_P, _I, _LL, _LL, _P, _LL, _P, _P, _P),
     },
     "resolve.cu": {
         # x, is_int8, R, E, C, smem, rep, fill, scal, lo, hi,

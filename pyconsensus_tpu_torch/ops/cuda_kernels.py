@@ -1,4 +1,4 @@
-"""Wrappers of the port's three Hopper kernels, their plain versions, their
+"""Wrappers of the port's Hopper kernels, their plain versions, their
 launch counts and their fit gates.
 
 Each wrapper stands for one Pallas kernel of
@@ -9,6 +9,13 @@ return order:
   (``csrc/storage_sweeps.cu``);
 - :func:`scores_dirfix_pass` — ``(t, q, c, o)``
   (``csrc/storage_sweeps.cu``);
+- :func:`apply_weighted_cov_block` — the same covariance application for
+  an (E, k) block, with the centered ``(X - mu) V`` on request
+  (``csrc/storage_sweeps.cu``);
+- :func:`storage_rows_matmat` — ``W filled(X)`` for a (k, R) stack
+  (``csrc/storage_sweeps.cu``);
+- :func:`fill_stats_pass` — the per-column present mass and
+  reputation-weighted sum (``csrc/storage_sweeps.cu``);
 - :func:`resolve_certainty_fused` — outcomes, certainty and
   participation in one call (``csrc/resolve.cu``).
 
@@ -31,10 +38,15 @@ from .torch_kernels import _power_loop, catch_tie_atol
 
 __all__ = ["apply_weighted_cov", "apply_weighted_cov_plain",
            "power_iteration_fused", "scores_dirfix_pass",
-           "scores_dirfix_pass_plain", "resolve_certainty_fused",
+           "scores_dirfix_pass_plain", "apply_weighted_cov_block",
+           "apply_weighted_cov_block_plain", "storage_rows_matmat",
+           "storage_rows_matmat_plain", "fill_stats_pass",
+           "fill_stats_pass_plain", "resolve_certainty_fused",
            "resolve_certainty_fused_plain", "fused_pca_fits",
+           "cov_block_kernel_fits", "matmat_kernels_fit",
            "resolve_kernel_fits", "resolve_block_cols", "resolve_smem_bytes",
-           "launch_counts", "reset_launch_counts", "SMEM_PER_BLOCK"]
+           "launch_counts", "reset_launch_counts", "SMEM_PER_BLOCK",
+           "MAX_BLOCK_K"]
 
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
@@ -48,9 +60,14 @@ _RES_AUX_FLOATS = 2 * 16 * max(_RES_COLS) + 2 * max(_RES_COLS)
 #: rows per chunk of the column-sum pass: bounds the partials buffer to
 #: ``ceil(R / rows) * k * E`` floats while keeping enough blocks in flight
 _COL_CHUNK_MAX = 64
+#: the widest (E, k) block or (k, R) stack the block kernels take: the
+#: row and column passes are instantiated for k = 1..8
+#: (csrc/storage_sweeps.cu)
+MAX_BLOCK_K = 8
 
 _COUNTS = {"apply_weighted_cov": 0, "scores_dirfix_pass": 0,
-           "resolve_certainty_fused": 0}
+           "apply_weighted_cov_block": 0, "storage_rows_matmat": 0,
+           "fill_stats_pass": 0, "resolve_certainty_fused": 0}
 
 
 def launch_counts() -> dict:
@@ -73,6 +90,25 @@ def fused_pca_fits(n_events: int, itemsize: int) -> bool:
     nothing E-wide on chip: a block streams its rows or columns, so any
     width the 32-bit grid can index fits."""
     return itemsize in (1, 4) and 1 <= n_events < 2 ** 31
+
+
+def cov_block_kernel_fits(n_events: int, n_components: int,
+                          itemsize: int) -> bool:
+    """Whether :func:`apply_weighted_cov_block` takes an E-wide matrix of
+    ``itemsize`` bytes and an (E, k) block. Its passes keep nothing
+    E-wide on chip (unlike the TPU kernel's VMEM-resident panel and
+    accumulator), so the limit is the instantiated ``1 <= k <= 8``."""
+    return (fused_pca_fits(n_events, itemsize)
+            and 1 <= n_components <= MAX_BLOCK_K)
+
+
+def matmat_kernels_fit(n_events: int, n_components: int,
+                       itemsize: int) -> bool:
+    """Whether :func:`storage_rows_matmat` takes a (k, R) stack against an
+    E-wide matrix of ``itemsize`` bytes: the column pass is instantiated
+    for ``1 <= k <= 8``."""
+    return (fused_pca_fits(n_events, itemsize)
+            and 1 <= n_components <= MAX_BLOCK_K)
 
 
 def resolve_smem_bytes(n_reporters: int, block_cols: int,
@@ -131,6 +167,25 @@ def _vec(v, n: int, like: torch.Tensor, name: str) -> torch.Tensor:
     return v.to(torch.float32).contiguous()
 
 
+def _block(V, n: int, like: torch.Tensor, name: str) -> torch.Tensor:
+    """An (n, k) f32 contiguous block on ``like``'s device."""
+    if not isinstance(V, torch.Tensor):
+        V = torch.as_tensor(V)
+    if V.dim() != 2 or V.shape[0] != n or V.shape[1] < 1:
+        raise ValueError(f"{name} must have shape ({n}, k), got "
+                         f"{tuple(V.shape)}")
+    if V.device != like.device:
+        raise ValueError(f"{name} is on {V.device}, the matrix on "
+                         f"{like.device}")
+    return V.to(torch.float32).contiguous()
+
+
+def _aligned(v: torch.Tensor) -> torch.Tensor:
+    """``v`` itself when its data starts on a 16-byte boundary (the
+    block row pass loads four floats at a time), else a copy."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _decode(x: torch.Tensor):
     """``(values f32, absent)`` of a storage matrix (the plain form of
     ``pallas_kernels._decode_block``)."""
@@ -166,8 +221,7 @@ def _col_pass(lib, x, m, a, w):
     reduced in a fixed order."""
     R, E = x.shape
     k = w.shape[0]
-    rows = max(1, -(-R // _COL_CHUNK_MAX))
-    n_chunks = -(-R // rows)
+    n_chunks = _chunks(R)
     partial = torch.empty((n_chunks, k, E), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((k, E), dtype=torch.float32, device=x.device)
@@ -177,6 +231,10 @@ def _col_pass(lib, x, m, a, w):
         a.data_ptr() if a is not None else None, w.data_ptr(), k, n_chunks,
         partial.data_ptr(), out.data_ptr(), stream), "pyc_col_pass")
     return out
+
+
+def _chunks(R: int) -> int:
+    return -(-R // max(1, -(-R // _COL_CHUNK_MAX)))
 
 
 def _storage_lib():
@@ -271,6 +329,142 @@ def scores_dirfix_pass(x, rep, loading, fill=None):
         acc = _col_pass(lib, x, zeros, fill, w3)               # q, o, c
     _COUNTS["scores_dirfix_pass"] += 1
     return t, acc[0], acc[2], acc[1]
+
+
+# -- apply_weighted_cov_block ------------------------------------------------
+
+def apply_weighted_cov_block_plain(x, mu, rep, V, fill=None, emit_t=False):
+    """Plain torch ``(X - 1 mu^T)^T (rep * T)`` with ``T = (X - 1 mu^T) V``;
+    absent entries take ``fill - mu`` when ``fill`` is given. Returns
+    ``(y (E, k), T (R, k) or None)``, all f32."""
+    val, absent = _decode(x)
+    mu = mu.to(torch.float32)
+    if fill is not None:
+        xc = torch.where(absent, fill.to(torch.float32) - mu, val - mu)
+    else:
+        xc = val - mu
+    t = xc @ V.to(torch.float32)
+    y = xc.T @ (rep.to(torch.float32)[:, None] * t)
+    return y, (t if emit_t else None)
+
+
+def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
+    """``(X - 1 mu^T)^T (rep * ((X - 1 mu^T) V))`` for an (E, k) block over
+    storage ``x`` (R, E), centered in-register; with ``fill`` the absent
+    entries take ``fill - mu``. Returns ``(y (E, k), t)`` f32, where ``t``
+    is the centered ``(X - 1 mu^T) V`` (R, k) under ``emit_t`` and None
+    otherwise; the caller divides ``y`` by the unbiased-weight
+    denominator. Replaces ``pallas_kernels.apply_weighted_cov_block``."""
+    R, E = _check_matrix(x)
+    mu, rep = _vec(mu, E, x, "mu"), _vec(rep, R, x, "rep")
+    V = _block(V, E, x, "V")
+    fill = _vec(fill, E, x, "fill") if fill is not None else None
+    if x.device.type == "cpu":
+        return apply_weighted_cov_block_plain(x, mu, rep, V, fill, emit_t)
+    k = V.shape[1]
+    if not cov_block_kernel_fits(E, k, x.element_size()):
+        raise ValueError(f"apply_weighted_cov_block takes 1 <= k <= "
+                         f"{MAX_BLOCK_K} columns, got {k}")
+    lib = _storage_lib()
+    with torch.cuda.device(x.device):
+        mu = _aligned(mu)
+        a = (fill - mu).contiguous() if fill is not None else None
+        vt = V.T.contiguous()                                   # (k, E)
+        t = torch.empty((k, R), dtype=torch.float32, device=x.device)
+        is_int8, stream = _launch_args(x)
+        _raise_on(lib.pyc_row_block_pass(
+            x.data_ptr(), is_int8, R, E, mu.data_ptr(),
+            a.data_ptr() if a is not None else None, vt.data_ptr(), k,
+            t.data_ptr(), stream), "pyc_row_block_pass")
+        y = _col_pass(lib, x, mu, a, (rep[None, :] * t).contiguous())
+    _COUNTS["apply_weighted_cov_block"] += 1
+    return y.T, (t.T if emit_t else None)
+
+
+# -- storage_rows_matmat -----------------------------------------------------
+
+def _pad_weights(W, R: int, x: torch.Tensor) -> torch.Tensor:
+    """A (k, R') f32 stack zero-padded to (k, R): the Pallas wrapper pads a
+    W narrower than the (row-padded) matrix the same way."""
+    if not isinstance(W, torch.Tensor):
+        W = torch.as_tensor(W)
+    if W.dim() != 2 or W.shape[0] < 1 or W.shape[1] > R:
+        raise ValueError(f"W must have shape (k, R' <= {R}), got "
+                         f"{tuple(W.shape)}")
+    if W.device != x.device:
+        raise ValueError(f"W is on {W.device}, the matrix on {x.device}")
+    W = W.to(torch.float32)
+    if W.shape[1] < R:
+        W = torch.nn.functional.pad(W, (0, R - W.shape[1]))
+    return W.contiguous()
+
+
+def storage_rows_matmat_plain(x, W, fill=None):
+    """Plain torch ``W @ filled(x)`` (f32)."""
+    val, absent = _decode(x)
+    xp = (torch.where(absent, fill.to(torch.float32), val)
+          if fill is not None else val)
+    return W.to(torch.float32) @ xp
+
+
+def storage_rows_matmat(x, W, fill=None):
+    """``W @ filled(x)`` for a (k, R') stack of row vectors over storage
+    ``x`` (R, E), uncentered; a W narrower than R is zero-padded. Returns
+    (k, E) f32. Replaces ``pallas_kernels.storage_rows_matmat``."""
+    R, E = _check_matrix(x)
+    W = _pad_weights(W, R, x)
+    fill = _vec(fill, E, x, "fill") if fill is not None else None
+    if x.device.type == "cpu":
+        return storage_rows_matmat_plain(x, W, fill)
+    k = W.shape[0]
+    if not matmat_kernels_fit(E, k, x.element_size()):
+        raise ValueError(f"storage_rows_matmat takes 1 <= k <= "
+                         f"{MAX_BLOCK_K} rows, got {k}")
+    lib = _storage_lib()
+    with torch.cuda.device(x.device):
+        zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
+        out = _col_pass(lib, x, zeros, fill, W)
+    _COUNTS["storage_rows_matmat"] += 1
+    return out
+
+
+# -- fill_stats_pass ---------------------------------------------------------
+
+def fill_stats_pass_plain(x, rep):
+    """Plain torch ``(tw, numer)`` f32: ``tw = rep^T [present]`` and
+    ``numer = rep^T value`` with absent entries counting 0."""
+    rep = rep.to(torch.float32)
+    if x.dtype == torch.int8:
+        # the sentinel clamps to 0; the exact 0.5 folds into the weights
+        return (rep @ (x >= 0).to(torch.float32),
+                (0.5 * rep) @ torch.clamp(x, min=0).to(torch.float32))
+    xf = x.to(torch.float32)
+    na = torch.isnan(xf)
+    return (rep @ (~na).to(torch.float32),
+            rep @ torch.where(na, torch.zeros_like(xf), xf))
+
+
+def fill_stats_pass(x, rep):
+    """The per-column fill statistics over storage ``x`` (R, E) in one
+    sweep: ``(tw, numer)``, both (E,) f32, where ``tw`` is the present
+    reputation mass and ``numer`` the present reputation-weighted value
+    sum. Replaces ``pallas_kernels.fill_stats_pass``."""
+    R, E = _check_matrix(x)
+    rep = _vec(rep, R, x, "rep")
+    if x.device.type == "cpu":
+        return fill_stats_pass_plain(x, rep)
+    lib = _storage_lib()
+    with torch.cuda.device(x.device):
+        n_chunks = _chunks(R)
+        partial = torch.empty((n_chunks, 2, E), dtype=torch.float32,
+                              device=x.device)
+        out = torch.empty((2, E), dtype=torch.float32, device=x.device)
+        is_int8, stream = _launch_args(x)
+        _raise_on(lib.pyc_fill_stats(
+            x.data_ptr(), is_int8, R, E, rep.data_ptr(), n_chunks,
+            partial.data_ptr(), out.data_ptr(), stream), "pyc_fill_stats")
+    _COUNTS["fill_stats_pass"] += 1
+    return out[0], out[1]
 
 
 # -- resolve_certainty_fused -------------------------------------------------

@@ -1,5 +1,6 @@
 """Plain torch counterparts of ``pyconsensus_tpu/ops/jax_kernels.py`` for
-the fused sztorc path.
+the fused paths: sztorc's power iteration and the storage-mode orthogonal
+iteration of the multi-component variants.
 
 Each function mirrors the JAX function of the same name, including its
 dtype promotions: the JAX reference promotes an f32 kernel result divided
@@ -14,11 +15,24 @@ from typing import Callable, Optional
 import torch
 
 from .constants import CATCH_TIE_ATOL, DIRFIX_TIE_ATOL
-from .prng import power_seed
+from .prng import orth_seed, power_seed
 
 __all__ = ["normalize", "canon_sign_factor", "canon_sign", "catch_tie_atol",
            "catch", "matvec_narrow", "sztorc_scores_power_fused",
-           "row_reward_weighted", "smooth"]
+           "weighted_prin_comps_storage", "multi_dirfix_storage",
+           "row_reward_weighted", "smooth", "ROADMAP_SEPARABLE"]
+
+#: where the separable two-sweep arm of the orthogonal iteration is queued
+ROADMAP_SEPARABLE = ("ROADMAP.md §B.7 (storage_matmat and the separable "
+                     "orthogonal-iteration arm)")
+
+#: sweep budget of the multi-component orthogonal iteration
+_ORTH_ITERS = 96
+#: relative Ritz-value stability that counts a noise-bulk column as settled
+_RITZ_RTOL = 1e-6
+#: fraction of the dominant Ritz value under which a column counts as
+#: noise bulk
+_BULK_FLOOR = 5e-3
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
@@ -180,6 +194,160 @@ def sztorc_scores_power_fused(x: torch.Tensor, reputation: torch.Tensor,
     d2 = torch.sum((new2 - old) ** 2)
     return torch.where(d1 - d2 <= DIRFIX_TIE_ATOL * (d1 + d2),
                        set1, -set2), loading
+
+
+def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
+                       denom: torch.Tensor, reputation: torch.Tensor,
+                       n_components: int, fill: torch.Tensor,
+                       v_init: Optional[torch.Tensor] = None):
+    """Top-``k`` principal subspace of the implicit weighted covariance of
+    sentinel storage ``x`` by blocked orthogonal iteration
+    (``jax_kernels._top_pcs_orth_iter``, storage mode on the one-pass
+    block kernel). Each sweep applies ``apply_weighted_cov_block`` to the
+    (E, k) block and re-orthonormalizes it by Householder QR. A column
+    settles when successive blocks align (``|<q_i, v_i>| >= 1 - tol``) or
+    when its Ritz value has stayed within ``_RITZ_RTOL`` of the dominant
+    one for two sweeps while under ``_BULK_FLOOR`` of it, within
+    ``_ORTH_ITERS`` sweeps; ``tol`` is 8 eps of the reputation dtype. The
+    exit test reads one scalar back per sweep. A final Rayleigh-Ritz
+    application rotates the block onto the eigenbasis of ``V^T C V``
+    (falling back to the unrotated block sorted by Rayleigh quotient if
+    that ``eigh`` is non-finite) and its centered projections become the
+    scores.
+    ``v_init`` (E, k) warm-starts the block with the same 0.25 blend as
+    the reference; an all-zero one is the cold start.
+
+    Returns ``(loadings (E, k), eigvals (k,), trace, scores (R, k))`` in
+    the reputation dtype; ``trace`` is the matrix-free total variance."""
+    from .cuda_kernels import apply_weighted_cov_block, cov_block_kernel_fits
+
+    acc = reputation.dtype
+    R, E = x.shape
+    k = int(n_components)
+    if not cov_block_kernel_fits(E, k, x.element_size()):
+        raise NotImplementedError(
+            f"k={k} components at E={E} do not fit the one-pass block "
+            f"kernel: {ROADMAP_SEPARABLE}")
+    dev = x.device
+
+    def apply_cov_block(V, emit_t=False):
+        y, t = apply_weighted_cov_block(x, mu, reputation, V.to(acc),
+                                        fill=fill, emit_t=emit_t)
+        return y.to(acc) / denom, (t.to(acc) if emit_t else None)
+
+    seed = orth_seed(E, k, str(acc).removeprefix("torch."))
+    V0, _ = torch.linalg.qr(torch.from_numpy(seed.copy()).to(dev))
+    if v_init is not None:
+        ni = torch.linalg.vector_norm(v_init)
+        blended = (v_init.to(acc) / torch.where(ni > 0.0, ni,
+                                                torch.ones_like(ni))
+                   * torch.sqrt(torch.tensor(float(k), dtype=acc,
+                                             device=dev))
+                   + 0.25 * V0)
+        Qw, _ = torch.linalg.qr(blended)
+        # whole-block fallback: a partly non-finite QR is no orthonormal
+        # block
+        V0 = torch.where(torch.isfinite(Qw).all() & (ni > 0.0), Qw, V0)
+    tol = 8.0 * float(torch.finfo(acc).eps)
+    thresh = torch.tensor(1.0 - tol, dtype=acc, device=dev)
+    tiny = torch.tensor(torch.finfo(acc).tiny, dtype=acc, device=dev)
+
+    V = V0
+    eig_prev = torch.full((k,), float("inf"), dtype=acc, device=dev)
+    stable_prev = torch.zeros(k, dtype=torch.bool, device=dev)
+    for _ in range(_ORTH_ITERS):
+        Y = apply_cov_block(V)[0]
+        eig = torch.sum(V * Y, dim=0)                 # per-column Ritz values
+        Q, _ = torch.linalg.qr(Y)
+        # zero-norm guard: qr of a zero block can give NaN columns
+        Q = torch.where(torch.isfinite(Q), Q, V)
+        align = torch.abs(torch.sum(Q * V, dim=0))
+        lead = torch.maximum(torch.max(torch.abs(eig)), tiny)
+        ritz_stable = torch.abs(eig - eig_prev) <= _RITZ_RTOL * lead
+        negligible = torch.abs(eig) <= _BULK_FLOOR * lead
+        done_col = (align >= thresh) | (ritz_stable & stable_prev
+                                        & negligible)
+        V, eig_prev, stable_prev = Q, eig, ritz_stable
+        if bool(done_col.all().item()):
+            break
+    # Rayleigh-Ritz: one more application, rotated onto the eigenbasis of
+    # the projected covariance; its centered projections are the scores
+    Y, t_c = apply_cov_block(V, emit_t=True)
+    M = V.T @ Y
+    M = 0.5 * (M + M.T)
+    ritz, W = torch.linalg.eigh(M)                    # ascending
+    raw = torch.sum(V * Y, dim=0)
+    order = torch.argsort(-raw, stable=True)
+    ok = torch.isfinite(W).all() & torch.isfinite(ritz).all()
+    eig = torch.where(ok, torch.clamp(ritz.flip(0), min=0.0),
+                      torch.clamp(raw[order], min=0.0))
+    V = torch.where(ok, (V @ W).flip(1), V[:, order])
+    scores = torch.where(ok, (t_c @ W).flip(1), t_c[:, order])
+    # matrix-free trace: sum_e (rep . x_e^2 - mu_e^2) / denom
+    vals = _decode_storage(x, fill, acc)
+    col_sq = reputation @ (vals * vals)
+    trace = torch.sum(col_sq - mu * mu) / denom
+    return V, eig, torch.clamp(trace, min=0.0), scores
+
+
+def weighted_prin_comps_storage(x: torch.Tensor, fill: torch.Tensor,
+                                mu: torch.Tensor, reputation: torch.Tensor,
+                                n_components: int, v_init=None):
+    """Top-k loadings, centered scores and explained-variance fractions
+    straight off sentinel storage (``jax_kernels
+    .weighted_prin_comps_storage``): the orthogonal iteration above, with
+    the scores folded out of its final application. Returns
+    ``(loadings (E, k), scores (R, k), explained (k,))``."""
+    loadings, eig, total, scores = _top_pcs_orth_iter(
+        x, mu, _denom(reputation), reputation, n_components, fill,
+        v_init=v_init)
+    explained = torch.where(
+        total > 0.0, eig / torch.where(total > 0.0, total,
+                                       torch.ones_like(total)),
+        torch.zeros_like(eig))
+    return loadings, scores, explained
+
+
+def multi_dirfix_storage(scores: torch.Tensor, x: torch.Tensor,
+                         fill: torch.Tensor, mu: torch.Tensor,
+                         reputation: torch.Tensor) -> torch.Tensor:
+    """Direction-fixed scores for an (R, k) block of component scores in
+    one further sweep of the storage matrix
+    (``jax_kernels.multi_dirfix_storage``): each column is sign-canonical
+    first, then ``[scores; 1]^T filled(X)`` comes from one
+    ``storage_rows_matmat`` of k + 1 rows and the two candidate
+    distributions ``normalize(set1|set2) @ X`` collapse to O(k E) against
+    ``old = mu``. Same banded tie-break as the single-component fix
+    (``DIRFIX_TIE_ATOL``). Returns (R, k) in the reputation dtype."""
+    from .cuda_kernels import storage_rows_matmat
+
+    acc = reputation.dtype
+    R, k = scores.shape
+    signs = torch.stack([canon_sign_factor(scores[:, c]) for c in range(k)])
+    scores = scores * signs[None, :]
+    W = torch.cat([scores.T.to(acc),
+                   torch.ones((1, R), dtype=acc, device=scores.device)])
+    qc = storage_rows_matmat(x, W, fill=fill).to(acc)           # (k+1, E)
+    q, csum = qc[:k], qc[k]
+    a1 = torch.abs(torch.min(scores, dim=0).values)
+    a2 = torch.max(scores, dim=0).values
+    set1 = scores + a1[None, :]
+    set2 = scores - a2[None, :]
+    s1_tot = torch.sum(set1, dim=0)
+    s2_tot = torch.sum(set2, dim=0)
+
+    def guard(num, tot):
+        # normalize()'s zero-sum guard on the collapsed projection
+        return torch.where(tot[:, None] == 0.0, num,
+                           num / torch.where(tot == 0.0, torch.ones_like(tot),
+                                             tot)[:, None])
+
+    new1 = guard(q + a1[:, None] * csum[None, :], s1_tot)      # (k, E)
+    new2 = guard(q - a2[:, None] * csum[None, :], s2_tot)
+    d1 = torch.sum((new1 - mu[None, :]) ** 2, dim=1)
+    d2 = torch.sum((new2 - mu[None, :]) ** 2, dim=1)
+    set1_wins = d1 - d2 <= DIRFIX_TIE_ATOL * (d1 + d2)
+    return torch.where(set1_wins[None, :], set1, -set2)
 
 
 def row_reward_weighted(adj_scores: torch.Tensor,

@@ -3,11 +3,13 @@
 gate, placement, and the light fused pipeline.
 
 The gate opens on the CPU (where every kernel wrapper runs its plain
-version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels.
-What this slice does not cover raises ``NotImplementedError`` naming the
-``ROADMAP.md`` slice that brings it: scaled events, algorithms other
-than sztorc, exact eigh PCA (which ``pca_method="auto"`` picks at
-R <= 4096), the non-fused pipeline and meshes.
+version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels,
+for sztorc and for the multi-component variants fixed-variance and ica.
+What the port does not cover yet raises ``NotImplementedError`` naming the
+``ROADMAP.md`` slice that brings it: scaled events, the other algorithms,
+exact eigh PCA (which ``pca_method="auto"`` picks at R <= 4096, and for
+the multi-component variants also at E <= 1024), a component count beyond
+the block kernels, the non-fused pipeline and meshes.
 """
 
 from __future__ import annotations
@@ -19,9 +21,13 @@ import torch
 
 from ..faults.degrade import quarantine_nonfinite
 from ..faults.errors import InputError
-from ..models.pipeline import (ROADMAP_PLAIN, ROADMAP_SCALED,
-                               ConsensusParams, _consensus_core_light)
-from ..ops.cuda_kernels import fused_pca_fits, resolve_kernel_fits
+from ..models.pipeline import (FUSED_ALGORITHMS, ROADMAP_PLAIN,
+                               ROADMAP_SCALED, ConsensusParams,
+                               _consensus_core_light)
+from ..ops.cuda_kernels import (MAX_BLOCK_K, cov_block_kernel_fits,
+                                fused_pca_fits, matmat_kernels_fit,
+                                resolve_kernel_fits)
+from ..ops.torch_kernels import ROADMAP_SEPARABLE
 from ..oracle import parse_event_bounds
 
 __all__ = ["sharded_consensus", "resolve_device", "resolve_params"]
@@ -30,6 +36,10 @@ _SHARDABLE_PCA = ("eigh-gram", "power", "power-fused")
 _KNOWN_PCA = ("auto", "eigh-cov") + _SHARDABLE_PCA
 #: the reference's R ceiling for the exact Gram eigh under "auto"
 _GRAM_EIGH_MAX_R = 4096
+#: the reference's E ceiling for the explicit covariance eigh that "auto"
+#: picks for the multi-component variants
+_COV_EIGH_MAX_E = 1024
+_MULTI_COMPONENT = ("fixed-variance", "ica")
 #: storage dtypes the kernels take ("" = the input's float storage)
 _STORAGE = ("", "float32", "int8")
 
@@ -59,15 +69,27 @@ def _kernels_serve(device: torch.device) -> bool:
 
 
 def _pick_pca_method(params: ConsensusParams, n_reporters: int,
-                     device: torch.device) -> str:
-    """The single-device sztorc rows of the reference's pick: explicit
+                     n_events: int, device: torch.device) -> str:
+    """The single-device rows of the reference's pick. sztorc: explicit
     methods as requested, "auto"/"eigh-cov" to the Gram eigh at
-    R <= 4096 and to fused power iteration beyond it."""
+    R <= 4096 and to fused power iteration beyond it. fixed-variance and
+    ica: an explicit power-family request to "power" (orthogonal
+    iteration), an explicit eigh as requested, "auto" to the covariance
+    eigh at E <= 1024, the Gram eigh at R <= 4096 and "power" beyond."""
     if params.pca_method not in _KNOWN_PCA:
         raise ValueError(f"unknown PCA method: {params.pca_method!r}; "
                          f"choose from {_KNOWN_PCA}")
     if not params.allow_fused and params.pca_method == "power-fused":
         return "power"
+    if params.algorithm in _MULTI_COMPONENT:
+        if params.pca_method in ("power", "power-fused"):
+            return "power"
+        if params.pca_method in ("eigh-cov", "eigh-gram"):
+            return params.pca_method
+        if n_events <= _COV_EIGH_MAX_E:
+            return "eigh-cov"
+        return ("eigh-gram" if n_reporters <= _GRAM_EIGH_MAX_R
+                else "power")
     if params.pca_method in _SHARDABLE_PCA:
         return params.pca_method
     if n_reporters <= _GRAM_EIGH_MAX_R:
@@ -77,14 +99,31 @@ def _pick_pca_method(params: ConsensusParams, n_reporters: int,
     return "power"
 
 
+def _itemsize(p: ConsensusParams) -> int:
+    return 1 if p.storage_dtype == "int8" else 4
+
+
+def _multi_fits(p: ConsensusParams, n_reporters: int, n_events: int) -> bool:
+    """The Hopper gates of the multi-component arm: the block kernel at
+    k components and the direction fix's (k + 1)-row stack, with k the
+    upper bound ``min(max_components, R)`` of both algorithms' sizing
+    rules."""
+    k = min(p.max_components, n_reporters)
+    return (matmat_kernels_fit(n_events, k + 1, _itemsize(p))
+            and cov_block_kernel_fits(n_events, k, _itemsize(p)))
+
+
 def _use_fused_resolution(p: ConsensusParams, n_reporters: int,
                           n_events: int, device: torch.device) -> bool:
-    itemsize = 1 if p.storage_dtype == "int8" else 4
+    itemsize = _itemsize(p)
+    multi_fit = (p.algorithm not in _MULTI_COMPONENT
+                 or _multi_fits(p, n_reporters, n_events))
     return (p.allow_fused
             and _kernels_serve(device)
-            and p.algorithm == "sztorc"
+            and p.algorithm in FUSED_ALGORITHMS
             and p.pca_method in ("power", "power-fused")
             and not p.any_scaled
+            and multi_fit
             and fused_pca_fits(n_events, itemsize)
             and resolve_kernel_fits(n_reporters, itemsize))
 
@@ -107,13 +146,19 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
             "in ROADMAP.md §A.3")
     if p.any_scaled:
         raise NotImplementedError(f"scaled events: {ROADMAP_SCALED}")
-    if p.algorithm != "sztorc":
+    if p.algorithm not in FUSED_ALGORITHMS:
         raise NotImplementedError(f"algorithm={p.algorithm!r}: "
                                   f"{ROADMAP_PLAIN}")
-    p = p._replace(pca_method=_pick_pca_method(p, R, device))
+    p = p._replace(pca_method=_pick_pca_method(p, R, E, device))
     p = p._replace(fused_resolution=_use_fused_resolution(p, R, E, device))
     if p.fused_resolution:
         return p
+    if (p.algorithm in _MULTI_COMPONENT and p.pca_method == "power"
+            and not _multi_fits(p, R, E)):
+        raise NotImplementedError(
+            f"max_components={p.max_components} needs the block kernels "
+            f"beyond k <= {MAX_BLOCK_K} (the direction fix stacks k + 1 "
+            f"rows): {ROADMAP_SEPARABLE}")
     if p.storage_dtype == "int8":
         raise ValueError(
             "storage_dtype='int8' requires the fused kernel path (power-"

@@ -29,6 +29,7 @@ from pyconsensus_tpu_torch import (ConsensusParams, decode_reports,
 from pyconsensus_tpu_torch.convert import (inputs_from_reference,
                                            params_from_reference)
 from pyconsensus_tpu_torch.faults.errors import InputError
+from pyconsensus_tpu_torch.parallel.sharded import resolve_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT_KEYS = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
@@ -169,7 +170,7 @@ def test_refusals_name_the_roadmap(case):
         kw["event_bounds"] = [{"scaled": True, "min": 0, "max": 2}] + \
             [None] * 11
     elif case == "algorithm":
-        p = p._replace(algorithm="ica")
+        p = p._replace(algorithm="k-means")
     elif case == "auto_small_r":
         p = p._replace(pca_method="auto")
     elif case == "mesh":
@@ -178,6 +179,64 @@ def test_refusals_name_the_roadmap(case):
         p = p._replace(storage_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sharded_consensus(reports, params=p, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
+def test_auto_opens_the_multi_component_fused_path_at_north_star(algorithm):
+    """At R = 10,000 and E = 100,000, "auto" resolves to orthogonal
+    iteration and the fused path opens, on int8 and on float32 storage."""
+    for storage in ("int8", ""):
+        p = resolve_params(ConsensusParams(algorithm=algorithm,
+                                           storage_dtype=storage,
+                                           any_scaled=False),
+                           10_000, 100_000, torch.device("cpu"))
+        assert p.pca_method == "power" and p.fused_resolution
+
+
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
+@pytest.mark.parametrize("R,E,method", [(4096, 100_000, "eigh-gram"),
+                                        (10_000, 1024, "eigh-cov")])
+def test_auto_eigh_refusals_name_the_roadmap(algorithm, R, E, method):
+    """"auto" picks an exact eigh at R <= 4096 (Gram) or E <= 1024
+    (covariance), which is not ported."""
+    p = ConsensusParams(algorithm=algorithm, any_scaled=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        resolve_params(p, R, E, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        resolve_params(p._replace(pca_method=method), 10_000, 100_000,
+                       torch.device("cpu"))
+
+
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
+def test_components_beyond_the_block_kernels_raise(algorithm):
+    """The direction fix stacks k + 1 rows, so 7 components fit the
+    k <= 8 kernels and 8 do not."""
+    p = ConsensusParams(algorithm=algorithm, pca_method="power",
+                        any_scaled=False)
+    cpu = torch.device("cpu")
+    assert resolve_params(p._replace(max_components=7), 10_000, 100_000,
+                          cpu).fused_resolution
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §B.7"):
+        resolve_params(p._replace(max_components=8), 10_000, 100_000, cpu)
+
+
+def test_fill_stats_kernel_gate_matches_the_plain_statistics(monkeypatch):
+    """With the fill-statistics gate on, ``_fill_stats`` takes
+    ``fill_stats_pass``: the same fill, and statistics within float32
+    rounding of the plain reduction."""
+    from pyconsensus_tpu_torch.models import pipeline
+
+    x = encode_reports(torch.from_numpy(make_reports(6, 24, 40)
+                                        .astype(np.float32)))
+    rep = torch.rand(24, generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64)
+    plain = pipeline._fill_stats(x, rep, 0.1, "int8")
+    monkeypatch.setattr(pipeline, "_FILL_STATS_KERNEL", True)
+    gated = pipeline._fill_stats(x, rep, 0.1, "int8")
+    assert torch.equal(gated[1], plain[1])
+    for a, b in zip(gated[2:], plain[2:]):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)
 
 
 def test_int8_needs_int8_storage():
