@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py                      # 10000 x 100000, one card
+    python3 chip_smoke.py --mesh-devices 4     # the mesh over four cards
 
 Phases, each printing its seconds:
 
@@ -15,16 +16,24 @@ Phases, each printing its seconds:
    size, on int8 sentinel storage and on float32+NaN storage, and time
    both with CUDA events: the sztorc sweeps, resolve, the block
    covariance at k = 5 with and without its centered projections, the
-   rows product at k = 6 and the fill statistics;
+   uncentered products (``storage_matvec``, ``storage_matmat`` at k = 12
+   in two launches, the rows product at k = 6) and the fill statistics;
+   the uncentered products are also timed against one PyTorch call
+   (``torch.mv``, ``@``) on a dense float32 matrix;
 4. drive the main paths, ``sharded_consensus`` on pre-encoded int8
    storage with the default device and ``pca_method="auto"``, at
    ``max_iterations`` 1 and 3: sztorc, then fixed-variance and ica (which
    must resolve to the fused path), each with the launch counts set to 0
    just before and read just after; every kernel of a path must have
-   launched. Then sztorc again with the fill-statistics kernel gated on,
-   as an A/B against the plain fill statistics;
-5. run the same paths at a middle size on the card and with
-   ``device="cpu"`` and compare the two;
+   launched, and a kernel of another arm must not. Then sztorc on an
+   event mesh (four shards on card 0, or ``--mesh-devices`` cards),
+   placed once, against the single-device outcomes; fixed-variance and
+   ica at 12 components (the separable arm); and sztorc with the
+   fill-statistics kernel gated on, as an A/B against the plain fill
+   statistics;
+5. run the same paths at a middle size on the card and on the CPU
+   (``device="cpu"``, or a mesh of as many CPU shards) and compare the
+   two;
 6. print the ``kernels`` JSON line, then the result line.
 
 It exits non-zero, and prints no result line, when there is no CUDA
@@ -62,12 +71,23 @@ MULTI_ATOL = 2e-3
 #: component counts of the block-kernel checks: fixed-variance's default
 #: five components, and the direction fix's k + 1 rows
 BLOCK_K = 5
+#: components of the separable arm (the orthogonal iteration beyond the
+#: one-pass block kernel's eight), and the storage_matmat check's width
+SEPARABLE_K = 12
+#: shards of the event mesh on card 0 when --mesh-devices is not given
+MESH_SHARDS = 4
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
     "apply_weighted_cov": (
         "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
         "pyconsensus_tpu/ops/pallas_kernels.py:468"),
+    "storage_matvec": (
+        "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
+        "pyconsensus_tpu/ops/pallas_kernels.py:538"),
+    "storage_matmat": (
+        "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
+        "pyconsensus_tpu/ops/pallas_kernels.py:720"),
     "scores_dirfix_pass": (
         "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
         "pyconsensus_tpu/ops/pallas_kernels.py:1056"),
@@ -84,7 +104,8 @@ KERNELS = {
         "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
         "pyconsensus_tpu/ops/pallas_kernels.py:627"),
 }
-#: the kernels each main path must launch
+#: the kernels each main path must launch, and those of another arm that
+#: it must not
 PATH_KERNELS = {
     "sztorc": ("apply_weighted_cov", "scores_dirfix_pass",
                "resolve_certainty_fused"),
@@ -92,6 +113,20 @@ PATH_KERNELS = {
                        "resolve_certainty_fused"),
     "ica": ("apply_weighted_cov_block", "storage_rows_matmat",
             "resolve_certainty_fused"),
+    "sztorc mesh": ("storage_matvec", "storage_rows_matmat",
+                    "resolve_certainty_fused"),
+    "fixed-variance separable": ("storage_matmat", "storage_rows_matmat",
+                                 "resolve_certainty_fused"),
+    "ica separable": ("storage_matmat", "storage_rows_matmat",
+                      "resolve_certainty_fused"),
+}
+PATH_FORBIDS = {
+    "sztorc": ("storage_matvec",),
+    "fixed-variance": ("storage_matmat",),
+    "ica": ("storage_matmat",),
+    "sztorc mesh": ("apply_weighted_cov", "scores_dirfix_pass"),
+    "fixed-variance separable": ("apply_weighted_cov_block",),
+    "ica separable": ("apply_weighted_cov_block",),
 }
 
 
@@ -176,6 +211,8 @@ def run(args) -> int:
         from pyconsensus_tpu_torch.models.pipeline import _fill_stats
         from pyconsensus_tpu_torch.ops import build
         from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+        from pyconsensus_tpu_torch.parallel.mesh import (make_mesh,
+                                                         place_event_shards)
         from pyconsensus_tpu_torch.parallel.sharded import resolve_params
     except ImportError as exc:
         print(f"chip_smoke: the pyconsensus_tpu_torch package is not beside "
@@ -220,7 +257,175 @@ def run(args) -> int:
         for ln in spills[:8]:
             log(f"  {ln}")
 
-    stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
+    if args.mesh_devices > torch.cuda.device_count():
+        raise RuntimeError(f"--mesh-devices {args.mesh_devices}: only "
+                           f"{torch.cuda.device_count()} cards")
+    stats = kernel_phase(torch, args, ck, _fill_stats, dev, card)
+    launches = {k: 0 for k in KERNELS}
+
+    def drive(x, p, label, path=None):
+        """One main path: a warm-up, then ``args.resolutions`` timed
+        resolutions with the launch counts set to 0 just before and read
+        just after; the kernels of ``path`` (default: the algorithm) must
+        have launched and those of another arm must not. Returns ``(out,
+        resolutions/s, counts)``."""
+        path = path or p.algorithm
+        out = sharded_consensus(x, params=p)                 # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(args.resolutions):
+            out = sharded_consensus(x, params=p)
+        torch.cuda.synchronize()
+        rate = args.resolutions / (time.perf_counter() - t0)
+        counts = ck.launch_counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"{label}: kernels of the path never "
+                               f"launched: {missing} ({counts})")
+        stray = [k for k in PATH_FORBIDS.get(path, ()) if counts[k] != 0]
+        if stray:
+            raise RuntimeError(f"{label}: kernels of another arm launched: "
+                               f"{stray} ({counts})")
+        return out, rate, counts
+
+    if args.mesh_devices:
+        mesh = make_mesh(event=args.mesh_devices)
+        where = f"{args.mesh_devices} cards"
+    else:
+        mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+        where = f"{MESH_SHARDS} shards on one card"
+    with phase(f"main paths {R}x{E} int8"):
+        x8, truth = gen_reports(torch, R, E, args.seed + 2, dev)
+        torch.cuda.synchronize()
+        single = {}
+        for algo in ("sztorc", "fixed-variance", "ica"):
+            for mi in (1, 3):
+                # "auto" picks fused power or orthogonal iteration above
+                # 4096 reporters (the exact eigh below it is not ported);
+                # a smaller rehearsal names the iteration
+                small = "power-fused" if algo == "sztorc" else "power"
+                p = ConsensusParams(algorithm=algo, storage_dtype="int8",
+                                    max_iterations=mi, power_tol=1e-5,
+                                    pca_method="auto" if R > 4096 else small)
+                resolved = resolve_params(p._replace(any_scaled=False), R,
+                                          E, dev)
+                if not resolved.fused_resolution:
+                    raise RuntimeError(f"{algo}: pca_method={p.pca_method} "
+                                       "did not open the fused path")
+                label = f"{algo} max_iterations={mi}"
+                out, rate, counts = drive(x8, p, label)
+                single[algo, mi] = out
+                check_result(torch, out, R, E, algo)
+                correct = float((out["outcomes_adjusted"] == truth)
+                                .float().mean())
+                iters = int(out["iterations"])
+                extra = ""
+                if algo != "sztorc":
+                    sweeps = (counts["apply_weighted_cov_block"]
+                              / (args.resolutions * iters) - 1)
+                    extra = f", orth-iter sweeps per scoring {sweeps:.2f}"
+                if algo == "ica":
+                    extra += f", ica_converged {bool(out['ica_converged'])}"
+                log(f"{label} (pca_method {resolved.pca_method}): "
+                    f"{rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) "
+                    f"on {card}; iterations {iters}, converged "
+                    f"{bool(out['convergence'])}, outcomes == truth "
+                    f"{correct:.6f}{extra}; launches {counts}")
+                if correct < 0.99:
+                    raise RuntimeError(f"{label}: the outcomes do not "
+                                       "recover the truth")
+        placed = mesh_paths(torch, args, drive, x8, truth, mesh, where,
+                            single, card, resolve_params, place_event_shards)
+        separable_paths(torch, args, drive, x8, truth, card, resolve_params)
+        fill_stats_ab(torch, pipeline, drive, x8, card)
+        if args.profile:
+            for tag, x, algo, k in (
+                    ("sztorc_mesh", placed, "sztorc", 5),
+                    ("sztorc", x8, "sztorc", 5),
+                    ("fixed-variance", x8, "fixed-variance", 5),
+                    ("ica", x8, "ica", 5),
+                    ("fixed-variance_separable", x8, "fixed-variance",
+                     SEPARABLE_K)):
+                profile_resolution(torch, sharded_consensus, x,
+                                   ConsensusParams(algorithm=algo,
+                                                   storage_dtype="int8",
+                                                   max_components=k,
+                                                   power_tol=1e-5,
+                                                   pca_method="auto"),
+                                   card, tag)
+        del placed
+        del x8
+        torch.cuda.empty_cache()
+
+    with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
+        xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
+        xm_cpu = xm.cpu()
+        for algo, atol in (("sztorc", MID_ATOL),
+                           ("fixed-variance", MULTI_ATOL),
+                           ("ica", MULTI_ATOL)):
+            for mi in (1, 3):
+                p = ConsensusParams(algorithm=algo, storage_dtype="int8",
+                                    max_iterations=mi, pca_method="power",
+                                    power_tol=1e-5)
+                a = sharded_consensus(xm, params=p)
+                b = sharded_consensus(xm_cpu, params=p, device="cpu")
+                worst = compare_outputs(torch, a, b, atol,
+                                        f"card vs cpu {algo} "
+                                        f"max_iterations={mi}")
+                log(f"{algo} max_iterations={mi}: card and cpu agree (exact "
+                    f"keys equal, continuous max |diff| {worst:.3e} <= "
+                    f"{atol}); iterations {int(a['iterations'])}")
+        cpu_mesh = make_mesh(devices=["cpu"] * len(mesh))
+        for mi in (1, 3):
+            p = ConsensusParams(storage_dtype="int8", max_iterations=mi,
+                                pca_method="power", power_tol=1e-5)
+            a = sharded_consensus(xm, params=p, mesh=mesh)
+            b = sharded_consensus(xm_cpu, params=p, mesh=cpu_mesh)
+            worst = compare_outputs(torch, a, b, MID_ATOL,
+                                    f"card vs cpu sztorc mesh "
+                                    f"max_iterations={mi}")
+            log(f"sztorc mesh ({where} vs {len(mesh)} cpu shards) "
+                f"max_iterations={mi}: exact keys equal, continuous max "
+                f"|diff| {worst:.3e} <= {MID_ATOL}; iterations "
+                f"{int(a['iterations'])}")
+        for algo in ("fixed-variance", "ica"):
+            p = ConsensusParams(algorithm=algo, storage_dtype="int8",
+                                max_components=SEPARABLE_K,
+                                pca_method="power", power_tol=1e-5)
+            a = sharded_consensus(xm, params=p)
+            b = sharded_consensus(xm_cpu, params=p, device="cpu")
+            worst = compare_outputs(torch, a, b, MULTI_ATOL,
+                                    f"card vs cpu {algo} separable")
+            log(f"{algo} max_components={SEPARABLE_K} (separable arm): card "
+                f"and cpu agree (exact keys equal, continuous max |diff| "
+                f"{worst:.3e} <= {MULTI_ATOL})")
+
+    log(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": KERNELS[k][0],
+         "replaces": KERNELS[k][1], "launches": launches[k],
+         "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
+         "plain_ms": stats[k]["plain_ms"],
+         "bound_ms": stats[k]["bound_ms"],
+         "bound_by": stats[k]["bound_by"],
+         "library_ms": stats[k]["library_ms"]}
+        for k in KERNELS]}))
+    log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
+    """Phase 3: every kernel against its plain version at full size on
+    int8 and float32+NaN storage, timed beside its bound, and the
+    uncentered products beside one PyTorch call on dense float32.
+    Returns the per-kernel numbers of the ``kernels`` line."""
+    R, E = args.reporters, args.events
+    stats = {k: {"max_abs_err": 0.0, "library_ms": None} for k in KERNELS}
     with phase(f"kernels {R}x{E}"):
         x8, _ = gen_reports(torch, R, E, args.seed, dev)
         g = torch.Generator(device=dev)
@@ -231,6 +436,7 @@ def run(args) -> int:
         mu = numer + (rep.sum() - tw) * fill
         v = torch.randn(E, generator=g, device=dev)
         V = torch.randn((E, BLOCK_K), generator=g, device=dev)
+        V12 = torch.randn((E, SEPARABLE_K), generator=g, device=dev)
         W = torch.randn((BLOCK_K + 1, R), generator=g, device=dev)
         xf = torch.where(x8 < 0, torch.full((), float("nan"), device=dev),
                          x8.to(torch.float32) * 0.5)
@@ -245,6 +451,16 @@ def run(args) -> int:
                     lambda: ck.scores_dirfix_pass(x, rep, v, fill),
                     lambda: ck.scores_dirfix_pass_plain(x, rep, v, fill),
                     nb + 4 * (2 * E + R) + 4 * (3 * E + R), 8 * R * E),
+                "storage_matvec": (
+                    lambda: ck.storage_matvec(x, v, fill),
+                    lambda: ck.storage_matvec_plain(x, v, fill),
+                    nb + 4 * 2 * E + 4 * R, 2 * R * E),
+                # two launches: 8 columns, then 4
+                "storage_matmat": (
+                    lambda: ck.storage_matmat(x, V12, fill),
+                    lambda: ck.storage_matmat_plain(x, V12, fill),
+                    nb + 4 * (E + SEPARABLE_K * E) + 4 * SEPARABLE_K * R,
+                    2 * SEPARABLE_K * R * E),
                 "resolve_certainty_fused": (
                     lambda: ck.resolve_certainty_fused(x, rep, fill, 1.0,
                                                        0.1),
@@ -318,117 +534,159 @@ def run(args) -> int:
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], worst_abs)
         del xf
+        # one PyTorch call computes each uncentered product where no entry
+        # is absent: time it on the filled matrix in float32, beside the
+        # kernel on the same dense storage
+        xd = torch.where(x8 < 0, fill.to(torch.float32)[None, :],
+                         x8.to(torch.float32) * 0.5)
+        library = {
+            "storage_matvec": ("torch.mv", lambda: ck.storage_matvec(xd, v),
+                               lambda: torch.mv(xd, v)),
+            "storage_matmat": ("x @ V", lambda: ck.storage_matmat(xd, V12),
+                               lambda: xd @ V12),
+            "storage_rows_matmat": ("W @ x",
+                                    lambda: ck.storage_rows_matmat(xd, W),
+                                    lambda: W @ xd),
+        }
+        for kname, (call, kern, lib) in library.items():
+            got, ref = kern(), lib()
+            torch.cuda.synchronize()
+            d, r = max_rel_err(torch, got, ref)
+            if r > FULL_RTOL:
+                raise RuntimeError(f"{kname} [dense float32] disagrees with "
+                                   f"{call}: {r:.3e}")
+            k_ms = time_ms(torch, kern, args.reps)
+            l_ms = time_ms(torch, lib, args.reps)
+            stats[kname]["library_ms"] = l_ms
+            log(f"{kname} [dense float32]: kernel {k_ms:.4f} ms, library "
+                f"{call} {l_ms:.4f} ms on {card}; agree to {r:.3e}")
+        del xd
         torch.cuda.empty_cache()
 
-    launches = {k: 0 for k in KERNELS}
-
-    def drive(x, p, label):
-        """One main path: a warm-up, then ``args.resolutions`` timed
-        resolutions with the launch counts set to 0 just before and read
-        just after. Returns ``(out, resolutions/s, counts)``."""
-        out = sharded_consensus(x, params=p)                 # warm-up
-        torch.cuda.synchronize()
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(args.resolutions):
-            out = sharded_consensus(x, params=p)
-        torch.cuda.synchronize()
-        rate = args.resolutions / (time.perf_counter() - t0)
-        counts = ck.launch_counts()
-        for k in KERNELS:
-            launches[k] += counts[k]
-        missing = [k for k in PATH_KERNELS[p.algorithm] if counts[k] == 0]
-        if missing:
-            raise RuntimeError(f"{label}: kernels of the path never "
-                               f"launched: {missing} ({counts})")
-        return out, rate, counts
-
-    with phase(f"main paths {R}x{E} int8"):
-        x8, truth = gen_reports(torch, R, E, args.seed + 2, dev)
-        torch.cuda.synchronize()
-        for algo in ("sztorc", "fixed-variance", "ica"):
-            for mi in (1, 3):
-                # "auto" picks fused power or orthogonal iteration above
-                # 4096 reporters (the exact eigh below it is not ported);
-                # a smaller rehearsal names the iteration
-                small = "power-fused" if algo == "sztorc" else "power"
-                p = ConsensusParams(algorithm=algo, storage_dtype="int8",
-                                    max_iterations=mi, power_tol=1e-5,
-                                    pca_method="auto" if R > 4096 else small)
-                resolved = resolve_params(p._replace(any_scaled=False), R,
-                                          E, dev)
-                if not resolved.fused_resolution:
-                    raise RuntimeError(f"{algo}: pca_method={p.pca_method} "
-                                       "did not open the fused path")
-                label = f"{algo} max_iterations={mi}"
-                out, rate, counts = drive(x8, p, label)
-                check_result(torch, out, R, E, algo)
-                correct = float((out["outcomes_adjusted"] == truth)
-                                .float().mean())
-                iters = int(out["iterations"])
-                extra = ""
-                if algo != "sztorc":
-                    sweeps = (counts["apply_weighted_cov_block"]
-                              / (args.resolutions * iters) - 1)
-                    extra = f", orth-iter sweeps per scoring {sweeps:.2f}"
-                if algo == "ica":
-                    extra += f", ica_converged {bool(out['ica_converged'])}"
-                log(f"{label} (pca_method {resolved.pca_method}): "
-                    f"{rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) "
-                    f"on {card}; iterations {iters}, converged "
-                    f"{bool(out['convergence'])}, outcomes == truth "
-                    f"{correct:.6f}{extra}; launches {counts}")
-                if correct < 0.99:
-                    raise RuntimeError(f"{label}: the outcomes do not "
-                                       "recover the truth")
-        fill_stats_ab(torch, pipeline, drive, x8, card)
-        if args.profile:
-            for algo in ("sztorc", "fixed-variance", "ica"):
-                profile_resolution(torch, sharded_consensus, x8,
-                                   ConsensusParams(algorithm=algo,
-                                                   storage_dtype="int8",
-                                                   power_tol=1e-5,
-                                                   pca_method="auto"), card)
-        del x8
-        torch.cuda.empty_cache()
-
-    with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
-        xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
-        xm_cpu = xm.cpu()
-        for algo, atol in (("sztorc", MID_ATOL), ("fixed-variance",
-                                                  MULTI_ATOL),
-                           ("ica", MULTI_ATOL)):
-            for mi in (1, 3):
-                p = ConsensusParams(algorithm=algo, storage_dtype="int8",
-                                    max_iterations=mi, pca_method="power",
-                                    power_tol=1e-5)
-                a = sharded_consensus(xm, params=p)
-                b = sharded_consensus(xm_cpu, params=p, device="cpu")
-                worst = compare_outputs(torch, a, b, atol,
-                                        f"card vs cpu {algo} "
-                                        f"max_iterations={mi}")
-                log(f"{algo} max_iterations={mi}: card and cpu agree (exact "
-                    f"keys equal, continuous max |diff| {worst:.3e} <= "
-                    f"{atol}); iterations {int(a['iterations'])}")
-
-    log(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][0],
-         "replaces": KERNELS[k][1], "launches": launches[k],
-         "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
-         "plain_ms": stats[k]["plain_ms"], "bound_ms": stats[k]["bound_ms"],
-         "bound_by": stats[k]["bound_by"], "library_ms": None}
-        for k in KERNELS]}))
-    log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return stats
 
 
-def profile_resolution(torch, sharded_consensus, x, p, card):
+def mesh_paths(torch, args, drive, x8, truth, mesh, where, single, card,
+               resolve_params, place_event_shards):
+    """sztorc on the event mesh at ``max_iterations`` 1 and 3, the storage
+    placed once (its time printed apart from the timed loop): the mesh
+    launches the uncentered products and resolve, not the one-device
+    sweeps; its outcomes must recover the truth, and its outcomes,
+    ``na_row`` and iterations must equal the single-device run's on the
+    same matrix. Then the same matrix as float reports, encoded to int8
+    per call: 16-column shards, and the pre-encoded run's answer."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    R, E = x8.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = place_event_shards(x8, mesh)
+    torch.cuda.synchronize()
+    log(f"mesh placement ({where}): {time.perf_counter() - t0:.4f} s; shard "
+        f"widths {list(placed.widths)} padded to "
+        f"{[s.shape[1] for s in placed.shards]}")
+    mesh_out = {}
+    for mi in (1, 3):
+        p = ConsensusParams(storage_dtype="int8", max_iterations=mi,
+                            power_tol=1e-5,
+                            pca_method="auto" if R > 4096 else "power-fused")
+        resolved = resolve_params(p._replace(any_scaled=False), R, E,
+                                  mesh[0], len(mesh))
+        if not resolved.fused_resolution:
+            raise RuntimeError("sztorc mesh: the fused path did not open")
+        label = f"sztorc mesh ({where}) max_iterations={mi}"
+        out, rate, counts = drive(placed, p, label, "sztorc mesh")
+        check_result(torch, out, R, E)
+        correct = float((out["outcomes_adjusted"] == truth).float().mean())
+        ref = single["sztorc", mi]
+        for key in ("outcomes_adjusted", "na_row", "iterations"):
+            if not torch.equal(out[key], ref[key]):
+                raise RuntimeError(f"{label}: {key} differs from the "
+                                   "single-device run")
+        worst = 0.0
+        for key, v in out.items():
+            if not isinstance(v, torch.Tensor) or key in (
+                    "outcomes_adjusted", "outcomes_final", "na_row",
+                    "iterations", "convergence"):
+                continue
+            w = ref[key]
+            if key == "first_loading" and float(v @ w) < 0:
+                w = -w
+            worst = max(worst, (v.double() - w.double()).abs().max().item())
+        log(f"{label} (pca_method {resolved.pca_method}): {rate:.4f} "
+            f"resolutions/s ({1e3 / rate:.3f} ms each) on {card}; "
+            f"iterations {int(out['iterations'])}, outcomes == truth "
+            f"{correct:.6f}; outcomes, na_row and iterations equal to one "
+            f"device, continuous max |diff| {worst:.3e}; launches {counts}")
+        if correct < 0.99:
+            raise RuntimeError(f"{label}: the outcomes do not recover the "
+                               "truth")
+        mesh_out[mi] = out
+    # float reports that storage_dtype="int8" encodes per call: each shard
+    # keeps a 16-column multiple, so its int8 rows load 16 bytes at a time
+    xf = torch.where(x8 < 0, torch.full((), float("nan"), device=x8.device),
+                     x8.to(torch.float32) * 0.5)
+    t0 = time.perf_counter()
+    placed_f = place_event_shards(xf, mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    del xf
+    padded = [s.shape[1] for s in placed_f.shards]
+    if any(w % 16 for w in padded):
+        raise RuntimeError(f"float shards padded to {padded}: not 16-column "
+                           "multiples")
+    p = ConsensusParams(storage_dtype="int8", max_iterations=1,
+                        power_tol=1e-5,
+                        pca_method="auto" if R > 4096 else "power-fused")
+    label = f"sztorc mesh ({where}) on float reports encoded per call"
+    out, rate, counts = drive(placed_f, p, label, "sztorc mesh")
+    del placed_f
+    torch.cuda.empty_cache()
+    worst = compare_outputs(torch, out, mesh_out[1], MID_ATOL,
+                            f"{label} vs pre-encoded int8")
+    log(f"{label} (placed in {place_s:.4f} s, shards padded to {padded}): "
+        f"{rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) on {card}; "
+        f"equal to the pre-encoded mesh run, continuous max |diff| "
+        f"{worst:.3e}; launches {counts}")
+    return placed
+
+
+def separable_paths(torch, args, drive, x8, truth, card, resolve_params):
+    """fixed-variance and ica at ``SEPARABLE_K`` components: the
+    orthogonal iteration takes the separable arm (``storage_matmat``,
+    never the block kernel)."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    R, E = x8.shape
+    dev = x8.device
+    for algo in ("fixed-variance", "ica"):
+        p = ConsensusParams(algorithm=algo, storage_dtype="int8",
+                            max_components=SEPARABLE_K, power_tol=1e-5,
+                            pca_method="auto" if R > 4096 else "power")
+        if not resolve_params(p._replace(any_scaled=False), R, E,
+                              dev).fused_resolution:
+            raise RuntimeError(f"{algo} separable: the fused path did not "
+                               "open")
+        label = f"{algo} max_components={SEPARABLE_K}"
+        out, rate, counts = drive(x8, p, label, f"{algo} separable")
+        check_result(torch, out, R, E, algo)
+        correct = float((out["outcomes_adjusted"] == truth).float().mean())
+        # per scoring: one storage_matmat call per sweep, the Rayleigh-Ritz
+        # application and the scores sweep
+        sweeps = counts["storage_matmat"] / args.resolutions - 2
+        log(f"{label} (separable arm): {rate:.4f} resolutions/s "
+            f"({1e3 / rate:.3f} ms each) on {card}; orth-iter sweeps "
+            f"{sweeps:.2f}, outcomes == truth {correct:.6f}; launches "
+            f"{counts}")
+        if correct < 0.99:
+            raise RuntimeError(f"{label}: the outcomes do not recover the "
+                               "truth")
+
+
+def profile_resolution(torch, sharded_consensus, x, p, card, tag):
     """One resolution under ``torch.profiler``: wall time, the device's
     kernel time and busy share, and device time by kernel name (the full
-    table goes to ``profile_<algorithm>.txt`` under ``OUT_DIR``)."""
+    table goes to ``profile_<tag>.txt`` under ``OUT_DIR``)."""
     from torch.profiler import ProfilerActivity, profile
 
     sharded_consensus(x, params=p)
@@ -446,14 +704,14 @@ def profile_resolution(torch, sharded_consensus, x, p, card):
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    log(f"profile {p.algorithm} max_iterations={p.max_iterations}: wall "
+    log(f"profile {tag} max_iterations={p.max_iterations}: wall "
         f"{wall_ms:.3f} ms, "
         f"device kernels {busy_ms:.3f} ms, busy share "
         f"{busy_ms / wall_ms:.4f} on {card}")
     for ms, n, key in rows[:14]:
         log(f"  {ms:9.3f} ms  x{n:<4d} {key[:110]}")
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, OUT_DIR, f"profile_{p.algorithm}.txt"),
+    with open(os.path.join(here, OUT_DIR, f"profile_{tag}.txt"),
               "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
@@ -557,6 +815,9 @@ def main(argv=None) -> int:
                     help="also profile one main-path resolution")
     ap.add_argument("--resolutions", type=int, default=5,
                     help="timed resolutions per main-path configuration")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="run the mesh over this many distinct cards "
+                    f"(default: {MESH_SHARDS} shards on card 0)")
     args = ap.parse_args(argv)
     try:
         return run(args)

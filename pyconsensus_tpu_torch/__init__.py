@@ -1,9 +1,11 @@
 """PyTorch and CUDA port of ``pyconsensus_tpu`` for NVIDIA Hopper.
 
-This slice ports the single-device fused sztorc resolution on
-NaN-threaded storage (int8 sentinel or float32 with NaN), with the three
-storage kernels of its path written by hand in CUDA for sm_90a
-(``csrc/``). Entry point::
+The port runs the fused resolution on NaN-threaded storage (int8
+sentinel or float32 with NaN): sztorc, fixed-variance and ica on one
+device, and sztorc on an event mesh driven by one process
+(``parallel.mesh``). Every Pallas kernel of the JAX package has a
+counterpart written by hand in CUDA for sm_90a (``csrc/``). Entry
+point::
 
     from pyconsensus_tpu_torch import sharded_consensus, ConsensusParams
     out = sharded_consensus(reports, params=ConsensusParams(

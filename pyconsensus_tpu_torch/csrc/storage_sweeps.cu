@@ -1,16 +1,21 @@
 // Storage sweeps of the fused scoring steps, for sm_90a.
 //
-// Replaces five Pallas TPU kernels of pyconsensus_tpu/ops/pallas_kernels.py:
+// Replaces seven Pallas TPU kernels of pyconsensus_tpu/ops/pallas_kernels.py:
 //   apply_weighted_cov        (:468; _apply_cov_kernel :424,
 //                              _cov_panel_contribution :398)
 //       y = (X - mu)^T (rep * ((X - mu) v))
+//   storage_matvec            (:538; _matvec_kernel :511)
+//       t = filled(X) v, uncentered: the row pass with m = 0
+//   storage_matmat            (:720; _matmat_kernel :665)
+//       T = filled(X) V for an (E, k) block, uncentered: the block row
+//       pass with m = 0, one launch per group of at most 8 columns
 //   scores_dirfix_pass        (:1056; _scores_dirfix_kernel :1024)
 //       t = filled(X) loading, then [q; o; c] = [t; rep; 1]^T filled(X)
 //   apply_weighted_cov_block  (:853; _cov_block_kernel :754)
 //       T = (X - 1 mu^T) V for an (E, k) block, then
 //       Y = (X - 1 mu^T)^T (rep * T), k = 1..8
 //   storage_rows_matmat       (:978; _rows_matmat_kernel :935)
-//       W filled(X) for a (k, R) stack of row vectors, k = 1..8
+//       W filled(X) for a (k, R) stack of row vectors, k = 1..8 a launch
 //   fill_stats_pass           (:627; _fill_stats_kernel :595)
 //       tw = rep^T [present], numer = rep^T (value, 0 where absent)
 //
@@ -37,7 +42,12 @@
 // At k = 5 the block covariance also does 4kRE = 2e10 float32 operations,
 // another ~0.30 ms at 67 TFLOP/s. This simple form reads X twice per
 // covariance application (row pass, then column pass), so it cannot beat
-// twice the byte bound; the one-read fusion is later work.
+// twice the byte bound; the one-read fusion is later work. The
+// uncentered products read X once: storage_matvec is bound by bytes, and
+// storage_matmat at k = 12 by float32 operations (2kRE = 2.4e10, 0.36 ms)
+// just above its bytes. Each of their output columns is a sum of its own,
+// taken in the same order at any k, so splitting a block into launches
+// of at most 8 changes no bit.
 
 #include "sweep_common.cuh"
 

@@ -203,13 +203,10 @@ def _reported_loading(p: ConsensusParams, loading: torch.Tensor):
     return loading
 
 
-def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
-                          p: ConsensusParams) -> dict:
-    """The light pipeline on the fused kernel path
-    (``pipeline._consensus_core_fused``) for sztorc, fixed-variance and
-    ica. ``scaled``/``mins``/``maxs`` are accepted for the reference's
-    signature; scaled events raise."""
-    if reports.dtype == torch.int8 and (p.storage_dtype != "int8"
+def _check_fused_params(reports_dtype, p: ConsensusParams) -> None:
+    """The refusals of the fused path, shared by the single-device and
+    the event-sharded pipelines."""
+    if reports_dtype == torch.int8 and (p.storage_dtype != "int8"
                                         or p.any_scaled):
         raise ValueError(
             "pre-encoded int8 sentinel reports (encode_reports) require "
@@ -228,38 +225,22 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
         raise NotImplementedError(
             f"the fused path scores {'/'.join(FUSED_ALGORITHMS)} only, got "
             f"algorithm={p.algorithm!r}: {ROADMAP_PLAIN}")
-    old_rep = tk.normalize(reputation)
-    acc = old_rep.dtype
-    x, fill, tw0, numer0 = _fill_stats(reports, old_rep, p.catch_tolerance,
-                                       p.storage_dtype)
-    full0 = torch.sum(old_rep)
-    mu1 = numer0 + (full0 - tw0) * fill
-    xs = tk.matvec_narrow(x, p.matvec_dtype)
-    R, E = x.shape
 
-    # scores_at returns (adj, warm-start carry or None, ica flag or None)
-    if p.algorithm == "sztorc":
-        def scores_at(rep_k, mu_k, v_init=None):
-            return (*tk.sztorc_scores_power_fused(
-                xs, rep_k, p.power_iters, p.power_tol, "", fill=fill,
-                mu=mu_k, v_init=v_init), None)
-    elif p.algorithm == "fixed-variance":
-        def scores_at(rep_k, mu_k, v_init=None):
-            return (*fixed_variance_scores_storage(
-                xs, fill, mu_k, rep_k, p.variance_threshold,
-                p.max_components, v_init=v_init), None)
-    else:
-        def scores_at(rep_k, mu_k, v_init=None):
-            adj, conv, loadings = ica_scores_storage(
-                xs, fill, mu_k, rep_k, p.max_components,
-                v_init=v_init if _ICA_WARM_START else None)
-            return adj, (loadings if _ICA_WARM_START else None), conv
 
+def _redistribute(scores_at, masked_mu, old_rep: torch.Tensor,
+                  mu1: torch.Tensor, carry_shape, p: ConsensusParams):
+    """The redistribution loop of the fused pipeline, on any layout:
+    ``scores_at(rep, mu, v_init)`` returns ``(adj, warm-start carry or
+    None, ica flag or None)`` and ``masked_mu(rep)`` the weighted column
+    means of the filled matrix. One scoring at ``max_iterations <= 1``;
+    otherwise the reference's scan with a freeze-once-converged mask,
+    which stops at the first converged state (a frozen step changes
+    nothing). Returns ``(rep, this_rep, loading, converged, iterations,
+    ica_converged)``; ``loading`` is None when nothing was carried."""
+    dev = old_rep.device
     ica_conv = True
     if p.max_iterations <= 1:
         adj, loading, ica_c = scores_at(old_rep, mu1)
-        if loading is None:                      # ica: nothing to report
-            loading = torch.zeros(E, dtype=acc, device=x.device)
         if ica_c is not None:
             ica_conv = ica_c
         this_rep = tk.row_reward_weighted(adj, old_rep)
@@ -268,19 +249,15 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
                         p.convergence_tolerance)
         iters = 1
     else:
-        # the reference's scan with a freeze-once-converged mask: a frozen
-        # step changes nothing, so the loop stops at the first converged
-        # state
         rep, this_rep = old_rep, old_rep
         # zeros on iteration 1: the cold start of the power loop and of
         # the orthogonal iteration's blend
-        loading = torch.zeros(_subspace_carry_shape(p, R, E), dtype=acc,
-                              device=x.device)
+        loading = torch.zeros(carry_shape, dtype=old_rep.dtype, device=dev)
         conv, iters = False, 0
         for _ in range(p.max_iterations):
             if conv:
                 break
-            adj, carry, ica_c = scores_at(rep, _masked_mu(x, fill, rep),
+            adj, carry, ica_c = scores_at(rep, masked_mu(rep),
                                           v_init=loading)
             if carry is not None:
                 loading = carry
@@ -292,12 +269,19 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
             rep = new_rep
             iters += 1
             conv = bool(_le(delta, p.convergence_tolerance).item())
-        converged = torch.tensor(conv, device=x.device)
-    iters = torch.tensor(iters, dtype=torch.int32, device=x.device)
-    loading = _reported_loading(p, loading)
+        converged = torch.tensor(conv, device=dev)
+    iters = torch.tensor(iters, dtype=torch.int32, device=dev)
+    return rep, this_rep, loading, converged, iters, ica_conv
 
-    raw, adjusted, certainty, pcol, prow, narow = resolve_certainty_fused(
-        x, rep, fill, torch.sum(rep), float(p.catch_tolerance))
+
+def _assemble(p: ConsensusParams, old_rep, this_rep, rep, loading,
+              converged, iters, ica_conv, raw, adjusted, certainty, pcol,
+              prow, narow) -> dict:
+    """The O(R + E) back half after the resolve sweep (bonuses and the
+    light result dict), in the reputation dtype. Every (E,) input covers
+    the real events, so the means run over the real event count on any
+    layout."""
+    acc = rep.dtype
     raw = raw.to(acc)
     adjusted = adjusted.to(acc)
     certainty = certainty.to(acc)
@@ -338,10 +322,53 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
     }
     if p.algorithm == "ica":                     # ica reports no loading
         result["ica_converged"] = torch.tensor(bool(ica_conv),
-                                               device=x.device)
+                                               device=rep.device)
     else:
-        result["first_loading"] = tk.canon_sign(loading)
+        result["first_loading"] = tk.canon_sign(_reported_loading(p,
+                                                                  loading))
     return result
+
+
+def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
+                          p: ConsensusParams) -> dict:
+    """The light pipeline on the fused kernel path
+    (``pipeline._consensus_core_fused``) for sztorc, fixed-variance and
+    ica. ``scaled``/``mins``/``maxs`` are accepted for the reference's
+    signature; scaled events raise."""
+    _check_fused_params(reports.dtype, p)
+    old_rep = tk.normalize(reputation)
+    x, fill, tw0, numer0 = _fill_stats(reports, old_rep, p.catch_tolerance,
+                                       p.storage_dtype)
+    full0 = torch.sum(old_rep)
+    mu1 = numer0 + (full0 - tw0) * fill
+    xs = tk.matvec_narrow(x, p.matvec_dtype)
+    R, E = x.shape
+
+    # scores_at returns (adj, warm-start carry or None, ica flag or None)
+    if p.algorithm == "sztorc":
+        def scores_at(rep_k, mu_k, v_init=None):
+            return (*tk.sztorc_scores_power_fused(
+                xs, rep_k, p.power_iters, p.power_tol, "", fill=fill,
+                mu=mu_k, v_init=v_init), None)
+    elif p.algorithm == "fixed-variance":
+        def scores_at(rep_k, mu_k, v_init=None):
+            return (*fixed_variance_scores_storage(
+                xs, fill, mu_k, rep_k, p.variance_threshold,
+                p.max_components, v_init=v_init), None)
+    else:
+        def scores_at(rep_k, mu_k, v_init=None):
+            adj, conv, loadings = ica_scores_storage(
+                xs, fill, mu_k, rep_k, p.max_components,
+                v_init=v_init if _ICA_WARM_START else None)
+            return adj, (loadings if _ICA_WARM_START else None), conv
+
+    rep, this_rep, loading, converged, iters, ica_conv = _redistribute(
+        scores_at, lambda r: _masked_mu(x, fill, r), old_rep, mu1,
+        _subspace_carry_shape(p, R, E), p)
+    outs = resolve_certainty_fused(x, rep, fill, torch.sum(rep),
+                                   float(p.catch_tolerance))
+    return _assemble(p, old_rep, this_rep, rep, loading, converged, iters,
+                     ica_conv, *outs)
 
 
 def _consensus_core_light(reports, reputation, scaled, mins, maxs,

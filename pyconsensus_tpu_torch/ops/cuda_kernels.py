@@ -12,6 +12,10 @@ return order:
 - :func:`apply_weighted_cov_block` — the same covariance application for
   an (E, k) block, with the centered ``(X - mu) V`` on request
   (``csrc/storage_sweeps.cu``);
+- :func:`storage_matvec` — the uncentered ``filled(X) v``
+  (``csrc/storage_sweeps.cu``, the row pass with a zero mean);
+- :func:`storage_matmat` — the uncentered ``filled(X) V`` for an (E, k)
+  block (``csrc/storage_sweeps.cu``, the block row pass with a zero mean);
 - :func:`storage_rows_matmat` — ``W filled(X)`` for a (k, R) stack
   (``csrc/storage_sweeps.cu``);
 - :func:`fill_stats_pass` — the per-column present mass and
@@ -30,6 +34,7 @@ with float atomics.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -37,7 +42,8 @@ import torch
 from .torch_kernels import _power_loop, catch_tie_atol
 
 __all__ = ["apply_weighted_cov", "apply_weighted_cov_plain",
-           "power_iteration_fused", "scores_dirfix_pass",
+           "power_iteration_fused", "storage_matvec", "storage_matvec_plain",
+           "storage_matmat", "storage_matmat_plain", "scores_dirfix_pass",
            "scores_dirfix_pass_plain", "apply_weighted_cov_block",
            "apply_weighted_cov_block_plain", "storage_rows_matmat",
            "storage_rows_matmat_plain", "fill_stats_pass",
@@ -60,12 +66,14 @@ _RES_AUX_FLOATS = 2 * 16 * max(_RES_COLS) + 2 * max(_RES_COLS)
 #: rows per chunk of the column-sum pass: bounds the partials buffer to
 #: ``ceil(R / rows) * k * E`` floats while keeping enough blocks in flight
 _COL_CHUNK_MAX = 64
-#: the widest (E, k) block or (k, R) stack the block kernels take: the
-#: row and column passes are instantiated for k = 1..8
-#: (csrc/storage_sweeps.cu)
+#: the widest (E, k) block or (k, R) stack one launch of the block passes
+#: takes: the row and column passes are instantiated for k = 1..8
+#: (csrc/storage_sweeps.cu). The uncentered products split a wider block
+#: into groups of at most this many columns or rows.
 MAX_BLOCK_K = 8
 
-_COUNTS = {"apply_weighted_cov": 0, "scores_dirfix_pass": 0,
+_COUNTS = {"apply_weighted_cov": 0, "storage_matvec": 0,
+           "scores_dirfix_pass": 0, "storage_matmat": 0,
            "apply_weighted_cov_block": 0, "storage_rows_matmat": 0,
            "fill_stats_pass": 0, "resolve_certainty_fused": 0}
 
@@ -96,19 +104,21 @@ def cov_block_kernel_fits(n_events: int, n_components: int,
                           itemsize: int) -> bool:
     """Whether :func:`apply_weighted_cov_block` takes an E-wide matrix of
     ``itemsize`` bytes and an (E, k) block. Its passes keep nothing
-    E-wide on chip (unlike the TPU kernel's VMEM-resident panel and
-    accumulator), so the limit is the instantiated ``1 <= k <= 8``."""
+    E-wide on chip; the limit is the registers of the block row pass
+    (8k sums and 4k weights a thread, the part the TPU kernel's VMEM
+    plays), instantiated for ``1 <= k <= 8``. A wider block takes the
+    separable arm of the orthogonal iteration (:func:`storage_matmat`,
+    then :func:`storage_rows_matmat`)."""
     return (fused_pca_fits(n_events, itemsize)
             and 1 <= n_components <= MAX_BLOCK_K)
 
 
 def matmat_kernels_fit(n_events: int, n_components: int,
                        itemsize: int) -> bool:
-    """Whether :func:`storage_rows_matmat` takes a (k, R) stack against an
-    E-wide matrix of ``itemsize`` bytes: the column pass is instantiated
-    for ``1 <= k <= 8``."""
-    return (fused_pca_fits(n_events, itemsize)
-            and 1 <= n_components <= MAX_BLOCK_K)
+    """Whether :func:`storage_matmat` and :func:`storage_rows_matmat` take
+    k columns or rows against an E-wide matrix of ``itemsize`` bytes: any
+    ``k >= 1``, in groups of at most ``MAX_BLOCK_K`` per launch."""
+    return fused_pca_fits(n_events, itemsize) and n_components >= 1
 
 
 def resolve_smem_bytes(n_reporters: int, block_cols: int,
@@ -237,6 +247,28 @@ def _chunks(R: int) -> int:
     return -(-R // max(1, -(-R // _COL_CHUNK_MAX)))
 
 
+def _grouped(x: torch.Tensor, k: int, part, dim: int) -> torch.Tensor:
+    """The group loop of the uncentered products, the same on both
+    devices: ``part(slice)`` computes at most ``MAX_BLOCK_K`` of the k
+    columns or rows (its plain version on the CPU, one launch on the
+    card), and the pieces join along ``dim``. Each output column or row
+    is a sum of its own, which the kernels take in the same order at any
+    k, so on the card the split changes no bit."""
+    pieces = []
+    with torch.cuda.device(x.device) if x.device.type == "cuda" \
+            else contextlib.nullcontext():
+        for c in range(0, k, MAX_BLOCK_K):
+            pieces.append(part(slice(c, min(c + MAX_BLOCK_K, k))))
+    return torch.cat(pieces, dim=dim)
+
+
+def _filled(x, fill):
+    """The plain filled view of storage ``x`` in f32."""
+    val, absent = _decode(x)
+    return (torch.where(absent, fill.to(torch.float32), val)
+            if fill is not None else val)
+
+
 def _storage_lib():
     from .build import load
 
@@ -297,14 +329,37 @@ def power_iteration_fused(x, mu, denom, rep, n_iters: int, tol: float,
                        v_init=v_init)[0]
 
 
+# -- storage_matvec ----------------------------------------------------------
+
+def storage_matvec_plain(x, v, fill=None):
+    """Plain torch ``filled(x) @ v`` (f32)."""
+    return _filled(x, fill) @ v.to(torch.float32)
+
+
+def storage_matvec(x, v, fill=None):
+    """The uncentered ``filled(x) @ v`` over storage ``x`` (R, E); absent
+    entries take ``fill``. Returns (R,) f32: the event-sharded path sums
+    it across shards before it centers. Replaces
+    ``pallas_kernels.storage_matvec``."""
+    R, E = _check_matrix(x)
+    v = _vec(v, E, x, "v")
+    fill = _vec(fill, E, x, "fill") if fill is not None else None
+    if x.device.type == "cpu":
+        return storage_matvec_plain(x, v, fill)
+    lib = _storage_lib()
+    with torch.cuda.device(x.device):
+        zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
+        t = _row_pass(lib, x, zeros, fill, v)
+    _COUNTS["storage_matvec"] += 1
+    return t
+
+
 # -- scores_dirfix_pass ------------------------------------------------------
 
 def scores_dirfix_pass_plain(x, rep, loading, fill=None):
     """Plain torch ``(t, q, c, o)``: ``t = filled @ loading``,
     ``q = t^T filled``, ``c = 1^T filled``, ``o = rep^T filled``."""
-    val, absent = _decode(x)
-    xp = (torch.where(absent, fill.to(torch.float32), val)
-          if fill is not None else val)
+    xp = _filled(x, fill)
     t = xp @ loading.to(torch.float32)
     w3 = torch.stack([t, rep.to(torch.float32), torch.ones_like(t)])
     acc = w3 @ xp                                          # q, o, c
@@ -369,16 +424,52 @@ def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
     with torch.cuda.device(x.device):
         mu = _aligned(mu)
         a = (fill - mu).contiguous() if fill is not None else None
-        vt = V.T.contiguous()                                   # (k, E)
-        t = torch.empty((k, R), dtype=torch.float32, device=x.device)
-        is_int8, stream = _launch_args(x)
-        _raise_on(lib.pyc_row_block_pass(
-            x.data_ptr(), is_int8, R, E, mu.data_ptr(),
-            a.data_ptr() if a is not None else None, vt.data_ptr(), k,
-            t.data_ptr(), stream), "pyc_row_block_pass")
+        t = _row_block(lib, x, mu, a, V)                        # (k, R)
         y = _col_pass(lib, x, mu, a, (rep[None, :] * t).contiguous())
     _COUNTS["apply_weighted_cov_block"] += 1
     return y.T, (t.T if emit_t else None)
+
+
+# -- storage_matmat ----------------------------------------------------------
+
+def storage_matmat_plain(x, V, fill=None):
+    """Plain torch ``filled(x) @ V`` (f32)."""
+    return _filled(x, fill) @ V.to(torch.float32)
+
+
+def _row_block(lib, x, m, a, V):
+    """``T = (xc V)^T`` (k, R) for k <= 8 through the block row pass."""
+    R, E = x.shape
+    vt = V.T.contiguous()                                       # (k, E)
+    k = vt.shape[0]
+    t = torch.empty((k, R), dtype=torch.float32, device=x.device)
+    is_int8, stream = _launch_args(x)
+    _raise_on(lib.pyc_row_block_pass(
+        x.data_ptr(), is_int8, R, E, m.data_ptr(),
+        a.data_ptr() if a is not None else None, vt.data_ptr(), k,
+        t.data_ptr(), stream), "pyc_row_block_pass")
+    return t
+
+
+def storage_matmat(x, V, fill=None):
+    """The uncentered ``filled(x) @ V`` for an (E, k) block over storage
+    ``x`` (R, E), any ``k >= 1``; absent entries take ``fill``. Returns
+    (R, k) f32; centering is the caller's (``T - 1 (mu @ V)``). Replaces
+    ``pallas_kernels.storage_matmat``."""
+    R, E = _check_matrix(x)
+    V = _block(V, E, x, "V")
+    fill = _vec(fill, E, x, "fill") if fill is not None else None
+    k = V.shape[1]
+    if x.device.type == "cpu":
+        return _grouped(x, k, lambda g: storage_matmat_plain(x, V[:, g],
+                                                             fill), 1)
+    lib = _storage_lib()
+    zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
+    a = _aligned(fill) if fill is not None else None
+    out = _grouped(x, k, lambda g: _row_block(lib, x, zeros, a, V[:, g]).T,
+                   1)
+    _COUNTS["storage_matmat"] += 1
+    return out
 
 
 # -- storage_rows_matmat -----------------------------------------------------
@@ -401,29 +492,24 @@ def _pad_weights(W, R: int, x: torch.Tensor) -> torch.Tensor:
 
 def storage_rows_matmat_plain(x, W, fill=None):
     """Plain torch ``W @ filled(x)`` (f32)."""
-    val, absent = _decode(x)
-    xp = (torch.where(absent, fill.to(torch.float32), val)
-          if fill is not None else val)
-    return W.to(torch.float32) @ xp
+    return W.to(torch.float32) @ _filled(x, fill)
 
 
 def storage_rows_matmat(x, W, fill=None):
     """``W @ filled(x)`` for a (k, R') stack of row vectors over storage
-    ``x`` (R, E), uncentered; a W narrower than R is zero-padded. Returns
-    (k, E) f32. Replaces ``pallas_kernels.storage_rows_matmat``."""
+    ``x`` (R, E), uncentered, any ``k >= 1``; a W narrower than R is
+    zero-padded. Returns (k, E) f32. Replaces
+    ``pallas_kernels.storage_rows_matmat``."""
     R, E = _check_matrix(x)
     W = _pad_weights(W, R, x)
     fill = _vec(fill, E, x, "fill") if fill is not None else None
-    if x.device.type == "cpu":
-        return storage_rows_matmat_plain(x, W, fill)
     k = W.shape[0]
-    if not matmat_kernels_fit(E, k, x.element_size()):
-        raise ValueError(f"storage_rows_matmat takes 1 <= k <= "
-                         f"{MAX_BLOCK_K} rows, got {k}")
+    if x.device.type == "cpu":
+        return _grouped(x, k, lambda g: storage_rows_matmat_plain(x, W[g],
+                                                                  fill), 0)
     lib = _storage_lib()
-    with torch.cuda.device(x.device):
-        zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
-        out = _col_pass(lib, x, zeros, fill, W)
+    zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
+    out = _grouped(x, k, lambda g: _col_pass(lib, x, zeros, fill, W[g]), 0)
     _COUNTS["storage_rows_matmat"] += 1
     return out
 

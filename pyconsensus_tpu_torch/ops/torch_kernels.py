@@ -19,12 +19,8 @@ from .prng import orth_seed, power_seed
 
 __all__ = ["normalize", "canon_sign_factor", "canon_sign", "catch_tie_atol",
            "catch", "matvec_narrow", "sztorc_scores_power_fused",
-           "weighted_prin_comps_storage", "multi_dirfix_storage",
-           "row_reward_weighted", "smooth", "ROADMAP_SEPARABLE"]
-
-#: where the separable two-sweep arm of the orthogonal iteration is queued
-ROADMAP_SEPARABLE = ("ROADMAP.md §B.7 (storage_matmat and the separable "
-                     "orthogonal-iteration arm)")
+           "sztorc_dirfix", "weighted_prin_comps_storage",
+           "multi_dirfix_storage", "row_reward_weighted", "smooth"]
 
 #: sweep budget of the multi-component orthogonal iteration
 _ORTH_ITERS = 96
@@ -167,10 +163,23 @@ def sztorc_scores_power_fused(x: torch.Tensor, reputation: torch.Tensor,
     t, q, c, o = scores_dirfix_pass(xmm, reputation, loading, fill=fill)
     if n_rows is not None:
         t = t[:n_rows]
-    ml = mu @ loading
-    c = c.to(acc)
-    scores = t.to(acc) - ml
-    qs = q.to(acc) - ml * c                       # scores^T X
+    return sztorc_dirfix(t.to(acc), mu @ loading, q.to(acc), c.to(acc),
+                         o.to(acc)), loading
+
+
+def sztorc_dirfix(t: torch.Tensor, ml: torch.Tensor, q: torch.Tensor,
+                  c: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """The O(R + E) direction fix of sztorc's scores from the scores
+    pass's contractions: ``t = filled @ loading`` (R,), ``ml = mu @
+    loading``, and the (E,) ``q = t^T filled``, ``c = 1^T filled``,
+    ``o = rep^T filled`` (all in the accumulation dtype). The scores
+    ``t - ml`` are sign-canonical first; the two candidate distributions
+    ``normalize(set1|set2) @ X`` collapse to O(E) against ``old = o``, and
+    set1 wins within the banded tie ``d1 - d2 <= DIRFIX_TIE_ATOL (d1 +
+    d2)``. Returns the adjusted scores (R,). The single-device path and
+    the event-sharded path both end here."""
+    scores = t - ml
+    qs = q - ml * c                               # scores^T X
     sgn = canon_sign_factor(scores)
     scores = scores * sgn
     qs = qs * sgn
@@ -189,11 +198,9 @@ def sztorc_scores_power_fused(x: torch.Tensor, reputation: torch.Tensor,
                        set1X / torch.where(s1_tot == 0.0, one, s1_tot))
     new2 = torch.where(s2_tot == 0.0, set2X,
                        set2X / torch.where(s2_tot == 0.0, one, s2_tot))
-    old = o.to(acc)
-    d1 = torch.sum((new1 - old) ** 2)
-    d2 = torch.sum((new2 - old) ** 2)
-    return torch.where(d1 - d2 <= DIRFIX_TIE_ATOL * (d1 + d2),
-                       set1, -set2), loading
+    d1 = torch.sum((new1 - o) ** 2)
+    d2 = torch.sum((new2 - o) ** 2)
+    return torch.where(d1 - d2 <= DIRFIX_TIE_ATOL * (d1 + d2), set1, -set2)
 
 
 def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
@@ -202,9 +209,12 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
                        v_init: Optional[torch.Tensor] = None):
     """Top-``k`` principal subspace of the implicit weighted covariance of
     sentinel storage ``x`` by blocked orthogonal iteration
-    (``jax_kernels._top_pcs_orth_iter``, storage mode on the one-pass
-    block kernel). Each sweep applies ``apply_weighted_cov_block`` to the
-    (E, k) block and re-orthonormalizes it by Householder QR. A column
+    (``jax_kernels._top_pcs_orth_iter``, storage mode). Each sweep applies
+    the covariance to the (E, k) block and re-orthonormalizes it by
+    Householder QR. Where ``cov_block_kernel_fits`` holds, one sweep is
+    one ``apply_weighted_cov_block``; beyond it, the separable arm takes
+    two: ``T = storage_matmat(V) - 1 (mu V)``, then
+    ``storage_rows_matmat((rep T)^T)^T - mu (1^T rep T)``. A column
     settles when successive blocks align (``|<q_i, v_i>| >= 1 - tol``) or
     when its Ritz value has stayed within ``_RITZ_RTOL`` of the dominant
     one for two sweeps while under ``_BULK_FLOOR`` of it, within
@@ -213,27 +223,36 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
     application rotates the block onto the eigenbasis of ``V^T C V``
     (falling back to the unrotated block sorted by Rayleigh quotient if
     that ``eigh`` is non-finite) and its centered projections become the
-    scores.
+    scores on the one-pass arm (the separable arm leaves them to the
+    caller's own sweep).
     ``v_init`` (E, k) warm-starts the block with the same 0.25 blend as
     the reference; an all-zero one is the cold start.
 
-    Returns ``(loadings (E, k), eigvals (k,), trace, scores (R, k))`` in
-    the reputation dtype; ``trace`` is the matrix-free total variance."""
-    from .cuda_kernels import apply_weighted_cov_block, cov_block_kernel_fits
+    Returns ``(loadings (E, k), eigvals (k,), trace, scores (R, k) or
+    None)`` in the reputation dtype; ``trace`` is the matrix-free total
+    variance."""
+    from .cuda_kernels import (apply_weighted_cov_block,
+                               cov_block_kernel_fits, storage_matmat,
+                               storage_rows_matmat)
 
     acc = reputation.dtype
     R, E = x.shape
     k = int(n_components)
-    if not cov_block_kernel_fits(E, k, x.element_size()):
-        raise NotImplementedError(
-            f"k={k} components at E={E} do not fit the one-pass block "
-            f"kernel: {ROADMAP_SEPARABLE}")
     dev = x.device
 
-    def apply_cov_block(V, emit_t=False):
-        y, t = apply_weighted_cov_block(x, mu, reputation, V.to(acc),
-                                        fill=fill, emit_t=emit_t)
-        return y.to(acc) / denom, (t.to(acc) if emit_t else None)
+    if cov_block_kernel_fits(E, k, x.element_size()):
+        def apply_cov_block(V, emit_t=False):
+            y, t = apply_weighted_cov_block(x, mu, reputation, V.to(acc),
+                                            fill=fill, emit_t=emit_t)
+            return y.to(acc) / denom, (t.to(acc) if emit_t else None)
+    else:
+        def apply_cov_block(V, emit_t=False):
+            V = V.to(acc)
+            t = storage_matmat(x, V, fill=fill).to(acc) - (mu @ V)[None, :]
+            rt = reputation[:, None] * t
+            y = (storage_rows_matmat(x, rt.T, fill=fill).T.to(acc)
+                 - mu[:, None] * torch.sum(rt, dim=0)[None, :])
+            return y / denom, None
 
     seed = orth_seed(E, k, str(acc).removeprefix("torch."))
     V0, _ = torch.linalg.qr(torch.from_numpy(seed.copy()).to(dev))
@@ -282,7 +301,8 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
     eig = torch.where(ok, torch.clamp(ritz.flip(0), min=0.0),
                       torch.clamp(raw[order], min=0.0))
     V = torch.where(ok, (V @ W).flip(1), V[:, order])
-    scores = torch.where(ok, (t_c @ W).flip(1), t_c[:, order])
+    scores = (None if t_c is None
+              else torch.where(ok, (t_c @ W).flip(1), t_c[:, order]))
     # matrix-free trace: sum_e (rep . x_e^2 - mu_e^2) / denom
     vals = _decode_storage(x, fill, acc)
     col_sq = reputation @ (vals * vals)
@@ -296,11 +316,17 @@ def weighted_prin_comps_storage(x: torch.Tensor, fill: torch.Tensor,
     """Top-k loadings, centered scores and explained-variance fractions
     straight off sentinel storage (``jax_kernels
     .weighted_prin_comps_storage``): the orthogonal iteration above, with
-    the scores folded out of its final application. Returns
-    ``(loadings (E, k), scores (R, k), explained (k,))``."""
+    the scores folded out of its final application on the one-pass arm
+    and taken by one further ``storage_matmat`` sweep on the separable
+    arm. Returns ``(loadings (E, k), scores (R, k), explained (k,))``."""
+    from .cuda_kernels import storage_matmat
+
     loadings, eig, total, scores = _top_pcs_orth_iter(
         x, mu, _denom(reputation), reputation, n_components, fill,
         v_init=v_init)
+    if scores is None:
+        scores = (storage_matmat(x, loadings, fill=fill).to(loadings.dtype)
+                  - (mu @ loadings)[None, :])
     explained = torch.where(
         total > 0.0, eig / torch.where(total > 0.0, total,
                                        torch.ones_like(total)),

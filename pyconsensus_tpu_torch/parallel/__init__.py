@@ -1,1 +1,8 @@
-"""Part of the pyconsensus_tpu_torch port (see the package docstring)."""
+"""Event meshes and the front door of the port (see the package
+docstring)."""
+
+from .mesh import EventShards, make_mesh, place_event_shards
+from .sharded import resolve_device, sharded_consensus
+
+__all__ = ["make_mesh", "place_event_shards", "EventShards",
+           "sharded_consensus", "resolve_device"]

@@ -1,15 +1,18 @@
-"""The single-device front door (``pyconsensus_tpu/parallel/sharded.py``
+"""The front door (``pyconsensus_tpu/parallel/sharded.py``
 ``sharded_consensus``): quarantine, parameter resolution, the fused-path
-gate, placement, and the light fused pipeline.
+gate, placement, and the light fused pipeline on one device or on an
+event mesh.
 
 The gate opens on the CPU (where every kernel wrapper runs its plain
-version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels,
-for sztorc and for the multi-component variants fixed-variance and ica.
-What the port does not cover yet raises ``NotImplementedError`` naming the
-``ROADMAP.md`` slice that brings it: scaled events, the other algorithms,
-exact eigh PCA (which ``pca_method="auto"`` picks at R <= 4096, and for
-the multi-component variants also at E <= 1024), a component count beyond
-the block kernels, the non-fused pipeline and meshes.
+version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels:
+on one device for sztorc and for the multi-component variants
+fixed-variance and ica, on an event mesh of more than one shard for
+sztorc (``parallel/fused_sharded.py``). What the port does not cover yet
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` slice that brings
+it: scaled events, the other algorithms, exact eigh PCA (which
+``pca_method="auto"`` picks at R <= 4096, and for the multi-component
+variants also at E <= 1024), the non-fused pipeline (which also serves
+fixed-variance and ica on a mesh in the reference) and batch meshes.
 """
 
 from __future__ import annotations
@@ -24,11 +27,11 @@ from ..faults.errors import InputError
 from ..models.pipeline import (FUSED_ALGORITHMS, ROADMAP_PLAIN,
                                ROADMAP_SCALED, ConsensusParams,
                                _consensus_core_light)
-from ..ops.cuda_kernels import (MAX_BLOCK_K, cov_block_kernel_fits,
-                                fused_pca_fits, matmat_kernels_fit,
+from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
                                 resolve_kernel_fits)
-from ..ops.torch_kernels import ROADMAP_SEPARABLE
 from ..oracle import parse_event_bounds
+from .fused_sharded import fused_sharded_consensus
+from .mesh import EventShards, as_mesh, place_event_shards
 
 __all__ = ["sharded_consensus", "resolve_device", "resolve_params"]
 
@@ -104,13 +107,15 @@ def _itemsize(p: ConsensusParams) -> int:
 
 
 def _multi_fits(p: ConsensusParams, n_reporters: int, n_events: int) -> bool:
-    """The Hopper gates of the multi-component arm: the block kernel at
-    k components and the direction fix's (k + 1)-row stack, with k the
-    upper bound ``min(max_components, R)`` of both algorithms' sizing
-    rules."""
+    """The Hopper gate of the multi-component arm (the reference's
+    ``sharded.py:275-278``): the direction fix's (k + 1)-row stack, with
+    k the upper bound ``min(max_components, R)`` of both algorithms'
+    sizing rules. Where the one-pass block kernel does not fit, the
+    separable arm serves at any width: the reference's
+    ``_MULTI_FUSED_MAX_E`` ceiling is a speed threshold measured on a TPU
+    against its XLA path, which the port does not have yet."""
     k = min(p.max_components, n_reporters)
-    return (matmat_kernels_fit(n_events, k + 1, _itemsize(p))
-            and cov_block_kernel_fits(n_events, k, _itemsize(p)))
+    return matmat_kernels_fit(n_events, k + 1, _itemsize(p))
 
 
 def _use_fused_resolution(p: ConsensusParams, n_reporters: int,
@@ -129,10 +134,12 @@ def _use_fused_resolution(p: ConsensusParams, n_reporters: int,
 
 
 def resolve_params(p: ConsensusParams, R: int, E: int,
-                   device: torch.device) -> ConsensusParams:
+                   device: torch.device, n_event: int = 1) -> ConsensusParams:
     """The parameters ``sharded_consensus`` runs with (``any_scaled`` and
-    ``has_na`` already set): the PCA method, the fused gate, and the
-    refusals of what this slice does not cover."""
+    ``has_na`` already set) on ``device``, or on an event mesh of
+    ``n_event`` shards whose first device is ``device``: the PCA method,
+    the fused gate (at the widest shard), and the refusals of what the
+    port does not cover."""
     if p.storage_dtype == "int8" and p.any_scaled:
         raise ValueError(
             "storage_dtype='int8' supports binary/categorical events "
@@ -149,16 +156,15 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
     if p.algorithm not in FUSED_ALGORITHMS:
         raise NotImplementedError(f"algorithm={p.algorithm!r}: "
                                   f"{ROADMAP_PLAIN}")
+    if n_event > 1 and p.algorithm != "sztorc":
+        raise NotImplementedError(
+            f"algorithm={p.algorithm!r} on an event-sharded mesh takes the "
+            f"reference's XLA path: {ROADMAP_PLAIN}")
     p = p._replace(pca_method=_pick_pca_method(p, R, E, device))
-    p = p._replace(fused_resolution=_use_fused_resolution(p, R, E, device))
+    p = p._replace(fused_resolution=_use_fused_resolution(
+        p, R, -(-E // n_event), device))
     if p.fused_resolution:
         return p
-    if (p.algorithm in _MULTI_COMPONENT and p.pca_method == "power"
-            and not _multi_fits(p, R, E)):
-        raise NotImplementedError(
-            f"max_components={p.max_components} needs the block kernels "
-            f"beyond k <= {MAX_BLOCK_K} (the direction fix stacks k + 1 "
-            f"rows): {ROADMAP_SEPARABLE}")
     if p.storage_dtype == "int8":
         raise ValueError(
             "storage_dtype='int8' requires the fused kernel path (power-"
@@ -200,16 +206,29 @@ def _place_reputation(reputation, R: int, device: torch.device):
 def sharded_consensus(reports, reputation=None, event_bounds=None,
                       params: Optional[ConsensusParams] = None, device=None,
                       *, mesh=None) -> dict:
-    """Resolve one oracle on one device: the light result dict (no
-    (R, E) matrices), tensors left on ``device``, plus
+    """Resolve one oracle: the light result dict (no (R, E) matrices),
+    tensors left on ``device`` (or the mesh's first device), plus
     ``quarantined_rows`` (numpy). ``reports`` is a numpy array or a
     tensor: float with NaN for absence, or int8 sentinel storage
-    (``encode_reports``) with ``storage_dtype="int8"``. ``device=None``
-    means the card."""
+    (``encode_reports``) with ``storage_dtype="int8"``; on a mesh it may
+    also be :class:`~pyconsensus_tpu_torch.parallel.mesh.EventShards`
+    placed once by ``place_event_shards`` (a plain matrix is placed on
+    every call). ``device=None`` means the card. ``mesh``
+    (``make_mesh``) shards the events over its devices; a one-device mesh
+    takes the single-device path, as in the reference."""
+    if isinstance(reports, EventShards) and mesh is None:
+        mesh = reports.mesh
     if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet: ROADMAP.md §A.10 (multi-GPU)")
-    dev = resolve_device(device)
+        if device is not None:
+            raise ValueError("pass either device= or mesh=, not both")
+        mesh = as_mesh(mesh)
+        if isinstance(reports, EventShards) and reports.mesh != mesh:
+            raise ValueError(f"reports are placed on {reports.mesh}, not on "
+                             f"the mesh {mesh}")
+        dev = mesh[0]
+    else:
+        dev = resolve_device(device)
+    n_event = len(mesh) if mesh is not None else 1
     if reports.ndim != 2:
         raise InputError(f"reports must be 2-D, got shape "
                          f"{tuple(reports.shape)}")
@@ -229,13 +248,23 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
     else:
         has_na = p.has_na
     p = p._replace(any_scaled=bool(scaled.any()), has_na=has_na)
-    p = resolve_params(p, R, E, dev)
-    x = _place_reports(reports, dev)
+    if mesh is not None and not all(_kernels_serve(d) for d in mesh):
+        raise NotImplementedError(
+            f"mesh {[str(d) for d in mesh]} is not all sm_90: the port's "
+            "kernels are built for Hopper (sm_90a) only")
+    p = resolve_params(p, R, E, dev, n_event)
     rep = _place_reputation(reputation, R, dev)
-    result = _consensus_core_light(
-        x, rep, torch.as_tensor(scaled, device=dev),
-        torch.as_tensor(mins, device=dev), torch.as_tensor(maxs, device=dev),
-        p)
+    if n_event > 1:
+        if not isinstance(reports, EventShards):
+            reports = place_event_shards(reports, mesh)
+        result = fused_sharded_consensus(reports, rep, p)
+    else:
+        x = (reports.shards[0] if isinstance(reports, EventShards)
+             else _place_reports(reports, dev))
+        result = _consensus_core_light(
+            x, rep, torch.as_tensor(scaled, device=dev),
+            torch.as_tensor(mins, device=dev),
+            torch.as_tensor(maxs, device=dev), p)
     result["quarantined_rows"] = (np.array([], dtype=np.int64)
                                   if quarantined is None
                                   else np.asarray(quarantined))

@@ -196,6 +196,78 @@ def test_block_sweeps_match_plain(dev, R, E, storage, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,E", SHAPES)
 @pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("with_fill", [True, False])
+def test_uncentered_products_match_plain(dev, R, E, storage, with_fill):
+    """storage_matvec, and storage_matmat and storage_rows_matmat at k up
+    to 13 (two launches beyond 8); the group loop changes no bit against
+    one launch per group."""
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 11 + E, R, E,
+                                              dense=not with_fill)
+    x = _t(x_i if storage == "int8" else x_f)
+    f = _t(fill) if with_fill else None
+    fd = None if f is None else f.to(dev)
+    ref = ck.storage_matvec(x, _t(v), f)
+    _close(ck.storage_matvec(x.to(dev), _t(v).to(dev), fd), ref,
+           "storage_matvec")
+    rng = np.random.default_rng(E)
+    for k in (1, 5, 8, 12, 13):
+        V = _t(rng.standard_normal((E, k)).astype(np.float32))
+        W = _t(rng.standard_normal((k, R)).astype(np.float32))
+        got = ck.storage_matmat(x.to(dev), V.to(dev), fd)
+        _close(got, ck.storage_matmat(x, V, f), f"storage_matmat k={k}")
+        if k > ck.MAX_BLOCK_K:
+            first = ck.storage_matmat(x.to(dev), V[:, :8].to(dev), fd)
+            assert torch.equal(got[:, :8], first)
+        got = ck.storage_rows_matmat(x.to(dev), W.to(dev), fd)
+        _close(got, ck.storage_rows_matmat(x, W, f),
+               f"storage_rows_matmat k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iterations", [1, 3])
+@pytest.mark.parametrize("reports", ["int8", "float"])
+def test_virtual_mesh_card_matches_cpu(dev, max_iterations, reports):
+    """Three shards on one card against three shards on the CPU: exact
+    keys equal, the rest within 1e-5; the mesh runs on the uncentered
+    products and resolve, not on the one-device sweeps. Float reports
+    are encoded to int8 per call from shards of 16-column multiples."""
+    from pyconsensus_tpu_torch.parallel.mesh import (make_mesh,
+                                                     place_event_shards)
+
+    x_f, x_i, rep, fill, mu, v = make_storage(17, 200, 1001, na_frac=0.02)
+    x = x_i if reports == "int8" else x_f
+    placed = place_event_shards(_t(x), make_mesh(devices=[dev] * 3))
+    assert all(s.shape[1] % 16 == 0 for s in placed.shards)
+    p = ConsensusParams(storage_dtype="int8", pca_method="power",
+                        max_iterations=max_iterations, power_iters=48,
+                        power_tol=-1.0)
+    ck.reset_launch_counts()
+    a = sharded_consensus(placed, params=p)
+    counts = ck.launch_counts()
+    for name in ("storage_matvec", "storage_rows_matmat",
+                 "resolve_certainty_fused"):
+        assert counts[name] > 0, counts
+    assert counts["apply_weighted_cov"] == 0, counts
+    assert counts["scores_dirfix_pass"] == 0, counts
+    b = sharded_consensus(_t(x), params=p,
+                          mesh=make_mesh(devices=["cpu"] * 3))
+    assert set(a) == set(b)
+    for key, va in a.items():
+        if not isinstance(va, torch.Tensor):
+            continue
+        if key in EXACT_KEYS:
+            assert torch.equal(va.cpu(), b[key]), key
+        elif key == "first_loading":
+            sign = 1.0 if float(va.cpu() @ b[key]) >= 0 else -1.0
+            assert (va.cpu() * sign - b[key]).abs().max() <= 1e-5, key
+        else:
+            assert (va.cpu().double() - b[key].double()).abs().max() \
+                <= 1e-5, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,E", SHAPES)
+@pytest.mark.parametrize("storage", ["int8", "float32"])
 def test_fill_stats_matches_plain(dev, R, E, storage):
     x_f, x_i, rep, fill, mu, v = make_storage(R * 5 + E, R, E)
     x_f[:, 0] = np.nan
@@ -227,6 +299,36 @@ def test_multi_component_card_matches_cpu(dev, algorithm, max_iterations):
         assert counts[name] > 0, counts
     b = sharded_consensus(_t(x_i), params=p, device="cpu")
     assert set(a) == set(b)
+    for key, va in a.items():
+        if not isinstance(va, torch.Tensor):
+            continue
+        if key in EXACT_KEYS:
+            assert torch.equal(va.cpu(), b[key]), key
+        elif key == "first_loading":
+            assert (va.abs().cpu() - b[key].abs()).abs().max() <= 2e-3, key
+        else:
+            assert (va.cpu().double() - b[key].double()).abs().max() \
+                <= 2e-3, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
+def test_separable_arm_card_matches_cpu(dev, algorithm):
+    """12 components: the separable arm of the orthogonal iteration on
+    the card (storage_matmat, not the block kernel) against the CPU,
+    within the multi-component band. At 200 x 1000 this generator leaves
+    ica's twelve-dimensional whitening space mostly noise bulk, and its
+    FastICA result moves by 7e-3 between float32 and float64 summation
+    on the CPU alone; at 512 x 2048 the two agree within 3e-7."""
+    x_f, x_i, rep, fill, mu, v = make_storage(19, 512, 2048, na_frac=0.02)
+    p = ConsensusParams(storage_dtype="int8", pca_method="power",
+                        algorithm=algorithm, max_components=12)
+    ck.reset_launch_counts()
+    a = sharded_consensus(_t(x_i).to(dev), params=p)
+    counts = ck.launch_counts()
+    assert counts["storage_matmat"] > 0, counts
+    assert counts["apply_weighted_cov_block"] == 0, counts
+    b = sharded_consensus(_t(x_i), params=p, device="cpu")
     for key, va in a.items():
         if not isinstance(va, torch.Tensor):
             continue

@@ -198,6 +198,61 @@ def test_storage_rows_matmat_matches_pallas(R, E, storage, narrow):
 
 @pytest.mark.parametrize("R,E", SHAPES)
 @pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("with_fill", [True, False])
+def test_storage_matvec_matches_pallas(R, E, storage, with_fill):
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 19 + E, R, E)
+    if not with_fill:
+        x_f = np.where(np.isnan(x_f), np.float32(0.5), x_f)
+        x_i = np.round(x_f * 2).astype(np.int8)
+    x = x_i if storage == "int8" else x_f
+    f = fill if with_fill else None
+    ref = pk.storage_matvec(jnp.asarray(x), jnp.asarray(v),
+                            fill=None if f is None else jnp.asarray(f),
+                            interpret=True)
+    got = ck.storage_matvec(_t(x), _t(v), fill=None if f is None else _t(f))
+    assert got.shape == (R,) and got.dtype == torch.float32
+    _close_scaled(got.numpy(), ref, "storage_matvec")
+
+
+@pytest.mark.parametrize("R,E", SHAPES)
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("with_fill", [True, False])
+@pytest.mark.parametrize("k", [1, 5, 12])
+def test_storage_matmat_matches_pallas(R, E, storage, with_fill, k):
+    """k = 12 runs the group loop (8 + 4 columns)."""
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 23 + E + k, R, E)
+    if not with_fill:
+        x_f = np.where(np.isnan(x_f), np.float32(1.0), x_f)
+        x_i = np.round(x_f * 2).astype(np.int8)
+    x = x_i if storage == "int8" else x_f
+    f = fill if with_fill else None
+    V = np.random.default_rng(k).standard_normal((E, k)).astype(np.float32)
+    ref = pk.storage_matmat(jnp.asarray(x), jnp.asarray(V),
+                            fill=None if f is None else jnp.asarray(f),
+                            interpret=True)
+    got = ck.storage_matmat(_t(x), _t(V), fill=None if f is None else _t(f))
+    assert got.shape == (R, k) and got.dtype == torch.float32
+    _close_scaled(got.numpy(), ref, "storage_matmat")
+
+
+@pytest.mark.parametrize("R,E", SHAPES)
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("k", [9, 13])
+def test_storage_rows_matmat_groups_match_pallas(R, E, storage, k):
+    """A stack wider than one launch (8 rows) goes through the group loop
+    and still matches the Pallas kernel."""
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 29 + E + k, R, E)
+    x = x_i if storage == "int8" else x_f
+    W = np.random.default_rng(k).standard_normal((k, R)).astype(np.float32)
+    ref = pk.storage_rows_matmat(jnp.asarray(x), jnp.asarray(W),
+                                 fill=jnp.asarray(fill), interpret=True)
+    got = ck.storage_rows_matmat(_t(x), _t(W), fill=_t(fill))
+    assert got.shape == (k, E)
+    _close_scaled(got.numpy(), ref, "storage_rows_matmat")
+
+
+@pytest.mark.parametrize("R,E", SHAPES)
+@pytest.mark.parametrize("storage", ["int8", "float32"])
 def test_fill_stats_pass_matches_pallas(R, E, storage):
     x_f, x_i, rep, fill, mu, v = make_storage(R * 17 + E, R, E)
     x_f[:, 0] = np.nan                   # an all-absent column
@@ -219,9 +274,16 @@ def _orth_inputs(R, E, seed):
     return x_i, fill, rep64, rep64 @ filled
 
 
-@pytest.mark.parametrize("R,E,k", [(24, 16, 5), (64, 300, 3)])
-def test_weighted_prin_comps_storage_matches_reference(R, E, k):
+@pytest.mark.parametrize("R,E,k", [(24, 16, 5), (64, 300, 3),
+                                   (24, 40, 12), (64, 300, 9)])
+def test_weighted_prin_comps_storage_matches_reference(R, E, k,
+                                                       monkeypatch):
+    """k > 8 takes the port's separable arm; the reference is forced onto
+    its own separable arm there by its block-kernel gate."""
     x, fill, rep, mu = _orth_inputs(R, E, R + E)
+    if k > ck.MAX_BLOCK_K:
+        monkeypatch.setattr(pk, "cov_block_kernel_fits",
+                            lambda *a, **kw: False)
     ref = jk.weighted_prin_comps_storage(
         jnp.asarray(x), jnp.asarray(fill), jnp.asarray(mu), jnp.asarray(rep),
         k, interpret=True)
@@ -297,6 +359,8 @@ def test_cpu_calls_are_not_launches():
     ck.apply_weighted_cov_block(_t(x_i), _t(mu), _t(rep), _t(V), _t(fill))
     ck.storage_rows_matmat(_t(x_i), _t(V.T[:, :12]), _t(fill))
     ck.fill_stats_pass(_t(x_i), _t(rep))
+    ck.storage_matvec(_t(x_i), _t(v), _t(fill))
+    ck.storage_matmat(_t(x_i), _t(np.ones((12, 11), np.float32)), _t(fill))
     assert set(ck.launch_counts().values()) == {0}
 
 
@@ -323,11 +387,14 @@ def test_hopper_fit_gates():
     assert ck.resolve_smem_bytes(10000, 16, 1) <= ck.SMEM_PER_BLOCK
     assert ck.fused_pca_fits(100_000, 1) and ck.fused_pca_fits(100_000, 4)
     assert not ck.fused_pca_fits(100_000, 2)
-    # the block kernels are instantiated for k = 1..8
+    # the one-pass block kernel is instantiated for k = 1..8; the
+    # uncentered products split any k into groups of at most 8
     for fits in (ck.cov_block_kernel_fits, ck.matmat_kernels_fit):
         assert fits(100_000, 1, 1) and fits(100_000, 8, 4)
-        assert not fits(100_000, 9, 1) and not fits(100_000, 0, 1)
-        assert not fits(100_000, 5, 2)
+        assert not fits(100_000, 0, 1) and not fits(100_000, 5, 2)
+    assert not ck.cov_block_kernel_fits(100_000, 9, 1)
+    assert ck.matmat_kernels_fit(100_000, 9, 1)
+    assert ck.matmat_kernels_fit(100_000, 13, 4)
 
 
 def test_build_sources_exist_and_name_their_pallas_kernel():

@@ -26,6 +26,15 @@ orders; a component just above the bulk floor then differs by about
 (one of 11 seeds tried at 23 x 40): the exact keys still agree, the
 reputation tail does not.
 
+Beyond eight components the port's orthogonal iteration takes the
+separable arm (two storage sweeps per application) and its direction fix
+runs in groups of eight rows;
+:func:`test_multi_beyond_the_block_kernel_matches_reference` holds that
+against the reference's own separable arm, reached by forcing
+``pallas_kernels.cov_block_kernel_fits`` to refuse (the package's files
+stay unchanged; the arm is picked in Python on every call, so no jit
+cache holds the other one).
+
 Under the x64 test configuration the reference's fixed-variance weights
 promote a float32 reputation to float64 (a division by an integer
 count), and its iterated scan then refuses the float32 carry. Those
@@ -39,6 +48,8 @@ import torch
 
 from pyconsensus_tpu.models.pipeline import ConsensusParams as RefParams
 from pyconsensus_tpu.models.pipeline import _consensus_core_fused
+from pyconsensus_tpu.ops import pallas_kernels
+from pyconsensus_tpu_torch.ops.cuda_kernels import MAX_BLOCK_K
 from pyconsensus_tpu_torch import (ConsensusParams, encode_reports_host,
                                    sharded_consensus)
 
@@ -59,20 +70,24 @@ def make_reports(seed, R, E, na_frac=0.1):
     return reports
 
 
-def reference(reports, rep, algorithm, storage, max_iterations):
+def reference(reports, rep, algorithm, storage, max_iterations,
+              max_components=5):
     E = reports.shape[1]
     p = RefParams(algorithm=algorithm, pca_method="power",
                   max_iterations=max_iterations, storage_dtype=storage,
-                  any_scaled=False, has_na=True, fused_resolution=True)
+                  any_scaled=False, has_na=True, fused_resolution=True,
+                  max_components=max_components)
     out = _consensus_core_fused(jnp.asarray(reports), jnp.asarray(rep),
                                 jnp.zeros(E, dtype=bool), jnp.zeros(E),
                                 jnp.ones(E), p)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def port(reports, rep, algorithm, storage, max_iterations):
+def port(reports, rep, algorithm, storage, max_iterations,
+         max_components=5):
     p = ConsensusParams(algorithm=algorithm, pca_method="power",
-                        max_iterations=max_iterations, storage_dtype=storage)
+                        max_iterations=max_iterations, storage_dtype=storage,
+                        max_components=max_components)
     return sharded_consensus(reports, reputation=rep, params=p,
                              device="cpu")
 
@@ -122,6 +137,32 @@ def test_multi_matches_reference_wide(algorithm):
     rep = np.full(64, 1.0 / 64, np.float32)
     ref = reference(reports.astype(np.float32), rep, algorithm, "int8", 1)
     out = port(encode_reports_host(reports), rep, algorithm, "int8", 1)
+    assert_matches(out, ref)
+
+
+@pytest.mark.parametrize("storage,max_iterations", [("int8", 1),
+                                                    ("int8", 3), ("", 1)])
+@pytest.mark.parametrize("max_components", [8, 12])
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
+def test_multi_beyond_the_block_kernel_matches_reference(
+        algorithm, max_components, storage, max_iterations, monkeypatch):
+    """At 12 components the port's orthogonal iteration takes the
+    separable arm (``storage_matmat``, then ``storage_rows_matmat``, two
+    launches of each per sweep) and the direction fix stacks 13 rows in
+    two groups; the reference is held on its own separable arm there
+    (its block-kernel gate forced closed). At 8 both take the one-pass
+    block kernel, and the port's 9-row direction fix runs in two
+    groups. float64 reputation."""
+    if max_components > MAX_BLOCK_K:
+        monkeypatch.setattr(pallas_kernels, "cov_block_kernel_fits",
+                            lambda *a, **kw: False)
+    R, E = 24, 40
+    reports = make_reports(R + 5 * max_components + max_iterations, R, E)
+    rep = np.random.default_rng(max_components).random(R)
+    ref = reference(reports, rep, algorithm, storage, max_iterations,
+                    max_components)
+    out = port(reports.astype(np.float32), rep, algorithm, storage,
+               max_iterations, max_components)
     assert_matches(out, ref)
 
 

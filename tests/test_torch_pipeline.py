@@ -173,12 +173,17 @@ def test_refusals_name_the_roadmap(case):
         p = p._replace(algorithm="k-means")
     elif case == "auto_small_r":
         p = p._replace(pca_method="auto")
-    elif case == "mesh":
-        kw["mesh"] = object()
+    elif case == "mesh":            # fixed-variance on an event mesh
+        from pyconsensus_tpu_torch.parallel.mesh import make_mesh
+
+        p = p._replace(algorithm="fixed-variance")
+        kw["mesh"] = make_mesh(devices=["cpu"] * 2)
     else:
         p = p._replace(storage_dtype="bfloat16")
+    if "mesh" not in kw:
+        kw["device"] = "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharded_consensus(reports, params=p, device="cpu", **kw)
+        sharded_consensus(reports, params=p, **kw)
 
 
 @pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
@@ -209,15 +214,39 @@ def test_auto_eigh_refusals_name_the_roadmap(algorithm, R, E, method):
 
 @pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
 def test_components_beyond_the_block_kernels_raise(algorithm):
-    """The direction fix stacks k + 1 rows, so 7 components fit the
-    k <= 8 kernels and 8 do not."""
+    """Beyond k <= 8 the one-pass block kernel's gate refuses, so its
+    wrapper would raise on the card and the orthogonal iteration takes
+    the separable arm instead; where that arm has no path yet (an event
+    mesh, an exact eigh method) the call raises naming the roadmap."""
+    from pyconsensus_tpu_torch.ops.cuda_kernels import cov_block_kernel_fits
+
+    for k in (9, 12, 41):
+        assert not cov_block_kernel_fits(100_000, k, 1)
+    p = ConsensusParams(algorithm=algorithm, pca_method="power",
+                        max_components=12, storage_dtype="int8",
+                        any_scaled=False)
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.2"):
+        resolve_params(p, 10_000, 100_000, cpu, n_event=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.2"):
+        resolve_params(p._replace(pca_method="eigh-gram", storage_dtype=""),
+                       10_000, 100_000, cpu)
+
+
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
+def test_components_beyond_the_block_kernel_open_the_fused_path(algorithm):
+    """Nothing raises beyond the one-pass block kernel's k <= 8 any more:
+    the separable arm and the grouped (k + 1)-row direction fix take any
+    component count at any width (the reference's ``_MULTI_FUSED_MAX_E``
+    ceiling is not carried), on both storages."""
     p = ConsensusParams(algorithm=algorithm, pca_method="power",
                         any_scaled=False)
     cpu = torch.device("cpu")
-    assert resolve_params(p._replace(max_components=7), 10_000, 100_000,
-                          cpu).fused_resolution
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §B.7"):
-        resolve_params(p._replace(max_components=8), 10_000, 100_000, cpu)
+    for storage in ("int8", ""):
+        for k in (7, 8, 12, 40):
+            assert resolve_params(p._replace(max_components=k,
+                                             storage_dtype=storage),
+                                  10_000, 100_000, cpu).fused_resolution
 
 
 def test_fill_stats_kernel_gate_matches_the_plain_statistics(monkeypatch):
