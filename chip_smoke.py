@@ -17,9 +17,10 @@ Phases, each printing its seconds:
    both with CUDA events: the sztorc sweeps, resolve, the block
    covariance at k = 5 with and without its centered projections, the
    uncentered products (``storage_matvec``, ``storage_matmat`` at k = 12
-   in two launches, the rows product at k = 6) and the fill statistics;
-   the uncentered products are also timed against one PyTorch call
-   (``torch.mv``, ``@``) on a dense float32 matrix;
+   in one launch, the rows product at k = 6) and the fill statistics;
+   ``storage_matmat`` is also timed on int8 at k = 4 and k = 16, and the
+   uncentered products against one PyTorch call (``torch.mv``, ``@``) on
+   a dense float32 matrix;
 4. drive the main paths, ``sharded_consensus`` on pre-encoded int8
    storage with the default device and ``pca_method="auto"``, at
    ``max_iterations`` 1 and 3: sztorc, then fixed-variance and ica (which
@@ -241,7 +242,9 @@ def run(args) -> int:
     with phase("build"):
         libs = build.build_all()
         for src, path in libs.items():
-            log(f"built {src} -> {os.path.relpath(path, here)}")
+            secs = build.build_seconds().get(src)
+            took = f" in {secs:.1f} s" if secs is not None else " (cached)"
+            log(f"built {src}{took} -> {os.path.relpath(path, here)}")
         os.makedirs(os.path.join(here, OUT_DIR), exist_ok=True)
         if build.build_log():       # empty when every library was built
             with open(os.path.join(here, OUT_DIR, "chip_smoke_build.log"),
@@ -455,7 +458,7 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                     lambda: ck.storage_matvec(x, v, fill),
                     lambda: ck.storage_matvec_plain(x, v, fill),
                     nb + 4 * 2 * E + 4 * R, 2 * R * E),
-                # two launches: 8 columns, then 4
+                # k = 12 in one row-tile launch (up to 16 columns a launch)
                 "storage_matmat": (
                     lambda: ck.storage_matmat(x, V12, fill),
                     lambda: ck.storage_matmat_plain(x, V12, fill),
@@ -534,6 +537,23 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], worst_abs)
         del xf
+        # how storage_matmat's time grows with k, on int8: one launch each
+        for k in (4, 16):
+            Vk = torch.randn((E, k), generator=g, device=dev)
+            got = ck.storage_matmat(x8, Vk, fill)
+            ref = ck.storage_matmat_plain(x8, Vk, fill)
+            d, r = max_rel_err(torch, got, ref)
+            if r > FULL_RTOL:
+                raise RuntimeError(f"storage_matmat k={k} [int8] disagrees "
+                                   f"with its plain version: {r:.3e}")
+            k_ms = time_ms(torch, lambda: ck.storage_matmat(x8, Vk, fill),
+                           args.reps)
+            b_ms, b_by = bound_ms(R * E + 4 * (E + k * E) + 4 * k * R,
+                                  2 * k * R * E)
+            stats["storage_matmat"]["max_abs_err"] = max(
+                stats["storage_matmat"]["max_abs_err"], d)
+            log(f"storage_matmat k={k} [int8]: kernel {k_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}) on {card}; max_abs_err {d:.3e}")
         # one PyTorch call computes each uncentered product where no entry
         # is absent: time it on the filled matrix in float32, beside the
         # kernel on the same dense storage

@@ -7,13 +7,13 @@
 //   storage_matvec            (:538; _matvec_kernel :511)
 //       t = filled(X) v, uncentered: the row pass with m = 0
 //   storage_matmat            (:720; _matmat_kernel :665)
-//       T = filled(X) V for an (E, k) block, uncentered: the block row
-//       pass with m = 0, one launch per group of at most 8 columns
+//       T = filled(X) V for an (E, k) block, uncentered: the row-tile
+//       pass, one launch per group of at most 16 columns
 //   scores_dirfix_pass        (:1056; _scores_dirfix_kernel :1024)
 //       t = filled(X) loading, then [q; o; c] = [t; rep; 1]^T filled(X)
 //   apply_weighted_cov_block  (:853; _cov_block_kernel :754)
-//       T = (X - 1 mu^T) V for an (E, k) block, then
-//       Y = (X - 1 mu^T)^T (rep * T), k = 1..8
+//       T = (X - 1 mu^T) V for an (E, k) block (the row-tile pass,
+//       centered), then Y = (X - 1 mu^T)^T (rep * T), k = 1..8
 //   storage_rows_matmat       (:978; _rows_matmat_kernel :935)
 //       W filled(X) for a (k, R) stack of row vectors, k = 1..8 a launch
 //   fill_stats_pass           (:627; _fill_stats_kernel :595)
@@ -24,10 +24,11 @@
 // Hopper blocks run in no order and carry nothing between them, so each
 // contraction is a pass of its own that shares one decode:
 //   (a) row pass: t_i = sum_e xc_ie v_e, one block per 8 rows, a
-//       fixed-order block sum per row. The block form takes V transposed,
-//       (k, E), so every load is contiguous, and keeps 8 x k sums a
-//       thread; a block reduces them warp by warp in a fixed order.
-//   (b) column pass: out_ke = sum_i w_ki xc_ie for k = 1..8 weight rows
+//       fixed-order block sum per row.
+//   (b) row-tile pass, T[c, i] = sum_e xc_ie V[e, c] for k <= 16 columns
+//       (_matmat_kernel, and the row half of _cov_block_kernel). See
+//       row_tile_kernel below.
+//   (c) column pass: out_ke = sum_i w_ki xc_ie for k = 1..8 weight rows
 //       (w = rep * t for a covariance, [t, rep, 1] for the scores, the
 //       caller's W for rows_matmat), run as (row chunk x column tile)
 //       blocks into [n_chunks, k, E] partials, then a fixed-order reduce
@@ -35,19 +36,45 @@
 //       own with two sums per column. No float atomics anywhere.
 // xc is decoded in registers: int8 x * 0.5 with x < 0 absent, float with
 // NaN absent; with a fill vector an absent entry takes a_e (fill - mu for
-// the covariance, fill for the uncentered products), otherwise val - m_e.
+// the covariance, fill for the uncentered products), otherwise val - m_e
+// (m = 0 for the uncentered row pass; the row-tile pass compiles the
+// centering out instead).
 //
-// Bound. Every kernel here is bound by bytes: one read of X is
-// R*E*itemsize (1.0 GB at 10000 x 100000 int8, ~0.30 ms at 3.35 TB/s).
-// At k = 5 the block covariance also does 4kRE = 2e10 float32 operations,
-// another ~0.30 ms at 67 TFLOP/s. This simple form reads X twice per
-// covariance application (row pass, then column pass), so it cannot beat
-// twice the byte bound; the one-read fusion is later work. The
-// uncentered products read X once: storage_matvec is bound by bytes, and
-// storage_matmat at k = 12 by float32 operations (2kRE = 2.4e10, 0.36 ms)
-// just above its bytes. Each of their output columns is a sum of its own,
-// taken in the same order at any k, so splitting a block into launches
-// of at most 8 changes no bit.
+// Bound. One read of X is R*E*itemsize (1.0 GB at 10000 x 100000 int8,
+// ~0.30 ms at 3.35 TB/s); the row pass, the column pass and the fill
+// statistics are bound by it. The row-tile pass does 2kRE float32
+// operations: 2.4e10 at k = 12, 0.358 ms at 67 TFLOP/s, just above its
+// one read of X, so at int8 it is bound by the FMA pipe and the
+// instructions around it, on float32 storage (4 GB, 1.19 ms) by bytes.
+// A covariance application reads X twice (row-tile pass, then column
+// pass), so it cannot beat twice the byte bound; the one-read fusion is
+// later work.
+//
+// The row-tile pass. A block owns 64 rows and one of S ranges of E (grid
+// (ceil(R / 64), S)); it walks its range in chunks of 512 bytes a row and
+// copies each chunk's X tile (32 KB), the chunk of V^T as float32
+// (k x 512 int8 columns) and of fill (and mu) into shared memory once for
+// all 64 rows, with 16-byte cp.async copies through a ring of 3 stages,
+// so the copy of chunk q + 2 overlaps the FMAs of chunk q. A thread sums
+// 8 rows x k columns over 4 columns of each 128-column slice; a V value
+// it loads from shared memory feeds 8 rows, a decoded entry k columns,
+// which keeps shared memory under the FMA pipe's pace. The int8 decode
+// is integer ops and one FMA, no int-to-float conversion. The S range
+// sums go to partials that reduce_chunks_kernel adds in a fixed order;
+// S is the fewest ranges whose blocks best fill the last wave of one
+// block per SM. Tile, chunk and S depend on R, E, the storage type and
+// the card, never on k, so a column's sum is taken in the same order at
+// any k, and the group loop of storage_matmat changes no bit. One launch
+// takes k <= 16, so k = 12 reads X once.
+//
+// Tensor cores are left out. A product faithful to float32 needs V split
+// into three TF32 or bf16 pieces (the TPU kernel's compensated bf16
+// halves, _matmat_kernel), and at k <= 16 the float32-operation bound
+// (0.358 ms at k = 12) is within 1.2x of the byte bound (0.30 ms), so
+// mma/wgmma could win at most about 0.06 ms a launch.
+
+#include <atomic>
+#include <utility>
 
 #include "sweep_common.cuh"
 
@@ -104,93 +131,261 @@ row_pass_kernel(const T* __restrict__ x, long long R, long long E,
   }
 }
 
-// n consecutive floats into registers: one 16-byte load for n = 4 (the
-// caller keeps the address 16-byte aligned), scalar loads otherwise
+// Tile geometry of the row-tile kernel. A block owns kTileRows rows and
+// walks its share of E in chunks of kTileBytes bytes of each row (512
+// int8 or 128 float32 columns); warp w owns rows 8w..8w+7 of the tile, and
+// lane l columns 4l..4l+3 of each 128-column slice of a chunk. None of it
+// depends on K, so every output column is summed in the same order at any
+// k.
+constexpr int kTileThreads = 256;
+constexpr int kTileRows = 64;
+constexpr int kThreadRows = kTileRows / (kTileThreads / 32);
+constexpr int kTileBytes = 512;
+constexpr int kSliceCols = 128;
+constexpr int kStages = 3;
+// most E ranges (partials) of one row-tile launch
+constexpr int kMaxSplits = 16;
+// widest block of one launch: uncentered, and centered (the covariance's
+// row half)
+constexpr int kMaxTileK = 16;
+constexpr int kMaxCenteredK = 8;
+
+template <typename T>
+__host__ __device__ constexpr int tile_cols() {
+  return kTileBytes / static_cast<int>(sizeof(T));
+}
+
+// bytes of one pipeline stage: the X tile, K rows of vt, fill (or
+// fill - mu) and, under CENTER, mu, each for the chunk's columns
+template <typename T, bool CENTER, int K>
+__host__ __device__ constexpr int stage_bytes() {
+  return kTileRows * kTileBytes +
+         (K + 1 + (CENTER ? 1 : 0)) * tile_cols<T>() * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 template <int N>
-__device__ __forceinline__ void load_floats(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    out[0] = q.x;
-    out[1] = q.y;
-    out[2] = q.z;
-    out[3] = q.w;
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n_rows float rows (row c at src + c * stride) from column e0 on, n
+// columns each, into shared memory, zero past E: 16-byte asynchronous
+// copies, or one float a thread
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long stride, int n_rows,
+                                           long long e0, long long E, int n,
+                                           bool vec) {
+  if (vec) {
+    const int per_row = n / 4;
+    for (int g = threadIdx.x; g < n_rows * per_row; g += kTileThreads) {
+      const int c = g / per_row;
+      const int col = 4 * (g % per_row);
+      const long long e = e0 + col;
+      const bool ok = e < E;
+      cp_async16(dst + c * n + col, ok ? src + c * stride + e : src,
+                 ok ? 16 : 0);
+    }
   } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = p[j];
+    for (int i = threadIdx.x; i < n_rows * n; i += kTileThreads) {
+      const int c = i / n;
+      const long long e = e0 + i % n;
+      dst[i] = e < E ? src[c * stride + e] : 0.f;
+    }
   }
 }
 
-// T[c, i] = sum_e xc[i, e] * vt[c, e] for c < K, 8 rows per block. A
-// thread keeps the 8 rows' VW-wide loads packed and decodes them SUB
-// columns at a time against the matching SUB columns of all K rows of vt,
-// so its registers hold 8*K sums, K*SUB weights and the packed rows.
-template <typename T, int VW, bool FILL, int K>
-__global__ void __launch_bounds__(kRowThreads)
-row_block_kernel(const T* __restrict__ x, long long R, long long E,
-                 const float* __restrict__ m, const float* __restrict__ a,
-                 const float* __restrict__ vt, float* __restrict__ t) {
-  constexpr int SUB = VW < 4 ? VW : 4;
-  constexpr int NS = kRowsPerBlock * K;
-  constexpr int kWarps = kRowThreads / 32;
-  __shared__ float scratch[kWarps * NS];
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRowsPerBlock;
-  float acc[kRowsPerBlock][K];
-#pragma unroll
-  for (int r = 0; r < kRowsPerBlock; ++r)
-#pragma unroll
-    for (int c = 0; c < K; ++c) acc[r][c] = 0.f;
-  for (long long e = static_cast<long long>(threadIdx.x) * VW; e < E;
-       e += static_cast<long long>(kRowThreads) * VW) {
-    Vec<T, VW> xv[kRowsPerBlock];
-#pragma unroll
-    for (int r = 0; r < kRowsPerBlock; ++r)
-      if (r0 + r < R) xv[r] = pyc::load_vec<T, VW>(x + (r0 + r) * E + e);
-#pragma unroll
-    for (int j0 = 0; j0 < VW; j0 += SUB) {
-      float mv[SUB], av[SUB], vv[K][SUB];
-      load_floats<SUB>(m + e + j0, mv);
-      if (FILL) load_floats<SUB>(a + e + j0, av);
-#pragma unroll
-      for (int c = 0; c < K; ++c)
-        load_floats<SUB>(vt + c * E + e + j0, vv[c]);
-#pragma unroll
-      for (int r = 0; r < kRowsPerBlock; ++r) {
-        if (r0 + r < R) {
-#pragma unroll
-          for (int j = 0; j < SUB; ++j) {
-            float val;
-            bool absent;
-            pyc::decode(xv[r].v[j0 + j], val, absent);
-            const float xc = (FILL && absent) ? av[j] : val - mv[j];
-#pragma unroll
-            for (int c = 0; c < K; ++c) acc[r][c] += xc * vv[c][j];
-          }
-        }
-      }
+// One chunk (columns e0 .. e0 + tile_cols) of the X tile, vt, fill and mu
+// into a stage. With vec every copy is a 16-byte cp.async (rows, vt rows
+// and vectors all start 16-byte aligned); otherwise a row start may not
+// be, and each element is copied on its own. Rows past R and columns past
+// E are zero: a zero vt column makes them add nothing.
+template <typename T, bool CENTER, int K>
+__device__ __forceinline__ void stage_chunk(
+    unsigned char* st, const T* __restrict__ x, long long R, long long E,
+    long long r0, long long e0, const float* __restrict__ m,
+    const float* __restrict__ a, const float* __restrict__ vt, bool vec) {
+  constexpr int BK = tile_cols<T>();
+  constexpr int GPR = kTileBytes / 16;                 // granules per row
+  T* xs = reinterpret_cast<T*>(st);
+  float* vs = reinterpret_cast<float*>(st + kTileRows * kTileBytes);
+  if (vec) {
+    for (int g = threadIdx.x; g < kTileRows * GPR; g += kTileThreads) {
+      const int r = g / GPR;
+      const int col = (g % GPR) * (16 / static_cast<int>(sizeof(T)));
+      const long long row = r0 + r;
+      const long long e = e0 + col;
+      const bool ok = row < R && e < E;
+      cp_async16(xs + r * BK + col, ok ? x + row * E + e : x, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTileRows * BK; i += kTileThreads) {
+      const long long row = r0 + i / BK;
+      const long long e = e0 + i % BK;
+      xs[i] = (row < R && e < E) ? x[row * E + e] : T(0);
     }
   }
-  // fixed-order block reduction of all 8*K sums: a shuffle tree in each
-  // warp, then one thread per sum adds the warp partials in warp order
+  stage_rows(vs, vt, E, K, e0, E, BK, vec);
+  if (a != nullptr) stage_rows(vs + K * BK, a, 0, 1, e0, E, BK, vec);
+  if constexpr (CENTER) stage_rows(vs + (K + 1) * BK, m, 0, 1, e0, E, BK, vec);
+}
+
+// Four columns of one row, decoded into xc: the fill value where absent
+// (when a fill is given), else val - mu under CENTER, else val.
+//
+// int8: no int-to-float conversion (a quarter-rate instruction on sm_90).
+// Each byte, offset by 128, goes into the low mantissa of 2^23, and one
+// FMA takes back 0.5 * (2^23 + s + 128) - (2^22 + 64) = 0.5 * s, exactly.
+// The sentinel s < 0 is then val < 0.
+__device__ __forceinline__ void decode4(const int8_t* p, float (&val)[4],
+                                        bool (&absent)[4]) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p) ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    val[j] = fmaf(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u + j)),
+                  0.5f, -4194368.f);
+    absent[j] = val[j] < 0.f;
+  }
+}
+
+__device__ __forceinline__ void decode4(const float* p, float (&val)[4],
+                                        bool (&absent)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  val[0] = q.x;
+  val[1] = q.y;
+  val[2] = q.z;
+  val[3] = q.w;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) absent[j] = isnan(val[j]);
+}
+
+// out[split, c, i] = sum over the split's columns e of xc[i, e] * vt[c, e]
+// for c < K and the block's 64 rows (the layout of the partials that
+// reduce_chunks_kernel sums; with one split, the (K, R) result itself).
+// The chunks of the split pass through a ring of kStages stages: the copy
+// of chunk q + 2 is in flight while chunk q is summed. A thread keeps
+// 8 x K sums: each vt value it reads from shared memory feeds 8 rows, and
+// each decoded entry K columns. The 32 lanes' sums of a row are added in a
+// fixed shuffle tree at the end.
+template <typename T, bool CENTER, int K>
+__global__ void __launch_bounds__(kTileThreads, 1)
+row_tile_kernel(const T* __restrict__ x, long long R, long long E,
+                const float* __restrict__ m, const float* __restrict__ a,
+                const float* __restrict__ vt, int vec, int n_splits,
+                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BK = tile_cols<T>();
+  constexpr int SB = stage_bytes<T, CENTER, K>();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const long long n_chunks = (E + BK - 1) / BK;
+  const long long per_split = (n_chunks + n_splits - 1) / n_splits;
+  const long long q0 = blockIdx.y * per_split;
+  const long long q1 = q0 + per_split < n_chunks ? q0 + per_split : n_chunks;
+  const int n = q1 > q0 ? static_cast<int>(q1 - q0) : 0;
+  const bool has_fill = a != nullptr;
+
+  float acc[kThreadRows][K];
 #pragma unroll
-  for (int r = 0; r < kRowsPerBlock; ++r)
+  for (int r = 0; r < kThreadRows; ++r)
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[r][c] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n)
+      stage_chunk<T, CENTER, K>(smem + i * SB, x, R, E, r0, (q0 + i) * BK, m,
+                                a, vt, vec);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();           // chunk i is in; chunk i - 1 is summed
+    const int nx = i + kStages - 1;
+    if (nx < n)
+      stage_chunk<T, CENTER, K>(smem + (nx % kStages) * SB, x, R, E, r0,
+                                (q0 + nx) * BK, m, a, vt, vec);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % kStages) * SB;
+    const T* xs = reinterpret_cast<const T*>(st) + warp * kThreadRows * BK;
+    const float* vs =
+        reinterpret_cast<const float*>(st + kTileRows * kTileBytes);
+    const long long e0 = (q0 + i) * BK;
+#pragma unroll 1
+    for (int s0 = 0; s0 < BK; s0 += kSliceCols) {
+      if (e0 + s0 >= E) break;                  // all zero past E
+      const int col = s0 + 4 * lane;
+      float fv[4] = {0.f, 0.f, 0.f, 0.f}, mv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (has_fill) {
+        const float4 q = *reinterpret_cast<const float4*>(vs + K * BK + col);
+        fv[0] = q.x; fv[1] = q.y; fv[2] = q.z; fv[3] = q.w;
+      }
+      if constexpr (CENTER) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(vs + (K + 1) * BK + col);
+        mv[0] = q.x; mv[1] = q.y; mv[2] = q.z; mv[3] = q.w;
+      }
+      float xc[kThreadRows][4];
+#pragma unroll
+      for (int r = 0; r < kThreadRows; ++r) {
+        float val[4];
+        bool absent[4];
+        decode4(xs + r * BK + col, val, absent);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          xc[r][j] = (has_fill && absent[j])
+                         ? fv[j]
+                         : (CENTER ? val[j] - mv[j] : val[j]);
+      }
+      float4 v[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        v[c] = *reinterpret_cast<const float4*>(vs + c * BK + col);
+      // one 8 x K outer product per column: consecutive FMAs feed
+      // different sums, so none waits on the one before
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < kThreadRows; ++r)
+#pragma unroll
+          for (int c = 0; c < K; ++c)
+            acc[r][c] = fmaf(xc[r][j], (&v[c].x)[j], acc[r][c]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < kThreadRows; ++r)
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       float v = acc[r][c];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         v += __shfl_down_sync(0xffffffffu, v, o);
-      if (lane == 0) scratch[warp * NS + r * K + c] = v;
+      acc[r][c] = v;
     }
-  __syncthreads();
-  if (threadIdx.x < NS) {
-    const int r = threadIdx.x / K;
-    const int c = threadIdx.x % K;
-    float s = 0.f;
+  if (lane == 0) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += scratch[w * NS + threadIdx.x];
-    if (r0 + r < R) t[c * R + r0 + r] = s;
+    for (int r = 0; r < kThreadRows; ++r) {
+      const long long row = r0 + warp * kThreadRows + r;
+      if (row < R)
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          out[(static_cast<long long>(blockIdx.y) * K + c) * R + row] =
+              acc[r][c];
+    }
   }
 }
 
@@ -372,50 +567,90 @@ int col_pass(const T* x, long long R, long long E, const float* m,
                        s);
 }
 
-template <typename T, int VW, bool FILL, int K>
-void launch_row_block(const T* x, long long R, long long E, const float* m,
-                      const float* a, const float* vt, float* t,
-                      cudaStream_t s) {
-  const unsigned grid =
-      static_cast<unsigned>((R + kRowsPerBlock - 1) / kRowsPerBlock);
-  row_block_kernel<T, VW, FILL, K><<<grid, kRowThreads, 0, s>>>(x, R, E, m,
-                                                                 a, vt, t);
+// E ranges of the row-tile pass for an R x E matrix on a card of n_sm
+// SMs: of 1 .. kMaxSplits ranges (at most one per chunk of columns), the
+// fewest whose blocks fill the last wave of one block per SM best, so
+// that few blocks pay the pipeline's start and the last wave leaves few
+// SMs idle (10000 rows: 157 tiles x 5 ranges = 5.95 waves of 132). A
+// function of R, E, the storage type and the card, never of K.
+int row_tile_splits(long long R, long long E, int itemsize, int n_sm) {
+  const long long tiles = (R + kTileRows - 1) / kTileRows;
+  const long long cols = kTileBytes / itemsize;
+  const long long chunks = (E + cols - 1) / cols;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= kMaxSplits && s <= chunks; ++s) {
+    const long long blocks = tiles * s;
+    const long long waves = (blocks + n_sm - 1) / n_sm;
+    const double fill = static_cast<double>(blocks) / (waves * n_sm);
+    if (fill > best_fill + 1e-3) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
 }
 
-template <typename T, int K>
-void launch_row_block_vw(const T* x, long long R, long long E,
-                         const float* m, const float* a, const float* vt,
-                         float* t, cudaStream_t s) {
-  constexpr int VW = 16 / sizeof(T);
-  if (E % VW == 0 && pyc::aligned16(x)) {
-    if (a != nullptr)
-      launch_row_block<T, VW, true, K>(x, R, E, m, a, vt, t, s);
-    else
-      launch_row_block<T, VW, false, K>(x, R, E, m, a, vt, t, s);
-  } else {
-    if (a != nullptr)
-      launch_row_block<T, 1, true, K>(x, R, E, m, a, vt, t, s);
-    else
-      launch_row_block<T, 1, false, K>(x, R, E, m, a, vt, t, s);
+template <typename T, bool CENTER, int K>
+int launch_row_tile(const T* x, long long R, long long E, const float* m,
+                    const float* a, const float* vt, int n_splits,
+                    float* out, cudaStream_t s) {
+  constexpr int smem = kStages * stage_bytes<T, CENTER, K>();
+  static_assert(smem <= 232448, "stages exceed a block's shared memory");
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // device
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted.load() & bit)) {
+    err = cudaFuncSetAttribute(row_tile_kernel<T, CENTER, K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted.fetch_or(bit);
   }
+  const bool vec = (E * static_cast<long long>(sizeof(T))) % 16 == 0 &&
+                   pyc::aligned16(x) && pyc::aligned16(vt) &&
+                   (a == nullptr || pyc::aligned16(a)) &&
+                   (!CENTER || pyc::aligned16(m));
+  dim3 grid(static_cast<unsigned>((R + kTileRows - 1) / kTileRows),
+            static_cast<unsigned>(n_splits));
+  row_tile_kernel<T, CENTER, K><<<grid, kTileThreads, smem, s>>>(
+      x, R, E, m, a, vt, vec ? 1 : 0, n_splits, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for k, K = 1 .. sizeof...(Ks)
+template <typename T, bool CENTER, int... Ks>
+int launch_row_tile_k(int k, std::integer_sequence<int, Ks...>, const T* x,
+                      long long R, long long E, const float* m,
+                      const float* a, const float* vt, int n_splits,
+                      float* out, cudaStream_t s) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  ((k == Ks + 1 ? (err = launch_row_tile<T, CENTER, Ks + 1>(
+                       x, R, E, m, a, vt, n_splits, out, s))
+                : 0),
+   ...);
+  return err;
 }
 
 template <typename T>
-int row_block_pass(const T* x, long long R, long long E, const float* m,
-                   const float* a, const float* vt, int k, float* t,
-                   cudaStream_t s) {
-  switch (k) {
-    case 1: launch_row_block_vw<T, 1>(x, R, E, m, a, vt, t, s); break;
-    case 2: launch_row_block_vw<T, 2>(x, R, E, m, a, vt, t, s); break;
-    case 3: launch_row_block_vw<T, 3>(x, R, E, m, a, vt, t, s); break;
-    case 4: launch_row_block_vw<T, 4>(x, R, E, m, a, vt, t, s); break;
-    case 5: launch_row_block_vw<T, 5>(x, R, E, m, a, vt, t, s); break;
-    case 6: launch_row_block_vw<T, 6>(x, R, E, m, a, vt, t, s); break;
-    case 7: launch_row_block_vw<T, 7>(x, R, E, m, a, vt, t, s); break;
-    case 8: launch_row_block_vw<T, 8>(x, R, E, m, a, vt, t, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+int row_tile_pass(const T* x, long long R, long long E, const float* m,
+                  const float* a, const float* vt, int k, int n_splits,
+                  float* partial, float* t, cudaStream_t s) {
+  float* out = n_splits > 1 ? partial : t;
+  using Centered = std::make_integer_sequence<int, kMaxCenteredK>;
+  using Uncentered = std::make_integer_sequence<int, kMaxTileK>;
+  const int err =
+      m != nullptr
+          ? launch_row_tile_k<T, true>(k, Centered(), x, R, E, m, a, vt,
+                                       n_splits, out, s)
+          : launch_row_tile_k<T, false>(k, Uncentered(), x, R, E, m, a, vt,
+                                        n_splits, out, s);
+  if (err != 0 || n_splits == 1) return err;
+  return reduce_chunks(partial, n_splits, static_cast<long long>(k) * R, t, s);
 }
 
 template <typename T>
@@ -480,17 +715,31 @@ int pyc_col_pass(const void* x, int is_int8, long long R, long long E,
                   partial, out, s);
 }
 
-// t[c, i] = sum_e xc[i, e] * vt[c, e] for c < k, k in 1..8; vt is (k, E)
-// and t (k, R).
-int pyc_row_block_pass(const void* x, int is_int8, long long R, long long E,
-                       const float* m, const float* a, const float* vt, int k,
-                       float* t, void* stream) {
+// E ranges (partials) of pyc_row_tile_pass for an R x E matrix on the
+// current device; 0 if it cannot be queried.
+int pyc_row_tile_splits(long long R, long long E, int is_int8) {
+  int dev = 0, n_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || n_sm < 1)
+    return 0;
+  return row_tile_splits(R, E, is_int8 ? 1 : 4, n_sm);
+}
+
+// t[c, i] = sum_e xc[i, e] * vt[c, e] for c < k; vt is (k, E) and t
+// (k, R). With m (centered), k in 1..8; without, k in 1..16. n_splits > 1
+// goes through partial[n_splits, k, R] and a fixed-order reduce.
+int pyc_row_tile_pass(const void* x, int is_int8, long long R, long long E,
+                      const float* m, const float* a, const float* vt, int k,
+                      int n_splits, float* partial, float* t, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_splits < 1 || n_splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (is_int8)
-    return row_block_pass(static_cast<const int8_t*>(x), R, E, m, a, vt, k,
-                          t, s);
-  return row_block_pass(static_cast<const float*>(x), R, E, m, a, vt, k, t,
-                        s);
+    return row_tile_pass(static_cast<const int8_t*>(x), R, E, m, a, vt, k,
+                         n_splits, partial, t, s);
+  return row_tile_pass(static_cast<const float*>(x), R, E, m, a, vt, k,
+                       n_splits, partial, t, s);
 }
 
 // out[0, e] = sum_i rep_i [present], out[1, e] = sum_i rep_i value_ie,

@@ -16,10 +16,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load",
-           "build_log"]
+           "build_log", "build_seconds"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -38,8 +39,11 @@ _SIGNATURES = {
         "pyc_row_pass": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P),
         # x, is_int8, R, E, m, a, w, k, n_chunks, partial, out, stream
         "pyc_col_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _LL, _P, _P, _P),
-        # x, is_int8, R, E, m, a, vt, k, t, stream
-        "pyc_row_block_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _P, _P),
+        # R, E, is_int8
+        "pyc_row_tile_splits": (_LL, _LL, _I),
+        # x, is_int8, R, E, m, a, vt, k, n_splits, partial, t, stream
+        "pyc_row_tile_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P,
+                              _P),
         # x, is_int8, R, E, rep, n_chunks, partial, out, stream
         "pyc_fill_stats": (_P, _I, _LL, _LL, _P, _LL, _P, _P, _P),
     },
@@ -54,6 +58,7 @@ _SIGNATURES = {
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 _LOG: dict = {}
+_SECONDS: dict = {}
 
 
 def nvcc_path() -> str:
@@ -93,17 +98,25 @@ def build_all() -> dict:
         return out
     nvcc = nvcc_path()
     procs = {}
+    t0 = time.perf_counter()
+
+    def finish(src, proc):
+        _LOG[src] = proc.communicate()[0]
+        _SECONDS[src] = time.perf_counter() - t0
+
     for src in todo:
         tmp = out[src].with_suffix(f".so.tmp{os.getpid()}")
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / src)]
-        procs[src] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        waiter = threading.Thread(target=finish, args=(src, proc))
+        waiter.start()
+        procs[src] = (tmp, proc, waiter)
     failed = []
-    for src, (tmp, proc) in procs.items():
-        text, _ = proc.communicate()
-        _LOG[src] = text
+    for src, (tmp, proc, waiter) in procs.items():
+        waiter.join()
+        text = _LOG[src]
         if proc.returncode != 0:
             failed.append(f"--- {src} (exit {proc.returncode}) ---\n{text}")
             tmp.unlink(missing_ok=True)
@@ -118,6 +131,12 @@ def build_log() -> dict:
     """The compiler output (``-Xptxas -v``: registers, shared memory,
     spills) of the sources built by this process."""
     return dict(_LOG)
+
+
+def build_seconds() -> dict:
+    """Seconds from the start of the parallel build to the end of each
+    source's ``nvcc``, for the sources built by this process."""
+    return dict(_SECONDS)
 
 
 def load(src: str) -> ctypes.CDLL:

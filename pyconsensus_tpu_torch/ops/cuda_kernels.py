@@ -15,7 +15,7 @@ return order:
 - :func:`storage_matvec` — the uncentered ``filled(X) v``
   (``csrc/storage_sweeps.cu``, the row pass with a zero mean);
 - :func:`storage_matmat` — the uncentered ``filled(X) V`` for an (E, k)
-  block (``csrc/storage_sweeps.cu``, the block row pass with a zero mean);
+  block (``csrc/storage_sweeps.cu``, the row-tile pass, uncentered);
 - :func:`storage_rows_matmat` — ``W filled(X)`` for a (k, R) stack
   (``csrc/storage_sweeps.cu``);
 - :func:`fill_stats_pass` — the per-column present mass and
@@ -52,7 +52,7 @@ __all__ = ["apply_weighted_cov", "apply_weighted_cov_plain",
            "cov_block_kernel_fits", "matmat_kernels_fit",
            "resolve_kernel_fits", "resolve_block_cols", "resolve_smem_bytes",
            "launch_counts", "reset_launch_counts", "SMEM_PER_BLOCK",
-           "MAX_BLOCK_K"]
+           "MAX_BLOCK_K", "MAX_TILE_K"]
 
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
@@ -66,11 +66,14 @@ _RES_AUX_FLOATS = 2 * 16 * max(_RES_COLS) + 2 * max(_RES_COLS)
 #: rows per chunk of the column-sum pass: bounds the partials buffer to
 #: ``ceil(R / rows) * k * E`` floats while keeping enough blocks in flight
 _COL_CHUNK_MAX = 64
-#: the widest (E, k) block or (k, R) stack one launch of the block passes
-#: takes: the row and column passes are instantiated for k = 1..8
-#: (csrc/storage_sweeps.cu). The uncentered products split a wider block
-#: into groups of at most this many columns or rows.
+#: the widest (E, k) block of apply_weighted_cov_block and (k, R) stack of
+#: one column-pass launch: the centered row-tile pass and the column pass
+#: are instantiated for k = 1..8 (csrc/storage_sweeps.cu).
+#: storage_rows_matmat splits a wider stack into groups of this many rows.
 MAX_BLOCK_K = 8
+#: the widest (E, k) block of one uncentered row-tile launch (k = 1..16);
+#: storage_matmat splits a wider block into groups of this many columns
+MAX_TILE_K = 16
 
 _COUNTS = {"apply_weighted_cov": 0, "storage_matvec": 0,
            "scores_dirfix_pass": 0, "storage_matmat": 0,
@@ -103,12 +106,12 @@ def fused_pca_fits(n_events: int, itemsize: int) -> bool:
 def cov_block_kernel_fits(n_events: int, n_components: int,
                           itemsize: int) -> bool:
     """Whether :func:`apply_weighted_cov_block` takes an E-wide matrix of
-    ``itemsize`` bytes and an (E, k) block. Its passes keep nothing
-    E-wide on chip; the limit is the registers of the block row pass
-    (8k sums and 4k weights a thread, the part the TPU kernel's VMEM
-    plays), instantiated for ``1 <= k <= 8``. A wider block takes the
-    separable arm of the orthogonal iteration (:func:`storage_matmat`,
-    then :func:`storage_rows_matmat`)."""
+    ``itemsize`` bytes and an (E, k) block. Its passes stage E in chunks
+    and keep nothing E-wide on chip; the limit is the column pass and
+    the centered row-tile pass, each instantiated for ``1 <= k <= 8``
+    (the row-tile pass keeps 8k sums a thread, the part the TPU kernel's
+    VMEM plays). A wider block takes the separable arm of the orthogonal
+    iteration (:func:`storage_matmat`, then :func:`storage_rows_matmat`)."""
     return (fused_pca_fits(n_events, itemsize)
             and 1 <= n_components <= MAX_BLOCK_K)
 
@@ -117,7 +120,8 @@ def matmat_kernels_fit(n_events: int, n_components: int,
                        itemsize: int) -> bool:
     """Whether :func:`storage_matmat` and :func:`storage_rows_matmat` take
     k columns or rows against an E-wide matrix of ``itemsize`` bytes: any
-    ``k >= 1``, in groups of at most ``MAX_BLOCK_K`` per launch."""
+    ``k >= 1``, in groups of at most ``MAX_TILE_K`` columns or
+    ``MAX_BLOCK_K`` rows per launch."""
     return fused_pca_fits(n_events, itemsize) and n_components >= 1
 
 
@@ -192,7 +196,7 @@ def _block(V, n: int, like: torch.Tensor, name: str) -> torch.Tensor:
 
 def _aligned(v: torch.Tensor) -> torch.Tensor:
     """``v`` itself when its data starts on a 16-byte boundary (the
-    block row pass loads four floats at a time), else a copy."""
+    row-tile pass copies it 16 bytes at a time), else a copy."""
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
@@ -247,19 +251,20 @@ def _chunks(R: int) -> int:
     return -(-R // max(1, -(-R // _COL_CHUNK_MAX)))
 
 
-def _grouped(x: torch.Tensor, k: int, part, dim: int) -> torch.Tensor:
+def _grouped(x: torch.Tensor, k: int, width: int, part,
+             dim: int) -> torch.Tensor:
     """The group loop of the uncentered products, the same on both
-    devices: ``part(slice)`` computes at most ``MAX_BLOCK_K`` of the k
-    columns or rows (its plain version on the CPU, one launch on the
-    card), and the pieces join along ``dim``. Each output column or row
-    is a sum of its own, which the kernels take in the same order at any
-    k, so on the card the split changes no bit."""
+    devices: ``part(slice)`` computes at most ``width`` of the k columns
+    or rows (its plain version on the CPU, one launch on the card), and
+    the pieces join along ``dim`` (one piece is returned as it is). Each
+    output column or row is a sum of its own, which the kernels take in
+    the same order at any k, so on the card the split changes no bit."""
     pieces = []
     with torch.cuda.device(x.device) if x.device.type == "cuda" \
             else contextlib.nullcontext():
-        for c in range(0, k, MAX_BLOCK_K):
-            pieces.append(part(slice(c, min(c + MAX_BLOCK_K, k))))
-    return torch.cat(pieces, dim=dim)
+        for c in range(0, k, width):
+            pieces.append(part(slice(c, min(c + width, k))))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
 
 
 def _filled(x, fill):
@@ -424,7 +429,7 @@ def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
     with torch.cuda.device(x.device):
         mu = _aligned(mu)
         a = (fill - mu).contiguous() if fill is not None else None
-        t = _row_block(lib, x, mu, a, V)                        # (k, R)
+        t = _row_tile(lib, x, mu, a, V)                         # (k, R)
         y = _col_pass(lib, x, mu, a, (rep[None, :] * t).contiguous())
     _COUNTS["apply_weighted_cov_block"] += 1
     return y.T, (t.T if emit_t else None)
@@ -437,17 +442,27 @@ def storage_matmat_plain(x, V, fill=None):
     return _filled(x, fill) @ V.to(torch.float32)
 
 
-def _row_block(lib, x, m, a, V):
-    """``T = (xc V)^T`` (k, R) for k <= 8 through the block row pass."""
+def _row_tile(lib, x, m, a, V):
+    """``T = (xc V)^T`` (k, R) through one row-tile launch: centered on
+    ``m`` for k <= 8, uncentered (``m`` None) for k <= 16. The launch
+    sums ``n_splits`` ranges of E into partials (fixed by R, E, the
+    storage type and the card, never by k) and reduces them in a fixed
+    order."""
     R, E = x.shape
+    k = V.shape[1]
     vt = V.T.contiguous()                                       # (k, E)
-    k = vt.shape[0]
-    t = torch.empty((k, R), dtype=torch.float32, device=x.device)
     is_int8, stream = _launch_args(x)
-    _raise_on(lib.pyc_row_block_pass(
-        x.data_ptr(), is_int8, R, E, m.data_ptr(),
-        a.data_ptr() if a is not None else None, vt.data_ptr(), k,
-        t.data_ptr(), stream), "pyc_row_block_pass")
+    n_splits = lib.pyc_row_tile_splits(R, E, is_int8)
+    if n_splits < 1:
+        raise RuntimeError("pyc_row_tile_splits: cannot query the device")
+    t = torch.empty((k, R), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((n_splits, k, R), dtype=torch.float32,
+                           device=x.device) if n_splits > 1 else t)
+    _raise_on(lib.pyc_row_tile_pass(
+        x.data_ptr(), is_int8, R, E,
+        m.data_ptr() if m is not None else None,
+        a.data_ptr() if a is not None else None, vt.data_ptr(), k, n_splits,
+        partial.data_ptr(), t.data_ptr(), stream), "pyc_row_tile_pass")
     return t
 
 
@@ -461,13 +476,12 @@ def storage_matmat(x, V, fill=None):
     fill = _vec(fill, E, x, "fill") if fill is not None else None
     k = V.shape[1]
     if x.device.type == "cpu":
-        return _grouped(x, k, lambda g: storage_matmat_plain(x, V[:, g],
-                                                             fill), 1)
+        return _grouped(x, k, MAX_TILE_K,
+                        lambda g: storage_matmat_plain(x, V[:, g], fill), 1)
     lib = _storage_lib()
-    zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
     a = _aligned(fill) if fill is not None else None
-    out = _grouped(x, k, lambda g: _row_block(lib, x, zeros, a, V[:, g]).T,
-                   1)
+    out = _grouped(x, k, MAX_TILE_K,
+                   lambda g: _row_tile(lib, x, None, a, V[:, g]).T, 1)
     _COUNTS["storage_matmat"] += 1
     return out
 
@@ -505,11 +519,13 @@ def storage_rows_matmat(x, W, fill=None):
     fill = _vec(fill, E, x, "fill") if fill is not None else None
     k = W.shape[0]
     if x.device.type == "cpu":
-        return _grouped(x, k, lambda g: storage_rows_matmat_plain(x, W[g],
-                                                                  fill), 0)
+        return _grouped(x, k, MAX_BLOCK_K,
+                        lambda g: storage_rows_matmat_plain(x, W[g], fill),
+                        0)
     lib = _storage_lib()
     zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
-    out = _grouped(x, k, lambda g: _col_pass(lib, x, zeros, fill, W[g]), 0)
+    out = _grouped(x, k, MAX_BLOCK_K,
+                   lambda g: _col_pass(lib, x, zeros, fill, W[g]), 0)
     _COUNTS["storage_rows_matmat"] += 1
     return out
 

@@ -25,8 +25,9 @@ from pyconsensus_tpu_torch import (ConsensusParams, encode_reports_host,
                                    sharded_consensus)
 from pyconsensus_tpu_torch.ops import build, cuda_kernels as ck
 
-# ragged widths (E % 16 != 0) take the scalar-load kernels, the rest the
-# 16-byte ones; 1000 rows is not a multiple of the 8-row blocks
+# ragged widths (E % 16 != 0) take the scalar-load kernels and the
+# row-tile pass's element copies, the rest the 16-byte ones; 1000 rows is
+# not a multiple of the 8-row blocks nor of the 64-row tiles
 SHAPES = [(24, 12), (23, 300), (64, 300), (64, 4096), (1000, 4099),
           (517, 2048)]
 EXACT_KEYS = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
@@ -199,8 +200,10 @@ def test_block_sweeps_match_plain(dev, R, E, storage, k):
 @pytest.mark.parametrize("with_fill", [True, False])
 def test_uncentered_products_match_plain(dev, R, E, storage, with_fill):
     """storage_matvec, and storage_matmat and storage_rows_matmat at k up
-    to 13 (two launches beyond 8); the group loop changes no bit against
-    one launch per group."""
+    to 33 (one row-tile launch up to 16 columns, groups of 16 beyond; the
+    rows product in groups of 8). The tiling does not depend on k, so a
+    column's bits are the same in any launch: the first 16 columns at
+    k = 17 equal a k = 16 call, and the first 8 at k = 12 a k = 8 call."""
     x_f, x_i, rep, fill, mu, v = make_storage(R * 11 + E, R, E,
                                               dense=not with_fill)
     x = _t(x_i if storage == "int8" else x_f)
@@ -210,17 +213,63 @@ def test_uncentered_products_match_plain(dev, R, E, storage, with_fill):
     _close(ck.storage_matvec(x.to(dev), _t(v).to(dev), fd), ref,
            "storage_matvec")
     rng = np.random.default_rng(E)
-    for k in (1, 5, 8, 12, 13):
+    for k in (1, 5, 8, 12, 13, 16, 17, 33):
         V = _t(rng.standard_normal((E, k)).astype(np.float32))
         W = _t(rng.standard_normal((k, R)).astype(np.float32))
         got = ck.storage_matmat(x.to(dev), V.to(dev), fd)
         _close(got, ck.storage_matmat(x, V, f), f"storage_matmat k={k}")
-        if k > ck.MAX_BLOCK_K:
-            first = ck.storage_matmat(x.to(dev), V[:, :8].to(dev), fd)
-            assert torch.equal(got[:, :8], first)
+        for n in {12: (8,), 17: (16,), 33: (16,)}.get(k, ()):
+            first = ck.storage_matmat(x.to(dev), V[:, :n].to(dev), fd)
+            assert torch.equal(got[:, :n], first), (k, n)
         got = ck.storage_rows_matmat(x.to(dev), W.to(dev), fd)
         _close(got, ck.storage_rows_matmat(x, W, f),
                f"storage_rows_matmat k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 65, 1007])
+@pytest.mark.parametrize("E", [300, 4096, 4099])
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("with_fill", [True, False])
+def test_row_tile_ragged_rows(dev, R, E, storage, with_fill):
+    """Row counts off the 64-row tile (one row, one past a tile, a ragged
+    last tile) through the row-tile pass, uncentered and centered, with
+    16-byte copies (E = 4096) and element copies (E = 300, 4099)."""
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 13 + E, R, E,
+                                              dense=not with_fill)
+    x = _t(x_i if storage == "int8" else x_f)
+    f = _t(fill) if with_fill else None
+    fd = None if f is None else f.to(dev)
+    rng = np.random.default_rng(R + E)
+    V = _t(rng.standard_normal((E, 16)).astype(np.float32))
+    _close(ck.storage_matmat(x.to(dev), V.to(dev), fd),
+           ck.storage_matmat(x, V, f), f"storage_matmat R={R}")
+    got = ck.apply_weighted_cov_block(x.to(dev), _t(mu).to(dev),
+                                      _t(rep).to(dev), V[:, :8].to(dev), fd,
+                                      emit_t=True)
+    ref = ck.apply_weighted_cov_block(x, _t(mu), _t(rep), V[:, :8], f,
+                                      emit_t=True)
+    _close(got[0], ref[0], f"apply_weighted_cov_block y R={R}")
+    _close(got[1], ref[1], f"apply_weighted_cov_block t R={R}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_centered_projections_match_uncentered(dev, storage, k):
+    """The centered row-tile launch of apply_weighted_cov_block
+    (``emit_t``) against the uncentered one of storage_matmat less
+    ``1 (mu V)``: the same projections by the two instantiations."""
+    R, E = 517, 2048
+    x_f, x_i, rep, fill, mu, v = make_storage(R + E + k, R, E)
+    x = _t(x_i if storage == "int8" else x_f).to(dev)
+    V = _t(np.random.default_rng(k).standard_normal((E, k))
+           .astype(np.float32)).to(dev)
+    mud, fd = _t(mu).to(dev), _t(fill).to(dev)
+    _, t = ck.apply_weighted_cov_block(x, mud, _t(rep).to(dev), V, fd,
+                                       emit_t=True)
+    ref = ck.storage_matmat(x, V, fd) - (mud @ V)[None, :]
+    _close(t, ref, f"centered projections k={k}")
 
 
 @pytest.mark.cuda

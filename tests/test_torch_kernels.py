@@ -217,9 +217,10 @@ def test_storage_matvec_matches_pallas(R, E, storage, with_fill):
 @pytest.mark.parametrize("R,E", SHAPES)
 @pytest.mark.parametrize("storage", ["int8", "float32"])
 @pytest.mark.parametrize("with_fill", [True, False])
-@pytest.mark.parametrize("k", [1, 5, 12])
+@pytest.mark.parametrize("k", [1, 5, 12, 16, 17])
 def test_storage_matmat_matches_pallas(R, E, storage, with_fill, k):
-    """k = 12 runs the group loop (8 + 4 columns)."""
+    """k = 16 is one group of the group loop (one launch on the card),
+    k = 17 two (16 + 1 columns)."""
     x_f, x_i, rep, fill, mu, v = make_storage(R * 23 + E + k, R, E)
     if not with_fill:
         x_f = np.where(np.isnan(x_f), np.float32(1.0), x_f)
@@ -388,7 +389,9 @@ def test_hopper_fit_gates():
     assert ck.fused_pca_fits(100_000, 1) and ck.fused_pca_fits(100_000, 4)
     assert not ck.fused_pca_fits(100_000, 2)
     # the one-pass block kernel is instantiated for k = 1..8; the
-    # uncentered products split any k into groups of at most 8
+    # uncentered products split any k into groups of at most 16 columns
+    # (storage_matmat) or 8 rows (storage_rows_matmat)
+    assert (ck.MAX_BLOCK_K, ck.MAX_TILE_K) == (8, 16)
     for fits in (ck.cov_block_kernel_fits, ck.matmat_kernels_fit):
         assert fits(100_000, 1, 1) and fits(100_000, 8, 4)
         assert not fits(100_000, 0, 1) and not fits(100_000, 5, 2)
