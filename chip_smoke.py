@@ -18,9 +18,10 @@ Phases, each printing its seconds:
    covariance at k = 5 with and without its centered projections, the
    uncentered products (``storage_matvec``, ``storage_matmat`` at k = 12
    in one launch, the rows product at k = 6) and the fill statistics;
-   ``storage_matmat`` is also timed on int8 at k = 4 and k = 16, and the
-   uncentered products against one PyTorch call (``torch.mv``, ``@``) on
-   a dense float32 matrix;
+   ``storage_matmat`` is also timed on int8 at k = 4 and k = 16, the rows
+   product at k = 1, 12 and 16 (one launch each), and the uncentered
+   products against one PyTorch call (``torch.mv``, ``@``) on a dense
+   float32 matrix;
 4. drive the main paths, ``sharded_consensus`` on pre-encoded int8
    storage with the default device and ``pca_method="auto"``, at
    ``max_iterations`` 1 and 3: sztorc, then fixed-variance and ica (which
@@ -537,22 +538,28 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], worst_abs)
         del xf
-        # how storage_matmat's time grows with k, on int8: one launch each
-        for k in (4, 16):
-            Vk = torch.randn((E, k), generator=g, device=dev)
-            got = ck.storage_matmat(x8, Vk, fill)
-            ref = ck.storage_matmat_plain(x8, Vk, fill)
+        # how the two uncentered block products' time grows with k, on
+        # int8: one launch each
+        grows = [("storage_matmat", k, torch.randn((E, k), generator=g,
+                                                   device=dev))
+                 for k in (4, 16)]
+        grows += [("storage_rows_matmat", k,
+                   torch.randn((k, R), generator=g, device=dev))
+                  for k in (1, 12, 16)]
+        for kname, k, B in grows:
+            kern = getattr(ck, kname)
+            got = kern(x8, B, fill)
+            ref = getattr(ck, kname + "_plain")(x8, B, fill)
             d, r = max_rel_err(torch, got, ref)
             if r > FULL_RTOL:
-                raise RuntimeError(f"storage_matmat k={k} [int8] disagrees "
-                                   f"with its plain version: {r:.3e}")
-            k_ms = time_ms(torch, lambda: ck.storage_matmat(x8, Vk, fill),
-                           args.reps)
-            b_ms, b_by = bound_ms(R * E + 4 * (E + k * E) + 4 * k * R,
+                raise RuntimeError(f"{kname} k={k} [int8] disagrees with its "
+                                   f"plain version: {r:.3e}")
+            k_ms = time_ms(torch, lambda: kern(x8, B, fill), args.reps)
+            n_out = k * (R if kname == "storage_matmat" else E)
+            b_ms, b_by = bound_ms(R * E + 4 * (E + B.numel() + n_out),
                                   2 * k * R * E)
-            stats["storage_matmat"]["max_abs_err"] = max(
-                stats["storage_matmat"]["max_abs_err"], d)
-            log(f"storage_matmat k={k} [int8]: kernel {k_ms:.4f} ms, bound "
+            stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], d)
+            log(f"{kname} k={k} [int8]: kernel {k_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}) on {card}; max_abs_err {d:.3e}")
         # one PyTorch call computes each uncentered product where no entry
         # is absent: time it on the filled matrix in float32, beside the

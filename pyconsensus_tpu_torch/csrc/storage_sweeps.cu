@@ -13,9 +13,11 @@
 //       t = filled(X) loading, then [q; o; c] = [t; rep; 1]^T filled(X)
 //   apply_weighted_cov_block  (:853; _cov_block_kernel :754)
 //       T = (X - 1 mu^T) V for an (E, k) block (the row-tile pass,
-//       centered), then Y = (X - 1 mu^T)^T (rep * T), k = 1..8
+//       centered), then Y = (X - 1 mu^T)^T (rep * T) (the column-tile
+//       pass, centered), k = 1..8
 //   storage_rows_matmat       (:978; _rows_matmat_kernel :935)
-//       W filled(X) for a (k, R) stack of row vectors, k = 1..8 a launch
+//       W filled(X) for a (k, R) stack of row vectors: the column-tile
+//       pass, uncentered, one launch per group of at most 16 rows
 //   fill_stats_pass           (:627; _fill_stats_kernel :595)
 //       tw = rep^T [present], numer = rep^T (value, 0 where absent)
 //
@@ -28,27 +30,29 @@
 //   (b) row-tile pass, T[c, i] = sum_e xc_ie V[e, c] for k <= 16 columns
 //       (_matmat_kernel, and the row half of _cov_block_kernel). See
 //       row_tile_kernel below.
-//   (c) column pass: out_ke = sum_i w_ki xc_ie for k = 1..8 weight rows
-//       (w = rep * t for a covariance, [t, rep, 1] for the scores, the
-//       caller's W for rows_matmat), run as (row chunk x column tile)
-//       blocks into [n_chunks, k, E] partials, then a fixed-order reduce
-//       over the chunks. The fill statistics are a column pass of their
-//       own with two sums per column. No float atomics anywhere.
+//   (c) column-tile pass, out[c, e] = sum_i W[c, i] xc_ie for k <= 16
+//       weight rows: the body of _rows_matmat_kernel :935 and the column
+//       halves of _apply_cov_kernel :424 (W = rep * t),
+//       _scores_dirfix_kernel :1024 (W = [t; rep; 1]) and
+//       _cov_block_kernel :754 (W = (rep * T)^T). See col_tile_kernel
+//       below. The fill statistics are a column pass of their own with
+//       two sums per column, into per-chunk partials. No float atomics
+//       anywhere.
 // xc is decoded in registers: int8 x * 0.5 with x < 0 absent, float with
 // NaN absent; with a fill vector an absent entry takes a_e (fill - mu for
 // the covariance, fill for the uncentered products), otherwise val - m_e
-// (m = 0 for the uncentered row pass; the row-tile pass compiles the
+// (m = 0 for the uncentered row pass; the two tile passes compile the
 // centering out instead).
 //
 // Bound. One read of X is R*E*itemsize (1.0 GB at 10000 x 100000 int8,
-// ~0.30 ms at 3.35 TB/s); the row pass, the column pass and the fill
-// statistics are bound by it. The row-tile pass does 2kRE float32
-// operations: 2.4e10 at k = 12, 0.358 ms at 67 TFLOP/s, just above its
-// one read of X, so at int8 it is bound by the FMA pipe and the
-// instructions around it, on float32 storage (4 GB, 1.19 ms) by bytes.
-// A covariance application reads X twice (row-tile pass, then column
-// pass), so it cannot beat twice the byte bound; the one-read fusion is
-// later work.
+// ~0.30 ms at 3.35 TB/s); the row pass and the fill statistics are bound
+// by it. The two tile passes do 2kRE float32 operations: at int8 they are
+// bound by the one read of X up to k = 8 (0.30 ms) and by the operations
+// above it (0.358 ms at k = 12, 0.478 at k = 16, at 67 TFLOP/s), so there
+// the FMA pipe and the instructions around it hold them; on float32
+// storage (4 GB, 1.19 ms) by bytes. A covariance application reads X
+// twice (row-tile pass, then column-tile pass), so it cannot beat twice
+// the byte bound; the one-read fusion is later work.
 //
 // The row-tile pass. A block owns 64 rows and one of S ranges of E (grid
 // (ceil(R / 64), S)); it walks its range in chunks of 512 bytes a row and
@@ -67,11 +71,38 @@
 // any k, and the group loop of storage_matmat changes no bit. One launch
 // takes k <= 16, so k = 12 reads X once.
 //
-// Tensor cores are left out. A product faithful to float32 needs V split
-// into three TF32 or bf16 pieces (the TPU kernel's compensated bf16
-// halves, _matmat_kernel), and at k <= 16 the float32-operation bound
-// (0.358 ms at k = 12) is within 1.2x of the byte bound (0.30 ms), so
-// mma/wgmma could win at most about 0.06 ms a launch.
+// The column-tile pass is the same tiling turned on its side. A block
+// owns a tile of 512 bytes of each row (512 int8 or 128 float32 columns)
+// and one of S ranges of rows (grid (ceil(E / tile), S)); it walks its
+// range in chunks of 64 rows, and the same 3-stage cp.async ring brings
+// each chunk's X tile (32 KB) and W's chunk as float32 (k x 64) into
+// shared memory; the tile's fill and mu go into registers once per
+// block. A chunk wholly inside the matrix is copied with no bounds
+// checks, a pointer add and a cp.async a granule (the checked copies'
+// address arithmetic cost 0.05-0.07 ms a launch, tools/col_tile_lab.py);
+// the ragged edges take the row-tile pass's checked helpers. A thread
+// owns 4 adjacent columns and sums 4 x k of them over its share of each
+// chunk's rows (32 rows at int8, 8 at float32); per 4 rows it loads each
+// W row's 4 values as one float4 that every lane of the warp reads at
+// the same address (a broadcast), so a W value feeds 4 columns' FMAs and
+// a decoded entry k. The row groups' sums of a column are added in a
+// fixed order through shared memory at the end. At most 128 registers a
+// thread (k >= 11 spills about 100 bytes) and at most 110.6 KB of shared
+// memory a block let two blocks share an SM, so one block's copies and
+// barriers hide behind the other's FMAs (one block an SM was 0.04-0.1 ms
+// slower a launch at every k); S is
+// the fewest row ranges whose blocks best fill the last wave of two
+// blocks per SM (196 tiles x 4 = 784 blocks at 10000 x 100000 int8, 2.97
+// waves of 264), so the partials are S x k x E floats (19 MB at k = 12)
+// and not a fifth of X. Tile, chunk and S never depend on k: rows 0-7 of
+// a k = 12 launch equal a k = 8 launch bit for bit, and one launch takes
+// k <= 16, so the separable arm's 12 and 13 rows read X once.
+//
+// Tensor cores are left out. A product faithful to float32 needs V (or
+// W) split into three TF32 or bf16 pieces (the TPU kernel's compensated
+// bf16 halves, _matmat_kernel), and at k <= 16 the float32-operation
+// bound (0.358 ms at k = 12, 0.478 at k = 16) is within 1.6x of the byte
+// bound (0.30 ms), so mma/wgmma could win at most about 0.18 ms a launch.
 
 #include <atomic>
 #include <utility>
@@ -206,20 +237,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// One chunk (columns e0 .. e0 + tile_cols) of the X tile, vt, fill and mu
-// into a stage. With vec every copy is a 16-byte cp.async (rows, vt rows
-// and vectors all start 16-byte aligned); otherwise a row start may not
-// be, and each element is copied on its own. Rows past R and columns past
-// E are zero: a zero vt column makes them add nothing.
-template <typename T, bool CENTER, int K>
-__device__ __forceinline__ void stage_chunk(
-    unsigned char* st, const T* __restrict__ x, long long R, long long E,
-    long long r0, long long e0, const float* __restrict__ m,
-    const float* __restrict__ a, const float* __restrict__ vt, bool vec) {
+// The X tile of rows r0 .. r0 + 63 and columns e0 .. e0 + tile_cols into
+// xs (row-major, tile_cols a row), zero past R and past E. With vec each
+// copy is a 16-byte cp.async (every row starts 16-byte aligned);
+// otherwise a row start may not be, and each element is copied on its
+// own.
+template <typename T>
+__device__ __forceinline__ void stage_x_tile(T* xs, const T* __restrict__ x,
+                                             long long R, long long E,
+                                             long long r0, long long e0,
+                                             bool vec) {
   constexpr int BK = tile_cols<T>();
   constexpr int GPR = kTileBytes / 16;                 // granules per row
-  T* xs = reinterpret_cast<T*>(st);
-  float* vs = reinterpret_cast<float*>(st + kTileRows * kTileBytes);
   if (vec) {
     for (int g = threadIdx.x; g < kTileRows * GPR; g += kTileThreads) {
       const int r = g / GPR;
@@ -236,6 +265,20 @@ __device__ __forceinline__ void stage_chunk(
       xs[i] = (row < R && e < E) ? x[row * E + e] : T(0);
     }
   }
+}
+
+// One chunk (columns e0 .. e0 + tile_cols) of the X tile, vt, fill and mu
+// into a stage, 16-byte copies with vec (rows, vt rows and vectors all
+// start 16-byte aligned), element copies otherwise. Columns past E are
+// zero: a zero vt column makes them add nothing.
+template <typename T, bool CENTER, int K>
+__device__ __forceinline__ void stage_chunk(
+    unsigned char* st, const T* __restrict__ x, long long R, long long E,
+    long long r0, long long e0, const float* __restrict__ m,
+    const float* __restrict__ a, const float* __restrict__ vt, bool vec) {
+  constexpr int BK = tile_cols<T>();
+  float* vs = reinterpret_cast<float*>(st + kTileRows * kTileBytes);
+  stage_x_tile(reinterpret_cast<T*>(st), x, R, E, r0, e0, vec);
   stage_rows(vs, vt, E, K, e0, E, BK, vec);
   if (a != nullptr) stage_rows(vs + K * BK, a, 0, 1, e0, E, BK, vec);
   if constexpr (CENTER) stage_rows(vs + (K + 1) * BK, m, 0, 1, e0, E, BK, vec);
@@ -389,50 +432,164 @@ row_tile_kernel(const T* __restrict__ x, long long R, long long E,
   }
 }
 
-template <typename T, int VW, bool FILL, int K>
-__global__ void __launch_bounds__(kColThreads)
-col_partial_kernel(const T* __restrict__ x, long long R, long long E,
-                   const float* __restrict__ m, const float* __restrict__ a,
-                   const float* __restrict__ w, long long rows_per_chunk,
-                   float* __restrict__ partial) {
-  const long long e =
-      (static_cast<long long>(blockIdx.x) * kColThreads + threadIdx.x) * VW;
-  if (e >= E) return;
-  const long long chunk = blockIdx.y;
-  const long long r0 = chunk * rows_per_chunk;
-  long long r1 = r0 + rows_per_chunk;
-  if (r1 > R) r1 = R;
-  float mv[VW], av[VW];
+// Geometry of the column-tile pass: the row-tile pass's X tile (64 rows x
+// 512 bytes) walked down the rows. A thread owns 4 adjacent columns of
+// the tile: tile_cols / 4 threads span a row (128 at int8, 32 at
+// float32), and the block's 256 threads form row groups (2 or 8) that
+// each sum 32 or 8 rows of every chunk. Two blocks share an SM.
+constexpr int kColTileBlocksPerSm = 2;
+
+template <typename T>
+__host__ __device__ constexpr int col_row_groups() {
+  return kTileThreads / (tile_cols<T>() / 4);
+}
+
+// bytes of one column-tile stage: the X tile and K rows of W's chunk
+template <int K>
+__host__ __device__ constexpr int col_stage_bytes() {
+  return kTileRows * kTileBytes + K * kTileRows * 4;
+}
+
+// out[split, c, e] = sum over the split's rows i of w[c, i] * xc[i, e]
+// for c < K and the block's tile of columns (the layout of the partials
+// that reduce_chunks_kernel sums; with one split, the (K, E) result
+// itself). flags: bit 0, the X tile takes 16-byte copies; bit 1, W's
+// chunk does. The chunks of the split pass through a ring of kStages
+// stages: the copy of chunk q + 2 is in flight while chunk q is summed.
+// A thread keeps K x 4 sums, adds its rows in order, and the row groups'
+// sums meet in shared memory, added in group order.
+template <typename T, bool CENTER, int K>
+__global__ void __launch_bounds__(kTileThreads, kColTileBlocksPerSm)
+col_tile_kernel(const T* __restrict__ x, long long R, long long E,
+                const float* __restrict__ m, const float* __restrict__ a,
+                const float* __restrict__ w, int flags, int n_splits,
+                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BK = tile_cols<T>();
+  constexpr int CG = BK / 4;                         // threads along a row
+  constexpr int RG = col_row_groups<T>();
+  constexpr int RPG = kTileRows / RG;                // rows of a group
+  constexpr int SB = col_stage_bytes<K>();
+  const bool xvec = flags & 1;
+  const bool wvec = flags & 2;
+  const int grp = threadIdx.x / CG;
+  const int col = 4 * (threadIdx.x % CG);
+  const long long e0 = static_cast<long long>(blockIdx.x) * BK;
+  const long long n_chunks = (R + kTileRows - 1) / kTileRows;
+  const long long per_split = (n_chunks + n_splits - 1) / n_splits;
+  const long long q0 = blockIdx.y * per_split;
+  const long long q1 = q0 + per_split < n_chunks ? q0 + per_split : n_chunks;
+  const int n = q1 > q0 ? static_cast<int>(q1 - q0) : 0;
+  const bool has_fill = a != nullptr;
+  const bool live = e0 + col < E;         // some of the 4 columns is real
+
+  float fv[4], mv[4];
 #pragma unroll
-  for (int j = 0; j < VW; ++j) {
-    mv[j] = m[e + j];
-    av[j] = FILL ? a[e + j] : 0.f;
+  for (int j = 0; j < 4; ++j) {
+    const long long e = e0 + col + j;
+    fv[j] = (has_fill && e < E) ? a[e] : 0.f;
+    mv[j] = (CENTER && e < E) ? m[e] : 0.f;
   }
-  float acc[K][VW];
+  float acc[K][4];
 #pragma unroll
-  for (int k = 0; k < K; ++k)
+  for (int c = 0; c < K; ++c)
 #pragma unroll
-    for (int j = 0; j < VW; ++j) acc[k][j] = 0.f;
-  for (long long r = r0; r < r1; ++r) {
-    const Vec<T, VW> xv = pyc::load_vec<T, VW>(x + r * E + e);
-    float wk[K];
+    for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+
+  // The copies of a chunk land where stage_x_tile and stage_rows put
+  // them: thread t's granules are t % 32 of tile rows t / 32 + 8j (j < 8),
+  // and granule t of W's chunk (K x 16 of them). A chunk wholly inside R,
+  // of a tile wholly inside E, takes them with no checks: the source
+  // advances by whole rows, so a copy is a pointer add and a cp.async.
+  constexpr int GPR = kTileBytes / 16;               // granules per row
+  constexpr int RPS = kTileThreads / GPR;            // rows per sweep
+  const bool fast = xvec && wvec && e0 + BK <= E;
+  const long long sweep = static_cast<long long>(RPS) * E;
+  const T* xsrc = x + (q0 * kTileRows + threadIdx.x / GPR) * E + e0 +
+                  (threadIdx.x % GPR) * (16 / static_cast<int>(sizeof(T)));
+  const bool wcopy = threadIdx.x < K * (kTileRows / 4);
+  const float* wsrc =
+      w + (wcopy ? (threadIdx.x / (kTileRows / 4)) * R + q0 * kTileRows +
+                       4 * (threadIdx.x % (kTileRows / 4))
+                 : 0);
+  auto stage = [&](int i) {
+    unsigned char* st = smem + (i % kStages) * SB;
+    const long long r0 = (q0 + i) * kTileRows;
+    if (fast && r0 + kTileRows <= R) {
+      const T* src = xsrc + static_cast<long long>(i) * kTileRows * E;
+      unsigned char* dst = st + threadIdx.x * 16;
 #pragma unroll
-    for (int k = 0; k < K; ++k) wk[k] = w[k * R + r];
+      for (int j = 0; j < kTileRows / RPS; ++j)
+        cp_async16(dst + j * RPS * kTileBytes, src + j * sweep, 16);
+      if (wcopy)
+        cp_async16(dst + kTileRows * kTileBytes, wsrc + i * kTileRows, 16);
+    } else {
+      stage_x_tile(reinterpret_cast<T*>(st), x, R, E, r0, e0, xvec);
+      stage_rows(reinterpret_cast<float*>(st + kTileRows * kTileBytes), w,
+                 R, K, r0, R, kTileRows, wvec);
+    }
+  };
 #pragma unroll
-    for (int j = 0; j < VW; ++j) {
-      float val;
-      bool absent;
-      pyc::decode(xv.v[j], val, absent);
-      const float xc = (FILL && absent) ? av[j] : val - mv[j];
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) stage(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();           // chunk i is in; chunk i - 1 is summed
+    if (i + kStages - 1 < n) stage(i + kStages - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const unsigned char* st = smem + (i % kStages) * SB;
+    const T* xs = reinterpret_cast<const T*>(st) + grp * RPG * BK + col;
+    const float* ws =
+        reinterpret_cast<const float*>(st + kTileRows * kTileBytes) +
+        grp * RPG;
+#pragma unroll 1
+    for (int r = 0; r < RPG; r += 4) {
+      float xc[4][4];
 #pragma unroll
-      for (int k = 0; k < K; ++k) acc[k][j] += wk[k] * xc;
+      for (int j = 0; j < 4; ++j) {
+        float val[4];
+        bool absent[4];
+        decode4(xs + (r + j) * BK, val, absent);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          xc[j][q] = (has_fill && absent[q])
+                         ? fv[q]
+                         : (CENTER ? val[q] - mv[q] : val[q]);
+      }
+      // W[c, r .. r + 3]: one broadcast float4 feeds 4 rows x 4 columns;
+      // each sum takes its rows in order
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(ws + c * kTileRows + r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[c][q] = fmaf(xc[j][q], (&wv.x)[j], acc[c][q]);
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();             // the ring is free for the group sums
+
+  float* red = reinterpret_cast<float*>(smem);       // [RG][K][BK]
 #pragma unroll
-  for (int k = 0; k < K; ++k)
+  for (int c = 0; c < K; ++c)
+    *reinterpret_cast<float4*>(red + (grp * K + c) * BK + col) =
+        make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < K * BK; i += kTileThreads) {
+    const long long e = e0 + i % BK;
+    if (e >= E) continue;
+    float s = red[i];
 #pragma unroll
-    for (int j = 0; j < VW; ++j)
-      partial[(chunk * K + k) * E + e + j] = acc[k][j];
+    for (int g = 1; g < RG; ++g) s += red[g * K * BK + i];
+    out[(static_cast<long long>(blockIdx.y) * K + i / BK) * E + e] = s;
+  }
 }
 
 // One column-pass term of the fill statistics. int8 takes the select-free
@@ -519,70 +676,17 @@ void launch_row(const T* x, long long R, long long E, const float* m,
                                                                v, t);
 }
 
-template <typename T, int VW, int K>
-void launch_col(const T* x, long long R, long long E, const float* m,
-                const float* a, const float* w, long long n_chunks,
-                float* partial, cudaStream_t s) {
-  const long long rows_per_chunk = (R + n_chunks - 1) / n_chunks;
-  const long long per_block = static_cast<long long>(kColThreads) * VW;
-  dim3 grid(static_cast<unsigned>((E + per_block - 1) / per_block),
-            static_cast<unsigned>(n_chunks));
-  if (a != nullptr)
-    col_partial_kernel<T, VW, true, K><<<grid, kColThreads, 0, s>>>(
-        x, R, E, m, a, w, rows_per_chunk, partial);
-  else
-    col_partial_kernel<T, VW, false, K><<<grid, kColThreads, 0, s>>>(
-        x, R, E, m, a, w, rows_per_chunk, partial);
-}
-
-// int8 loads 16 columns a thread up to K = 4 and 8 beyond, so that the
-// K x VW sums stay within 64 registers
-template <typename T, int K>
-void launch_col_vw(const T* x, long long R, long long E, const float* m,
-                   const float* a, const float* w, long long n_chunks,
-                   float* partial, cudaStream_t s) {
-  constexpr int VW = (sizeof(T) == 1 && K > 4) ? 8 : 16 / sizeof(T);
-  if (E % VW == 0 && pyc::aligned16(x))
-    launch_col<T, VW, K>(x, R, E, m, a, w, n_chunks, partial, s);
-  else
-    launch_col<T, 1, K>(x, R, E, m, a, w, n_chunks, partial, s);
-}
-
-template <typename T>
-int col_pass(const T* x, long long R, long long E, const float* m,
-             const float* a, const float* w, int k, long long n_chunks,
-             float* partial, float* out, cudaStream_t s) {
-  switch (k) {
-    case 1: launch_col_vw<T, 1>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 2: launch_col_vw<T, 2>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 3: launch_col_vw<T, 3>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 4: launch_col_vw<T, 4>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 5: launch_col_vw<T, 5>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 6: launch_col_vw<T, 6>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 7: launch_col_vw<T, 7>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    case 8: launch_col_vw<T, 8>(x, R, E, m, a, w, n_chunks, partial, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return reduce_chunks(partial, n_chunks, static_cast<long long>(k) * E, out,
-                       s);
-}
-
-// E ranges of the row-tile pass for an R x E matrix on a card of n_sm
-// SMs: of 1 .. kMaxSplits ranges (at most one per chunk of columns), the
-// fewest whose blocks fill the last wave of one block per SM best, so
-// that few blocks pay the pipeline's start and the last wave leaves few
-// SMs idle (10000 rows: 157 tiles x 5 ranges = 5.95 waves of 132). A
-// function of R, E, the storage type and the card, never of K.
-int row_tile_splits(long long R, long long E, int itemsize, int n_sm) {
-  const long long tiles = (R + kTileRows - 1) / kTileRows;
-  const long long cols = kTileBytes / itemsize;
-  const long long chunks = (E + cols - 1) / cols;
+// Of 1 .. kMaxSplits ranges (at most one per chunk), the fewest whose
+// tiles x ranges blocks fill the last wave of `slots` resident blocks
+// best, so that few blocks pay the pipeline's start and the last wave
+// leaves few SMs idle.
+int wave_splits(long long tiles, long long chunks, long long slots) {
   int best = 1;
   double best_fill = 0.0;
   for (int s = 1; s <= kMaxSplits && s <= chunks; ++s) {
     const long long blocks = tiles * s;
-    const long long waves = (blocks + n_sm - 1) / n_sm;
-    const double fill = static_cast<double>(blocks) / (waves * n_sm);
+    const long long waves = (blocks + slots - 1) / slots;
+    const double fill = static_cast<double>(blocks) / (waves * slots);
     if (fill > best_fill + 1e-3) {
       best = s;
       best_fill = fill;
@@ -591,26 +695,51 @@ int row_tile_splits(long long R, long long E, int itemsize, int n_sm) {
   return best;
 }
 
+// E ranges of the row-tile pass for an R x E matrix on a card of n_sm
+// SMs, one block per SM (10000 rows: 157 tiles x 5 ranges = 5.95 waves
+// of 132). A function of R, E, the storage type and the card, never of K.
+int row_tile_splits(long long R, long long E, int itemsize, int n_sm) {
+  const long long cols = kTileBytes / itemsize;
+  return wave_splits((R + kTileRows - 1) / kTileRows, (E + cols - 1) / cols,
+                     n_sm);
+}
+
+// Row ranges of the column-tile pass, two blocks per SM (100000 int8
+// columns: 196 tiles x 4 ranges = 2.97 waves of 264). Never of K.
+int col_tile_splits(long long R, long long E, int itemsize, int n_sm) {
+  const long long cols = kTileBytes / itemsize;
+  return wave_splits((E + cols - 1) / cols, (R + kTileRows - 1) / kTileRows,
+                     static_cast<long long>(kColTileBlocksPerSm) * n_sm);
+}
+
+// Above 48 KB of dynamic shared memory a kernel must opt in, once per
+// device; `opted` holds a bit per device.
+template <typename Kernel>
+int opt_in_smem(Kernel kernel, int smem,
+                std::atomic<unsigned long long>& opted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted.fetch_or(bit);
+  }
+  return 0;
+}
+
 template <typename T, bool CENTER, int K>
 int launch_row_tile(const T* x, long long R, long long E, const float* m,
                     const float* a, const float* vt, int n_splits,
                     float* out, cudaStream_t s) {
   constexpr int smem = kStages * stage_bytes<T, CENTER, K>();
   static_assert(smem <= 232448, "stages exceed a block's shared memory");
-  // above 48 KB of dynamic shared memory a kernel must opt in, once per
-  // device
   static std::atomic<unsigned long long> opted{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(opted.load() & bit)) {
-    err = cudaFuncSetAttribute(row_tile_kernel<T, CENTER, K>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted.fetch_or(bit);
-  }
+  const int err = opt_in_smem(row_tile_kernel<T, CENTER, K>, smem, opted);
+  if (err != 0) return err;
   const bool vec = (E * static_cast<long long>(sizeof(T))) % 16 == 0 &&
                    pyc::aligned16(x) && pyc::aligned16(vt) &&
                    (a == nullptr || pyc::aligned16(a)) &&
@@ -651,6 +780,62 @@ int row_tile_pass(const T* x, long long R, long long E, const float* m,
                                         n_splits, out, s);
   if (err != 0 || n_splits == 1) return err;
   return reduce_chunks(partial, n_splits, static_cast<long long>(k) * R, t, s);
+}
+
+template <typename T, bool CENTER, int K>
+int launch_col_tile(const T* x, long long R, long long E, const float* m,
+                    const float* a, const float* w, int n_splits,
+                    float* out, cudaStream_t s) {
+  constexpr int smem = kStages * col_stage_bytes<K>();
+  static_assert(kColTileBlocksPerSm * (smem + 1024) <= 233472,
+                "two blocks' stages exceed an SM's shared memory");
+  static_assert(col_row_groups<T>() * K * tile_cols<T>() * 4 <= smem,
+                "the group sums exceed the ring");
+  static std::atomic<unsigned long long> opted{0};
+  const int err = opt_in_smem(col_tile_kernel<T, CENTER, K>, smem, opted);
+  if (err != 0) return err;
+  // 16-byte copies of X's rows, and of W's rows
+  const bool xvec = (E * static_cast<long long>(sizeof(T))) % 16 == 0 &&
+                    pyc::aligned16(x);
+  const bool wvec = R % 4 == 0 && pyc::aligned16(w);
+  const int flags = (xvec ? 1 : 0) | (wvec ? 2 : 0);
+  const long long cols = tile_cols<T>();
+  dim3 grid(static_cast<unsigned>((E + cols - 1) / cols),
+            static_cast<unsigned>(n_splits));
+  col_tile_kernel<T, CENTER, K><<<grid, kTileThreads, smem, s>>>(
+      x, R, E, m, a, w, flags, n_splits, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for k, K = 1 .. sizeof...(Ks)
+template <typename T, bool CENTER, int... Ks>
+int launch_col_tile_k(int k, std::integer_sequence<int, Ks...>, const T* x,
+                      long long R, long long E, const float* m,
+                      const float* a, const float* w, int n_splits,
+                      float* out, cudaStream_t s) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  ((k == Ks + 1 ? (err = launch_col_tile<T, CENTER, Ks + 1>(
+                       x, R, E, m, a, w, n_splits, out, s))
+                : 0),
+   ...);
+  return err;
+}
+
+template <typename T>
+int col_tile_pass(const T* x, long long R, long long E, const float* m,
+                  const float* a, const float* w, int k, int n_splits,
+                  float* partial, float* y, cudaStream_t s) {
+  float* out = n_splits > 1 ? partial : y;
+  using Centered = std::make_integer_sequence<int, kMaxCenteredK>;
+  using Uncentered = std::make_integer_sequence<int, kMaxTileK>;
+  const int err =
+      m != nullptr
+          ? launch_col_tile_k<T, true>(k, Centered(), x, R, E, m, a, w,
+                                       n_splits, out, s)
+          : launch_col_tile_k<T, false>(k, Uncentered(), x, R, E, m, a, w,
+                                        n_splits, out, s);
+  if (err != 0 || n_splits == 1) return err;
+  return reduce_chunks(partial, n_splits, static_cast<long long>(k) * E, y, s);
 }
 
 template <typename T>
@@ -699,31 +884,31 @@ int pyc_row_pass(const void* x, int is_int8, long long R, long long E,
   return row_pass(static_cast<const float*>(x), R, E, m, a, v, t, s);
 }
 
-// out[k, e] = sum_i w[k, i] * xc[i, e] for k in 1..8, through
-// partial[n_chunks, k, E] and a fixed-order reduce.
+// out[c, e] = sum_i w[c, i] * xc[i, e] for c < k; w is (k, R) and out
+// (k, E). With m (centered), k in 1..8; without, k in 1..16. n_splits > 1
+// goes through partial[n_splits, k, E] and a fixed-order reduce.
 int pyc_col_pass(const void* x, int is_int8, long long R, long long E,
                  const float* m, const float* a, const float* w, int k,
-                 long long n_chunks, float* partial, float* out,
-                 void* stream) {
+                 int n_splits, float* partial, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_chunks < 1 || n_chunks > 65535)
+  if (n_splits < 1 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_int8)
-    return col_pass(static_cast<const int8_t*>(x), R, E, m, a, w, k,
-                    n_chunks, partial, out, s);
-  return col_pass(static_cast<const float*>(x), R, E, m, a, w, k, n_chunks,
-                  partial, out, s);
+    return col_tile_pass(static_cast<const int8_t*>(x), R, E, m, a, w, k,
+                         n_splits, partial, out, s);
+  return col_tile_pass(static_cast<const float*>(x), R, E, m, a, w, k,
+                       n_splits, partial, out, s);
 }
 
-// E ranges (partials) of pyc_row_tile_pass for an R x E matrix on the
-// current device; 0 if it cannot be queried.
-int pyc_row_tile_splits(long long R, long long E, int is_int8) {
-  int dev = 0, n_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || n_sm < 1)
-    return 0;
-  return row_tile_splits(R, E, is_int8 ? 1 : 4, n_sm);
+// Row ranges (partials) of pyc_col_pass, and E ranges of
+// pyc_row_tile_pass, for an R x E matrix on a card of n_sm SMs (the
+// caller queries it once per device).
+int pyc_col_tile_splits(long long R, long long E, int is_int8, int n_sm) {
+  return col_tile_splits(R, E, is_int8 ? 1 : 4, n_sm < 1 ? 1 : n_sm);
+}
+
+int pyc_row_tile_splits(long long R, long long E, int is_int8, int n_sm) {
+  return row_tile_splits(R, E, is_int8 ? 1 : 4, n_sm < 1 ? 1 : n_sm);
 }
 
 // t[c, i] = sum_e xc[i, e] * vt[c, e] for c < k; vt is (k, E) and t

@@ -37,10 +37,11 @@ _SIGNATURES = {
     "storage_sweeps.cu": {
         # x, is_int8, R, E, m, a, v, t, stream
         "pyc_row_pass": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P),
-        # x, is_int8, R, E, m, a, w, k, n_chunks, partial, out, stream
-        "pyc_col_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _LL, _P, _P, _P),
-        # R, E, is_int8
-        "pyc_row_tile_splits": (_LL, _LL, _I),
+        # x, is_int8, R, E, m, a, w, k, n_splits, partial, out, stream
+        "pyc_col_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P, _P),
+        # R, E, is_int8, n_sm
+        "pyc_col_tile_splits": (_LL, _LL, _I, _I),
+        "pyc_row_tile_splits": (_LL, _LL, _I, _I),
         # x, is_int8, R, E, m, a, vt, k, n_splits, partial, t, stream
         "pyc_row_tile_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P,
                               _P),

@@ -17,7 +17,8 @@ return order:
 - :func:`storage_matmat` — the uncentered ``filled(X) V`` for an (E, k)
   block (``csrc/storage_sweeps.cu``, the row-tile pass, uncentered);
 - :func:`storage_rows_matmat` — ``W filled(X)`` for a (k, R) stack
-  (``csrc/storage_sweeps.cu``);
+  (``csrc/storage_sweeps.cu``, the column-tile pass, uncentered, one
+  launch per group of at most 16 rows);
 - :func:`fill_stats_pass` — the per-column present mass and
   reputation-weighted sum (``csrc/storage_sweeps.cu``);
 - :func:`resolve_certainty_fused` — outcomes, certainty and
@@ -35,6 +36,7 @@ with float atomics.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -52,7 +54,7 @@ __all__ = ["apply_weighted_cov", "apply_weighted_cov_plain",
            "cov_block_kernel_fits", "matmat_kernels_fit",
            "resolve_kernel_fits", "resolve_block_cols", "resolve_smem_bytes",
            "launch_counts", "reset_launch_counts", "SMEM_PER_BLOCK",
-           "MAX_BLOCK_K", "MAX_TILE_K"]
+           "MAX_BLOCK_K", "MAX_TILE_K", "MAX_ROWS_K"]
 
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
@@ -63,17 +65,21 @@ _RES_COLS = (32, 16, 8, 4, 2, 1)
 #: two rows of per-warp partials per column (16 warps) and the block's
 #: outcome and fill columns (csrc/resolve.cu kAuxFloats)
 _RES_AUX_FLOATS = 2 * 16 * max(_RES_COLS) + 2 * max(_RES_COLS)
-#: rows per chunk of the column-sum pass: bounds the partials buffer to
-#: ``ceil(R / rows) * k * E`` floats while keeping enough blocks in flight
+#: row chunks of fill_stats_pass, its only user: at most this many
+#: chunks, so the partials buffer holds at most ``64 * 2 * E`` floats
+#: while enough blocks stay in flight (10,000 rows: 64 chunks of 157)
 _COL_CHUNK_MAX = 64
-#: the widest (E, k) block of apply_weighted_cov_block and (k, R) stack of
-#: one column-pass launch: the centered row-tile pass and the column pass
-#: are instantiated for k = 1..8 (csrc/storage_sweeps.cu).
-#: storage_rows_matmat splits a wider stack into groups of this many rows.
+#: the widest (E, k) block of apply_weighted_cov_block: its centered
+#: row-tile and column-tile passes are instantiated for k = 1..8
+#: (csrc/storage_sweeps.cu)
 MAX_BLOCK_K = 8
 #: the widest (E, k) block of one uncentered row-tile launch (k = 1..16);
 #: storage_matmat splits a wider block into groups of this many columns
 MAX_TILE_K = 16
+#: the widest (k, R) stack of one uncentered column-tile launch
+#: (k = 1..16); storage_rows_matmat splits a wider stack into groups of
+#: this many rows
+MAX_ROWS_K = 16
 
 _COUNTS = {"apply_weighted_cov": 0, "storage_matvec": 0,
            "scores_dirfix_pass": 0, "storage_matmat": 0,
@@ -107,11 +113,11 @@ def cov_block_kernel_fits(n_events: int, n_components: int,
                           itemsize: int) -> bool:
     """Whether :func:`apply_weighted_cov_block` takes an E-wide matrix of
     ``itemsize`` bytes and an (E, k) block. Its passes stage E in chunks
-    and keep nothing E-wide on chip; the limit is the column pass and
-    the centered row-tile pass, each instantiated for ``1 <= k <= 8``
-    (the row-tile pass keeps 8k sums a thread, the part the TPU kernel's
-    VMEM plays). A wider block takes the separable arm of the orthogonal
-    iteration (:func:`storage_matmat`, then :func:`storage_rows_matmat`)."""
+    and keep nothing E-wide on chip; the limit is the centered row-tile
+    and column-tile passes, each instantiated for ``1 <= k <= 8`` (they
+    keep 8k and 4k sums a thread, the part the TPU kernel's VMEM plays).
+    A wider block takes the separable arm of the orthogonal iteration
+    (:func:`storage_matmat`, then :func:`storage_rows_matmat`)."""
     return (fused_pca_fits(n_events, itemsize)
             and 1 <= n_components <= MAX_BLOCK_K)
 
@@ -121,7 +127,7 @@ def matmat_kernels_fit(n_events: int, n_components: int,
     """Whether :func:`storage_matmat` and :func:`storage_rows_matmat` take
     k columns or rows against an E-wide matrix of ``itemsize`` bytes: any
     ``k >= 1``, in groups of at most ``MAX_TILE_K`` columns or
-    ``MAX_BLOCK_K`` rows per launch."""
+    ``MAX_ROWS_K`` rows per launch."""
     return fused_pca_fits(n_events, itemsize) and n_components >= 1
 
 
@@ -230,19 +236,33 @@ def _row_pass(lib, x, m, a, v):
     return t
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, queried once per device: the
+    tile passes' split counts (``pyc_row_tile_splits``,
+    ``pyc_col_tile_splits``) depend on R, E, the storage type and this,
+    never on k."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _col_pass(lib, x, m, a, w):
-    """``out[k, e] = sum_i w[k, i] * xc[i, e]`` through per-chunk partials
-    reduced in a fixed order."""
+    """``out = w xc`` (k, E) for a (k, R) stack ``w`` through one
+    column-tile launch: centered on ``m`` for k <= 8, uncentered (``m``
+    None) for k <= 16. The launch sums ``n_splits`` ranges of rows into
+    partials (fixed by R, E, the storage type and the card, never by k)
+    and reduces them in a fixed order."""
     R, E = x.shape
     k = w.shape[0]
-    n_chunks = _chunks(R)
-    partial = torch.empty((n_chunks, k, E), dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((k, E), dtype=torch.float32, device=x.device)
     is_int8, stream = _launch_args(x)
+    n_splits = lib.pyc_col_tile_splits(R, E, is_int8,
+                                       _sm_count(x.device.index))
+    out = torch.empty((k, E), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((n_splits, k, E), dtype=torch.float32,
+                           device=x.device) if n_splits > 1 else out)
     _raise_on(lib.pyc_col_pass(
-        x.data_ptr(), is_int8, R, E, m.data_ptr(),
-        a.data_ptr() if a is not None else None, w.data_ptr(), k, n_chunks,
+        x.data_ptr(), is_int8, R, E,
+        m.data_ptr() if m is not None else None,
+        a.data_ptr() if a is not None else None, w.data_ptr(), k, n_splits,
         partial.data_ptr(), out.data_ptr(), stream), "pyc_col_pass")
     return out
 
@@ -386,7 +406,7 @@ def scores_dirfix_pass(x, rep, loading, fill=None):
         zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
         t = _row_pass(lib, x, zeros, fill, loading)
         w3 = torch.stack([t, rep, torch.ones_like(t)]).contiguous()
-        acc = _col_pass(lib, x, zeros, fill, w3)               # q, o, c
+        acc = _col_pass(lib, x, None, fill, w3)                # q, o, c
     _COUNTS["scores_dirfix_pass"] += 1
     return t, acc[0], acc[2], acc[1]
 
@@ -452,9 +472,8 @@ def _row_tile(lib, x, m, a, V):
     k = V.shape[1]
     vt = V.T.contiguous()                                       # (k, E)
     is_int8, stream = _launch_args(x)
-    n_splits = lib.pyc_row_tile_splits(R, E, is_int8)
-    if n_splits < 1:
-        raise RuntimeError("pyc_row_tile_splits: cannot query the device")
+    n_splits = lib.pyc_row_tile_splits(R, E, is_int8,
+                                       _sm_count(x.device.index))
     t = torch.empty((k, R), dtype=torch.float32, device=x.device)
     partial = (torch.empty((n_splits, k, R), dtype=torch.float32,
                            device=x.device) if n_splits > 1 else t)
@@ -511,21 +530,21 @@ def storage_rows_matmat_plain(x, W, fill=None):
 
 def storage_rows_matmat(x, W, fill=None):
     """``W @ filled(x)`` for a (k, R') stack of row vectors over storage
-    ``x`` (R, E), uncentered, any ``k >= 1``; a W narrower than R is
-    zero-padded. Returns (k, E) f32. Replaces
+    ``x`` (R, E), uncentered, any ``k >= 1`` in groups of at most
+    ``MAX_ROWS_K`` (16) rows, one column-tile launch each; a W narrower
+    than R is zero-padded. Returns (k, E) f32. Replaces
     ``pallas_kernels.storage_rows_matmat``."""
     R, E = _check_matrix(x)
     W = _pad_weights(W, R, x)
     fill = _vec(fill, E, x, "fill") if fill is not None else None
     k = W.shape[0]
     if x.device.type == "cpu":
-        return _grouped(x, k, MAX_BLOCK_K,
+        return _grouped(x, k, MAX_ROWS_K,
                         lambda g: storage_rows_matmat_plain(x, W[g], fill),
                         0)
     lib = _storage_lib()
-    zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
-    out = _grouped(x, k, MAX_BLOCK_K,
-                   lambda g: _col_pass(lib, x, zeros, fill, W[g]), 0)
+    out = _grouped(x, k, MAX_ROWS_K,
+                   lambda g: _col_pass(lib, x, None, fill, W[g]), 0)
     _COUNTS["storage_rows_matmat"] += 1
     return out
 

@@ -25,9 +25,9 @@ from pyconsensus_tpu_torch import (ConsensusParams, encode_reports_host,
                                    sharded_consensus)
 from pyconsensus_tpu_torch.ops import build, cuda_kernels as ck
 
-# ragged widths (E % 16 != 0) take the scalar-load kernels and the
-# row-tile pass's element copies, the rest the 16-byte ones; 1000 rows is
-# not a multiple of the 8-row blocks nor of the 64-row tiles
+# ragged widths (E % 16 != 0) take the scalar-load kernels and the tile
+# passes' element copies, the rest the 16-byte ones; 1000 rows is not a
+# multiple of the 8-row blocks nor of the 64-row tiles and chunks
 SHAPES = [(24, 12), (23, 300), (64, 300), (64, 4096), (1000, 4099),
           (517, 2048)]
 EXACT_KEYS = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
@@ -200,10 +200,10 @@ def test_block_sweeps_match_plain(dev, R, E, storage, k):
 @pytest.mark.parametrize("with_fill", [True, False])
 def test_uncentered_products_match_plain(dev, R, E, storage, with_fill):
     """storage_matvec, and storage_matmat and storage_rows_matmat at k up
-    to 33 (one row-tile launch up to 16 columns, groups of 16 beyond; the
-    rows product in groups of 8). The tiling does not depend on k, so a
-    column's bits are the same in any launch: the first 16 columns at
-    k = 17 equal a k = 16 call, and the first 8 at k = 12 a k = 8 call."""
+    to 33 (one row-tile or column-tile launch up to 16 columns or rows,
+    groups of 16 beyond). The tilings do not depend on k, so a column's
+    or row's bits are the same in any launch: the first 16 at k = 17 and
+    33 equal a k = 16 call, and the first 8 at k = 12 a k = 8 call."""
     x_f, x_i, rep, fill, mu, v = make_storage(R * 11 + E, R, E,
                                               dense=not with_fill)
     x = _t(x_i if storage == "int8" else x_f)
@@ -224,6 +224,9 @@ def test_uncentered_products_match_plain(dev, R, E, storage, with_fill):
         got = ck.storage_rows_matmat(x.to(dev), W.to(dev), fd)
         _close(got, ck.storage_rows_matmat(x, W, f),
                f"storage_rows_matmat k={k}")
+        for n in {12: (8,), 17: (16,), 33: (16,)}.get(k, ()):
+            first = ck.storage_rows_matmat(x.to(dev), W[:n].to(dev), fd)
+            assert torch.equal(got[:n], first), (k, n)
 
 
 @pytest.mark.cuda
@@ -251,6 +254,40 @@ def test_row_tile_ragged_rows(dev, R, E, storage, with_fill):
                                       emit_t=True)
     _close(got[0], ref[0], f"apply_weighted_cov_block y R={R}")
     _close(got[1], ref[1], f"apply_weighted_cov_block t R={R}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 65, 1007])
+@pytest.mark.parametrize("E", [300, 4096, 4099])
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+@pytest.mark.parametrize("with_fill", [True, False])
+def test_col_tile_ragged(dev, R, E, storage, with_fill):
+    """Row counts off the 64-row chunk (one row, one past a chunk, a
+    ragged last chunk, none a multiple of 4, so W's chunks take element
+    copies) and widths off the column tile through the column-tile pass
+    at k = 1..16: uncentered through storage_rows_matmat, centered
+    through apply_weighted_cov_block at k <= 8, with 16-byte copies of
+    the X tile (E = 4096, and float32 at E = 300) and element copies
+    (int8 at E = 300, E = 4099)."""
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 17 + E, R, E,
+                                              dense=not with_fill)
+    x = _t(x_i if storage == "int8" else x_f)
+    f = _t(fill) if with_fill else None
+    fd = None if f is None else f.to(dev)
+    rng = np.random.default_rng(R * 3 + E)
+    for k in (1, 5, 8, 12, 16):
+        W = _t(rng.standard_normal((k, R)).astype(np.float32))
+        _close(ck.storage_rows_matmat(x.to(dev), W.to(dev), fd),
+               ck.storage_rows_matmat(x, W, f),
+               f"storage_rows_matmat R={R} E={E} k={k}")
+        if k > ck.MAX_BLOCK_K:
+            continue
+        V = _t(rng.standard_normal((E, k)).astype(np.float32))
+        got = ck.apply_weighted_cov_block(x.to(dev), _t(mu).to(dev),
+                                          _t(rep).to(dev), V.to(dev), fd)
+        ref = ck.apply_weighted_cov_block(x, _t(mu), _t(rep), V, f)
+        _close(got[0], ref[0],
+               f"apply_weighted_cov_block y R={R} E={E} k={k}")
 
 
 @pytest.mark.cuda

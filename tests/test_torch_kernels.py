@@ -238,10 +238,10 @@ def test_storage_matmat_matches_pallas(R, E, storage, with_fill, k):
 
 @pytest.mark.parametrize("R,E", SHAPES)
 @pytest.mark.parametrize("storage", ["int8", "float32"])
-@pytest.mark.parametrize("k", [9, 13])
+@pytest.mark.parametrize("k", [9, 13, 17])
 def test_storage_rows_matmat_groups_match_pallas(R, E, storage, k):
-    """A stack wider than one launch (8 rows) goes through the group loop
-    and still matches the Pallas kernel."""
+    """Stacks of 9 and 13 rows (one launch of up to 16 rows) and of 17
+    (the group loop: 16 rows, then 1) match the Pallas kernel."""
     x_f, x_i, rep, fill, mu, v = make_storage(R * 29 + E + k, R, E)
     x = x_i if storage == "int8" else x_f
     W = np.random.default_rng(k).standard_normal((k, R)).astype(np.float32)
@@ -390,8 +390,9 @@ def test_hopper_fit_gates():
     assert not ck.fused_pca_fits(100_000, 2)
     # the one-pass block kernel is instantiated for k = 1..8; the
     # uncentered products split any k into groups of at most 16 columns
-    # (storage_matmat) or 8 rows (storage_rows_matmat)
-    assert (ck.MAX_BLOCK_K, ck.MAX_TILE_K) == (8, 16)
+    # (storage_matmat, MAX_TILE_K) or 16 rows (storage_rows_matmat,
+    # MAX_ROWS_K)
+    assert (ck.MAX_BLOCK_K, ck.MAX_TILE_K, ck.MAX_ROWS_K) == (8, 16, 16)
     for fits in (ck.cov_block_kernel_fits, ck.matmat_kernels_fit):
         assert fits(100_000, 1, 1) and fits(100_000, 8, 4)
         assert not fits(100_000, 0, 1) and not fits(100_000, 5, 2)

@@ -10,10 +10,11 @@ Each run is a fresh process that imports ``pyconsensus_tpu_torch`` from
 its tree and builds that tree's kernels (cached in the tree after its
 first run). It draws the 10,000 x 100,000 int8 matrix of
 ``chip_smoke.py`` (the one beside this script, so both trees get the
-same bits) and, per algorithm, times 20 resolutions of
-``sharded_consensus`` at ``max_iterations=1`` after one warm-up, with
-the host clock around them and a ``torch.cuda.synchronize()`` at each
-end. It prints one JSON line per
+same bits) and, per configuration (sztorc, fixed-variance and ica at
+their default components, then fixed-variance and ica at 12 components,
+the separable arm), times 20 resolutions of ``sharded_consensus`` at
+``max_iterations=1`` after one warm-up, with the host clock around them
+and a ``torch.cuda.synchronize()`` at each end. It prints one JSON line per
 run, then a summary of each tree's rates in run order. Compare two trees
 only within one call: a card may run below its power limit's clocks.
 """
@@ -30,7 +31,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALGORITHMS = ("sztorc", "fixed-variance", "ica")
+#: (label, algorithm, max_components or None for the default)
+CONFIGS = (("sztorc", "sztorc", None),
+           ("fixed-variance", "fixed-variance", None),
+           ("ica", "ica", None),
+           ("fixed-variance separable", "fixed-variance", 12),
+           ("ica separable", "ica", 12))
 R, E = 10_000, 100_000
 RESOLUTIONS = 20
 SEED = 2
@@ -39,7 +45,7 @@ RUN_TIMEOUT = 600
 
 
 def child(tree: str) -> dict:
-    """One run: the rates of each algorithm with the package of
+    """One run: the rates of each configuration with the package of
     ``tree``."""
     import torch
 
@@ -60,19 +66,20 @@ def child(tree: str) -> dict:
     dev = torch.device("cuda")
     x8, truth = smoke.gen_reports(torch, R, E, SEED, dev)
     rates, correct = {}, {}
-    for algo in ALGORITHMS:
+    for label, algo, k in CONFIGS:
+        extra = {"max_components": k} if k else {}
         p = ConsensusParams(algorithm=algo, storage_dtype="int8",
                             max_iterations=1, power_tol=1e-5,
-                            pca_method="auto")
+                            pca_method="auto", **extra)
         sharded_consensus(x8, params=p)                      # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(RESOLUTIONS):
             out = sharded_consensus(x8, params=p)
         torch.cuda.synchronize()
-        rates[algo] = RESOLUTIONS / (time.perf_counter() - t0)
-        correct[algo] = float((out["outcomes_adjusted"] == truth)
-                              .float().mean())
+        rates[label] = RESOLUTIONS / (time.perf_counter() - t0)
+        correct[label] = float((out["outcomes_adjusted"] == truth)
+                               .float().mean())
     return {"tree": name, "rates": rates, "outcomes_equal_truth": correct}
 
 
@@ -116,7 +123,7 @@ def main(argv=None) -> int:
         print(json.dumps(result), flush=True)
         rates[name].append(result["rates"])
     print(json.dumps({"resolutions_per_s": {
-        name: {algo: [r[algo] for r in runs] for algo in ALGORITHMS}
+        name: {label: [r[label] for r in runs] for label, _, _ in CONFIGS}
         for name, runs in rates.items()},
         "order": order, "max_iterations": 1, "shape": [R, E]}),
         flush=True)

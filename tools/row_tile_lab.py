@@ -128,6 +128,7 @@ def main(argv=None) -> int:
              ("float32 k=12", xf, 12, None, fill))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     stream = torch.cuda.current_stream().cuda_stream
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     times = {}
     for _ in range(2):
         for name, path in libs.items():
@@ -135,10 +136,10 @@ def main(argv=None) -> int:
             run = lib.pyc_row_tile_pass
             run.argtypes = [P, I, LL, LL, P, P, P, I, I, P, P, P]
             run.restype = I
-            lib.pyc_row_tile_splits.argtypes = [LL, LL, I]
+            lib.pyc_row_tile_splits.argtypes = [LL, LL, I, I]
             for case, x, k, m, fv in cases:
                 is8 = int(x.dtype == torch.int8)
-                S = lib.pyc_row_tile_splits(R, E, is8)
+                S = lib.pyc_row_tile_splits(R, E, is8, n_sm)
                 part = torch.empty((S, k, R), device=dev)
                 t = torch.empty((k, R), device=dev)
                 args = (x.data_ptr(), is8, R, E,
