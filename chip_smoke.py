@@ -21,7 +21,10 @@ Phases, each printing its seconds:
    ``storage_matmat`` is also timed on int8 at k = 4 and k = 16, the rows
    product at k = 1, 12 and 16 (one launch each), and the uncentered
    products against one PyTorch call (``torch.mv``, ``@``) on a dense
-   float32 matrix;
+   float32 matrix. The row halves of the sztorc sweeps and
+   ``storage_matvec`` are the row-tile pass at k = 1: on int8 each must
+   equal the k = 1 call of ``storage_matmat`` or
+   ``apply_weighted_cov_block`` bit for bit;
 4. drive the main paths, ``sharded_consensus`` on pre-encoded int8
    storage with the default device and ``pca_method="auto"``, at
    ``max_iterations`` 1 and 3: sztorc, then fixed-variance and ica (which
@@ -32,7 +35,10 @@ Phases, each printing its seconds:
    placed once, against the single-device outcomes; fixed-variance and
    ica at 12 components (the separable arm); and sztorc with the
    fill-statistics kernel gated on, as an A/B against the plain fill
-   statistics;
+   statistics. ``--profile`` then prints the device time by kernel name
+   of one resolution of each path (the tile passes under
+   ``row_tile_kernel<storage, centered, k>`` and
+   ``col_tile_kernel<...>``);
 5. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two;
@@ -538,6 +544,26 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], worst_abs)
         del xf
+        # the matvecs are the row-tile pass at k = 1, whose tiling does
+        # not depend on k: on int8 each equals the k = 1 block call
+        same = {
+            "storage_matvec": (ck.storage_matvec(x8, v, fill),
+                               ck.storage_matmat(x8, v[:, None],
+                                                 fill)[:, 0]),
+            "scores_dirfix_pass": (ck.scores_dirfix_pass(x8, rep, v,
+                                                         fill)[0],
+                                   ck.storage_matvec(x8, v, fill)),
+            "apply_weighted_cov": (
+                ck.apply_weighted_cov(x8, mu, rep, v, fill),
+                ck.apply_weighted_cov_block(x8, mu, rep, v[:, None],
+                                            fill)[0][:, 0]),
+        }
+        for kname, (a, b) in same.items():
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{kname} [int8]: not the bits of the "
+                                   "k = 1 row-tile call")
+        log("storage_matvec, scores_dirfix_pass t, apply_weighted_cov "
+            "[int8]: equal bit for bit to the k = 1 block calls")
         # how the two uncentered block products' time grows with k, on
         # int8: one launch each
         grows = [("storage_matmat", k, torch.randn((E, k), generator=g,

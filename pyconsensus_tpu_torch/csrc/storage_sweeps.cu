@@ -3,14 +3,17 @@
 // Replaces seven Pallas TPU kernels of pyconsensus_tpu/ops/pallas_kernels.py:
 //   apply_weighted_cov        (:468; _apply_cov_kernel :424,
 //                              _cov_panel_contribution :398)
-//       y = (X - mu)^T (rep * ((X - mu) v))
+//       t = (X - mu) v (the row-tile pass at k = 1, centered), then
+//       y = (X - mu)^T (rep * t) (the column-tile pass at k = 1, centered)
 //   storage_matvec            (:538; _matvec_kernel :511)
-//       t = filled(X) v, uncentered: the row pass with m = 0
+//       t = filled(X) v: the row-tile pass at k = 1, uncentered
 //   storage_matmat            (:720; _matmat_kernel :665)
 //       T = filled(X) V for an (E, k) block, uncentered: the row-tile
 //       pass, one launch per group of at most 16 columns
 //   scores_dirfix_pass        (:1056; _scores_dirfix_kernel :1024)
-//       t = filled(X) loading, then [q; o; c] = [t; rep; 1]^T filled(X)
+//       t = filled(X) loading (the row-tile pass at k = 1, uncentered),
+//       then [q; o; c] = [t; rep; 1]^T filled(X) (the column-tile pass,
+//       k = 3)
 //   apply_weighted_cov_block  (:853; _cov_block_kernel :754)
 //       T = (X - 1 mu^T) V for an (E, k) block (the row-tile pass,
 //       centered), then Y = (X - 1 mu^T)^T (rep * T) (the column-tile
@@ -25,12 +28,12 @@
 // (E,) or (k, E) result across them in VMEM, so X is read once per sweep.
 // Hopper blocks run in no order and carry nothing between them, so each
 // contraction is a pass of its own that shares one decode:
-//   (a) row pass: t_i = sum_e xc_ie v_e, one block per 8 rows, a
-//       fixed-order block sum per row.
-//   (b) row-tile pass, T[c, i] = sum_e xc_ie V[e, c] for k <= 16 columns
-//       (_matmat_kernel, and the row half of _cov_block_kernel). See
+//   (a) row-tile pass, T[c, i] = sum_e xc_ie V[e, c] for k <= 16 columns:
+//       every row contraction, the body of _matmat_kernel and of
+//       _matvec_kernel (k = 1) and the row halves of _apply_cov_kernel
+//       (k = 1), _scores_dirfix_kernel (k = 1) and _cov_block_kernel. See
 //       row_tile_kernel below.
-//   (c) column-tile pass, out[c, e] = sum_i W[c, i] xc_ie for k <= 16
+//   (b) column-tile pass, out[c, e] = sum_i W[c, i] xc_ie for k <= 16
 //       weight rows: the body of _rows_matmat_kernel :935 and the column
 //       halves of _apply_cov_kernel :424 (W = rep * t),
 //       _scores_dirfix_kernel :1024 (W = [t; rep; 1]) and
@@ -41,28 +44,31 @@
 // xc is decoded in registers: int8 x * 0.5 with x < 0 absent, float with
 // NaN absent; with a fill vector an absent entry takes a_e (fill - mu for
 // the covariance, fill for the uncentered products), otherwise val - m_e
-// (m = 0 for the uncentered row pass; the two tile passes compile the
-// centering out instead).
+// when centered and val when not (the uncentered passes compile the
+// centering out and read no mean).
 //
 // Bound. One read of X is R*E*itemsize (1.0 GB at 10000 x 100000 int8,
-// ~0.30 ms at 3.35 TB/s); the row pass and the fill statistics are bound
-// by it. The two tile passes do 2kRE float32 operations: at int8 they are
-// bound by the one read of X up to k = 8 (0.30 ms) and by the operations
-// above it (0.358 ms at k = 12, 0.478 at k = 16, at 67 TFLOP/s), so there
-// the FMA pipe and the instructions around it hold them; on float32
-// storage (4 GB, 1.19 ms) by bytes. A covariance application reads X
-// twice (row-tile pass, then column-tile pass), so it cannot beat twice
-// the byte bound; the one-read fusion is later work.
+// ~0.30 ms at 3.35 TB/s); the fill statistics are bound by it. The two
+// tile passes do 2kRE float32 operations: at int8 they are bound by the
+// one read of X up to k = 8 (0.30 ms; at k = 1, the matvecs, the
+// operations alone would take 0.03 ms) and by the operations above it
+// (0.358 ms at k = 12, 0.478 at k = 16, at 67 TFLOP/s), so there the FMA
+// pipe and the instructions around it hold them; on float32 storage
+// (4 GB, 1.19 ms) by bytes. A covariance application reads X twice
+// (row-tile pass, then column-tile pass), so it cannot beat twice the
+// byte bound; the one-read fusion is later work.
 //
 // The row-tile pass. A block owns 64 rows and one of S ranges of E (grid
 // (ceil(R / 64), S)); it walks its range in chunks of 512 bytes a row and
 // copies each chunk's X tile (32 KB), the chunk of V^T as float32
 // (k x 512 int8 columns) and of fill (and mu) into shared memory once for
 // all 64 rows, with 16-byte cp.async copies through a ring of 3 stages,
-// so the copy of chunk q + 2 overlaps the FMAs of chunk q. A thread sums
-// 8 rows x k columns over 4 columns of each 128-column slice; a V value
-// it loads from shared memory feeds 8 rows, a decoded entry k columns,
-// which keeps shared memory under the FMA pipe's pace. The int8 decode
+// so the copy of chunk q + 2 overlaps the FMAs of chunk q (at k = 1, the
+// matvecs, two blocks share an SM, and the centered int8 ring has two
+// stages so that both fit). A thread sums 8 rows x k columns over 4
+// columns of each 128-column slice; a V value it loads from shared memory
+// feeds 8 rows, a decoded entry k columns, which keeps shared memory
+// under the FMA pipe's pace. The int8 decode
 // is integer ops and one FMA, no int-to-float conversion. The S range
 // sums go to partials that reduce_chunks_kernel adds in a fixed order;
 // S is the fewest ranges whose blocks best fill the last wave of one
@@ -113,54 +119,8 @@ namespace {
 
 using pyc::Vec;
 
-constexpr int kRowThreads = 256;
-constexpr int kRowsPerBlock = 8;
 constexpr int kColThreads = 128;
 constexpr int kReduceThreads = 256;
-
-template <typename T, int VW, bool FILL>
-__global__ void __launch_bounds__(kRowThreads)
-row_pass_kernel(const T* __restrict__ x, long long R, long long E,
-                const float* __restrict__ m, const float* __restrict__ a,
-                const float* __restrict__ v, float* __restrict__ t) {
-  __shared__ float scratch[kRowThreads / 32];
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRowsPerBlock;
-  float acc[kRowsPerBlock];
-#pragma unroll
-  for (int k = 0; k < kRowsPerBlock; ++k) acc[k] = 0.f;
-  for (long long e = static_cast<long long>(threadIdx.x) * VW; e < E;
-       e += static_cast<long long>(kRowThreads) * VW) {
-    float mv[VW], av[VW], vv[VW];
-#pragma unroll
-    for (int j = 0; j < VW; ++j) {
-      mv[j] = m[e + j];
-      av[j] = FILL ? a[e + j] : 0.f;
-      vv[j] = v[e + j];
-    }
-#pragma unroll
-    for (int k = 0; k < kRowsPerBlock; ++k) {
-      const long long r = r0 + k;
-      if (r < R) {
-        const Vec<T, VW> xv = pyc::load_vec<T, VW>(x + r * E + e);
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < VW; ++j) {
-          float val;
-          bool absent;
-          pyc::decode(xv.v[j], val, absent);
-          const float xc = (FILL && absent) ? av[j] : val - mv[j];
-          s += xc * vv[j];
-        }
-        acc[k] += s;
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kRowsPerBlock; ++k) {
-    const float s = pyc::block_sum<kRowThreads>(acc[k], scratch);
-    if (threadIdx.x == 0 && r0 + k < R) t[r0 + k] = s;
-  }
-}
 
 // Tile geometry of the row-tile kernel. A block owns kTileRows rows and
 // walks its share of E in chunks of kTileBytes bytes of each row (512
@@ -174,6 +134,8 @@ constexpr int kThreadRows = kTileRows / (kTileThreads / 32);
 constexpr int kTileBytes = 512;
 constexpr int kSliceCols = 128;
 constexpr int kStages = 3;
+// shared memory of one SM, of which each resident block also takes 1 KB
+constexpr int kSmemPerSm = 233472;
 // most E ranges (partials) of one row-tile launch
 constexpr int kMaxSplits = 16;
 // widest block of one launch: uncentered, and centered (the covariance's
@@ -192,6 +154,25 @@ template <typename T, bool CENTER, int K>
 __host__ __device__ constexpr int stage_bytes() {
   return kTileRows * kTileBytes +
          (K + 1 + (CENTER ? 1 : 0)) * tile_cols<T>() * 4;
+}
+
+// Resident blocks and ring stages of one row-tile launch. At k = 1 (the
+// matvecs) two blocks share an SM, so one block's copies and barriers hide
+// behind the other's sums; their rings must then fit the SM together,
+// which three centered int8 stages (116.7 KB a block) do not, so that
+// ring takes two. Neither changes the order of any sum, and S still counts
+// one block an SM at every k.
+template <int K>
+__host__ __device__ constexpr int row_blocks_per_sm() {
+  return K == 1 ? 2 : 1;
+}
+
+template <typename T, bool CENTER, int K>
+__host__ __device__ constexpr int row_stages() {
+  return row_blocks_per_sm<K>() * (kStages * stage_bytes<T, CENTER, K>() +
+                                   1024) <= kSmemPerSm
+             ? kStages
+             : 2;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -316,13 +297,14 @@ __device__ __forceinline__ void decode4(const float* p, float (&val)[4],
 // out[split, c, i] = sum over the split's columns e of xc[i, e] * vt[c, e]
 // for c < K and the block's 64 rows (the layout of the partials that
 // reduce_chunks_kernel sums; with one split, the (K, R) result itself).
-// The chunks of the split pass through a ring of kStages stages: the copy
-// of chunk q + 2 is in flight while chunk q is summed. A thread keeps
+// The chunks of the split pass through a ring of row_stages stages: the
+// copies of the next one or two chunks are in flight while chunk q is
+// summed. A thread keeps
 // 8 x K sums: each vt value it reads from shared memory feeds 8 rows, and
 // each decoded entry K columns. The 32 lanes' sums of a row are added in a
 // fixed shuffle tree at the end.
 template <typename T, bool CENTER, int K>
-__global__ void __launch_bounds__(kTileThreads, 1)
+__global__ void __launch_bounds__(kTileThreads, row_blocks_per_sm<K>())
 row_tile_kernel(const T* __restrict__ x, long long R, long long E,
                 const float* __restrict__ m, const float* __restrict__ a,
                 const float* __restrict__ vt, int vec, int n_splits,
@@ -330,6 +312,7 @@ row_tile_kernel(const T* __restrict__ x, long long R, long long E,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int BK = tile_cols<T>();
   constexpr int SB = stage_bytes<T, CENTER, K>();
+  constexpr int ST = row_stages<T, CENTER, K>();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
@@ -347,21 +330,21 @@ row_tile_kernel(const T* __restrict__ x, long long R, long long E,
     for (int c = 0; c < K; ++c) acc[r][c] = 0.f;
 
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
+  for (int i = 0; i < ST - 1; ++i) {
     if (i < n)
       stage_chunk<T, CENTER, K>(smem + i * SB, x, R, E, r0, (q0 + i) * BK, m,
                                 a, vt, vec);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<ST - 2>();
     __syncthreads();           // chunk i is in; chunk i - 1 is summed
-    const int nx = i + kStages - 1;
+    const int nx = i + ST - 1;
     if (nx < n)
-      stage_chunk<T, CENTER, K>(smem + (nx % kStages) * SB, x, R, E, r0,
+      stage_chunk<T, CENTER, K>(smem + (nx % ST) * SB, x, R, E, r0,
                                 (q0 + nx) * BK, m, a, vt, vec);
     cp_async_commit();
-    const unsigned char* st = smem + (i % kStages) * SB;
+    const unsigned char* st = smem + (i % ST) * SB;
     const T* xs = reinterpret_cast<const T*>(st) + warp * kThreadRows * BK;
     const float* vs =
         reinterpret_cast<const float*>(st + kTileRows * kTileBytes);
@@ -663,19 +646,6 @@ int reduce_chunks(const float* partial, long long n_chunks, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VW>
-void launch_row(const T* x, long long R, long long E, const float* m,
-                const float* a, const float* v, float* t, cudaStream_t s) {
-  const unsigned grid =
-      static_cast<unsigned>((R + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (a != nullptr)
-    row_pass_kernel<T, VW, true><<<grid, kRowThreads, 0, s>>>(x, R, E, m, a,
-                                                              v, t);
-  else
-    row_pass_kernel<T, VW, false><<<grid, kRowThreads, 0, s>>>(x, R, E, m, a,
-                                                               v, t);
-}
-
 // Of 1 .. kMaxSplits ranges (at most one per chunk), the fewest whose
 // tiles x ranges blocks fill the last wave of `slots` resident blocks
 // best, so that few blocks pay the pipeline's start and the last wave
@@ -735,8 +705,11 @@ template <typename T, bool CENTER, int K>
 int launch_row_tile(const T* x, long long R, long long E, const float* m,
                     const float* a, const float* vt, int n_splits,
                     float* out, cudaStream_t s) {
-  constexpr int smem = kStages * stage_bytes<T, CENTER, K>();
+  constexpr int smem =
+      row_stages<T, CENTER, K>() * stage_bytes<T, CENTER, K>();
   static_assert(smem <= 232448, "stages exceed a block's shared memory");
+  static_assert(row_blocks_per_sm<K>() * (smem + 1024) <= kSmemPerSm,
+                "the resident blocks' stages exceed an SM's shared memory");
   static std::atomic<unsigned long long> opted{0};
   const int err = opt_in_smem(row_tile_kernel<T, CENTER, K>, smem, opted);
   if (err != 0) return err;
@@ -787,7 +760,7 @@ int launch_col_tile(const T* x, long long R, long long E, const float* m,
                     const float* a, const float* w, int n_splits,
                     float* out, cudaStream_t s) {
   constexpr int smem = kStages * col_stage_bytes<K>();
-  static_assert(kColTileBlocksPerSm * (smem + 1024) <= 233472,
+  static_assert(kColTileBlocksPerSm * (smem + 1024) <= kSmemPerSm,
                 "two blocks' stages exceed an SM's shared memory");
   static_assert(col_row_groups<T>() * K * tile_cols<T>() * 4 <= smem,
                 "the group sums exceed the ring");
@@ -859,30 +832,9 @@ int fill_stats(const T* x, long long R, long long E, const float* rep,
   return reduce_chunks(partial, n_chunks, 2 * E, out, s);
 }
 
-template <typename T>
-int row_pass(const T* x, long long R, long long E, const float* m,
-             const float* a, const float* v, float* t, cudaStream_t s) {
-  constexpr int VW = 16 / sizeof(T);
-  if (E % VW == 0 && pyc::aligned16(x))
-    launch_row<T, VW>(x, R, E, m, a, v, t, s);
-  else
-    launch_row<T, 1>(x, R, E, m, a, v, t, s);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
-
-// t[i] = sum_e xc[i, e] * v[e]; a (absent value per column) may be null.
-int pyc_row_pass(const void* x, int is_int8, long long R, long long E,
-                 const float* m, const float* a, const float* v, float* t,
-                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_int8)
-    return row_pass(static_cast<const int8_t*>(x), R, E, m, a, v, t, s);
-  return row_pass(static_cast<const float*>(x), R, E, m, a, v, t, s);
-}
 
 // out[c, e] = sum_i w[c, i] * xc[i, e] for c < k; w is (k, R) and out
 // (k, E). With m (centered), k in 1..8; without, k in 1..16. n_splits > 1

@@ -35,8 +35,6 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: c_void_p, so ctypes never truncates them to 32 bits) and int return
 _SIGNATURES = {
     "storage_sweeps.cu": {
-        # x, is_int8, R, E, m, a, v, t, stream
-        "pyc_row_pass": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P),
         # x, is_int8, R, E, m, a, w, k, n_splits, partial, out, stream
         "pyc_col_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P, _P),
         # R, E, is_int8, n_sm

@@ -13,7 +13,7 @@ return order:
   an (E, k) block, with the centered ``(X - mu) V`` on request
   (``csrc/storage_sweeps.cu``);
 - :func:`storage_matvec` — the uncentered ``filled(X) v``
-  (``csrc/storage_sweeps.cu``, the row pass with a zero mean);
+  (``csrc/storage_sweeps.cu``, the row-tile pass at k = 1, uncentered);
 - :func:`storage_matmat` — the uncentered ``filled(X) V`` for an (E, k)
   block (``csrc/storage_sweeps.cu``, the row-tile pass, uncentered);
 - :func:`storage_rows_matmat` — ``W filled(X)`` for a (k, R) stack
@@ -200,10 +200,13 @@ def _block(V, n: int, like: torch.Tensor, name: str) -> torch.Tensor:
     return V.to(torch.float32).contiguous()
 
 
-def _aligned(v: torch.Tensor) -> torch.Tensor:
+def _aligned(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """``v`` itself when its data starts on a 16-byte boundary (the
-    row-tile pass copies it 16 bytes at a time), else a copy."""
-    return v if v.data_ptr() % 16 == 0 else v.clone()
+    row-tile pass copies it 16 bytes at a time), else a copy; None stays
+    None."""
+    if v is None or v.data_ptr() % 16 == 0:
+        return v
+    return v.clone()
 
 
 def _decode(x: torch.Tensor):
@@ -223,17 +226,6 @@ def _launch_args(x: torch.Tensor):
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
-def _row_pass(lib, x, m, a, v):
-    R, E = x.shape
-    t = torch.empty(R, dtype=torch.float32, device=x.device)
-    is_int8, stream = _launch_args(x)
-    _raise_on(lib.pyc_row_pass(
-        x.data_ptr(), is_int8, R, E, m.data_ptr(),
-        a.data_ptr() if a is not None else None, v.data_ptr(), t.data_ptr(),
-        stream), "pyc_row_pass")
-    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,7 +322,7 @@ def apply_weighted_cov(x, mu, rep, v, fill=None):
     lib = _storage_lib()
     with torch.cuda.device(x.device):
         a = (fill - mu).contiguous() if fill is not None else None
-        t = _row_pass(lib, x, mu, a, v)
+        t = _row_tile(lib, x, mu, a, v[:, None])[0]
         w = (rep * t).reshape(1, R).contiguous()
         y = _col_pass(lib, x, mu, a, w)[0]
     _COUNTS["apply_weighted_cov"] += 1
@@ -373,8 +365,7 @@ def storage_matvec(x, v, fill=None):
         return storage_matvec_plain(x, v, fill)
     lib = _storage_lib()
     with torch.cuda.device(x.device):
-        zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
-        t = _row_pass(lib, x, zeros, fill, v)
+        t = _row_tile(lib, x, None, fill, v[:, None])[0]
     _COUNTS["storage_matvec"] += 1
     return t
 
@@ -403,8 +394,7 @@ def scores_dirfix_pass(x, rep, loading, fill=None):
         return scores_dirfix_pass_plain(x, rep, loading, fill)
     lib = _storage_lib()
     with torch.cuda.device(x.device):
-        zeros = torch.zeros(E, dtype=torch.float32, device=x.device)
-        t = _row_pass(lib, x, zeros, fill, loading)
+        t = _row_tile(lib, x, None, fill, loading[:, None])[0]
         w3 = torch.stack([t, rep, torch.ones_like(t)]).contiguous()
         acc = _col_pass(lib, x, None, fill, w3)                # q, o, c
     _COUNTS["scores_dirfix_pass"] += 1
@@ -447,7 +437,6 @@ def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
                          f"{MAX_BLOCK_K} columns, got {k}")
     lib = _storage_lib()
     with torch.cuda.device(x.device):
-        mu = _aligned(mu)
         a = (fill - mu).contiguous() if fill is not None else None
         t = _row_tile(lib, x, mu, a, V)                         # (k, R)
         y = _col_pass(lib, x, mu, a, (rep[None, :] * t).contiguous())
@@ -464,13 +453,17 @@ def storage_matmat_plain(x, V, fill=None):
 
 def _row_tile(lib, x, m, a, V):
     """``T = (xc V)^T`` (k, R) through one row-tile launch: centered on
-    ``m`` for k <= 8, uncentered (``m`` None) for k <= 16. The launch
-    sums ``n_splits`` ranges of E into partials (fixed by R, E, the
-    storage type and the card, never by k) and reduces them in a fixed
-    order."""
+    ``m`` for k <= 8, uncentered (``m`` None) for k <= 16; every row
+    contraction of the port, k = 1 included. The launch sums
+    ``n_splits`` ranges of E into partials (fixed by R, E, the storage
+    type and the card, never by k) and reduces them in a fixed order.
+    ``vt``, ``a`` and ``m`` are staged 16 bytes at a time only when all
+    three start on a 16-byte boundary, so an unaligned view (a k = 1
+    column ``V`` is ``v`` itself) is copied first."""
     R, E = x.shape
     k = V.shape[1]
-    vt = V.T.contiguous()                                       # (k, E)
+    vt = _aligned(V.T.contiguous())                             # (k, E)
+    m, a = _aligned(m), _aligned(a)
     is_int8, stream = _launch_args(x)
     n_splits = lib.pyc_row_tile_splits(R, E, is_int8,
                                        _sm_count(x.device.index))
@@ -498,9 +491,8 @@ def storage_matmat(x, V, fill=None):
         return _grouped(x, k, MAX_TILE_K,
                         lambda g: storage_matmat_plain(x, V[:, g], fill), 1)
     lib = _storage_lib()
-    a = _aligned(fill) if fill is not None else None
     out = _grouped(x, k, MAX_TILE_K,
-                   lambda g: _row_tile(lib, x, None, a, V[:, g]).T, 1)
+                   lambda g: _row_tile(lib, x, None, fill, V[:, g]).T, 1)
     _COUNTS["storage_matmat"] += 1
     return out
 

@@ -25,9 +25,10 @@ from pyconsensus_tpu_torch import (ConsensusParams, encode_reports_host,
                                    sharded_consensus)
 from pyconsensus_tpu_torch.ops import build, cuda_kernels as ck
 
-# ragged widths (E % 16 != 0) take the scalar-load kernels and the tile
-# passes' element copies, the rest the 16-byte ones; 1000 rows is not a
-# multiple of the 8-row blocks nor of the 64-row tiles and chunks
+# ragged widths (E % 16 != 0) take the scalar-load kernels (resolve, the
+# fill statistics) and the tile passes' element copies, the rest the
+# 16-byte ones; 1000 rows is not a multiple of resolve's 8-row blocks nor
+# of the 64-row tiles and chunks
 SHAPES = [(24, 12), (23, 300), (64, 300), (64, 4096), (1000, 4099),
           (517, 2048)]
 EXACT_KEYS = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
@@ -87,19 +88,30 @@ def _close(got, ref, what):
 @pytest.mark.parametrize("storage", ["int8", "float32"])
 @pytest.mark.parametrize("with_fill", [True, False])
 def test_storage_sweeps_match_plain(dev, R, E, storage, with_fill):
+    """The sztorc sweeps against their plain versions. Their row halves
+    and storage_matvec are the row-tile pass at k = 1, whose tiling does
+    not depend on k: each equals the k = 1 call of storage_matmat or
+    apply_weighted_cov_block bit for bit (the covariance's column half is
+    the k = 1 column-tile launch in both)."""
     x_f, x_i, rep, fill, mu, v = make_storage(R + E, R, E,
                                               dense=not with_fill)
     x = _t(x_i if storage == "int8" else x_f)
     f = _t(fill) if with_fill else None
+    xd, mud, repd, vd = x.to(dev), _t(mu).to(dev), _t(rep).to(dev), \
+        _t(v).to(dev)
+    fd = None if f is None else f.to(dev)
     ref = ck.apply_weighted_cov(x, _t(mu), _t(rep), _t(v), f)
-    got = ck.apply_weighted_cov(x.to(dev), _t(mu).to(dev), _t(rep).to(dev),
-                                _t(v).to(dev), None if f is None else f.to(dev))
+    got = ck.apply_weighted_cov(xd, mud, repd, vd, fd)
     _close(got, ref, "apply_weighted_cov")
+    assert torch.equal(got, ck.apply_weighted_cov_block(
+        xd, mud, repd, vd[:, None], fd)[0][:, 0])
     ref = ck.scores_dirfix_pass(x, _t(rep), _t(v), f)
-    got = ck.scores_dirfix_pass(x.to(dev), _t(rep).to(dev), _t(v).to(dev),
-                                None if f is None else f.to(dev))
+    got = ck.scores_dirfix_pass(xd, repd, vd, fd)
     for name, g, r in zip("tqco", got, ref):
         _close(g, r, f"scores_dirfix {name}")
+    t = ck.storage_matvec(xd, vd, fd)
+    assert torch.equal(got[0], t)
+    assert torch.equal(t, ck.storage_matmat(xd, vd[:, None], fd)[:, 0])
 
 
 @pytest.mark.cuda
@@ -237,12 +249,24 @@ def test_uncentered_products_match_plain(dev, R, E, storage, with_fill):
 def test_row_tile_ragged_rows(dev, R, E, storage, with_fill):
     """Row counts off the 64-row tile (one row, one past a tile, a ragged
     last tile) through the row-tile pass, uncentered and centered, with
-    16-byte copies (E = 4096) and element copies (E = 300, 4099)."""
+    16-byte copies (E = 4096) and element copies (E = 300, 4099): at
+    k = 16 and 8, and at k = 1 through the three wrappers whose row half
+    it is (storage_matvec, scores_dirfix_pass, apply_weighted_cov)."""
     x_f, x_i, rep, fill, mu, v = make_storage(R * 13 + E, R, E,
                                               dense=not with_fill)
     x = _t(x_i if storage == "int8" else x_f)
     f = _t(fill) if with_fill else None
     fd = None if f is None else f.to(dev)
+    xd, mud, repd, vd = x.to(dev), _t(mu).to(dev), _t(rep).to(dev), \
+        _t(v).to(dev)
+    _close(ck.storage_matvec(xd, vd, fd), ck.storage_matvec(x, _t(v), f),
+           f"storage_matvec R={R}")
+    for name, g, r in zip("tqco", ck.scores_dirfix_pass(xd, repd, vd, fd),
+                          ck.scores_dirfix_pass(x, _t(rep), _t(v), f)):
+        _close(g, r, f"scores_dirfix {name} R={R}")
+    _close(ck.apply_weighted_cov(xd, mud, repd, vd, fd),
+           ck.apply_weighted_cov(x, _t(mu), _t(rep), _t(v), f),
+           f"apply_weighted_cov R={R}")
     rng = np.random.default_rng(R + E)
     V = _t(rng.standard_normal((E, 16)).astype(np.float32))
     _close(ck.storage_matmat(x.to(dev), V.to(dev), fd),
@@ -254,6 +278,43 @@ def test_row_tile_ragged_rows(dev, R, E, storage, with_fill):
                                       emit_t=True)
     _close(got[0], ref[0], f"apply_weighted_cov_block y R={R}")
     _close(got[1], ref[1], f"apply_weighted_cov_block t R={R}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+def test_row_tile_unaligned_vectors(dev, storage):
+    """v, mu and fill that start at an odd float offset of a larger
+    tensor: the wrappers copy them to a 16-byte boundary, so the pass
+    keeps its 16-byte copies, agrees with the plain version and gives the
+    bits of the aligned call."""
+    R, E = 517, 4096
+    x_f, x_i, rep, fill, mu, v = make_storage(R + E + 23, R, E)
+    x = _t(x_i if storage == "int8" else x_f).to(dev)
+    repd = _t(rep).to(dev)
+
+    def odd(a):
+        buf = torch.zeros(E + 3, dtype=torch.float32, device=dev)
+        buf[1:E + 1] = _t(a).to(dev)
+        out = buf[1:E + 1]
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    vo, muo, fo = odd(v), odd(mu), odd(fill)
+    va, mua, fa = vo.clone(), muo.clone(), fo.clone()
+    xh = x.cpu()
+    got = ck.storage_matvec(x, vo, fo)
+    _close(got, ck.storage_matvec(xh, _t(v), _t(fill)), "storage_matvec")
+    assert torch.equal(got, ck.storage_matvec(x, va, fa))
+    got = ck.scores_dirfix_pass(x, repd, vo, fo)
+    ref = ck.scores_dirfix_pass(xh, _t(rep), _t(v), _t(fill))
+    for name, g, r in zip("tqco", got, ref):
+        _close(g, r, f"scores_dirfix {name}")
+    for g, a in zip(got, ck.scores_dirfix_pass(x, repd, va, fa)):
+        assert torch.equal(g, a)
+    got = ck.apply_weighted_cov(x, muo, repd, vo, fo)
+    _close(got, ck.apply_weighted_cov(xh, _t(mu), _t(rep), _t(v), _t(fill)),
+           "apply_weighted_cov")
+    assert torch.equal(got, ck.apply_weighted_cov(x, mua, repd, va, fa))
 
 
 @pytest.mark.cuda

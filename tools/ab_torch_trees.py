@@ -12,7 +12,8 @@ first run). It draws the 10,000 x 100,000 int8 matrix of
 ``chip_smoke.py`` (the one beside this script, so both trees get the
 same bits) and, per configuration (sztorc, fixed-variance and ica at
 their default components, then fixed-variance and ica at 12 components,
-the separable arm), times 20 resolutions of ``sharded_consensus`` at
+the separable arm, then sztorc on an event mesh of four shards on the
+card, placed once before its warm-up), times 20 resolutions of ``sharded_consensus`` at
 ``max_iterations=1`` after one warm-up, with the host clock around them
 and a ``torch.cuda.synchronize()`` at each end. It prints one JSON line per
 run, then a summary of each tree's rates in run order. Compare two trees
@@ -31,12 +32,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: (label, algorithm, max_components or None for the default)
-CONFIGS = (("sztorc", "sztorc", None),
-           ("fixed-variance", "fixed-variance", None),
-           ("ica", "ica", None),
-           ("fixed-variance separable", "fixed-variance", 12),
-           ("ica separable", "ica", 12))
+#: (label, algorithm, max_components or None for the default, shards of
+#: an event mesh on the card or 0 for one device)
+CONFIGS = (("sztorc", "sztorc", None, 0),
+           ("fixed-variance", "fixed-variance", None, 0),
+           ("ica", "ica", None, 0),
+           ("fixed-variance separable", "fixed-variance", 12, 0),
+           ("ica separable", "ica", 12, 0),
+           ("sztorc mesh", "sztorc", None, 4))
 R, E = 10_000, 100_000
 RESOLUTIONS = 20
 SEED = 2
@@ -54,6 +57,8 @@ def child(tree: str) -> dict:
     import pyconsensus_tpu_torch
     from pyconsensus_tpu_torch import ConsensusParams, sharded_consensus
     from pyconsensus_tpu_torch.ops import build
+    from pyconsensus_tpu_torch.parallel.mesh import (make_mesh,
+                                                     place_event_shards)
 
     if not os.path.abspath(pyconsensus_tpu_torch.__file__).startswith(tree):
         raise RuntimeError(f"imported {pyconsensus_tpu_torch.__file__}, not "
@@ -66,16 +71,18 @@ def child(tree: str) -> dict:
     dev = torch.device("cuda")
     x8, truth = smoke.gen_reports(torch, R, E, SEED, dev)
     rates, correct = {}, {}
-    for label, algo, k in CONFIGS:
+    for label, algo, k, shards in CONFIGS:
         extra = {"max_components": k} if k else {}
         p = ConsensusParams(algorithm=algo, storage_dtype="int8",
                             max_iterations=1, power_tol=1e-5,
                             pca_method="auto", **extra)
-        sharded_consensus(x8, params=p)                      # warm-up
+        x = (place_event_shards(x8, make_mesh(devices=[dev] * shards))
+             if shards else x8)
+        sharded_consensus(x, params=p)                       # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(RESOLUTIONS):
-            out = sharded_consensus(x8, params=p)
+            out = sharded_consensus(x, params=p)
         torch.cuda.synchronize()
         rates[label] = RESOLUTIONS / (time.perf_counter() - t0)
         correct[label] = float((out["outcomes_adjusted"] == truth)
@@ -123,7 +130,7 @@ def main(argv=None) -> int:
         print(json.dumps(result), flush=True)
         rates[name].append(result["rates"])
     print(json.dumps({"resolutions_per_s": {
-        name: {label: [r[label] for r in runs] for label, _, _ in CONFIGS}
+        name: {label: [r[label] for r in runs] for label, *_ in CONFIGS}
         for name, runs in rates.items()},
         "order": order, "max_iterations": 1, "shape": [R, E]}),
         flush=True)
