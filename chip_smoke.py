@@ -24,7 +24,10 @@ Phases, each printing its seconds:
    float32 matrix. The row halves of the sztorc sweeps and
    ``storage_matvec`` are the row-tile pass at k = 1: on int8 each must
    equal the k = 1 call of ``storage_matmat`` or
-   ``apply_weighted_cov_block`` bit for bit;
+   ``apply_weighted_cov_block`` bit for bit. Resolve's snapped outcomes
+   and absent counts must equal the plain version's, and its two halves
+   (the column-panel kernel, the row-tile pass at k = 2 with the absent
+   op) are timed apart on both storages;
 4. drive the main paths, ``sharded_consensus`` on pre-encoded int8
    storage with the default device and ``pca_method="auto"``, at
    ``max_iterations`` 1 and 3: sztorc, then fixed-variance and ica (which
@@ -99,9 +102,11 @@ KERNELS = {
     "scores_dirfix_pass": (
         "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
         "pyconsensus_tpu/ops/pallas_kernels.py:1056"),
+    # the column half, then the row half (the row-tile pass at k = 2)
     "resolve_certainty_fused": (
         "pyconsensus_tpu_torch/csrc/resolve.cu",
-        "pyconsensus_tpu/ops/pallas_kernels.py:1275"),
+        "pyconsensus_tpu/ops/pallas_kernels.py:1275",
+        "pyconsensus_tpu_torch/csrc/storage_sweeps.cu"),
     "apply_weighted_cov_block": (
         "pyconsensus_tpu_torch/csrc/storage_sweeps.cu",
         "pyconsensus_tpu/ops/pallas_kernels.py:853"),
@@ -188,6 +193,21 @@ def time_ms(torch, fn, reps):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, reps):
+    """Milliseconds of device time per call of ``fn``: ``reps`` calls
+    back to back between two CUDA events (after one warm-up call), so the
+    card's queue never waits on the host."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(n_bytes, n_flops):
@@ -415,12 +435,14 @@ def run(args) -> int:
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
+         "sources": [KERNELS[k][0], *KERNELS[k][2:]],
          "replaces": KERNELS[k][1], "launches": launches[k],
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"],
          "bound_ms": stats[k]["bound_ms"],
          "bound_by": stats[k]["bound_by"],
-         "library_ms": stats[k]["library_ms"]}
+         "library_ms": stats[k]["library_ms"],
+         "float32_ms": stats[k].get("float32_ms")}
         for k in KERNELS]}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"ok": True, "device": {
@@ -541,8 +563,28 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                 if storage == "int8" and check == kname:
                     stats[kname].update(ms=k_ms, plain_ms=p_ms,
                                         bound_ms=b_ms, bound_by=b_by)
+                if storage == "float32" and check == kname:
+                    stats[kname]["float32_ms"] = k_ms
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], worst_abs)
+            # resolve's halves: the column-panel kernel (one read of X,
+            # rep and fill; four E-vectors out), then the row-tile pass at
+            # k = 2 over [cert; 1] (one read of X and 2E; 2R out)
+            cert = ck._resolve_columns(x, rep, fill, 1.0, 0.1)[2]
+            vt = torch.stack([cert, torch.ones_like(cert)])
+            halves = (("column half", lambda: ck._resolve_columns(
+                x, rep, fill, 1.0, 0.1), nb + 4 * (R + E) + 4 * 4 * E),
+                      ("row half", lambda: ck._absent_rows(x, vt),
+                       nb + 4 * 2 * E + 4 * 2 * R))
+            for half, fn, n_bytes in halves:
+                d_ms = device_ms(torch, fn, args.reps)
+                log(f"resolve_certainty_fused [{storage}] {half}: "
+                    f"{d_ms:.4f} ms of device time, bound "
+                    f"{bound_ms(n_bytes, 0)[0]:.4f} ms (bytes) on {card}")
+        log(f"resolve_certainty_fused around the call: int8 "
+            f"{stats['resolve_certainty_fused']['ms']:.4f} ms, float32+NaN "
+            f"{stats['resolve_certainty_fused']['float32_ms']:.4f} ms on "
+            f"{card}")
         del xf
         # the matvecs are the row-tile pass at k = 1, whose tiling does
         # not depend on k: on int8 each equals the k = 1 block call

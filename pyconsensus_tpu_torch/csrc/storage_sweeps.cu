@@ -1,6 +1,7 @@
 // Storage sweeps of the fused scoring steps, for sm_90a.
 //
-// Replaces seven Pallas TPU kernels of pyconsensus_tpu/ops/pallas_kernels.py:
+// Replaces seven Pallas TPU kernels of pyconsensus_tpu/ops/pallas_kernels.py,
+// and the row half of an eighth:
 //   apply_weighted_cov        (:468; _apply_cov_kernel :424,
 //                              _cov_panel_contribution :398)
 //       t = (X - mu) v (the row-tile pass at k = 1, centered), then
@@ -23,6 +24,10 @@
 //       pass, uncentered, one launch per group of at most 16 rows
 //   fill_stats_pass           (:627; _fill_stats_kernel :595)
 //       tw = rep^T [present], numer = rep^T (value, 0 where absent)
+//   resolve_certainty_fused   (:1275; _resolve_certainty_kernel :1117),
+//       its row half: [prow; narow] = [absent] [cert; 1]^T, the row-tile
+//       pass at k = 2 with the absent-indicator element op (the column
+//       half is csrc/resolve.cu)
 //
 // Design. On the TPU one sequential grid walks row panels and carries the
 // (E,) or (k, E) result across them in VMEM, so X is read once per sweep.
@@ -31,7 +36,8 @@
 //   (a) row-tile pass, T[c, i] = sum_e xc_ie V[e, c] for k <= 16 columns:
 //       every row contraction, the body of _matmat_kernel and of
 //       _matvec_kernel (k = 1) and the row halves of _apply_cov_kernel
-//       (k = 1), _scores_dirfix_kernel (k = 1) and _cov_block_kernel. See
+//       (k = 1), _scores_dirfix_kernel (k = 1) and _cov_block_kernel, and,
+//       with xc the absent indicator, resolve's row half (k = 2). See
 //       row_tile_kernel below.
 //   (b) column-tile pass, out[c, e] = sum_i W[c, i] xc_ie for k <= 16
 //       weight rows: the body of _rows_matmat_kernel :935 and the column
@@ -45,7 +51,9 @@
 // NaN absent; with a fill vector an absent entry takes a_e (fill - mu for
 // the covariance, fill for the uncentered products), otherwise val - m_e
 // when centered and val when not (the uncentered passes compile the
-// centering out and read no mean).
+// centering out and read no mean); under the absent op (resolve's row
+// half), xc is 1 where absent and 0 elsewhere, whose sums are exact
+// integers below 2^24 in any order.
 //
 // Bound. One read of X is R*E*itemsize (1.0 GB at 10000 x 100000 int8,
 // ~0.30 ms at 3.35 TB/s); the fill statistics are bound by it. The two
@@ -302,8 +310,8 @@ __device__ __forceinline__ void decode4(const float* p, float (&val)[4],
 // summed. A thread keeps
 // 8 x K sums: each vt value it reads from shared memory feeds 8 rows, and
 // each decoded entry K columns. The 32 lanes' sums of a row are added in a
-// fixed shuffle tree at the end.
-template <typename T, bool CENTER, int K>
+// fixed shuffle tree at the end. ABSENT: xc is the absent indicator.
+template <typename T, bool CENTER, int K, bool ABSENT = false>
 __global__ void __launch_bounds__(kTileThreads, row_blocks_per_sm<K>())
 row_tile_kernel(const T* __restrict__ x, long long R, long long E,
                 const float* __restrict__ m, const float* __restrict__ a,
@@ -371,7 +379,8 @@ row_tile_kernel(const T* __restrict__ x, long long R, long long E,
         decode4(xs + r * BK + col, val, absent);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          xc[r][j] = (has_fill && absent[j])
+          xc[r][j] = ABSENT ? (absent[j] ? 1.f : 0.f)
+                     : (has_fill && absent[j])
                          ? fv[j]
                          : (CENTER ? val[j] - mv[j] : val[j]);
       }
@@ -701,7 +710,7 @@ int opt_in_smem(Kernel kernel, int smem,
   return 0;
 }
 
-template <typename T, bool CENTER, int K>
+template <typename T, bool CENTER, int K, bool ABSENT = false>
 int launch_row_tile(const T* x, long long R, long long E, const float* m,
                     const float* a, const float* vt, int n_splits,
                     float* out, cudaStream_t s) {
@@ -711,7 +720,8 @@ int launch_row_tile(const T* x, long long R, long long E, const float* m,
   static_assert(row_blocks_per_sm<K>() * (smem + 1024) <= kSmemPerSm,
                 "the resident blocks' stages exceed an SM's shared memory");
   static std::atomic<unsigned long long> opted{0};
-  const int err = opt_in_smem(row_tile_kernel<T, CENTER, K>, smem, opted);
+  const int err =
+      opt_in_smem(row_tile_kernel<T, CENTER, K, ABSENT>, smem, opted);
   if (err != 0) return err;
   const bool vec = (E * static_cast<long long>(sizeof(T))) % 16 == 0 &&
                    pyc::aligned16(x) && pyc::aligned16(vt) &&
@@ -719,7 +729,7 @@ int launch_row_tile(const T* x, long long R, long long E, const float* m,
                    (!CENTER || pyc::aligned16(m));
   dim3 grid(static_cast<unsigned>((R + kTileRows - 1) / kTileRows),
             static_cast<unsigned>(n_splits));
-  row_tile_kernel<T, CENTER, K><<<grid, kTileThreads, smem, s>>>(
+  row_tile_kernel<T, CENTER, K, ABSENT><<<grid, kTileThreads, smem, s>>>(
       x, R, E, m, a, vt, vec ? 1 : 0, n_splits, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -753,6 +763,20 @@ int row_tile_pass(const T* x, long long R, long long E, const float* m,
                                         n_splits, out, s);
   if (err != 0 || n_splits == 1) return err;
   return reduce_chunks(partial, n_splits, static_cast<long long>(k) * R, t, s);
+}
+
+// t[c, i] = sum_e [x_ie absent] vt[c, e] for c < 2: resolve's row half
+// (vt = [cert; 1]), the uncentered row-tile pass with the absent op and
+// the tile, chunk and S of every other row contraction
+template <typename T>
+int row_tile_absent(const T* x, long long R, long long E, const float* vt,
+                    int n_splits, float* partial, float* t, cudaStream_t s) {
+  float* out = n_splits > 1 ? partial : t;
+  const int err = launch_row_tile<T, false, 2, true>(x, R, E, nullptr,
+                                                     nullptr, vt, n_splits,
+                                                     out, s);
+  if (err != 0 || n_splits == 1) return err;
+  return reduce_chunks(partial, n_splits, 2LL * R, t, s);
 }
 
 template <typename T, bool CENTER, int K>
@@ -877,6 +901,22 @@ int pyc_row_tile_pass(const void* x, int is_int8, long long R, long long E,
                          n_splits, partial, t, s);
   return row_tile_pass(static_cast<const float*>(x), R, E, m, a, vt, k,
                        n_splits, partial, t, s);
+}
+
+// t[c, i] = sum_e [x_ie absent] vt[c, e] for c < k, k = 2 only (resolve's
+// row half, vt = [cert; 1]); n_splits > 1 goes through partial[n_splits,
+// 2, R] and a fixed-order reduce.
+int pyc_row_tile_absent(const void* x, int is_int8, long long R, long long E,
+                        const float* vt, int k, int n_splits, float* partial,
+                        float* t, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k != 2 || n_splits < 1 || n_splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_int8)
+    return row_tile_absent(static_cast<const int8_t*>(x), R, E, vt, n_splits,
+                           partial, t, s);
+  return row_tile_absent(static_cast<const float*>(x), R, E, vt, n_splits,
+                         partial, t, s);
 }
 
 // out[0, e] = sum_i rep_i [present], out[1, e] = sum_i rep_i value_ie,

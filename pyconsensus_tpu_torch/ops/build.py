@@ -43,14 +43,16 @@ _SIGNATURES = {
         # x, is_int8, R, E, m, a, vt, k, n_splits, partial, t, stream
         "pyc_row_tile_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P,
                               _P),
+        # x, is_int8, R, E, vt, k, n_splits, partial, t, stream
+        "pyc_row_tile_absent": (_P, _I, _LL, _LL, _P, _I, _I, _P, _P, _P),
         # x, is_int8, R, E, rep, n_chunks, partial, out, stream
         "pyc_fill_stats": (_P, _I, _LL, _LL, _P, _LL, _P, _P, _P),
     },
     "resolve.cu": {
-        # x, is_int8, R, E, C, smem, rep, fill, scal, lo, hi,
-        # raw, out, cert, pcol, prow, narow, stream
-        "pyc_resolve_certainty": (_P, _I, _LL, _LL, _I, _LL, _P, _P, _P, _F,
-                                  _F, _P, _P, _P, _P, _P, _P, _P),
+        # x, is_int8, R, E, C, n_sm, rep, fill, rep_sum, full_total, lo,
+        # hi, raw, out, cert, pcol, stream
+        "pyc_resolve_cols": (_P, _I, _LL, _LL, _I, _I, _P, _P, _P, _P, _F,
+                             _F, _P, _P, _P, _P, _P),
     },
 }
 

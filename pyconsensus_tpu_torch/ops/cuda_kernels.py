@@ -22,7 +22,9 @@ return order:
 - :func:`fill_stats_pass` — the per-column present mass and
   reputation-weighted sum (``csrc/storage_sweeps.cu``);
 - :func:`resolve_certainty_fused` — outcomes, certainty and
-  participation in one call (``csrc/resolve.cu``).
+  participation in one call: the column-panel kernel of
+  ``csrc/resolve.cu``, then the row-tile pass at k = 2 with the
+  absent-indicator op (``csrc/storage_sweeps.cu``).
 
 A wrapper takes its plain version (``*_plain``, plain torch with the same
 arithmetic) only for a matrix that lies on the CPU. For a CUDA matrix it
@@ -61,10 +63,18 @@ SMEM_PER_BLOCK = 232448
 #: column-block widths the resolve kernel takes, widest first
 #: (csrc/resolve.cu instantiates each)
 _RES_COLS = (32, 16, 8, 4, 2, 1)
-#: floats of the resolve column kernel's shared memory after the panel:
-#: two rows of per-warp partials per column (16 warps) and the block's
-#: outcome and fill columns (csrc/resolve.cu kAuxFloats)
-_RES_AUX_FLOATS = 2 * 16 * max(_RES_COLS) + 2 * max(_RES_COLS)
+#: threads of a resolve column block, its most ring slots (one mbarrier
+#: each) and the fewest rows a thread takes into one slot
+#: (csrc/resolve.cu kResThreads, kMaxSlots, kMinChunkRows)
+_RES_THREADS = 512
+_RES_MAX_SLOTS = 32
+_RES_MIN_CHUNK_ROWS = 4
+#: the resolve gate: an R whose one-column panel takes at most this many
+#: bytes. It is the rule the front door has routed by since the first
+#: resolve kernel (a resident panel beside 4,352 bytes of partials); the
+#: chunk ring takes one column at every such R (tests/test_torch_kernels.py
+#: test_resolve_ring_takes_every_gated_r)
+_RES_MAX_PANEL_BYTES = 228096
 #: row chunks of fill_stats_pass, its only user: at most this many
 #: chunks, so the partials buffer holds at most ``64 * 2 * E`` floats
 #: while enough blocks stay in flight (10,000 rows: 64 chunks of 157)
@@ -131,18 +141,39 @@ def matmat_kernels_fit(n_events: int, n_components: int,
     return fused_pca_fits(n_events, itemsize) and n_components >= 1
 
 
+def _resolve_ring(block_cols: int, itemsize: int):
+    """The chunk ring of a resolve column block of C columns
+    (csrc/resolve.cu): ``(granule bytes, rows one pass of the block's
+    threads covers, rows a chunk takes per thread, ring slots, bytes
+    before the ring)``. A thread owns one granule of a panel row (the row
+    up to 16 bytes); the slots fill the shared memory beside the
+    mbarriers, the three rows of per-warp partials and the outcome and
+    fill columns, at most ``_RES_MAX_SLOTS`` of them."""
+    gb = min(block_cols * itemsize, 16)
+    rows = _RES_THREADS // (block_cols * itemsize // gb)
+    aux = -(-(_RES_MAX_SLOTS * 8 + 4 * (3 * (_RES_THREADS // 32) * block_cols
+                                        + 2 * block_cols)) // 16) * 16
+    granules = (SMEM_PER_BLOCK - aux) // (_RES_THREADS * gb)
+    per_chunk = max(_RES_MIN_CHUNK_ROWS, -(-granules // _RES_MAX_SLOTS))
+    return gb, rows, per_chunk, granules // per_chunk, aux
+
+
 def resolve_smem_bytes(n_reporters: int, block_cols: int,
                        itemsize: int) -> int:
-    """Dynamic shared memory of one resolve column block: the resident
-    ``R x C`` panel (16-byte aligned), the per-warp partials and the
-    block's outcome and fill columns."""
-    panel = -(-n_reporters * block_cols * itemsize // 16) * 16
-    return panel + _RES_AUX_FLOATS * 4
+    """Dynamic shared memory of one resolve column block: the mbarriers,
+    partials and outcome and fill columns, then the chunk ring, which
+    holds exactly the ``R x C`` panel's chunks (the rest of the SM's
+    shared memory serves as L1). Above ``SMEM_PER_BLOCK`` the panel does
+    not fit."""
+    gb, rows, per_chunk, _, aux = _resolve_ring(block_cols, itemsize)
+    chunks = -(-(-(-n_reporters // rows)) // per_chunk)
+    return aux + chunks * per_chunk * _RES_THREADS * gb
 
 
+@functools.lru_cache(maxsize=None)
 def resolve_block_cols(n_reporters: int, itemsize: int) -> Optional[int]:
-    """The widest column block whose panel fits one block's shared
-    memory at this R; None when even one column does not."""
+    """The widest column panel whose ``R x C`` chunks fit one block's
+    ring at this R; None when even one column does not."""
     for c in _RES_COLS:
         if resolve_smem_bytes(n_reporters, c, itemsize) <= SMEM_PER_BLOCK:
             return c
@@ -150,10 +181,12 @@ def resolve_block_cols(n_reporters: int, itemsize: int) -> Optional[int]:
 
 
 def resolve_kernel_fits(n_reporters: int, itemsize: int) -> bool:
-    """Whether the resolve kernel can hold an ``R x 1`` panel or wider:
-    ``R * C * itemsize`` within the per-block shared memory, C >= 1."""
-    return itemsize in (1, 4) and resolve_block_cols(n_reporters,
-                                                     itemsize) is not None
+    """Whether resolve takes R reporters at ``itemsize``-byte storage:
+    the one-column panel ``R * itemsize`` within
+    ``_RES_MAX_PANEL_BYTES``, the gate the front door routes by, at
+    which :func:`resolve_block_cols` always finds a width."""
+    return itemsize in (1, 4) and n_reporters * itemsize <= \
+        _RES_MAX_PANEL_BYTES
 
 
 # -- shared checks -----------------------------------------------------------
@@ -235,6 +268,14 @@ def _sm_count(index: int) -> int:
     ``pyc_col_tile_splits``) depend on R, E, the storage type and this,
     never on k."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _row_tile_splits(R: int, E: int, is_int8: int, index: int) -> int:
+    """``pyc_row_tile_splits`` for a matrix on CUDA device ``index``,
+    asked once per shape and storage type."""
+    return _storage_lib().pyc_row_tile_splits(R, E, is_int8,
+                                              _sm_count(index))
 
 
 def _col_pass(lib, x, m, a, w):
@@ -451,10 +492,12 @@ def storage_matmat_plain(x, V, fill=None):
     return _filled(x, fill) @ V.to(torch.float32)
 
 
-def _row_tile(lib, x, m, a, V):
+def _row_tile(lib, x, m, a, V, absent: bool = False):
     """``T = (xc V)^T`` (k, R) through one row-tile launch: centered on
     ``m`` for k <= 8, uncentered (``m`` None) for k <= 16; every row
-    contraction of the port, k = 1 included. The launch sums
+    contraction of the port, k = 1 included. ``absent``: xc is the
+    absent indicator, uncentered with no fill, at k = 2 (resolve's row
+    half). The launch sums
     ``n_splits`` ranges of E into partials (fixed by R, E, the storage
     type and the card, never by k) and reduces them in a fixed order.
     ``vt``, ``a`` and ``m`` are staged 16 bytes at a time only when all
@@ -465,11 +508,15 @@ def _row_tile(lib, x, m, a, V):
     vt = _aligned(V.T.contiguous())                             # (k, E)
     m, a = _aligned(m), _aligned(a)
     is_int8, stream = _launch_args(x)
-    n_splits = lib.pyc_row_tile_splits(R, E, is_int8,
-                                       _sm_count(x.device.index))
+    n_splits = _row_tile_splits(R, E, is_int8, x.device.index)
     t = torch.empty((k, R), dtype=torch.float32, device=x.device)
     partial = (torch.empty((n_splits, k, R), dtype=torch.float32,
                            device=x.device) if n_splits > 1 else t)
+    if absent:
+        _raise_on(lib.pyc_row_tile_absent(
+            x.data_ptr(), is_int8, R, E, vt.data_ptr(), k, n_splits,
+            partial.data_ptr(), t.data_ptr(), stream), "pyc_row_tile_absent")
+        return t
     _raise_on(lib.pyc_row_tile_pass(
         x.data_ptr(), is_int8, R, E,
         m.data_ptr() if m is not None else None,
@@ -582,6 +629,7 @@ def fill_stats_pass(x, rep):
 
 # -- resolve_certainty_fused -------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def _catch_bounds(tolerance: float):
     atol = catch_tie_atol(torch.float32)
     return (float(torch.tensor(0.5 - tolerance - atol, dtype=torch.float32)),
@@ -631,29 +679,51 @@ def resolve_certainty_fused(x, rep, fill, full_total, tolerance: float):
     if x.device.type == "cpu":
         return resolve_certainty_fused_plain(x, rep, fill, full_total,
                                              tolerance)
-    itemsize = x.element_size()
-    C = resolve_block_cols(R, itemsize)
-    if C is None:
-        raise ValueError(f"R={R} at {itemsize}-byte storage does not fit the "
-                         "resolve kernel's shared memory "
-                         f"({SMEM_PER_BLOCK} bytes per block)")
+    if not resolve_kernel_fits(R, x.element_size()):
+        raise ValueError(f"R={R} at {x.element_size()}-byte storage exceeds "
+                         "the resolve kernel's panel "
+                         f"({_RES_MAX_PANEL_BYTES} bytes a column)")
+    with torch.cuda.device(x.device):
+        # the certainty goes straight into row 0 of the row half's V^T
+        vt = torch.empty((2, E), dtype=torch.float32, device=x.device)
+        raw, out, cert, pcol = _resolve_columns(x, rep, fill, full_total,
+                                                tolerance, vt[0])
+        vt[1].fill_(1.0)
+        prow, narow = _absent_rows(x, vt)
+    _COUNTS["resolve_certainty_fused"] += 1
+    return raw, out, cert, pcol, prow, narow
+
+
+def _resolve_columns(x, rep, fill, full_total, tolerance: float, cert=None):
+    """The column half of :func:`resolve_certainty_fused` on the card:
+    ``(raw, out, cert, pcol)`` from one launch of the column-panel kernel
+    (``pyc_resolve_cols``, a persistent grid of one block an SM), the
+    certainty into ``cert`` when it is given."""
     from .build import load
 
+    R, E = x.shape
     lib = load("resolve.cu")
+    C = resolve_block_cols(R, x.element_size())
     lo, hi = _catch_bounds(tolerance)
     f32 = torch.float32
-    with torch.cuda.device(x.device):
-        ft = torch.as_tensor(full_total, device=x.device).to(f32).reshape(())
-        scal = torch.stack([rep.sum(), ft]).contiguous()
-        outs = [torch.empty(E, dtype=f32, device=x.device) for _ in range(4)]
-        prow = torch.empty(R, dtype=f32, device=x.device)
-        narow = torch.empty(R, dtype=f32, device=x.device)
-        is_int8, stream = _launch_args(x)
-        _raise_on(lib.pyc_resolve_certainty(
-            x.data_ptr(), is_int8, R, E, C,
-            resolve_smem_bytes(R, C, itemsize), rep.data_ptr(),
-            fill.data_ptr(), scal.data_ptr(), lo, hi,
-            *[o.data_ptr() for o in outs], prow.data_ptr(), narow.data_ptr(),
-            stream), "pyc_resolve_certainty")
-    _COUNTS["resolve_certainty_fused"] += 1
-    return (*outs, prow, narow)
+    ft = (full_total.to(device=x.device, dtype=f32)
+          if isinstance(full_total, torch.Tensor)
+          else torch.full((), float(full_total), dtype=f32, device=x.device))
+    rep_sum = rep.sum()
+    outs = [torch.empty(E, dtype=f32, device=x.device) if o is None else o
+            for o in (None, None, cert, None)]
+    is_int8, stream = _launch_args(x)
+    _raise_on(lib.pyc_resolve_cols(
+        x.data_ptr(), is_int8, R, E, C, _sm_count(x.device.index),
+        rep.data_ptr(), fill.data_ptr(), rep_sum.data_ptr(), ft.data_ptr(),
+        lo, hi, *[o.data_ptr() for o in outs], stream), "pyc_resolve_cols")
+    return tuple(outs)
+
+
+def _absent_rows(x, vt):
+    """The row half of :func:`resolve_certainty_fused` on the card:
+    ``(prow, narow) = [absent] vt^T`` for ``vt = [cert; 1]`` (2, E), one
+    row-tile launch at k = 2 with the absent-indicator op, its E ranges
+    summed in a fixed order."""
+    t = _row_tile(_storage_lib(), x, None, None, vt.T, absent=True)
+    return t[0], t[1]

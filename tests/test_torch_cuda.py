@@ -25,10 +25,10 @@ from pyconsensus_tpu_torch import (ConsensusParams, encode_reports_host,
                                    sharded_consensus)
 from pyconsensus_tpu_torch.ops import build, cuda_kernels as ck
 
-# ragged widths (E % 16 != 0) take the scalar-load kernels (resolve, the
-# fill statistics) and the tile passes' element copies, the rest the
-# 16-byte ones; 1000 rows is not a multiple of resolve's 8-row blocks nor
-# of the 64-row tiles and chunks
+# ragged widths (E % 16 != 0) take the fill statistics' scalar loads and
+# the element copies of the tile passes and of resolve's column panels, the
+# rest the 16-byte ones; 1000 rows is not a multiple of resolve's 512-row
+# passes nor of the 64-row tiles and chunks
 SHAPES = [(24, 12), (23, 300), (64, 300), (64, 4096), (1000, 4099),
           (517, 2048)]
 EXACT_KEYS = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
@@ -135,9 +135,11 @@ def test_resolve_matches_plain(dev, R, E, storage):
 
 @pytest.mark.cuda
 def test_resolve_wide_rows_take_narrow_blocks(dev):
-    """At R = 10000 the int8 panel fits 16 columns of shared memory and
-    the float32 one 4; both still agree with the plain version."""
+    """At R = 10000 the column kernel's panels are 16 bytes a row: 16
+    int8 columns or 4 float32 ones, whose five chunks of 32 KB fill its
+    ring; both agree with the plain version."""
     assert ck.resolve_block_cols(10000, 1) == 16
+    assert ck.resolve_block_cols(10000, 4) == 4
     x_f, x_i, rep, fill, mu, v = make_storage(5, 10000, 203)
     for x in (_t(x_i), _t(x_f)):
         ref = ck.resolve_certainty_fused(x, _t(rep), _t(fill), 1.0, 0.1)
@@ -502,3 +504,108 @@ def test_no_fallback_when_library_missing(dev, monkeypatch, tmp_path):
         ck.apply_weighted_cov(_t(x_i).to(dev), _t(mu).to(dev),
                               _t(rep).to(dev), _t(v).to(dev),
                               _t(fill).to(dev))
+
+
+def _resolve_both(x, rep, fill, dev, tolerance=0.1):
+    ref = ck.resolve_certainty_fused(x, _t(rep), _t(fill), 1.0, tolerance)
+    got = ck.resolve_certainty_fused(x.to(dev), _t(rep).to(dev),
+                                     _t(fill).to(dev), 1.0, tolerance)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _resolve_agrees(got, ref, what):
+    """Snapped outcomes and absent counts equal, the rest within RTOL."""
+    assert torch.equal(got[1].cpu(), ref[1]), f"{what}: outcomes"
+    assert torch.equal(got[5].cpu(), ref[5]), f"{what}: absent counts"
+    for name, g, r in zip(["raw", "outcomes", "certainty", "pcol", "prow",
+                           "narow"], got, ref):
+        _close(g, r, f"{what} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 513, 1037])
+@pytest.mark.parametrize("E", [17, 203, 4099])
+@pytest.mark.parametrize("storage", ["int8", "float32", "float32 offset"])
+def test_resolve_ragged(dev, R, E, storage):
+    """R not a multiple of the column kernel's 512-row passes, E not a
+    multiple of its panel width, and (``float32 offset``) a float32 matrix
+    that starts 4 bytes past a 16-byte boundary, so that no row is
+    16-byte aligned and every granule takes the element copies."""
+    x_f, x_i, rep, fill, mu, v = make_storage(R * 7 + E, R, E)
+    x_f[:, 0] = np.nan
+    x_i[:, 0] = -1
+    x = _t(x_i if storage == "int8" else x_f)
+    ref = ck.resolve_certainty_fused(x, _t(rep), _t(fill), 1.0, 0.1)
+    xd = x.to(dev)
+    if storage == "float32 offset":
+        buf = torch.empty(R * E + 1, dtype=torch.float32, device=dev)
+        xd = buf[1:].view(R, E)
+        xd.copy_(x.to(dev))
+        assert xd.is_contiguous() and xd.data_ptr() % 16 == 4
+    got = ck.resolve_certainty_fused(xd, _t(rep).to(dev), _t(fill).to(dev),
+                                     1.0, 0.1)
+    torch.cuda.synchronize()
+    _resolve_agrees(got, ref, f"resolve {storage} {R}x{E}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [1, 4])
+def test_resolve_largest_gated_r(dev, itemsize):
+    """The largest R the gate admits (228096 int8, 57024 float32): one
+    column a panel, whose chunks fill the whole ring, so the next panel's
+    copies wait for walk 2 to free each slot."""
+    R = 228096 // itemsize
+    assert ck.resolve_kernel_fits(R, itemsize)
+    assert not ck.resolve_kernel_fits(R + 1, itemsize)
+    assert ck.resolve_block_cols(R, itemsize) == 1
+    assert ck.resolve_smem_bytes(R, 1, itemsize) <= ck.SMEM_PER_BLOCK
+    x_f, x_i, rep, fill, mu, v = make_storage(R, R, 37)
+    x = _t(x_i if itemsize == 1 else x_f)
+    got, ref = _resolve_both(x, rep, fill, dev)
+    _resolve_agrees(got, ref, f"resolve R={R}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+def test_resolve_repeats_bitwise(dev, storage):
+    """Two calls give the same bits: no float atomics, and every sum's
+    order is fixed by the thread mapping, not by scheduling."""
+    x_f, x_i, rep, fill, mu, v = make_storage(11, 3000, 5003)
+    x = _t(x_i if storage == "int8" else x_f).to(dev)
+    a = ck.resolve_certainty_fused(x, _t(rep).to(dev), _t(fill).to(dev), 1.0,
+                                   0.1)
+    b = ck.resolve_certainty_fused(x, _t(rep).to(dev), _t(fill).to(dev), 1.0,
+                                   0.1)
+    for u, w in zip(a, b):
+        assert torch.equal(u, w)
+
+
+@pytest.mark.cuda
+def test_resolve_knife_edge_snaps_like_plain(dev):
+    """A column whose mean sits on the catch boundary (0.75 at tolerance
+    0.25) snaps on the card as the plain version snaps it."""
+    R, E = 24, 12
+    x = np.zeros((R, E), np.int8)
+    x[:, 0] = np.r_[np.full(18, 2), np.zeros(6)].astype(np.int8)  # 0.75
+    x[:, 1] = np.r_[np.full(14, 2), np.zeros(10)].astype(np.int8)
+    x[:, 2] = np.r_[np.full(6, 2), np.zeros(18)].astype(np.int8)   # 0.25
+    rep = np.full(R, 1.0 / R, np.float32)
+    fill = np.full(E, 0.5, np.float32)
+    xf = np.where(x < 0, np.nan, x * 0.5).astype(np.float32)
+    for xs in (_t(x), _t(xf)):
+        got, ref = _resolve_both(xs, rep, fill, dev, tolerance=0.25)
+        assert torch.equal(got[1].cpu(), ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "float32"])
+def test_resolve_absent_counts_exact(dev, storage):
+    """The row half's ``na_count_rows`` equals the count of sentinels
+    (int8) or NaNs (float32) in each row, exactly."""
+    x_f, x_i, rep, fill, mu, v = make_storage(29, 777, 40000, na_frac=0.3)
+    x = _t(x_i if storage == "int8" else x_f).to(dev)
+    got = ck.resolve_certainty_fused(x, _t(rep).to(dev), _t(fill).to(dev),
+                                     1.0, 0.1)
+    absent = (x < 0) if storage == "int8" else torch.isnan(x)
+    assert torch.equal(got[5], absent.sum(dim=1).to(torch.float32))

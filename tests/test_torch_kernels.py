@@ -401,6 +401,26 @@ def test_hopper_fit_gates():
     assert ck.matmat_kernels_fit(100_000, 13, 4)
 
 
+@pytest.mark.parametrize("itemsize", [1, 4])
+def test_resolve_ring_takes_every_gated_r(itemsize):
+    """The gate keeps the first resolve kernel's answers (a one-column
+    panel of at most 228,096 bytes), and at every R it admits the chunk
+    ring of the column kernel finds a panel width whose shared memory fits
+    one block; the width only narrows as R grows."""
+    top = 228096 // itemsize
+    assert ck.resolve_kernel_fits(top, itemsize)
+    assert not ck.resolve_kernel_fits(top + 1, itemsize)
+    assert not ck.resolve_kernel_fits(1000, 2)
+    widths = []
+    for R in list(range(1, top, 61)) + [top]:
+        C = ck.resolve_block_cols(R, itemsize)
+        assert C is not None, R
+        assert ck.resolve_smem_bytes(R, C, itemsize) <= ck.SMEM_PER_BLOCK
+        widths.append(C)
+    assert widths == sorted(widths, reverse=True)
+    assert widths[-1] == 1
+
+
 def test_build_sources_exist_and_name_their_pallas_kernel():
     for src in build.SOURCES:
         text = (build.CSRC / src).read_text()
