@@ -41,10 +41,23 @@ Phases, each printing its seconds:
    statistics. ``--profile`` then prints the device time by kernel name
    of one resolution of each path (the tile passes under
    ``row_tile_kernel<storage, centered, k>`` and
-   ``col_tile_kernel<...>``);
+   ``col_tile_kernel<...>``). Then the plain core over the dense filled
+   matrix (float32, TF32 off): sztorc through ``sharded_consensus`` on
+   the float reports with the last ``PLAIN_SCALED`` (16,000) events
+   scaled on [-5, 15], more than E // 8, so the fused gate closes and the sweeps run
+   ``apply_weighted_cov`` and ``scores_dirfix_pass`` on the dense matrix
+   (``pca_method="auto"`` resolves to ``power-fused``, at
+   ``max_iterations`` 1 and 3); and sztorc, fixed-variance and ica at
+   4096 reporters, where ``"auto"`` takes the Gram eigh and no storage
+   kernel runs. Each prints its rate and its peak device memory, and
+   must recover the truth;
 5. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
-   two;
+   two; then the ``Oracle`` (``backend="torch"``) on the card against
+   its CPU run, with and without scaled events, under ``"auto"`` (the
+   Gram eigh) and ``"power-fused"`` at a fixed sweep count, and its
+   ``backend="numpy"`` against ``backend="torch"`` on the CPU on a
+   corner of that matrix (the numpy backend's covariance eigh is E x E);
 6. print the ``kernels`` JSON line, then the result line.
 
 It exits non-zero, and prints no result line, when there is no CUDA
@@ -87,6 +100,11 @@ BLOCK_K = 5
 SEPARABLE_K = 12
 #: shards of the event mesh on card 0 when --mesh-devices is not given
 MESH_SHARDS = 4
+#: scaled events of the plain sztorc path, the last ones on [-5, 15]: the
+#: project's recorded scaled run at 10k x 100k (``bench.py --scaled
+#: 16000``, metric ``..._scaled16000`` in docs/MEASUREMENTS_r05.json),
+#: above E // 8, so the fused gate closes
+PLAIN_SCALED = 16_000
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
@@ -132,6 +150,10 @@ PATH_KERNELS = {
                                  "resolve_certainty_fused"),
     "ica separable": ("storage_matmat", "storage_rows_matmat",
                       "resolve_certainty_fused"),
+    # the plain core: sztorc's sweeps on the dense filled matrix; the
+    # Gram eigh runs no storage kernel
+    "sztorc plain": ("apply_weighted_cov", "scores_dirfix_pass"),
+    "gram plain": (),
 }
 PATH_FORBIDS = {
     "sztorc": ("storage_matvec",),
@@ -140,6 +162,9 @@ PATH_FORBIDS = {
     "sztorc mesh": ("apply_weighted_cov", "scores_dirfix_pass"),
     "fixed-variance separable": ("apply_weighted_cov_block",),
     "ica separable": ("apply_weighted_cov_block",),
+    "sztorc plain": tuple(k for k in KERNELS if k not in (
+        "apply_weighted_cov", "scores_dirfix_pass")),
+    "gram plain": tuple(KERNELS),
 }
 
 
@@ -293,19 +318,19 @@ def run(args) -> int:
     stats = kernel_phase(torch, args, ck, _fill_stats, dev, card)
     launches = {k: 0 for k in KERNELS}
 
-    def drive(x, p, label, path=None):
+    def drive(x, p, label, path=None, **kw):
         """One main path: a warm-up, then ``args.resolutions`` timed
         resolutions with the launch counts set to 0 just before and read
         just after; the kernels of ``path`` (default: the algorithm) must
-        have launched and those of another arm must not. Returns ``(out,
-        resolutions/s, counts)``."""
+        have launched and those of another arm must not. ``kw`` goes to
+        ``sharded_consensus``. Returns ``(out, resolutions/s, counts)``."""
         path = path or p.algorithm
-        out = sharded_consensus(x, params=p)                 # warm-up
+        out = sharded_consensus(x, params=p, **kw)           # warm-up
         torch.cuda.synchronize()
         ck.reset_launch_counts()
         t0 = time.perf_counter()
         for _ in range(args.resolutions):
-            out = sharded_consensus(x, params=p)
+            out = sharded_consensus(x, params=p, **kw)
         torch.cuda.synchronize()
         rate = args.resolutions / (time.perf_counter() - t0)
         counts = ck.launch_counts()
@@ -390,6 +415,13 @@ def run(args) -> int:
         del x8
         torch.cuda.empty_cache()
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on: the plain core's products "
+                           "must be faithful to float32")
+    with phase(f"plain paths {R}x{E} float32"):
+        plain_paths(torch, args, drive, card, dev, sharded_consensus,
+                    resolve_params)
+
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
         xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
         xm_cpu = xm.cpu()
@@ -432,6 +464,7 @@ def run(args) -> int:
             log(f"{algo} max_components={SEPARABLE_K} (separable arm): card "
                 f"and cpu agree (exact keys equal, continuous max |diff| "
                 f"{worst:.3e} <= {MULTI_ATOL})")
+        oracle_card_vs_cpu(torch, ck, xm_cpu, PLAIN_SCALED)
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -442,7 +475,8 @@ def run(args) -> int:
          "bound_ms": stats[k]["bound_ms"],
          "bound_by": stats[k]["bound_by"],
          "library_ms": stats[k]["library_ms"],
-         "float32_ms": stats[k].get("float32_ms")}
+         "float32_ms": stats[k].get("float32_ms"),
+         "dense_float32_ms": stats[k].get("dense_float32_ms")}
         for k in KERNELS]}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"ok": True, "device": {
@@ -643,6 +677,39 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                                     lambda: ck.storage_rows_matmat(xd, W),
                                     lambda: W @ xd),
         }
+        # the plain core's sweeps: B.1 and B.2 on the dense filled matrix
+        # (fill=None), each against its plain version
+        dense = {
+            "apply_weighted_cov": (
+                lambda: ck.apply_weighted_cov(xd, mu, rep, v),
+                lambda: ck.apply_weighted_cov_plain(xd, mu, rep, v),
+                4 * R * E + 4 * (2 * E + R) + 4 * E, 4 * R * E),
+            "scores_dirfix_pass": (
+                lambda: ck.scores_dirfix_pass(xd, rep, v),
+                lambda: ck.scores_dirfix_pass_plain(xd, rep, v),
+                4 * R * E + 4 * (E + R) + 4 * (3 * E + R), 8 * R * E),
+        }
+        for kname, (kern, plain, n_bytes, n_flops) in dense.items():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            worst_abs, worst_rel = 0.0, 0.0
+            for a, b in zip(got, ref):
+                d, r = max_rel_err(torch, a, b)
+                worst_abs, worst_rel = max(worst_abs, d), max(worst_rel, r)
+            if worst_rel > FULL_RTOL:
+                raise RuntimeError(f"{kname} [dense float32] disagrees with "
+                                   f"its plain version: {worst_rel:.3e}")
+            k_ms = time_ms(torch, kern, args.reps)
+            p_ms = time_ms(torch, plain, max(3, args.reps // 3))
+            b_ms, b_by = bound_ms(n_bytes, n_flops)
+            stats[kname]["dense_float32_ms"] = k_ms
+            stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"],
+                                              worst_abs)
+            log(f"{kname} [dense float32, fill=None]: kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on "
+                f"{card}; max err / max(max|ref|, 1) {worst_rel:.3e}")
         for kname, (call, kern, lib) in library.items():
             got, ref = kern(), lib()
             torch.cuda.synchronize()
@@ -778,18 +845,19 @@ def separable_paths(torch, args, drive, x8, truth, card, resolve_params):
                                "truth")
 
 
-def profile_resolution(torch, sharded_consensus, x, p, card, tag):
+def profile_resolution(torch, sharded_consensus, x, p, card, tag, **kw):
     """One resolution under ``torch.profiler``: wall time, the device's
     kernel time and busy share, and device time by kernel name (the full
-    table goes to ``profile_<tag>.txt`` under ``OUT_DIR``)."""
+    table goes to ``profile_<tag>.txt`` under ``OUT_DIR``). ``kw`` goes to
+    ``sharded_consensus``."""
     from torch.profiler import ProfilerActivity, profile
 
-    sharded_consensus(x, params=p)
+    sharded_consensus(x, params=p, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sharded_consensus(x, params=p)
+        sharded_consensus(x, params=p, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel entries only: an operator's entry repeats its kernels' time
@@ -848,8 +916,171 @@ def fill_stats_ab(torch, pipeline, drive, x, card):
         f"{worst:.3e} <= {MID_ATOL}")
 
 
-def check_result(torch, out, R, E, algorithm="sztorc"):
-    """Finite values of the expected shapes, outcomes on the lattice."""
+def scaled_bounds(E, n_scaled):
+    """The last ``n_scaled`` of E events scaled on [-5, 15]
+    (``bench.py --scaled``)."""
+    return ([None] * (E - n_scaled)
+            + [{"scaled": True, "min": -5.0, "max": 15.0}] * n_scaled)
+
+
+def float_reports(torch, x8, n_scaled):
+    """The float form of int8 storage (NaN absent), its last ``n_scaled``
+    columns mapped by ``20 x - 5``."""
+    xf = torch.where(x8 < 0, torch.full((), float("nan"), device=x8.device),
+                     x8.to(torch.float32) * 0.5)
+    if n_scaled:
+        xf[:, -n_scaled:].mul_(20.0).sub_(5.0)
+    return xf
+
+
+def plain_paths(torch, args, drive, card, dev, sharded_consensus,
+                resolve_params):
+    """Phase 4's plain core. sztorc with scaled events beyond E // 8:
+    ``"auto"`` resolves to ``power-fused`` with the fused gate closed,
+    the sweeps launch on the dense filled matrix and resolve's kernel does
+    not; binary outcomes must recover the truth and scaled ones
+    ``20 truth - 5`` on 0.99 of their events. Then sztorc,
+    fixed-variance and ica at ``min(R, 4096)`` reporters: ``"auto"``
+    takes the Gram eigh and no storage kernel launches."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    R, E = args.reporters, args.events
+    n_sc = min(PLAIN_SCALED, E)
+    if n_sc <= E // 8:
+        raise RuntimeError(f"{n_sc} scaled events must exceed E // 8 = "
+                           f"{E // 8}")
+    x8, truth = gen_reports(torch, R, E, args.seed + 4, dev)
+    xf = float_reports(torch, x8, n_sc)
+    del x8
+    bounds = scaled_bounds(E, n_sc)
+    binary = slice(0, E - n_sc)
+    for mi in (1, 3):
+        p = ConsensusParams(max_iterations=mi, power_tol=1e-5,
+                            pca_method="auto")
+        resolved = resolve_params(p._replace(any_scaled=True, n_scaled=n_sc),
+                                  R, E, dev)
+        if resolved.fused_resolution or resolved.pca_method != "power-fused":
+            raise RuntimeError(f"sztorc scaled: resolved to "
+                               f"{resolved.pca_method}, fused "
+                               f"{resolved.fused_resolution}")
+        label = f"sztorc, {n_sc} scaled, plain core, max_iterations={mi}"
+        torch.cuda.reset_peak_memory_stats()
+        out, rate, counts = drive(xf, p, label, "sztorc plain",
+                                  event_bounds=bounds)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_result(torch, out, R, E, lattice=binary)
+        final = out["outcomes_final"]
+        ok_bin = float((final[binary] == truth[binary]).float().mean())
+        ok_sc = float(((final[E - n_sc:] - (20.0 * truth[E - n_sc:] - 5.0))
+                       .abs() <= 1e-3).float().mean())
+        log(f"{label} (pca_method {resolved.pca_method}): {rate:.4f} "
+            f"resolutions/s ({1e3 / rate:.3f} ms each) on {card}; peak "
+            f"{peak:.3f} GiB; iterations {int(out['iterations'])}, binary "
+            f"outcomes == truth {ok_bin:.6f}, scaled outcomes == 20 truth - 5 "
+            f"{ok_sc:.6f}; launches {counts}")
+        if ok_bin < 0.99 or ok_sc < 0.99:
+            raise RuntimeError(f"{label}: the outcomes do not recover the "
+                               "truth")
+    if args.profile:
+        profile_resolution(torch, sharded_consensus, xf,
+                           ConsensusParams(power_tol=1e-5, pca_method="auto"),
+                           card, "sztorc_scaled_plain", event_bounds=bounds)
+    del xf
+    torch.cuda.empty_cache()
+
+    rg = min(R, 4096)
+    x8, truth = gen_reports(torch, rg, E, args.seed + 5, dev)
+    xg = float_reports(torch, x8, 0)
+    del x8
+    for algo in ("sztorc", "fixed-variance", "ica"):
+        for mi in (1, 3):
+            p = ConsensusParams(algorithm=algo, max_iterations=mi,
+                                pca_method="auto")
+            resolved = resolve_params(p._replace(any_scaled=False), rg, E,
+                                      dev)
+            if resolved.fused_resolution or resolved.pca_method != \
+                    "eigh-gram":
+                raise RuntimeError(f"{algo} at R={rg}: resolved to "
+                                   f"{resolved.pca_method}")
+            label = f"{algo} {rg}x{E} Gram eigh, max_iterations={mi}"
+            torch.cuda.reset_peak_memory_stats()
+            out, rate, counts = drive(xg, p, label, "gram plain")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_result(torch, out, rg, E, algo)
+            correct = float((out["outcomes_adjusted"] == truth)
+                            .float().mean())
+            log(f"{label}: {rate:.4f} resolutions/s ({1e3 / rate:.3f} ms "
+                f"each) on {card}; peak {peak:.3f} GiB; iterations "
+                f"{int(out['iterations'])}, outcomes == truth "
+                f"{correct:.6f}")
+            if correct < 0.99:
+                raise RuntimeError(f"{label}: the outcomes do not recover "
+                                   "the truth")
+    del xg
+    torch.cuda.empty_cache()
+
+
+def oracle_card_vs_cpu(torch, ck, xm_cpu, n_scaled):
+    """Phase 5's Oracle: ``backend="torch"`` on the card against its own
+    CPU run (sztorc within ``MID_ATOL``, fixed-variance and ica within
+    ``MULTI_ATOL``), with and without scaled events, under ``"auto"`` and
+    ``"power-fused"`` at a fixed sweep count (sztorc's sweeps then launch
+    on the card); then ``backend="numpy"`` against ``backend="torch"`` on
+    the CPU, on the first 256 reporters and 1024 events."""
+    from pyconsensus_tpu_torch import Oracle
+
+    R, E = xm_cpu.shape
+    n_sc = min(n_scaled, E // 4)
+    host = float_reports(torch, xm_cpu, 0).double().numpy()
+    scaled_host = host.copy()
+    scaled_host[:, -n_sc:] = 20.0 * scaled_host[:, -n_sc:] - 5.0
+    cases = (("binary", host, None),
+             ("scaled", scaled_host, scaled_bounds(E, n_sc)))
+    for algo, atol in (("sztorc", MID_ATOL), ("fixed-variance", MULTI_ATOL),
+                       ("ica", MULTI_ATOL)):
+        for tag, reports, bounds in cases:
+            for method in ("auto", "power-fused"):
+                kw = dict(reports=reports, event_bounds=bounds,
+                          algorithm=algo, pca_method=method,
+                          max_iterations=3, power_iters=64, power_tol=-1.0)
+                ck.reset_launch_counts()
+                a = Oracle(backend="torch", **kw).resolve_raw()
+                counts = ck.launch_counts()
+                b = Oracle(backend="torch", device="cpu", **kw).resolve_raw()
+                what = f"Oracle {algo} {tag} {method}: card vs cpu"
+                worst = compare_outputs(torch, a, b, atol, what,
+                                        scaled_from=E - n_sc if bounds
+                                        else None)
+                sweeps = counts["apply_weighted_cov"]
+                if (algo == "sztorc" and method == "power-fused") != \
+                        (sweeps > 0):
+                    raise RuntimeError(f"{what}: apply_weighted_cov launched "
+                                       f"{sweeps} times")
+                log(f"{what} agree (exact keys equal, continuous max |diff| "
+                    f"{worst:.3e} <= {atol}); iterations "
+                    f"{int(a['iterations'])}, apply_weighted_cov launches "
+                    f"{sweeps}")
+    n_corner = min(n_sc, 512)
+    corner = host[:256, -1024:].copy()
+    corner[:, -n_corner:] = 20.0 * corner[:, -n_corner:] - 5.0
+    bounds = scaled_bounds(1024, n_corner)
+    for algo, atol in (("sztorc", MID_ATOL), ("fixed-variance", MULTI_ATOL),
+                       ("ica", MULTI_ATOL)):
+        kw = dict(reports=corner, event_bounds=bounds, algorithm=algo,
+                  max_iterations=3)
+        a = Oracle(backend="numpy", **kw).resolve_raw()
+        b = Oracle(backend="torch", device="cpu", **kw).resolve_raw()
+        worst = compare_outputs(torch, a, b, atol,
+                                f"Oracle {algo}: numpy vs torch",
+                                scaled_from=1024 - n_corner)
+        log(f"Oracle {algo} 256x1024, {n_corner} scaled: numpy (float64) "
+            f"and torch (cpu, float32) agree (exact keys equal, continuous "
+            f"max |diff| {worst:.3e} <= {atol})")
+
+
+def check_result(torch, out, R, E, algorithm="sztorc", lattice=None):
+    """Finite values of the expected shapes, outcomes on the lattice (on
+    the events of ``lattice``, a slice, where some are scaled)."""
     shapes = {"smooth_rep": (R,), "this_rep": (R,), "na_row": (R,),
               "outcomes_adjusted": (E,), "certainty": (E,),
               "participation_columns": (E,), "reporter_bonus": (R,),
@@ -864,32 +1095,46 @@ def check_result(torch, out, R, E, algorithm="sztorc"):
             raise RuntimeError(f"{key}: shape {tuple(v.shape)} != {shape}")
         if v.dtype != torch.bool and not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"{key}: non-finite values")
-    o = out["outcomes_adjusted"]
+    o = out["outcomes_adjusted"][lattice or slice(None)]
     if not bool(((o == 0) | (o == 0.5) | (o == 1)).all()):
         raise RuntimeError("outcomes off the {0, 0.5, 1} lattice")
     if abs(float(out["smooth_rep"].sum()) - 1.0) > 1e-4:
         raise RuntimeError("reputation does not sum to 1")
 
 
-def compare_outputs(torch, a, b, atol, what):
+def compare_outputs(torch, a, b, atol, what, scaled_from=None):
     """Exact keys equal, the others within ``atol`` (``first_loading`` up
-    to sign). Returns the largest continuous difference."""
+    to sign, NaN where the other has NaN). With ``scaled_from``, the
+    events from that index on are scaled on [-5, 15]: their snapped
+    outcomes within ``atol``, their final ones within ``20 atol``.
+    Values may be tensors or numpy. Returns the largest continuous
+    difference."""
     exact = ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
              "convergence", "ica_converged")
     if set(a) != set(b):
         raise RuntimeError(f"{what}: keys differ")
     worst = 0.0
     for key, va in a.items():
-        if not isinstance(va, torch.Tensor):
-            continue
-        va, vb = va.cpu(), b[key].cpu()
+        va, vb = torch.as_tensor(va).cpu(), torch.as_tensor(b[key]).cpu()
         if key in exact:
-            if not torch.equal(va, vb):
+            if scaled_from is None or key not in ("outcomes_adjusted",
+                                                  "outcomes_final"):
+                if not torch.equal(va.to(vb.dtype), vb):
+                    raise RuntimeError(f"{what}: {key} differs")
+                continue
+            n = scaled_from
+            if not torch.equal(va[:n].to(vb.dtype), vb[:n]):
                 raise RuntimeError(f"{what}: {key} differs")
-            continue
+            va, vb = va[n:], vb[n:]
+            if key == "outcomes_final":
+                va, vb = va / 20.0, vb / 20.0
         if key == "first_loading":
             va, vb = va.abs(), vb.abs()
-        d = (va.double() - vb.double()).abs().max().item()
+        va, vb = va.double(), vb.double()
+        nan = torch.isnan(va)
+        if not torch.equal(nan, torch.isnan(vb)):
+            raise RuntimeError(f"{what}: {key} has NaN elsewhere")
+        d = (va - vb)[~nan].abs().max().item() if va.numel() else 0.0
         worst = max(worst, d)
         if d > atol:
             raise RuntimeError(f"{what}: {key} differs by {d:.3e} (atol "

@@ -1,4 +1,5 @@
-"""Row quarantine for host report matrices.
+"""Row quarantine for host report matrices, and the non-finite check of
+a fetched result.
 
 NaN is the legal non-participation marker; a row holding ±Inf is
 replaced by an all-NaN row (the reporter is not heard this round) and
@@ -11,7 +12,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["quarantine_nonfinite"]
+__all__ = ["quarantine_nonfinite", "result_nonfinite"]
+
+#: result keys checked for non-finite values, the O(R) reputation first
+_CHECK_KEYS = ("smooth_rep", "this_rep", "outcomes_final", "certainty")
 
 
 def quarantine_nonfinite(reports: np.ndarray
@@ -30,3 +34,14 @@ def quarantine_nonfinite(reports: np.ndarray
     out = np.array(reports, copy=True)
     out[rows] = np.nan
     return out, np.nonzero(rows)[0], True
+
+
+def result_nonfinite(raw: dict) -> bool:
+    """Whether a host result dict carries non-finite values in its
+    decision outputs. O(R + E)."""
+    for key in _CHECK_KEYS:
+        v = raw.get(key)
+        if v is not None and not np.isfinite(
+                np.asarray(v, dtype=np.float64)).all():
+            return True
+    return False

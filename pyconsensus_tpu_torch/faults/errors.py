@@ -1,13 +1,14 @@
-"""Structured consensus errors: the base class and the input error.
+"""Structured consensus errors: the base class, the input error and the
+numerics error.
 
 The same codes as the JAX package's taxonomy. ``InputError`` (PYC101)
 also subclasses ``ValueError``, so ``except ValueError`` callers keep
-working.
+working; ``NumericsError`` (PYC201) subclasses ``ArithmeticError``.
 """
 
 from __future__ import annotations
 
-__all__ = ["ConsensusError", "InputError"]
+__all__ = ["ConsensusError", "InputError", "NumericsError"]
 
 
 class ConsensusError(Exception):
@@ -28,3 +29,10 @@ class InputError(ConsensusError, ValueError):
     """The caller's data is malformed (bad shape, wrong bounds count)."""
 
     error_code = "PYC101"
+
+
+class NumericsError(ConsensusError, ArithmeticError):
+    """A resolution produced non-finite outputs; the result is refused,
+    never returned."""
+
+    error_code = "PYC201"

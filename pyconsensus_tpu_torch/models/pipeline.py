@@ -1,26 +1,38 @@
-"""The light fused consensus pipeline in torch
-(``pyconsensus_tpu/models/pipeline.py``, ``_consensus_core_fused``).
+"""The consensus pipelines in torch (``pyconsensus_tpu/models/pipeline.py``).
 
-Data flow of one resolution on NaN-threaded storage (int8 sentinel or
-float with NaN):
+Data flow of one resolution:
 
-    fill stats (plain torch, or fill_stats_pass under the gate) ->
-    [scoring -> row reward -> smooth] x iterations ->
-    resolve_certainty_fused -> bonuses (plain torch)
+    rescale -> fill -> [scoring -> row reward -> smooth] x iterations ->
+    outcome resolution -> catch snap -> unscale -> certainty and bonuses
 
-The scoring step is, by algorithm:
+Three pipelines:
 
-- ``sztorc``: power iteration over apply_weighted_cov, then
-  scores_dirfix_pass and the direction fix;
-- ``fixed-variance``: orthogonal iteration over apply_weighted_cov_block,
+- :func:`consensus_np`, the numpy backend: the reference's numpy pipeline,
+  bit for bit;
+- :func:`_consensus_core`, the plain core over the whole filled matrix
+  (the reference's XLA core): every algorithm of the fused path, every
+  PCA method, scaled events. :func:`consensus_torch` dispatches to it. Its
+  sztorc ``"power-fused"`` arm runs the sweeps on ``apply_weighted_cov``
+  and ``scores_dirfix_pass`` over the dense filled matrix;
+- :func:`_consensus_core_fused`, the light fused pipeline on NaN-threaded
+  storage (int8 sentinel or float with NaN), whose filled matrix never
+  exists:
+
+      fill stats (plain torch, or fill_stats_pass under the gate) ->
+      [scoring -> row reward -> smooth] x iterations ->
+      resolve_certainty_fused -> bonuses (plain torch)
+
+  Its scoring step is, by algorithm: ``sztorc``, power iteration over
+  apply_weighted_cov, then scores_dirfix_pass and the direction fix;
+  ``fixed-variance``, orthogonal iteration over apply_weighted_cov_block,
   then one storage_rows_matmat for all k direction fixes, blended by
-  explained variance;
-- ``ica``: the same subspace, FastICA on the whitened scores, and one
-  storage_rows_matmat for the extracted component's direction fix.
+  explained variance; ``ica``, the same subspace, FastICA on the whitened
+  scores, and one storage_rows_matmat for the extracted component's
+  direction fix. Every kernel reconstructs absent entries from the
+  per-column fill vector.
 
-The filled matrix never exists: every kernel reconstructs absent entries
-from the per-column fill vector. The accumulation dtype is the
-reputation's dtype, as in the reference; the kernels compute in float32.
+The accumulation dtype is the reputation's dtype, as in the reference; the
+kernels compute in float32.
 """
 
 from __future__ import annotations
@@ -31,22 +43,35 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..faults.errors import InputError
+from ..ops import numpy_kernels as nk
 from ..ops import torch_kernels as tk
 from ..ops.cuda_kernels import fill_stats_pass, resolve_certainty_fused
-from .ica import ica_k, ica_scores_storage
-from .sztorc import fixed_variance_k, fixed_variance_scores_storage
+from .ica import ica_k, ica_scores, ica_scores_np, ica_scores_storage
+from .sztorc import (fixed_variance_k, fixed_variance_scores,
+                     fixed_variance_scores_np, fixed_variance_scores_storage,
+                     sztorc_scores, sztorc_scores_np)
 
-__all__ = ["ConsensusParams", "encode_reports", "encode_reports_host",
-           "decode_reports", "lattice_exact", "ROADMAP_SCALED",
-           "ROADMAP_PLAIN"]
+__all__ = ["ConsensusParams", "consensus_np", "consensus_torch",
+           "encode_reports", "encode_reports_host", "decode_reports",
+           "lattice_exact", "looks_encoded", "resolve_encoded",
+           "ALGORITHMS", "ROADMAP_CLUSTERING", "ROADMAP_SCALED_FUSED",
+           "ROADMAP_BF16", "ROADMAP_MESH_PLAIN"]
 
-#: where the parts this slice refuses are queued (ROADMAP.md section A)
-ROADMAP_PLAIN = ("ROADMAP.md §A.2 (plain Oracle/_consensus_core: eigh PCA, "
-                 "the XLA-path pipeline and every other algorithm)")
-ROADMAP_SCALED = ("ROADMAP.md §A.2 (scaled events: rescale and the "
-                  "weighted-median tail)")
-#: the algorithms the fused path scores
+#: where the parts the port refuses are queued (ROADMAP.md section A)
+ROADMAP_SCALED_FUSED = ("ROADMAP.md §A.2.2 (scaled events on the fused "
+                        "path: the gather-median tail)")
+ROADMAP_CLUSTERING = "ROADMAP.md §A.6 (clustering)"
+ROADMAP_BF16 = "ROADMAP.md §A.3 (bfloat16 storage)"
+ROADMAP_MESH_PLAIN = ("ROADMAP.md §A.10 (the plain pipeline on an event "
+                      "mesh: fixed-variance, ica, and sztorc where the "
+                      "fused gate closes)")
+#: the algorithms the fused path and the plain core score
 FUSED_ALGORITHMS = ("sztorc", "fixed-variance", "ica")
+#: the clustering algorithms, not ported yet
+CLUSTERING_ALGORITHMS = ("k-means", "dbscan-jit", "hierarchical", "dbscan")
+#: every algorithm the reference knows
+ALGORITHMS = FUSED_ALGORITHMS + CLUSTERING_ALGORITHMS
 
 #: thread the whitening subspace into iterated ica as the orthogonal
 #: iteration's warm start. Off, as in the reference: the warm basis moves
@@ -219,12 +244,12 @@ def _check_fused_params(reports_dtype, p: ConsensusParams) -> None:
             "scaled columns rescale to continuous values in [0, 1] that "
             "the half-unit int8 lattice would corrupt")
     if p.any_scaled or p.n_scaled:
-        raise NotImplementedError(f"scaled events are not ported yet: "
-                                  f"{ROADMAP_SCALED}")
+        raise NotImplementedError(f"scaled events on the fused path are not "
+                                  f"ported yet: {ROADMAP_SCALED_FUSED}")
     if p.algorithm not in FUSED_ALGORITHMS:
         raise NotImplementedError(
             f"the fused path scores {'/'.join(FUSED_ALGORITHMS)} only, got "
-            f"algorithm={p.algorithm!r}: {ROADMAP_PLAIN}")
+            f"algorithm={p.algorithm!r}: {ROADMAP_CLUSTERING}")
 
 
 def _redistribute(scores_at, masked_mu, old_rep: torch.Tensor,
@@ -373,10 +398,280 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
 
 def _consensus_core_light(reports, reputation, scaled, mins, maxs,
                           p: ConsensusParams) -> dict:
-    """The light pipeline (no (R, E) outputs). Only the fused branch is
-    ported."""
+    """The light pipeline (no (R, E) outputs): the fused path where the
+    front door opened it, the plain core otherwise."""
     if p.fused_resolution:
         return _consensus_core_fused(reports, reputation, scaled, mins, maxs,
                                      p)
-    raise NotImplementedError(f"the non-fused pipeline is not ported yet: "
-                              f"{ROADMAP_PLAIN}")
+    return _consensus_core(reports, reputation, scaled, mins, maxs, p,
+                           light=True)
+
+
+# -- the plain core and the numpy backend ------------------------------------
+
+def looks_encoded(arr) -> bool:
+    """Whether an int8 matrix is provably sentinel storage: it holds a
+    ``-1`` (absent) or a ``2`` (an encoded 1.0 vote). A matrix of 0s and
+    1s alone reads as raw binary votes or as encoded {0.0, 0.5}."""
+    a = np.asarray(arr)
+    return bool((a < 0).any() or (a > 1).any())
+
+
+def resolve_encoded(arr, encoded=None) -> bool:
+    """Whether an int8 ``arr`` is sentinel storage. ``encoded`` True or
+    False states it (checked against the matrix); None keeps the
+    :func:`looks_encoded` reading and warns on the ambiguous all-{0, 1}
+    matrix, which it reads as raw votes."""
+    a = np.asarray(arr)
+    if encoded is not None:
+        if encoded and (a > 2).any():
+            raise ValueError(
+                "encoded=True but the int8 matrix holds values > 2: not "
+                "the round(2*value)/-1 sentinel lattice (encode_reports)")
+        if not encoded and ((a < 0).any() or (a > 1).any()):
+            raise ValueError(
+                "encoded=False but the int8 matrix holds values outside "
+                "{0, 1}: raw binary votes cannot contain "
+                f"{sorted(set(a[(a < 0) | (a > 1)].tolist()))[:4]}; pass "
+                "encoded=True (or fix the matrix)")
+        return bool(encoded)
+    if looks_encoded(a):
+        return True
+    import warnings
+
+    warnings.warn(
+        "int8 reports matrix with every value in {0, 1} is ambiguous: "
+        "reading it as RAW binary votes. If it came from encode_reports "
+        "(no NaN, no 1.0 vote: its 1 bytes mean 0.5), that reading is "
+        "wrong; pass encoded=True/False to state the intent and silence "
+        "this warning.", stacklevel=3)
+    return False
+
+
+def _scores_np(filled, rep, p: ConsensusParams):
+    """``(adj_scores, loading or None, ica_converged or None)``."""
+    algo = p.algorithm
+    if algo == "sztorc":
+        return (*sztorc_scores_np(filled, rep), None)
+    if algo == "fixed-variance":
+        return (*fixed_variance_scores_np(filled, rep, p.variance_threshold,
+                                          p.max_components), None)
+    if algo == "ica":
+        adj, conv = ica_scores_np(filled, rep, p.max_components)
+        return adj, None, conv
+    if algo in CLUSTERING_ALGORITHMS:
+        raise NotImplementedError(f"algorithm={algo!r}: "
+                                  f"{ROADMAP_CLUSTERING}")
+    raise InputError(f"unknown algorithm: {algo!r}")
+
+
+def consensus_np(reports, reputation, scaled, mins, maxs, p: ConsensusParams):
+    """The numpy pipeline (``pipeline.consensus_np``, bit for bit). Returns
+    the flat result dict of numpy arrays and Python scalars."""
+    if (np.asarray(reports).dtype == np.int8
+            and looks_encoded(reports)):
+        reports = decode_reports(np.asarray(reports))
+    reports = np.asarray(reports, dtype=np.float64)
+    old_rep = nk.normalize(np.asarray(reputation, dtype=np.float64))
+    scaled = np.asarray(scaled, dtype=bool)
+    rescaled = nk.rescale(reports, scaled, mins, maxs)
+    filled = nk.interpolate(rescaled, old_rep, scaled, p.catch_tolerance)
+
+    rep = old_rep
+    this_rep = old_rep
+    loading = None
+    ica_converged = None
+    converged = False
+    iterations = 0
+    for _ in range(max(p.max_iterations, 1)):
+        adj, loading, ica_converged = _scores_np(filled, rep, p)
+        this_rep = nk.row_reward_weighted(adj, rep)
+        new_rep = nk.smooth(this_rep, rep, p.alpha)
+        delta = float(np.max(np.abs(new_rep - rep)))
+        rep = new_rep
+        iterations += 1
+        if delta <= p.convergence_tolerance:
+            converged = True
+            break
+
+    outcomes_raw, outcomes_adjusted = nk.resolve_outcomes(
+        rescaled, filled, rep, scaled, p.catch_tolerance)
+    outcomes_final = nk.unscale_outcomes(outcomes_adjusted, scaled, mins,
+                                         maxs)
+    extras = nk.certainty_and_bonuses(rescaled, filled, rep,
+                                      outcomes_adjusted, scaled,
+                                      p.catch_tolerance)
+    result = {
+        "original": reports,
+        "rescaled": rescaled,
+        "filled": filled,
+        "old_rep": old_rep,
+        "this_rep": this_rep,
+        "smooth_rep": rep,
+        "na_row": np.isnan(reports).any(axis=1),
+        "outcomes_raw": outcomes_raw,
+        "outcomes_adjusted": outcomes_adjusted,
+        "outcomes_final": outcomes_final,
+        "iterations": iterations,
+        "convergence": converged,
+    }
+    result.update(extras)
+    if loading is not None:
+        result["first_loading"] = nk.canon_sign(loading)
+    if p.algorithm == "ica":
+        result["ica_converged"] = bool(ica_converged)
+    return result
+
+
+def _scores(filled, rep, p: ConsensusParams, v_init=None):
+    """``(adj_scores, warm-start carry or None, ica_converged or None)``
+    over the dense filled matrix. ``v_init`` warm-starts sztorc's power
+    family (its (E,) loading) and fixed-variance's orthogonal iteration
+    (its (E, k) block); ica starts cold unless ``_ICA_WARM_START``."""
+    if p.algorithm == "sztorc":
+        return (*sztorc_scores(filled, rep, p.pca_method, p.power_iters,
+                               p.power_tol, v_init=v_init), None)
+    if p.algorithm == "fixed-variance":
+        return (*fixed_variance_scores(filled, rep, p.variance_threshold,
+                                       p.max_components, p.pca_method,
+                                       v_init=v_init), None)
+    adj, conv, loadings = ica_scores(
+        filled, rep, p.max_components, p.pca_method,
+        v_init=v_init if _ICA_WARM_START else None)
+    return adj, (loadings if _ICA_WARM_START else None), conv
+
+
+def _iterate(filled, old_rep, p: ConsensusParams):
+    """The redistribution loop (``pipeline._iterate_jax``). The
+    reference's scan freezes its state once converged; the loop stops
+    there instead, which leaves the same state. Returns ``(rep, this_rep,
+    loading or None, converged, iterations, ica_converged)``."""
+    R, E = filled.shape
+    dev = old_rep.device
+    rep, this_rep = old_rep, old_rep
+    # zeros on iteration 1: the cold start of both iterations
+    loading = torch.zeros(_subspace_carry_shape(p, R, E),
+                          dtype=old_rep.dtype, device=dev)
+    ica_conv, conv, iters = True, False, 0
+    for _ in range(max(p.max_iterations, 1)):
+        adj, carry, ica_c = _scores(filled, rep, p, v_init=loading)
+        if carry is not None:
+            loading = carry
+        if ica_c is not None:
+            ica_conv = ica_c
+        this_rep = tk.row_reward_weighted(adj, rep)
+        new_rep = tk.smooth(this_rep, rep, p.alpha)
+        delta = torch.max(torch.abs(new_rep - rep))
+        rep = new_rep
+        iters += 1
+        if bool(_le(delta, p.convergence_tolerance).item()):
+            conv = True
+            break
+    loading = (_reported_loading(p, loading)
+               if p.algorithm in ("sztorc", "fixed-variance") else None)
+    return (rep, this_rep, loading, torch.tensor(conv, device=dev),
+            torch.tensor(iters, dtype=torch.int32, device=dev), ica_conv)
+
+
+def _check_plain_params(reports, p: ConsensusParams) -> None:
+    if reports.dtype == torch.int8:
+        raise ValueError(
+            "pre-encoded int8 sentinel reports require the fused path "
+            "(storage_dtype='int8'); the plain core needs the float form: "
+            "decode_reports(encoded) first")
+    if p.storage_dtype == "int8":
+        raise ValueError(
+            "storage_dtype='int8' requires the fused path (sharded_"
+            "consensus with a power-family pca_method and binary events): "
+            "the plain core stores the interpolated matrix, whose "
+            "continuous fills the half-unit int8 lattice would corrupt")
+    if p.storage_dtype == "bfloat16" or p.matvec_dtype:
+        raise NotImplementedError(
+            f"storage_dtype={p.storage_dtype!r}, matvec_dtype="
+            f"{p.matvec_dtype!r}: {ROADMAP_BF16}")
+    if p.algorithm in CLUSTERING_ALGORITHMS:
+        raise NotImplementedError(f"algorithm={p.algorithm!r}: "
+                                  f"{ROADMAP_CLUSTERING}")
+    if p.algorithm not in FUSED_ALGORITHMS:
+        raise InputError(f"unknown algorithm: {p.algorithm!r}")
+
+
+def _consensus_core(reports, reputation, scaled, mins, maxs,
+                    p: ConsensusParams, light: bool = False) -> dict:
+    """The plain core over the whole filled matrix (``pipeline
+    ._consensus_core``) for sztorc, fixed-variance and ica. ``any_scaled``
+    False skips rescale and the median, ``has_na`` False the fill and the
+    absent accounting. ``light`` leaves out the (R, E) outputs and drops
+    each (R, E) intermediate as soon as nothing reads it. Returns the flat
+    result dict of tensors."""
+    _check_plain_params(reports, p)
+    old_rep = tk.normalize(reputation)
+    rescaled = (tk.rescale(reports, scaled, mins, maxs) if p.any_scaled
+                else reports)
+    if p.has_na:
+        filled, present = tk.interpolate_masked(rescaled, old_rep, scaled,
+                                                p.catch_tolerance)
+    else:
+        filled, present = rescaled, None
+    if p.storage_dtype:
+        filled = filled.to(getattr(torch, p.storage_dtype))
+    result = ({} if light else
+              {"original": reports, "rescaled": rescaled, "filled": filled})
+    del rescaled
+    rep, this_rep, loading, converged, iters, ica_conv = _iterate(
+        filled, old_rep, p)
+    outcomes_raw, outcomes_adjusted = tk.resolve_outcomes(
+        present, filled, rep, scaled, p.catch_tolerance,
+        any_scaled=p.any_scaled, has_na=p.has_na,
+        median_block=p.median_block, n_scaled=p.n_scaled)
+    result.update({
+        "old_rep": old_rep,
+        "this_rep": this_rep,
+        "smooth_rep": rep,
+        "na_row": ((~present).any(dim=1) if p.has_na else
+                   torch.zeros(reports.shape[0], dtype=torch.bool,
+                               device=reports.device)),
+        "outcomes_raw": outcomes_raw,
+        "outcomes_adjusted": outcomes_adjusted,
+        "outcomes_final": (tk.unscale_outcomes(outcomes_adjusted, scaled,
+                                               mins, maxs)
+                           if p.any_scaled else outcomes_adjusted),
+        "iterations": iters,
+        "convergence": converged,
+    })
+    result.update(tk.certainty_and_bonuses(
+        present, filled, rep, outcomes_adjusted, scaled, p.catch_tolerance,
+        has_na=p.has_na, any_scaled=p.any_scaled))
+    if loading is not None:
+        result["first_loading"] = tk.canon_sign(loading)
+    if p.algorithm == "ica":
+        result["ica_converged"] = torch.tensor(bool(ica_conv),
+                                               device=rep.device)
+    return result
+
+
+def consensus_torch(reports, reputation, scaled, mins, maxs,
+                    p: ConsensusParams, device=None) -> dict:
+    """The plain core on ``device`` (None: the card, which must be sm_90)
+    in the default float dtype (``torch.get_default_dtype()``), from host
+    or device inputs; a pre-encoded int8 matrix is decoded first. Returns
+    the flat result dict of tensors on the device."""
+    from ..ops.cuda_kernels import require_hopper
+    from ..parallel.sharded import resolve_device
+
+    dev = resolve_device(device)
+    require_hopper(dev)
+    dtype = torch.get_default_dtype()
+    if not isinstance(reports, torch.Tensor):
+        reports = np.asarray(reports)
+        if reports.dtype == np.int8 and looks_encoded(reports):
+            reports = decode_reports(reports)
+    elif reports.dtype == torch.int8 and looks_encoded(reports.cpu()):
+        reports = decode_reports(reports)
+
+    def put(a, dt):
+        return torch.as_tensor(a).to(device=dev, dtype=dt)
+
+    return _consensus_core(put(reports, dtype), put(reputation, dtype),
+                           put(scaled, torch.bool), put(mins, dtype),
+                           put(maxs, dtype), p)

@@ -1,19 +1,96 @@
-"""The ``fixed-variance`` scorer on sentinel storage
-(``pyconsensus_tpu/models/sztorc.py``, storage variant).
+"""PCA scoring (``pyconsensus_tpu/models/sztorc.py``): ``sztorc`` by the
+first principal component and ``fixed-variance``, which blends the
+direction-fixed scores of the top components, each weighted by its
+explained variance, until ``variance_threshold`` of the spectrum is
+covered.
 
-It blends the direction-fixed scores of the top components, each weighted
-by its explained variance, until ``variance_threshold`` of the spectrum is
-covered. The subspace comes from the storage orthogonal iteration and all
-k direction fixes share one further storage sweep.
+Three forms of each: numpy (the numpy backend), torch over the dense
+filled matrix (the plain core) and, for fixed-variance, torch straight off
+sentinel storage (the fused path), where the subspace comes from the
+storage orthogonal iteration and all k direction fixes share one further
+storage sweep.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..ops import numpy_kernels as nk
 from ..ops import torch_kernels as tk
 
-__all__ = ["fixed_variance_k", "fixed_variance_scores_storage"]
+__all__ = ["sztorc_scores_np", "fixed_variance_scores_np", "sztorc_scores",
+           "fixed_variance_scores", "fixed_variance_k",
+           "fixed_variance_scores_storage"]
+
+
+def sztorc_scores_np(reports_filled, reputation):
+    """Direction-fixed first-component scores (numpy). Returns
+    ``(adj_scores, loading)``."""
+    loading, scores = nk.weighted_prin_comp(reports_filled, reputation)
+    return (nk.direction_fixed_scores(scores, reports_filled, reputation),
+            loading)
+
+
+def _component_weights_np(explained, variance_threshold):
+    """Include component c while the explained variance before it is under
+    ``variance_threshold`` (component 0 always); weight the included ones
+    by their explained share."""
+    cum_before = np.concatenate([[0.0], np.cumsum(explained)[:-1]])
+    include = cum_before < variance_threshold
+    include[0] = True
+    w = explained * include
+    total = w.sum()
+    return w / total if total > 0 else include / include.sum()
+
+
+def fixed_variance_scores_np(reports_filled, reputation, variance_threshold,
+                             max_components):
+    """``fixed-variance`` (numpy). Returns ``(adj_scores, loading 0)``."""
+    k = min(max_components, min(reports_filled.shape))
+    loadings, scores, explained = nk.weighted_prin_comps(reports_filled,
+                                                         reputation, k)
+    w = _component_weights_np(explained, variance_threshold)
+    adj = np.zeros(reports_filled.shape[0], dtype=np.float64)
+    for c in range(k):
+        adj_c = nk.direction_fixed_scores(scores[:, c], reports_filled,
+                                          reputation)
+        adj = adj + w[c] * adj_c
+    return adj, loadings[:, 0]
+
+
+def sztorc_scores(filled: torch.Tensor, reputation: torch.Tensor,
+                  pca_method: str = "auto", power_iters: int = 128,
+                  power_tol: float = 0.0, v_init=None):
+    """Direction-fixed first-component scores over the dense filled
+    matrix. Where the method resolves to ``"power-fused"`` the sweeps run
+    on ``apply_weighted_cov`` and the scores and direction fix on one
+    ``scores_dirfix_pass``. ``v_init`` warm-starts the power-family
+    methods. Returns ``(adj_scores, loading)``."""
+    method = tk.resolve_pca_method(*filled.shape, pca_method, filled.device)
+    if method == "power-fused":
+        return tk.sztorc_scores_power_fused(filled, reputation, power_iters,
+                                            power_tol, v_init=v_init)
+    loading, scores = tk.weighted_prin_comp(filled, reputation, method,
+                                            power_iters, power_tol,
+                                            v_init=v_init)
+    return tk.direction_fixed_scores(scores, filled, reputation), loading
+
+
+def fixed_variance_scores(filled: torch.Tensor, reputation: torch.Tensor,
+                          variance_threshold: float, max_components: int,
+                          pca_method: str = "auto", v_init=None):
+    """``fixed-variance`` over the dense filled matrix. Returns
+    ``(adj_scores, loadings (E, k))``: the full block is the iterated
+    pipeline's warm start (the eigh methods ignore it)."""
+    k = fixed_variance_k(*filled.shape, max_components)
+    loadings, scores, explained = tk.weighted_prin_comps(
+        filled, reputation, k, pca_method, v_init=v_init)
+    w = _component_weights(explained, variance_threshold)
+    adj_all = torch.stack([tk.direction_fixed_scores(scores[:, c], filled,
+                                                     reputation)
+                           for c in range(k)], dim=1)
+    return adj_all @ w, loadings
 
 
 def fixed_variance_k(n_reporters: int, n_events: int,

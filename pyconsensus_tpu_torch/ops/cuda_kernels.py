@@ -55,7 +55,8 @@ __all__ = ["apply_weighted_cov", "apply_weighted_cov_plain",
            "resolve_certainty_fused_plain", "fused_pca_fits",
            "cov_block_kernel_fits", "matmat_kernels_fit",
            "resolve_kernel_fits", "resolve_block_cols", "resolve_smem_bytes",
-           "launch_counts", "reset_launch_counts", "SMEM_PER_BLOCK",
+           "launch_counts", "reset_launch_counts", "hopper", "require_hopper",
+           "SMEM_PER_BLOCK",
            "MAX_BLOCK_K", "MAX_TILE_K", "MAX_ROWS_K"]
 
 #: dynamic shared memory one block may use on sm_90 (227 KB)
@@ -109,6 +110,22 @@ def reset_launch_counts() -> None:
 
 
 # -- fit gates ---------------------------------------------------------------
+
+def hopper(device: torch.device) -> bool:
+    """Whether ``device`` is an sm_90 card, the only one the kernels are
+    built for."""
+    return (device.type == "cuda"
+            and torch.cuda.get_device_capability(device) == (9, 0))
+
+
+def require_hopper(device: torch.device) -> None:
+    """Refuse a card that is not sm_90: the port runs nothing on a card
+    without its kernels."""
+    if device.type == "cuda" and not hopper(device):
+        raise NotImplementedError(
+            f"device {device} is not sm_90: the port's kernels are built "
+            "for Hopper (sm_90a) only")
+
 
 def fused_pca_fits(n_events: int, itemsize: int) -> bool:
     """Whether the storage sweeps (``apply_weighted_cov``,

@@ -235,9 +235,12 @@ def _seed_cached(n: int) -> np.ndarray:
     return out
 
 
-def power_seed(n: int) -> np.ndarray:
-    """The power-iteration start vector of width ``n`` (float32,
-    read-only, cached per width)."""
+def power_seed(n: int, dtype="float32") -> np.ndarray:
+    """The power-iteration start vector
+    ``jax.random.normal(key(0), (n,), dtype)`` for ``dtype`` float32 or
+    float64 (read-only, cached per width)."""
+    if np.dtype(dtype).name == "float64":
+        return orth_seed(n, 1, "float64")[:, 0]
     return _seed_cached(int(n))
 
 

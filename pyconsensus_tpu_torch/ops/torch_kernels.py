@@ -1,6 +1,9 @@
-"""Plain torch counterparts of ``pyconsensus_tpu/ops/jax_kernels.py`` for
-the fused paths: sztorc's power iteration and the storage-mode orthogonal
-iteration of the multi-component variants.
+"""Plain torch counterparts of ``pyconsensus_tpu/ops/jax_kernels.py``:
+for the fused paths, sztorc's power iteration and the storage-mode
+orthogonal iteration of the multi-component variants; for the plain core
+(``models.pipeline._consensus_core``), rescale, the fill, every PCA method
+over the dense filled matrix, the direction fix, the weighted median,
+outcome resolution and the certainty accounting.
 
 Each function mirrors the JAX function of the same name, including its
 dtype promotions: the JAX reference promotes an f32 kernel result divided
@@ -14,13 +17,19 @@ from typing import Callable, Optional
 
 import torch
 
-from .constants import CATCH_TIE_ATOL, DIRFIX_TIE_ATOL
+from .constants import CATCH_TIE_ATOL, DIRFIX_TIE_ATOL, MEDIAN_TIE_ATOL
 from .prng import orth_seed, power_seed
 
 __all__ = ["normalize", "canon_sign_factor", "canon_sign", "catch_tie_atol",
            "catch", "matvec_narrow", "sztorc_scores_power_fused",
            "sztorc_dirfix", "weighted_prin_comps_storage",
-           "multi_dirfix_storage", "row_reward_weighted", "smooth"]
+           "multi_dirfix_storage", "row_reward_weighted", "smooth",
+           "rescale", "unscale_outcomes", "interpolate_masked",
+           "interpolate", "weighted_cov", "resolve_pca_method",
+           "weighted_prin_comp", "weighted_prin_comps",
+           "direction_fixed_scores", "gather_median_pays",
+           "weighted_median_cols", "resolve_outcomes",
+           "certainty_and_bonuses"]
 
 #: sweep budget of the multi-component orthogonal iteration
 _ORTH_ITERS = 96
@@ -69,29 +78,34 @@ def catch(x: torch.Tensor, tolerance: float) -> torch.Tensor:
 def _decode_storage(x: torch.Tensor, fill: torch.Tensor,
                     acc: torch.dtype) -> torch.Tensor:
     """Filled view of int8 sentinel storage or NaN-threaded float storage
-    in the ``acc`` dtype (the plain elementwise decode)."""
+    in the ``acc`` dtype (the plain elementwise decode); with ``fill``
+    None, ``x`` is the dense filled matrix itself."""
+    if fill is None:
+        return x.to(acc)
     if x.dtype == torch.int8:
         return torch.where(x < 0, fill.to(acc), x.to(acc) * 0.5)
     return torch.where(torch.isnan(x), fill.to(x.dtype), x).to(acc)
 
 
 def _power_loop(apply_cov: Callable, E: int, n_iters: int, tol: float,
-                device, v_init: Optional[torch.Tensor] = None):
+                device, v_init: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32):
     """Power-iteration loop (``jax_kernels._power_loop``): one
-    application to the fixed float32 seed (blended with a warm start when
-    ``v_init`` is non-zero), then sweeps until successive unit iterates
-    satisfy ``|<w, v>| >= 1 - max(tol, 8 eps_f32)``; ``tol < 0`` runs
-    exactly ``n_iters`` sweeps. The exit test reads one scalar back per
-    sweep. Returns ``(loading, n_sweeps)``."""
-    f32 = torch.float32
+    application to the fixed seed of ``dtype`` (blended with a warm start
+    when ``v_init`` is non-zero), then sweeps until successive unit
+    iterates satisfy ``|<w, v>| >= 1 - max(tol, 8 eps(dtype))``;
+    ``tol < 0`` runs exactly ``n_iters`` sweeps. The kernels' loop runs in
+    float32, the plain core's in the reputation dtype. The exit test reads
+    one scalar back per sweep. Returns ``(loading, n_sweeps)``."""
     no_exit = tol < 0
-    tol = max(float(tol), 8.0 * float(torch.finfo(f32).eps))
-    base = torch.from_numpy(power_seed(E).copy()).to(device)
+    tol = max(float(tol), 8.0 * float(torch.finfo(dtype).eps))
+    base = torch.from_numpy(power_seed(E, str(dtype).removeprefix(
+        "torch.")).copy()).to(device)
     base_unit = base / torch.linalg.vector_norm(base)
     if v_init is None:
         seed = base
     else:
-        v_init = v_init.to(f32)
+        v_init = v_init.to(dtype)
         n_i = torch.linalg.vector_norm(v_init)
         blended = (v_init / torch.where(n_i > 0.0, n_i, torch.ones_like(n_i))
                    + 0.25 * base_unit)
@@ -157,6 +171,9 @@ def sztorc_scores_power_fused(x: torch.Tensor, reputation: torch.Tensor,
     else:
         denom = _denom(reputation)
     xmm = matvec_narrow(x, matvec_dtype)
+    if xmm.dtype == torch.float64:
+        # the kernels compute in float32, as the reference's do under x64
+        xmm = xmm.to(torch.float32)
     loading = power_iteration_fused(xmm, mu, denom, reputation, power_iters,
                                     power_tol, fill=fill,
                                     v_init=v_init).to(acc)
@@ -205,11 +222,14 @@ def sztorc_dirfix(t: torch.Tensor, ml: torch.Tensor, q: torch.Tensor,
 
 def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
                        denom: torch.Tensor, reputation: torch.Tensor,
-                       n_components: int, fill: torch.Tensor,
+                       n_components: int,
+                       fill: Optional[torch.Tensor] = None,
                        v_init: Optional[torch.Tensor] = None):
     """Top-``k`` principal subspace of the implicit weighted covariance of
     sentinel storage ``x`` by blocked orthogonal iteration
-    (``jax_kernels._top_pcs_orth_iter``, storage mode). Each sweep applies
+    (``jax_kernels._top_pcs_orth_iter``); with ``fill`` None, ``x`` is the
+    dense filled matrix and each sweep is two ``torch.matmul`` products,
+    the reference's XLA arm. Each sweep applies
     the covariance to the (E, k) block and re-orthonormalizes it by
     Householder QR. Where ``cov_block_kernel_fits`` holds, one sweep is
     one ``apply_weighted_cov_block``; beyond it, the separable arm takes
@@ -240,7 +260,16 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
     k = int(n_components)
     dev = x.device
 
-    if cov_block_kernel_fits(E, k, x.element_size()):
+    if fill is None:
+        # the dense filled matrix: two plain products a sweep, as in the
+        # reference's XLA arm (which folds no scores out either)
+        def apply_cov_block(V, emit_t=False):
+            t = (x @ V.to(x.dtype)).to(acc) - (mu @ V)[None, :]
+            rt = reputation[:, None] * t
+            y = ((x.T @ rt.to(x.dtype)).to(acc)
+                 - mu[:, None] * torch.sum(rt, dim=0)[None, :])
+            return y / denom, None
+    elif cov_block_kernel_fits(E, k, x.element_size()):
         def apply_cov_block(V, emit_t=False):
             y, t = apply_weighted_cov_block(x, mu, reputation, V.to(acc),
                                             fill=fill, emit_t=emit_t)
@@ -389,3 +418,417 @@ def smooth(this_rep: torch.Tensor, old_rep: torch.Tensor,
            alpha: float) -> torch.Tensor:
     """``alpha``-blend with the prior reputation."""
     return alpha * this_rep + (1.0 - alpha) * old_rep
+
+
+# -- the plain core: the whole filled matrix (``_consensus_core``) -----------
+#
+# The reference computes all of this in XLA outside any Pallas kernel, so
+# the port's products are torch.matmul (float32-faithful: TF32 stays off)
+# and its eigendecompositions torch.linalg.eigh. Column reductions over an
+# (R, E) mask are products against the reputation, so each leaves at most
+# one (R, E) temporary.
+
+#: reporter count up to which "auto" takes the exact Gram eigh
+#: (``jax_kernels._GRAM_EIGH_MAX_R``)
+GRAM_EIGH_MAX_R = 4096
+#: event count up to which "auto" takes the explicit covariance eigh
+COV_EIGH_MAX_E = 1024
+#: column-block width of the weighted median (``jax_kernels._MEDIAN_BLOCK``)
+MEDIAN_BLOCK = 1024
+#: the largest R * E at which "power-fused" runs the kernels' plain
+#: versions on the CPU (the reference's interpret-mode ceiling)
+_CPU_FUSED_MAX = 1 << 20
+
+
+def rescale(reports: torch.Tensor, scaled: torch.Tensor, mins: torch.Tensor,
+            maxs: torch.Tensor) -> torch.Tensor:
+    """Scaled columns to [0, 1] by ``(x - min) / (max - min)``; binary
+    columns pass through as ``(x - 0) / 1``, which is ``x`` bit for bit, so
+    one (R, E) buffer serves both; NaN stays NaN."""
+    span = torch.where(scaled, maxs - mins, 1.0)
+    span = torch.where(span == 0.0, 1.0, span)
+    return torch.sub(reports, torch.where(scaled, mins, 0.0)).div_(span)
+
+
+def unscale_outcomes(outcomes: torch.Tensor, scaled: torch.Tensor,
+                     mins: torch.Tensor, maxs: torch.Tensor) -> torch.Tensor:
+    """Scaled outcomes map back through ``x * (max - min) + min``."""
+    return torch.where(scaled, outcomes * (maxs - mins) + mins, outcomes)
+
+
+def interpolate_masked(reports: torch.Tensor, reputation: torch.Tensor,
+                       scaled: torch.Tensor, tolerance: float):
+    """Reputation-weighted column-mean fill of NaN entries, binary fills
+    catch-snapped, a column with no present mass filled with 0.5. Returns
+    ``(filled, present)``: every later phase reads the mask, never the
+    raw matrix again."""
+    present = ~torch.isnan(reports)
+    acc = torch.promote_types(reports.dtype, reputation.dtype)
+    rep = reputation.to(acc)
+    denom = rep @ present.to(acc)
+    zeroed = torch.where(present, reports, 0.0)
+    numer = rep @ zeroed.to(acc)
+    fill = torch.where(denom > 0.0,
+                       numer / torch.where(denom > 0.0, denom, 1.0), 0.5)
+    fill = torch.where(scaled, fill, catch(fill, tolerance))
+    return torch.where(present, zeroed, fill[None, :]), present
+
+
+def interpolate(reports, reputation, scaled, tolerance):
+    """:func:`interpolate_masked` without the mask."""
+    return interpolate_masked(reports, reputation, scaled, tolerance)[0]
+
+
+def weighted_cov(filled: torch.Tensor, reputation: torch.Tensor):
+    """``(cov (E, E), deviations (R, E))`` of the filled matrix."""
+    dev, denom = _center(filled, reputation)
+    return (dev * reputation[:, None]).T @ dev / denom, dev
+
+
+def _center(filled: torch.Tensor, reputation: torch.Tensor):
+    mu, denom = _mu_denom(filled, None, reputation)
+    return filled - mu[None, :], denom
+
+
+def _first_pc_eigh_cov(dev, denom, reputation):
+    cov = (dev * reputation[:, None]).T @ dev / denom
+    loading = torch.linalg.eigh(cov)[1][:, -1]
+    return loading, dev @ loading
+
+
+def _gram_factor(dev, reputation):
+    """``A = diag(sqrt(rep)) D``: ``A^T A`` is the unnormalized covariance
+    and ``A A^T`` (R x R) has the same nonzero spectrum."""
+    return dev * torch.sqrt(torch.clamp(reputation, min=0.0))[:, None]
+
+
+def _first_pc_eigh_gram(dev, denom, reputation):
+    """The Gram trick: the top eigenvector ``u`` of ``A A^T / denom`` maps
+    back to the loading ``A^T u / ||A^T u||``. Never forms E x E."""
+    A = _gram_factor(dev, reputation)
+    u = torch.linalg.eigh((A @ A.T) / denom)[1][:, -1]
+    v = A.T @ u
+    norm = torch.linalg.vector_norm(v)
+    loading = v / torch.where(norm == 0.0, 1.0, norm)
+    return loading, dev @ loading
+
+
+def _first_pc_power(filled, mu, denom, reputation, n_iters: int = 128,
+                    tol: float = 0.0, v_init=None):
+    """Matrix-free power iteration in the reputation dtype: each sweep is
+    two products with the raw filled matrix, centered by
+    ``D v = X v - (mu . v) 1`` and ``D^T w = X^T w - mu sum(w)``."""
+    acc = reputation.dtype
+
+    def apply_cov(v):
+        t = (filled @ v.to(filled.dtype)).to(acc) - mu @ v
+        rt = reputation * t
+        y = (rt.to(filled.dtype) @ filled).to(acc) - mu * torch.sum(rt)
+        return y / denom
+
+    loading, _ = _power_loop(apply_cov, filled.shape[1], n_iters, tol,
+                             filled.device, v_init=v_init, dtype=acc)
+    return loading, (filled @ loading.to(filled.dtype)).to(acc) - mu @ loading
+
+
+def resolve_pca_method(R: int, E: int, method: str,
+                       device: torch.device) -> str:
+    """Resolve ``"auto"`` by shape (E <= 1024 the covariance eigh, else
+    R <= 4096 the Gram eigh, else power iteration, on the kernels where
+    they serve) and downgrade a ``"power-fused"`` request that cannot run
+    to ``"power"``, which computes the same loading
+    (``jax_kernels.resolve_pca_method``, with "TPU" read as an sm_90
+    card; any other card is refused). The kernels compute in float32
+    whatever the filled matrix's dtype; on the CPU their plain versions
+    serve up to the reference's interpret-mode size."""
+    from .cuda_kernels import fused_pca_fits, require_hopper
+
+    if device.type == "cpu":
+        serves = R * E <= _CPU_FUSED_MAX
+    else:
+        require_hopper(device)
+        serves = True
+    if method == "auto":
+        if E <= COV_EIGH_MAX_E:
+            return "eigh-cov"
+        if R <= GRAM_EIGH_MAX_R:
+            return "eigh-gram"
+        return ("power-fused" if device.type == "cuda"
+                and fused_pca_fits(E, 4) else "power")
+    if method == "power-fused" and not (serves and fused_pca_fits(E, 4)):
+        return "power"
+    return method
+
+
+def weighted_prin_comp(filled: torch.Tensor, reputation: torch.Tensor,
+                       method: str = "auto", power_iters: int = 128,
+                       power_tol: float = 0.0, v_init=None):
+    """First principal component of the reputation-weighted covariance
+    (``jax_kernels.weighted_prin_comp``) by ``"eigh-cov"``,
+    ``"eigh-gram"`` or ``"power"``, ``"auto"`` resolved by
+    :func:`resolve_pca_method`. ``"power-fused"`` is sztorc's alone and
+    scores through :func:`sztorc_scores_power_fused`. Returns
+    ``(loading (E,), scores (R,))``, the sign fixed downstream."""
+    R, E = filled.shape
+    method = resolve_pca_method(R, E, method, filled.device)
+    if method == "power":
+        mu, denom = _mu_denom(filled, None, reputation)
+        return _first_pc_power(filled, mu, denom, reputation,
+                               power_iters, power_tol, v_init=v_init)
+    dev, denom = _center(filled, reputation)
+    if method == "eigh-cov":
+        return _first_pc_eigh_cov(dev, denom, reputation)
+    if method == "eigh-gram":
+        return _first_pc_eigh_gram(dev, denom, reputation)
+    raise ValueError(f"PCA method {method!r}: weighted_prin_comp takes "
+                     "eigh-cov, eigh-gram or power (power-fused scores "
+                     "through sztorc_scores_power_fused)")
+
+
+def _explained(eig, total):
+    return torch.where(total > 0.0, eig / torch.where(total > 0.0, total,
+                                                      1.0),
+                       torch.zeros_like(eig))
+
+
+def weighted_prin_comps(filled: torch.Tensor, reputation: torch.Tensor,
+                        n_components: int, method: str = "auto",
+                        v_init=None):
+    """Top-k loadings, scores and explained-variance fractions
+    (``jax_kernels.weighted_prin_comps``): the covariance eigh at
+    E <= 1024, the Gram eigh at R <= 4096, orthogonal iteration beyond,
+    and orthogonal iteration for any power-family request. ``v_init``
+    warm-starts the orthogonal iteration; the eigh arms ignore it.
+    Returns ``(loadings (E, k), scores (R, k), explained (k,))``."""
+    R, E = filled.shape
+    k = int(n_components)
+    if method in ("power", "power-fused") or (
+            method == "auto" and E > COV_EIGH_MAX_E and R > GRAM_EIGH_MAX_R):
+        mu, denom = _mu_denom(filled, None, reputation)
+        loadings, eig, total, _ = _top_pcs_orth_iter(
+            filled, mu, denom, reputation, k, v_init=v_init)
+        scores = ((filled @ loadings.to(filled.dtype)).to(loadings.dtype)
+                  - (mu @ loadings)[None, :])
+        return loadings, scores, _explained(eig, total)
+    dev, denom = _center(filled, reputation)
+    if method == "auto":
+        method = "eigh-cov" if E <= COV_EIGH_MAX_E else "eigh-gram"
+    if method == "eigh-cov":
+        eigvals, eigvecs = torch.linalg.eigh(
+            (dev * reputation[:, None]).T @ dev / denom)
+        loadings = eigvecs.flip(1)[:, :k]
+    elif method == "eigh-gram":
+        A = _gram_factor(dev, reputation)
+        eigvals, eigvecs = torch.linalg.eigh((A @ A.T) / denom)
+        V = A.T @ eigvecs.flip(1)[:, :k]
+        norms = torch.linalg.vector_norm(V, dim=0)
+        loadings = V / torch.where(norms == 0.0, 1.0, norms)[None, :]
+    else:
+        raise ValueError(f"unknown PCA method: {method!r}")
+    eig = torch.clamp(eigvals.flip(0)[:k], min=0.0)
+    total = torch.sum(torch.clamp(eigvals, min=0.0))
+    return loadings, dev @ loadings, _explained(eig, total)
+
+
+def direction_fixed_scores(scores: torch.Tensor, filled: torch.Tensor,
+                           reputation: torch.Tensor) -> torch.Tensor:
+    """The PCA direction fix (``jax_kernels.direction_fixed_scores``):
+    sign-canonical scores, then the orientation whose outcome vector lies
+    closer to ``old = rep^T X`` wins, ``set1`` within the banded tie, in
+    its non-negative form. The three projections are one (3, R) x (R, E)
+    product."""
+    acc = scores.dtype
+    scores = canon_sign(scores)
+    set1 = scores + torch.abs(torch.min(scores))
+    set2 = scores - torch.max(scores)
+    W = torch.stack([reputation.to(acc), normalize(set1), normalize(set2)])
+    old, new1, new2 = (W.to(filled.dtype) @ filled).to(acc)
+    d1 = torch.sum((new1 - old) ** 2)
+    d2 = torch.sum((new2 - old) ** 2)
+    return torch.where(d1 - d2 <= DIRFIX_TIE_ATOL * (d1 + d2), set1, -set2)
+
+
+def gather_median_pays(n_scaled: int, n_events: int) -> bool:
+    """Whether the weighted median runs on a gather of the scaled columns
+    alone rather than on every column: any count up to 9/10 of the events
+    (``jax_kernels.gather_median_pays``)."""
+    return 0 < n_scaled and n_scaled * 10 <= n_events * 9
+
+
+def weighted_median_cols(values: torch.Tensor, weights: torch.Tensor,
+                         present: torch.Tensor,
+                         block_cols: int = MEDIAN_BLOCK) -> torch.Tensor:
+    """Per-column weighted median (``jax_kernels.weighted_median_cols``):
+    absent entries sort last with weight 0. ``weights`` is (R,) or
+    (R, E). Above ``block_cols`` columns it runs a block of columns at a
+    time, so the sort's temporaries stay one (R, block) slab; each
+    column's answer is the same either way. Returns (E,)."""
+    E = values.shape[1]
+    if block_cols <= 0 or E <= block_cols:
+        return _weighted_median_cols_block(values, weights, present)
+
+    def cols(a, s):
+        return a if a.dim() == 1 else a[:, s:s + block_cols]
+
+    return torch.cat([_weighted_median_cols_block(
+        cols(values, s), cols(weights, s), cols(present, s))
+        for s in range(0, E, block_cols)])
+
+
+def _weighted_median_cols_block(values, weights, present):
+    """The weighted median of one block of columns: a stable sort of the
+    values (absent ones +inf), the weights gathered by the same
+    permutation, the first cumulative weight at or past 0.5 less the
+    dtype-floored tie band, and the midpoint with the next value where
+    the crossing is a tie. The block is worked column-major, one row a
+    column, so the sort and the cumulative sum run along the contiguous
+    dimension (a scan across rows takes over ten times as long on the
+    card)."""
+    dtype = torch.promote_types(values.dtype, weights.dtype)
+    R = values.shape[0]
+    present_t = present.T
+    big = torch.where(present_t, values.T.to(dtype),
+                      float("inf")).contiguous()              # (cols, R)
+    w_all = weights[None, :] if weights.dim() == 1 else weights.T
+    v, order = torch.sort(big, dim=1, stable=True)
+    w = torch.gather(torch.where(present_t, w_all, 0.0), 1, order)
+    total = torch.sum(w, dim=1)
+    cw = torch.cumsum(w / torch.where(total > 0.0, total, 1.0)[:, None],
+                      dim=1)
+    tie_atol = max(MEDIAN_TIE_ATOL, 32.0 * float(torch.finfo(cw.dtype).eps))
+    ge = cw >= 0.5 - tie_atol
+    # argmax returns the first maximum: the first crossing
+    idx = torch.argmax(ge.to(torch.uint8), dim=1)
+    idx = torch.where(torch.any(ge, dim=1), idx, R - 1)
+
+    def take(a, i):
+        return torch.gather(a, 1, i[:, None])[:, 0]
+
+    cw_i, v_i = take(cw, idx), take(v, idx)
+    v_n = take(v, torch.clamp(idx + 1, max=R - 1))
+    exact = torch.abs(cw_i - 0.5) <= tie_atol
+    has_next = (idx + 1 < R) & torch.isfinite(v_n)
+    med = torch.where(exact & has_next, 0.5 * (v_i + v_n), v_i)
+    return torch.where(total > 0.0, med, 0.5)
+
+
+def _scaled_index(scaled: torch.Tensor, n_scaled: int) -> torch.Tensor:
+    """The scaled columns' indices; they must number exactly ``n_scaled``
+    (a wrong count would gather the wrong columns)."""
+    idx = torch.nonzero(scaled).reshape(-1)
+    if idx.numel() != n_scaled:
+        raise ValueError(f"n_scaled={n_scaled}, but {idx.numel()} events "
+                         "are scaled")
+    return idx
+
+
+def resolve_outcomes(present, filled: torch.Tensor,
+                     smooth_rep: torch.Tensor, scaled: torch.Tensor,
+                     tolerance: float, any_scaled: bool = True,
+                     has_na: bool = True, median_block: int = MEDIAN_BLOCK,
+                     n_scaled: int = 0):
+    """Outcome resolution (``jax_kernels.resolve_outcomes``): reputation
+    restricted to the present reporters, the weighted mean for binary
+    columns (catch-snapped) and the weighted median for scaled ones.
+    ``present`` may be None when ``has_na`` is False; ``any_scaled``
+    False skips the median. ``n_scaled`` > 0 (the exact count, within
+    :func:`gather_median_pays`) medians a gather of the scaled columns
+    alone. Returns ``(outcomes_raw, outcomes_adjusted)``."""
+    acc = smooth_rep.dtype
+    R, E = filled.shape
+    full_total = torch.sum(smooth_rep)
+    full_mean = ((smooth_rep.to(filled.dtype) @ filled).to(acc)
+                 / torch.where(full_total == 0.0, 1.0, full_total))
+    if has_na:
+        pw = present.to(acc)
+        tw = smooth_rep @ pw
+        pw.mul_(filled)                         # present * filled, in place
+        mean_present = (smooth_rep @ pw) / torch.where(tw > 0.0, tw, 1.0)
+        del pw
+        means = torch.where(tw > 0.0, mean_present, full_mean)
+    else:
+        tw = full_total.expand(E)
+        means = full_mean
+    if not any_scaled:
+        outcomes_raw = means
+    else:
+        if gather_median_pays(n_scaled, E) and median_block > 0:
+            idx = _scaled_index(scaled, n_scaled)
+            pres = (present.index_select(1, idx) if has_na else
+                    torch.ones((R, n_scaled), dtype=torch.bool,
+                               device=filled.device))
+            med_s = weighted_median_cols(filled.index_select(1, idx),
+                                         smooth_rep, pres, median_block)
+            # the binary positions are never read: the where below masks
+            # them with the means
+            medians = torch.zeros(E, dtype=med_s.dtype,
+                                  device=filled.device).index_copy_(0, idx,
+                                                                   med_s)
+        else:
+            pres = (present if has_na else
+                    torch.ones((R, E), dtype=torch.bool,
+                               device=filled.device))
+            medians = weighted_median_cols(filled, smooth_rep, pres,
+                                           median_block)
+        outcomes_raw = torch.where(tw > 0.0,
+                                   torch.where(scaled, medians, means), means)
+    return outcomes_raw, torch.where(scaled, outcomes_raw,
+                                     catch(outcomes_raw, tolerance))
+
+
+def certainty_and_bonuses(present, filled: torch.Tensor,
+                          smooth_rep: torch.Tensor,
+                          outcomes_adjusted: torch.Tensor,
+                          scaled: torch.Tensor, tolerance: float,
+                          has_na: bool = True,
+                          any_scaled: bool = True) -> dict:
+    """Certainty, participation and bonuses
+    (``jax_kernels.certainty_and_bonuses``). A binary report agrees when
+    it equals the snapped outcome, a scaled one when it lies within
+    ``tolerance``; the tolerance test runs on the scaled columns alone,
+    and not at all when ``any_scaled`` is False. ``has_na`` False takes
+    the closed form of an all-present matrix."""
+    R, E = filled.shape
+    dtype = smooth_rep.dtype
+    agree = filled == outcomes_adjusted[None, :]
+    if any_scaled:
+        idx = torch.nonzero(scaled).reshape(-1)
+        agree[:, idx] = (torch.abs(filled.index_select(1, idx).to(dtype)
+                                   - outcomes_adjusted[idx][None, :])
+                         <= tolerance)
+    certainty = smooth_rep @ agree.to(dtype)
+    del agree
+    consensus_reward = normalize(certainty)
+    if has_na:
+        na = (~present).to(dtype)
+        participation_columns = 1.0 - smooth_rep @ na
+        participation_rows = 1.0 - na @ consensus_reward
+        del na
+        percent_na = 1.0 - torch.mean(participation_columns)
+        na_bonus_rows = normalize(participation_rows)
+        reporter_bonus = (na_bonus_rows * percent_na
+                          + smooth_rep * (1.0 - percent_na))
+        na_bonus_cols = normalize(participation_columns)
+        author_bonus = (na_bonus_cols * percent_na
+                        + consensus_reward * (1.0 - percent_na))
+    else:
+        dev = filled.device
+        participation_columns = torch.ones(E, dtype=dtype, device=dev)
+        participation_rows = torch.ones(R, dtype=dtype, device=dev)
+        percent_na = torch.zeros((), dtype=dtype, device=dev)
+        na_bonus_rows = torch.full((R,), 1.0 / R, dtype=dtype, device=dev)
+        reporter_bonus = smooth_rep
+        na_bonus_cols = torch.full((E,), 1.0 / E, dtype=dtype, device=dev)
+        author_bonus = consensus_reward
+    return {
+        "certainty": certainty,
+        "consensus_reward": consensus_reward,
+        "avg_certainty": torch.mean(certainty),
+        "participation_columns": participation_columns,
+        "participation_rows": participation_rows,
+        "percent_na": percent_na,
+        "na_bonus_rows": na_bonus_rows,
+        "reporter_bonus": reporter_bonus,
+        "na_bonus_cols": na_bonus_cols,
+        "author_bonus": author_bonus,
+    }

@@ -1,13 +1,51 @@
-"""Event bounds parsing and the reference-shaped result dict
-(``pyconsensus_tpu/oracle.py:54,80``)."""
+"""The public ``Oracle`` API (``pyconsensus_tpu/oracle.py``), event bounds
+parsing and the reference-shaped result dict.
+
+Usage::
+
+    from pyconsensus_tpu_torch import Oracle
+    result = Oracle(reports=my_matrix, algorithm="sztorc").consensus()
+
+``reports`` is a (reporters x events) float matrix; ``NaN`` marks a
+non-report; binary events take values in {0, 0.5, 1}; scaled events carry
+raw values plus an ``event_bounds`` entry ``{"scaled": True, "min": m,
+"max": M}``. ``backend="torch"`` (the default) runs the plain core on
+``device`` (None: the card; ``"cpu"`` on request), ``backend="numpy"``
+the numpy pipeline on the host. ``consensus()`` returns the reference's
+nested result dict of host numpy values.
+"""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
 
-from .faults.errors import InputError
+from .faults.degrade import quarantine_nonfinite, result_nonfinite
+from .faults.errors import InputError, NumericsError
+from .models.pipeline import (ALGORITHMS, ConsensusParams, consensus_np,
+                              consensus_torch, decode_reports,
+                              resolve_encoded)
+from .ops.torch_kernels import gather_median_pays
 
-__all__ = ["parse_event_bounds", "assemble_result"]
+__all__ = ["Oracle", "ALGORITHMS", "BACKENDS", "STORAGE_DTYPES",
+           "parse_event_bounds", "assemble_result"]
+
+BACKENDS = ("numpy", "torch")
+#: legal storage_dtype values ("" = the default float dtype)
+STORAGE_DTYPES = ("", "float32", "bfloat16", "int8")
+#: the host clustering algorithms, which take no int8 storage
+_HYBRID_ALGORITHMS = ("hierarchical", "dbscan")
+#: accepted lowercase spellings -> canonical algorithm name
+_ALGORITHM_ALIASES = {
+    "pca": "sztorc",
+    "first-component": "sztorc",
+    "kmeans": "k-means",
+    "agglomerative": "hierarchical",
+}
+#: where the fallback chain for a non-finite result is queued
+_ROADMAP_FALLBACK = ("ROADMAP.md §A.2.3 (the fallback chain: power-fused, "
+                     "then eigh-gram, then numpy)")
 
 
 def parse_event_bounds(event_bounds, n_events: int):
@@ -70,3 +108,215 @@ def assemble_result(raw: dict) -> dict:
     if "ica_converged" in raw:
         result["ica_converged"] = bool(raw["ica_converged"])
     return result
+
+
+def _host(v):
+    """A result value on the host: one copy per tensor."""
+    return v.cpu().numpy() if hasattr(v, "cpu") else v
+
+
+class Oracle:
+    """The consensus oracle with a selectable backend, constructor for
+    constructor the reference's ``Oracle``.
+
+    reports : (R, E) array-like; NaN = no report. An int8 matrix is
+        sentinel storage (``encode_reports``) or raw {0, 1} votes, as
+        ``encoded`` says (None: by :func:`resolve_encoded`).
+    event_bounds : per-event ``{"scaled": bool, "min": m, "max": M}`` or
+        None (binary/categorical).
+    reputation : (R,) non-negative prior, uniform by default.
+    catch_tolerance, alpha, variance_threshold, max_components,
+    max_iterations, convergence_tolerance : the consensus knobs.
+    num_clusters, hierarchy_threshold, dbscan_eps, dbscan_min_samples :
+        the clustering knobs (clustering is not ported yet).
+    algorithm : ``sztorc`` (aliases ``pca``, ``first-component``),
+        ``fixed-variance`` or ``ica``.
+    backend : ``"torch"`` (the plain core on ``device``) or ``"numpy"``.
+    pca_method : ``auto`` | ``eigh-cov`` | ``eigh-gram`` | ``power`` |
+        ``power-fused`` (the sweeps on the Hopper kernels).
+    power_iters, power_tol : the power-iteration cap and early-exit
+        tolerance (0 = machine-precision floor, < 0 = none).
+    matvec_dtype, storage_dtype : ``storage_dtype="float32"`` stores the
+        filled matrix in float32; bfloat16 is not ported, and int8 needs
+        the fused path (``sharded_consensus``).
+    verbose : print a summary after ``consensus()``.
+    device : the torch backend's device; None means the card.
+    """
+
+    def __init__(self,
+                 reports=None,
+                 event_bounds: Optional[Sequence] = None,
+                 reputation=None,
+                 catch_tolerance: float = 0.1,
+                 alpha: float = 0.1,
+                 variance_threshold: float = 0.9,
+                 max_components: int = 5,
+                 max_iterations: int = 1,
+                 convergence_tolerance: float = 1e-6,
+                 num_clusters: int = 2,
+                 hierarchy_threshold: float = 0.5,
+                 dbscan_eps: float = 0.5,
+                 dbscan_min_samples: int = 2,
+                 algorithm: str = "sztorc",
+                 backend: str = "torch",
+                 pca_method: str = "auto",
+                 power_iters: int = 128,
+                 power_tol: float = 0.0,
+                 matvec_dtype: str = "",
+                 storage_dtype: str = "",
+                 encoded: Optional[bool] = None,
+                 verbose: bool = False,
+                 device=None):
+        if reports is None:
+            raise InputError("reports matrix is required")
+        if np.asarray(reports).dtype == np.int8:
+            if resolve_encoded(reports, encoded):
+                reports = decode_reports(np.asarray(reports))
+        elif encoded:
+            raise ValueError(
+                "encoded=True requires an int8 sentinel matrix "
+                f"(encode_reports), got dtype {np.asarray(reports).dtype}")
+        self.reports = np.asarray(reports, dtype=np.float64)
+        if self.reports.ndim != 2:
+            raise InputError(f"reports must be 2-D (reporters x events), "
+                             f"got shape {self.reports.shape}",
+                             shape=tuple(self.reports.shape))
+        if self.reports.size == 0:
+            raise InputError(
+                f"reports matrix is empty (shape {self.reports.shape}): a "
+                "resolution needs at least one reporter and one event",
+                shape=tuple(self.reports.shape))
+        n_reporters, n_events = self.reports.shape
+
+        algorithm = algorithm.lower()
+        algorithm = _ALGORITHM_ALIASES.get(algorithm, algorithm)
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm {algorithm!r}; "
+                             f"choose from {ALGORITHMS}")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; "
+                             f"choose from {BACKENDS}")
+
+        self.event_bounds = event_bounds
+        self.scaled, self.mins, self.maxs = parse_event_bounds(event_bounds,
+                                                               n_events)
+        if reputation is None:
+            rep = np.full(n_reporters, 1.0 / n_reporters, dtype=np.float64)
+        else:
+            rep = np.asarray(reputation, dtype=np.float64)
+            if rep.shape != (n_reporters,):
+                raise InputError(f"reputation shape {rep.shape} does not "
+                                 f"match {n_reporters} reporters",
+                                 shape=tuple(rep.shape),
+                                 expected=n_reporters)
+            if np.isnan(rep).any():
+                raise InputError("reputation must not contain NaN")
+            if not np.isfinite(rep).all():
+                raise InputError("reputation must be finite (found ±Inf)")
+            if (rep < 0).any():
+                raise InputError("reputation must be non-negative")
+            if rep.sum() <= 0:
+                raise InputError("reputation must have positive total mass")
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("alpha must lie in [0, 1]")
+        if catch_tolerance < 0.0:
+            raise ValueError("catch_tolerance must be non-negative")
+        for name, value in (("max_components", max_components),
+                            ("max_iterations", max_iterations),
+                            ("num_clusters", num_clusters),
+                            ("dbscan_min_samples", dbscan_min_samples),
+                            ("power_iters", power_iters)):
+            if int(value) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if dbscan_eps <= 0.0:
+            raise ValueError("dbscan_eps must be positive")
+        if storage_dtype not in STORAGE_DTYPES:
+            raise ValueError(f"unknown storage_dtype {storage_dtype!r}; "
+                             f"choose from {STORAGE_DTYPES}")
+        if storage_dtype == "int8" and algorithm in _HYBRID_ALGORITHMS:
+            raise ValueError(
+                "storage_dtype='int8' is not supported by the hybrid "
+                f"clustering algorithms ({algorithm!r}): the interpolated "
+                "fill values are continuous")
+
+        # after every validation: rows holding ±Inf are not heard
+        self.reports, self.quarantined_rows, has_na = quarantine_nonfinite(
+            self.reports)
+        self.reputation = rep
+        self.backend = backend
+        self.verbose = verbose
+        if backend == "torch":
+            from .parallel.sharded import resolve_device
+
+            self.device = resolve_device(device)
+        else:
+            self.device = None
+        n_sc = int(self.scaled.sum())
+        self.params = ConsensusParams(
+            # the exact count where the median gathers the scaled columns
+            n_scaled=n_sc if gather_median_pays(n_sc, n_events) else 0,
+            any_scaled=bool(self.scaled.any()),
+            has_na=has_na,
+            algorithm=algorithm,
+            alpha=float(alpha),
+            catch_tolerance=float(catch_tolerance),
+            variance_threshold=float(variance_threshold),
+            max_components=int(max_components),
+            max_iterations=int(max_iterations),
+            convergence_tolerance=float(convergence_tolerance),
+            num_clusters=int(num_clusters),
+            hierarchy_threshold=float(hierarchy_threshold),
+            dbscan_eps=float(dbscan_eps),
+            dbscan_min_samples=int(dbscan_min_samples),
+            pca_method=pca_method,
+            power_iters=int(power_iters),
+            power_tol=float(power_tol),
+            matvec_dtype=str(matvec_dtype),
+            storage_dtype=str(storage_dtype),
+        )
+
+    def resolve_raw(self) -> dict:
+        """Run the pipeline: the flat result dict, tensors left on the
+        device on the torch backend."""
+        if self.backend == "numpy":
+            return consensus_np(self.reports, self.reputation, self.scaled,
+                                self.mins, self.maxs, self.params)
+        return consensus_torch(self.reports, self.reputation, self.scaled,
+                               self.mins, self.maxs, self.params,
+                               device=self.device)
+
+    def consensus(self) -> dict:
+        """Resolve outcomes and reputation: the reference-shaped nested
+        result dict of host numpy values, plus ``quarantined_rows``. A
+        torch result with non-finite decision outputs raises
+        ``NumericsError``: the fallback chain that would re-resolve it is
+        not ported yet."""
+        raw = {k: _host(v) for k, v in self.resolve_raw().items()}
+        if self.backend == "torch" and result_nonfinite(raw):
+            raise NumericsError(
+                f"non-finite values in the {self.params.algorithm!r} "
+                f"resolution outputs (pca_method={self.params.pca_method!r})"
+                f"; refusing to return them: {_ROADMAP_FALLBACK}",
+                algorithm=self.params.algorithm)
+        result = assemble_result(raw)
+        result["quarantined_rows"] = (
+            np.array([], dtype=np.int64) if self.quarantined_rows is None
+            else np.asarray(self.quarantined_rows))
+        if self.verbose:
+            with np.printoptions(precision=6, suppress=True):
+                self._print_summary(result)
+        return result
+
+    def _print_summary(self, result: dict) -> None:
+        where = (f"backend={self.backend}" if self.device is None
+                 else f"backend={self.backend} device={self.device}")
+        print(f"pyconsensus_tpu_torch Oracle: algorithm="
+              f"{self.params.algorithm} {where}")
+        print(f"  reporters x events: {self.reports.shape[0]} x "
+              f"{self.reports.shape[1]}")
+        print(f"  outcomes_final:     {result['events']['outcomes_final']}")
+        print(f"  smooth_rep:         {result['agents']['smooth_rep']}")
+        print(f"  certainty:          {result['certainty']:.6f}")
+        print(f"  participation:      {result['participation']:.6f}")
+        print(f"  convergence:        {result['convergence']} "
+              f"({result['iterations']} iteration(s))")

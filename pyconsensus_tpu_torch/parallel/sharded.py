@@ -1,18 +1,21 @@
 """The front door (``pyconsensus_tpu/parallel/sharded.py``
 ``sharded_consensus``): quarantine, parameter resolution, the fused-path
-gate, placement, and the light fused pipeline on one device or on an
-event mesh.
+gate, placement, and the light pipeline on one device or on an event
+mesh.
 
 The gate opens on the CPU (where every kernel wrapper runs its plain
 version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels:
 on one device for sztorc and for the multi-component variants
 fixed-variance and ica, on an event mesh of more than one shard for
-sztorc (``parallel/fused_sharded.py``). What the port does not cover yet
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` slice that brings
-it: scaled events, the other algorithms, exact eigh PCA (which
+sztorc (``parallel/fused_sharded.py``); scaled events may not exceed
+E // 8 of the events. Where it closes on one device (exact eigh PCA, which
 ``pca_method="auto"`` picks at R <= 4096, and for the multi-component
-variants also at E <= 1024), the non-fused pipeline (which also serves
-fixed-variance and ica on a mesh in the reference) and batch meshes.
+variants also at E <= 1024; scaled events beyond E // 8; float storage
+off the kernels' fit), the plain core over the whole filled matrix
+serves (``models/pipeline.py _consensus_core``). What the port does not
+cover yet raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that brings it: scaled events on the fused path, the other algorithms,
+bfloat16 storage, the plain core on an event mesh and batch meshes.
 """
 
 from __future__ import annotations
@@ -24,11 +27,14 @@ import torch
 
 from ..faults.degrade import quarantine_nonfinite
 from ..faults.errors import InputError
-from ..models.pipeline import (FUSED_ALGORITHMS, ROADMAP_PLAIN,
-                               ROADMAP_SCALED, ConsensusParams,
-                               _consensus_core_light)
+from ..models.pipeline import (CLUSTERING_ALGORITHMS, FUSED_ALGORITHMS,
+                               ROADMAP_BF16, ROADMAP_CLUSTERING,
+                               ROADMAP_MESH_PLAIN, ROADMAP_SCALED_FUSED,
+                               ConsensusParams, _consensus_core_light)
 from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
-                                resolve_kernel_fits)
+                                require_hopper, resolve_kernel_fits)
+from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
+                                 gather_median_pays)
 from ..oracle import parse_event_bounds
 from .fused_sharded import fused_sharded_consensus
 from .mesh import EventShards, as_mesh, place_event_shards
@@ -37,11 +43,6 @@ __all__ = ["sharded_consensus", "resolve_device", "resolve_params"]
 
 _SHARDABLE_PCA = ("eigh-gram", "power", "power-fused")
 _KNOWN_PCA = ("auto", "eigh-cov") + _SHARDABLE_PCA
-#: the reference's R ceiling for the exact Gram eigh under "auto"
-_GRAM_EIGH_MAX_R = 4096
-#: the reference's E ceiling for the explicit covariance eigh that "auto"
-#: picks for the multi-component variants
-_COV_EIGH_MAX_E = 1024
 _MULTI_COMPONENT = ("fixed-variance", "ica")
 #: storage dtypes the kernels take ("" = the input's float storage)
 _STORAGE = ("", "float32", "int8")
@@ -60,19 +61,8 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _hopper(device: torch.device) -> bool:
-    return (device.type == "cuda"
-            and torch.cuda.get_device_capability(device) == (9, 0))
-
-
-def _kernels_serve(device: torch.device) -> bool:
-    """Whether the kernel wrappers serve this device: the CPU through
-    their plain versions, an sm_90 card through the kernels."""
-    return device.type == "cpu" or _hopper(device)
-
-
 def _pick_pca_method(params: ConsensusParams, n_reporters: int,
-                     n_events: int, device: torch.device) -> str:
+                     n_events: int) -> str:
     """The single-device rows of the reference's pick. sztorc: explicit
     methods as requested, "auto"/"eigh-cov" to the Gram eigh at
     R <= 4096 and to fused power iteration beyond it. fixed-variance and
@@ -89,17 +79,15 @@ def _pick_pca_method(params: ConsensusParams, n_reporters: int,
             return "power"
         if params.pca_method in ("eigh-cov", "eigh-gram"):
             return params.pca_method
-        if n_events <= _COV_EIGH_MAX_E:
+        if n_events <= COV_EIGH_MAX_E:
             return "eigh-cov"
-        return ("eigh-gram" if n_reporters <= _GRAM_EIGH_MAX_R
+        return ("eigh-gram" if n_reporters <= GRAM_EIGH_MAX_R
                 else "power")
     if params.pca_method in _SHARDABLE_PCA:
         return params.pca_method
-    if n_reporters <= _GRAM_EIGH_MAX_R:
+    if n_reporters <= GRAM_EIGH_MAX_R:
         return "eigh-gram"
-    if params.allow_fused and _kernels_serve(device):
-        return "power-fused"
-    return "power"
+    return "power-fused" if params.allow_fused else "power"
 
 
 def _itemsize(p: ConsensusParams) -> int:
@@ -119,27 +107,31 @@ def _multi_fits(p: ConsensusParams, n_reporters: int, n_events: int) -> bool:
 
 
 def _use_fused_resolution(p: ConsensusParams, n_reporters: int,
-                          n_events: int, device: torch.device) -> bool:
+                          n_events: int, n_event: int = 1) -> bool:
+    """The fused-path gate at the widest shard of ``n_event``. Scaled
+    events take it only as a small minority (``0 < n_scaled <= E // 8``,
+    the reference's ``scaled_ok``)."""
     itemsize = _itemsize(p)
+    e_local = -(-n_events // n_event)
     multi_fit = (p.algorithm not in _MULTI_COMPONENT
-                 or _multi_fits(p, n_reporters, n_events))
+                 or _multi_fits(p, n_reporters, e_local))
+    scaled_ok = not p.any_scaled or 0 < p.n_scaled <= n_events // 8
     return (p.allow_fused
-            and _kernels_serve(device)
             and p.algorithm in FUSED_ALGORITHMS
             and p.pca_method in ("power", "power-fused")
-            and not p.any_scaled
+            and scaled_ok
             and multi_fit
-            and fused_pca_fits(n_events, itemsize)
+            and fused_pca_fits(e_local, itemsize)
             and resolve_kernel_fits(n_reporters, itemsize))
 
 
 def resolve_params(p: ConsensusParams, R: int, E: int,
                    device: torch.device, n_event: int = 1) -> ConsensusParams:
-    """The parameters ``sharded_consensus`` runs with (``any_scaled`` and
-    ``has_na`` already set) on ``device``, or on an event mesh of
-    ``n_event`` shards whose first device is ``device``: the PCA method,
-    the fused gate (at the widest shard), and the refusals of what the
-    port does not cover."""
+    """The parameters ``sharded_consensus`` runs with (``any_scaled``,
+    ``n_scaled`` and ``has_na`` already set) on ``device``, or on an event
+    mesh of ``n_event`` shards whose first device is ``device``: the PCA
+    method, the fused gate, the plain core's scaled count, and the
+    refusals of what the port does not cover."""
     if p.storage_dtype == "int8" and p.any_scaled:
         raise ValueError(
             "storage_dtype='int8' supports binary/categorical events "
@@ -148,22 +140,28 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
     if p.storage_dtype not in _STORAGE or p.matvec_dtype:
         raise NotImplementedError(
             f"storage_dtype={p.storage_dtype!r}, "
-            f"matvec_dtype={p.matvec_dtype!r}: this slice's kernels take "
-            "int8 sentinel or float32 storage; bfloat16 storage is queued "
-            "in ROADMAP.md §A.3")
-    if p.any_scaled:
-        raise NotImplementedError(f"scaled events: {ROADMAP_SCALED}")
-    if p.algorithm not in FUSED_ALGORITHMS:
+            f"matvec_dtype={p.matvec_dtype!r}: the port takes int8 "
+            f"sentinel or float32 storage; {ROADMAP_BF16}")
+    if p.algorithm in CLUSTERING_ALGORITHMS:
         raise NotImplementedError(f"algorithm={p.algorithm!r}: "
-                                  f"{ROADMAP_PLAIN}")
+                                  f"{ROADMAP_CLUSTERING}")
+    if p.algorithm not in FUSED_ALGORITHMS:
+        raise InputError(f"unknown algorithm: {p.algorithm!r}")
     if n_event > 1 and p.algorithm != "sztorc":
         raise NotImplementedError(
             f"algorithm={p.algorithm!r} on an event-sharded mesh takes the "
-            f"reference's XLA path: {ROADMAP_PLAIN}")
-    p = p._replace(pca_method=_pick_pca_method(p, R, E, device))
-    p = p._replace(fused_resolution=_use_fused_resolution(
-        p, R, -(-E // n_event), device))
+            f"reference's XLA path: {ROADMAP_MESH_PLAIN}")
+    # the kernel wrappers serve the CPU through their plain versions and
+    # an sm_90 card through the kernels; any other card is refused
+    require_hopper(device)
+    p = p._replace(pca_method=_pick_pca_method(p, R, E))
+    p = p._replace(fused_resolution=_use_fused_resolution(p, R, E, n_event))
     if p.fused_resolution:
+        if p.any_scaled:
+            raise NotImplementedError(
+                f"{p.n_scaled} scaled of {E} events (at most E // 8) take "
+                f"the fused path with its gather-median tail: "
+                f"{ROADMAP_SCALED_FUSED}")
         return p
     if p.storage_dtype == "int8":
         raise ValueError(
@@ -171,13 +169,13 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
             "family pca_method, an sm_90 card or the CPU, a shape the "
             f"kernels fit); resolved pca_method={p.pca_method!r}, "
             f"device={device}, R={R}, E={E}")
-    if _kernels_serve(device):
+    if n_event > 1:
         raise NotImplementedError(
-            f"pca_method={p.pca_method!r} (R={R}) resolves to the non-fused "
-            f"pipeline: {ROADMAP_PLAIN}")
-    raise NotImplementedError(
-        f"device {device} is not sm_90: the port's kernels are built for "
-        "Hopper (sm_90a) only")
+            f"pca_method={p.pca_method!r}, {p.n_scaled} scaled events: the "
+            f"fused gate closes on the mesh: {ROADMAP_MESH_PLAIN}")
+    # the plain core medians a gather of the scaled columns where that pays
+    return p._replace(n_scaled=p.n_scaled if p.median_block > 0
+                      and gather_median_pays(p.n_scaled, E) else 0)
 
 
 def _place_reports(reports, device: torch.device) -> torch.Tensor:
@@ -248,10 +246,8 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
     else:
         has_na = p.has_na
     p = p._replace(any_scaled=bool(scaled.any()), has_na=has_na)
-    if mesh is not None and not all(_kernels_serve(d) for d in mesh):
-        raise NotImplementedError(
-            f"mesh {[str(d) for d in mesh]} is not all sm_90: the port's "
-            "kernels are built for Hopper (sm_90a) only")
+    for d in mesh or ():
+        require_hopper(d)
     p = resolve_params(p, R, E, dev, n_event)
     rep = _place_reputation(reputation, R, dev)
     if n_event > 1:
@@ -261,10 +257,13 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
     else:
         x = (reports.shards[0] if isinstance(reports, EventShards)
              else _place_reports(reports, dev))
+        # the bounds in the storage's float type, as the reference takes
+        # them in its default dtype
+        fdt = torch.float32
         result = _consensus_core_light(
             x, rep, torch.as_tensor(scaled, device=dev),
-            torch.as_tensor(mins, device=dev),
-            torch.as_tensor(maxs, device=dev), p)
+            torch.as_tensor(mins, dtype=fdt, device=dev),
+            torch.as_tensor(maxs, dtype=fdt, device=dev), p)
     result["quarantined_rows"] = (np.array([], dtype=np.int64)
                                   if quarantined is None
                                   else np.asarray(quarantined))

@@ -609,3 +609,116 @@ def test_resolve_absent_counts_exact(dev, storage):
                                      1.0, 0.1)
     absent = (x < 0) if storage == "int8" else torch.isnan(x)
     assert torch.equal(got[5], absent.sum(dim=1).to(torch.float32))
+
+
+# -- the plain core over the dense filled matrix ------------------------------
+
+def plain_inputs(seed, R=203, E=1037, n_scaled=150):
+    """Ragged shapes (R % 8 != 0, E % 16 != 0), 5% absent, the last
+    ``n_scaled`` events scaled on [-5, 15] (more than E // 8, so the
+    front door takes the plain core)."""
+    x_f, _, rep, _, _, _ = make_storage(seed, R, E, na_frac=0.05)
+    reports = x_f.astype(np.float64)
+    reports[:, E - n_scaled:] = 20.0 * reports[:, E - n_scaled:] - 5.0
+    bounds = ([None] * (E - n_scaled)
+              + [{"scaled": True, "min": -5.0, "max": 15.0}] * n_scaled)
+    return reports, bounds, rep
+
+
+def _compare(a, b, atol, scaled_from):
+    for key, va in a.items():
+        if not isinstance(va, torch.Tensor):
+            continue
+        vb = b[key].cpu()
+        va = va.cpu()
+        if key in ("outcomes_adjusted", "outcomes_final"):
+            assert torch.equal(va[:scaled_from], vb[:scaled_from]), key
+            span = 20.0 if key == "outcomes_final" else 1.0
+            assert (va.double() - vb.double()).abs().max() <= span * atol, key
+        elif key in EXACT_KEYS:
+            assert torch.equal(va, vb), key
+        elif key == "first_loading":
+            assert (va.abs() - vb.abs()).abs().max() <= atol, key
+        else:                           # "original" keeps its NaN
+            assert torch.allclose(va.double(), vb.double(), rtol=0,
+                                  atol=atol, equal_nan=True), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["eigh-cov", "eigh-gram", "power-fused"])
+@pytest.mark.parametrize("algorithm,atol", [("sztorc", 1e-5),
+                                            ("fixed-variance", 2e-3),
+                                            ("ica", 2e-3)])
+def test_plain_core_card_matches_cpu(dev, method, algorithm, atol):
+    """The Oracle's plain core on the card against its own CPU run in
+    float32, with scaled events: ``power-fused`` sztorc launches
+    ``apply_weighted_cov`` and ``scores_dirfix_pass`` (never resolve's
+    kernel), every other arm no storage kernel."""
+    from pyconsensus_tpu_torch import Oracle
+
+    reports, bounds, rep = plain_inputs(31)
+    kw = dict(reports=reports, event_bounds=bounds, reputation=rep,
+              algorithm=algorithm, pca_method=method, max_iterations=3,
+              power_iters=64, power_tol=-1.0)
+    ck.reset_launch_counts()
+    a = Oracle(backend="torch", **kw).resolve_raw()
+    counts = ck.launch_counts()
+    fused = algorithm == "sztorc" and method == "power-fused"
+    for name, n in counts.items():
+        if fused and name in ("apply_weighted_cov", "scores_dirfix_pass"):
+            assert n > 0, counts
+        else:
+            assert n == 0, counts
+    b = Oracle(backend="torch", device="cpu", **kw).resolve_raw()
+    assert set(a) == set(b)
+    _compare(a, b, atol, reports.shape[1] - 150)
+
+
+@pytest.mark.cuda
+def test_plain_core_float64_on_the_card_sweeps_in_float32(dev):
+    """The kernels compute in float32, as the reference's do under x64:
+    under a float64 default dtype ``power-fused`` sweeps a float32 copy
+    of the filled matrix on the card, launches ``apply_weighted_cov`` and
+    ``scores_dirfix_pass``, keeps its results in float64, and agrees with
+    its CPU run (the kernels' plain versions) within 1e-5."""
+    from pyconsensus_tpu_torch import Oracle
+
+    reports, bounds, rep = plain_inputs(37)
+    kw = dict(reports=reports, event_bounds=bounds, reputation=rep,
+              pca_method="power-fused", max_iterations=3, power_iters=64,
+              power_tol=-1.0)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ck.reset_launch_counts()
+        a = Oracle(**kw).resolve_raw()
+        counts = ck.launch_counts()
+        b = Oracle(device="cpu", **kw).resolve_raw()
+    finally:
+        torch.set_default_dtype(prev)
+    assert counts["apply_weighted_cov"] > 0, counts
+    assert counts["scores_dirfix_pass"] > 0, counts
+    assert counts["resolve_certainty_fused"] == 0, counts
+    assert a["smooth_rep"].dtype == torch.float64
+    _compare(a, b, 1e-5, reports.shape[1] - 150)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iterations", [1, 3])
+def test_front_door_scaled_beyond_e8_takes_the_plain_core(dev,
+                                                          max_iterations):
+    """``sharded_consensus`` with more than E // 8 scaled events: the
+    fused gate closes, the plain core runs sztorc's sweeps on the
+    kernels over the dense filled matrix, and agrees with the CPU."""
+    reports, bounds, rep = plain_inputs(41)
+    p = ConsensusParams(pca_method="power-fused", power_iters=64,
+                        power_tol=-1.0, max_iterations=max_iterations)
+    x = reports.astype(np.float32)
+    ck.reset_launch_counts()
+    a = sharded_consensus(_t(x).to(dev), event_bounds=bounds, params=p)
+    counts = ck.launch_counts()
+    assert counts["apply_weighted_cov"] > 0, counts
+    assert counts["scores_dirfix_pass"] == max_iterations, counts
+    assert counts["resolve_certainty_fused"] == 0, counts
+    b = sharded_consensus(x, event_bounds=bounds, params=p, device="cpu")
+    _compare(a, b, 1e-5, reports.shape[1] - 150)

@@ -206,6 +206,11 @@ def test_mesh_refusals_name_the_roadmap(case):
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
             make_mesh(batch=2, devices=["cpu"] * 4)
         return
+    # the plain pipeline on a mesh (fixed-variance, ica, and the Gram eigh
+    # that "auto" picks at R <= 4096) is §A.10, clustering §A.6, and a
+    # scaled minority (1 of 40 <= E // 8) the fused path's median, §A.2.2
+    match = {"k-means": "ROADMAP.md §A.6",
+             "scaled": "ROADMAP.md §A.2.2"}.get(case, "ROADMAP.md §A.10")
     if case in ("fixed-variance", "ica", "k-means"):
         p = p._replace(algorithm=case)
     elif case == "scaled":
@@ -213,7 +218,7 @@ def test_mesh_refusals_name_the_roadmap(case):
             [None] * 39
     else:
         p = p._replace(pca_method="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.2"):
+    with pytest.raises(NotImplementedError, match=match):
         sharded_consensus(reports, params=p, mesh=cpu_mesh(4), **kw)
 
 

@@ -160,30 +160,94 @@ def test_inputs_from_reference_places_storage():
     assert x.dtype == torch.float32 and rep is None
 
 
+def assert_plain_parity(algorithm, pca_method, max_components=5, R=24,
+                        E=40):
+    """The front door's plain core (``device="cpu"``, float32 storage, a
+    float64 reputation) against the reference's light XLA core on the same
+    inputs (the reference's fixed-variance takes no float32 reputation
+    under x64): exact keys equal, the rest within 1e-7."""
+    from pyconsensus_tpu.models.pipeline import consensus_light_jit
+
+    reports = make_reports(R * 7 + E, R, E).astype(np.float32)
+    rep = np.random.default_rng(R).random(R) + 0.5
+    p = ConsensusParams(algorithm=algorithm, pca_method=pca_method,
+                        max_components=max_components)
+    out = sharded_consensus(reports, reputation=rep, params=p, device="cpu")
+    ref_p = RefParams(algorithm=algorithm, pca_method=pca_method,
+                      max_components=max_components, any_scaled=False,
+                      has_na=True)
+    ref = consensus_light_jit(jnp.asarray(reports), jnp.asarray(rep),
+                              jnp.zeros(E, dtype=bool),
+                              jnp.zeros(E, np.float32),
+                              jnp.ones(E, np.float32), ref_p)
+    for key, a in ref.items():
+        a = np.asarray(a)
+        b = out[key].cpu().numpy()
+        if key in EXACT_KEYS:
+            np.testing.assert_array_equal(b, a, err_msg=key)
+        else:
+            if key == "first_loading":
+                a, b = np.abs(a), np.abs(b)
+            np.testing.assert_allclose(b, a, atol=1e-7, err_msg=key)
+
+
 @pytest.mark.parametrize("case", ["scaled", "algorithm", "auto_small_r",
                                   "mesh", "bfloat16"])
 def test_refusals_name_the_roadmap(case):
+    """What the port does not cover raises naming its roadmap item;
+    ``"auto"`` at R <= 4096 now resolves to the Gram eigh on the plain
+    core and serves."""
     reports = make_reports(1, 24, 12).astype(np.float32)
     p = ConsensusParams(**BASE)
     kw = {}
-    if case == "scaled":
+    match = "ROADMAP"
+    if case == "scaled":            # 1 of 12 <= E // 8: the fused path
         kw["event_bounds"] = [{"scaled": True, "min": 0, "max": 2}] + \
             [None] * 11
+        match = "ROADMAP.md §A.2.2"
     elif case == "algorithm":
         p = p._replace(algorithm="k-means")
+        match = "ROADMAP.md §A.6"
     elif case == "auto_small_r":
-        p = p._replace(pca_method="auto")
+        resolved = resolve_params(p._replace(pca_method="auto",
+                                             any_scaled=False),
+                                  24, 40, torch.device("cpu"))
+        assert resolved.pca_method == "eigh-gram"
+        assert not resolved.fused_resolution
+        assert_plain_parity("sztorc", "auto")
+        return
     elif case == "mesh":            # fixed-variance on an event mesh
         from pyconsensus_tpu_torch.parallel.mesh import make_mesh
 
         p = p._replace(algorithm="fixed-variance")
         kw["mesh"] = make_mesh(devices=["cpu"] * 2)
+        match = "ROADMAP.md §A.10"
     else:
         p = p._replace(storage_dtype="bfloat16")
+        match = "ROADMAP.md §A.3"
     if "mesh" not in kw:
         kw["device"] = "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         sharded_consensus(reports, params=p, **kw)
+
+
+def test_a_card_that_is_not_sm90_is_refused(monkeypatch):
+    """The port runs nothing on a card without its kernels: the front
+    door, the plain core's PCA pick and ``require_hopper`` refuse an
+    sm_80 card rather than run the plain versions there."""
+    from pyconsensus_tpu_torch.ops import torch_kernels as tk
+    from pyconsensus_tpu_torch.ops.cuda_kernels import require_hopper
+
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    card = torch.device("cuda", 0)
+    p = ConsensusParams(pca_method="eigh-gram", any_scaled=False)
+    for call in (lambda: require_hopper(card),
+                 lambda: resolve_params(p, 24, 40, card),
+                 lambda: tk.resolve_pca_method(24, 40, "eigh-gram", card)):
+        with pytest.raises(NotImplementedError, match="not sm_90"):
+            call()
+    require_hopper(torch.device("cpu"))
 
 
 @pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
@@ -203,21 +267,25 @@ def test_auto_opens_the_multi_component_fused_path_at_north_star(algorithm):
                                         (10_000, 1024, "eigh-cov")])
 def test_auto_eigh_refusals_name_the_roadmap(algorithm, R, E, method):
     """"auto" picks an exact eigh at R <= 4096 (Gram) or E <= 1024
-    (covariance), which is not ported."""
+    (covariance), as does an explicit request at any shape: the fused
+    gate closes and the plain core serves, in parity with the
+    reference."""
+    cpu = torch.device("cpu")
     p = ConsensusParams(algorithm=algorithm, any_scaled=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_params(p, R, E, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_params(p._replace(pca_method=method), 10_000, 100_000,
-                       torch.device("cpu"))
+    for q in (resolve_params(p, R, E, cpu),
+              resolve_params(p._replace(pca_method=method), 10_000, 100_000,
+                             cpu)):
+        assert q.pca_method == method and not q.fused_resolution
+    assert_plain_parity(algorithm, method)
 
 
 @pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
 def test_components_beyond_the_block_kernels_raise(algorithm):
     """Beyond k <= 8 the one-pass block kernel's gate refuses, so its
     wrapper would raise on the card and the orthogonal iteration takes
-    the separable arm instead; where that arm has no path yet (an event
-    mesh, an exact eigh method) the call raises naming the roadmap."""
+    the separable arm instead. On an event mesh, which has no plain core
+    yet, the call raises naming the roadmap; an exact eigh method takes
+    the plain core at any component count."""
     from pyconsensus_tpu_torch.ops.cuda_kernels import cov_block_kernel_fits
 
     for k in (9, 12, 41):
@@ -226,11 +294,12 @@ def test_components_beyond_the_block_kernels_raise(algorithm):
                         max_components=12, storage_dtype="int8",
                         any_scaled=False)
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
         resolve_params(p, 10_000, 100_000, cpu, n_event=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.2"):
-        resolve_params(p._replace(pca_method="eigh-gram", storage_dtype=""),
+    q = resolve_params(p._replace(pca_method="eigh-gram", storage_dtype=""),
                        10_000, 100_000, cpu)
+    assert q.pca_method == "eigh-gram" and not q.fused_resolution
+    assert_plain_parity(algorithm, "eigh-gram", max_components=12)
 
 
 @pytest.mark.parametrize("algorithm", ["fixed-variance", "ica"])
