@@ -13,8 +13,10 @@ Phases, each printing its seconds:
    ``nvcc`` per source, in parallel; the compiler's ``-Xptxas -v`` report
    goes to ``chiprun_out/chip_smoke_build.log``);
 3. hold each kernel against its plain torch version on the card at full
-   size, on int8 sentinel storage and on float32+NaN storage, and time
-   both with CUDA events: the sztorc sweeps, resolve, the block
+   size, on int8 sentinel storage, on float32+NaN storage and on
+   bfloat16+NaN storage (its last eighth of the events continuous, as
+   rescaled scaled events are, with continuous fills there), and time
+   all three with CUDA events: the sztorc sweeps, resolve, the block
    covariance at k = 5 with and without its centered projections, the
    uncentered products (``storage_matvec``, ``storage_matmat`` at k = 12
    in one launch, the rows product at k = 6) and the fill statistics;
@@ -22,8 +24,8 @@ Phases, each printing its seconds:
    product at k = 1, 12 and 16 (one launch each), and the uncentered
    products against one PyTorch call (``torch.mv``, ``@``) on a dense
    float32 matrix. The row halves of the sztorc sweeps and
-   ``storage_matvec`` are the row-tile pass at k = 1: on int8 each must
-   equal the k = 1 call of ``storage_matmat`` or
+   ``storage_matvec`` are the row-tile pass at k = 1: on int8 and on
+   bfloat16 each must equal the k = 1 call of ``storage_matmat`` or
    ``apply_weighted_cov_block`` bit for bit. Resolve's snapped outcomes
    and absent counts must equal the plain version's, and its two halves
    (the column-panel kernel, the row-tile pass at k = 2 with the absent
@@ -49,8 +51,16 @@ Phases, each printing its seconds:
    (``pca_method="auto"`` resolves to ``power-fused``, at
    ``max_iterations`` 1 and 3); and sztorc, fixed-variance and ica at
    4096 reporters, where ``"auto"`` takes the Gram eigh and no storage
-   kernel runs. Each prints its rate and its peak device memory, and
-   must recover the truth;
+   kernel runs; and sztorc at ``PLAIN_SCALED`` scaled events with the
+   filled matrix stored in bfloat16. Each prints its rate and its peak
+   device memory, and must recover the truth. Then the fused path with
+   scaled events on bfloat16 storage (the reference's ``bench.py --scaled
+   1000`` and ``--scaled 4000``): the float reports with the last
+   ``SCALED_FUSED`` events scaled, sztorc at ``max_iterations`` 1 and 3
+   and, at the first count, fixed-variance and ica; each prints its rate,
+   peak memory and launches of B.1, B.2 and resolve, and its binary
+   outcomes must recover the truth and its scaled ones ``20 truth - 5``
+   exactly;
 5. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two; then the ``Oracle`` (``backend="torch"``) on the card against
@@ -58,7 +68,11 @@ Phases, each printing its seconds:
    Gram eigh) and ``"power-fused"`` at a fixed sweep count, and its
    ``backend="numpy"`` against ``backend="torch"`` on the CPU on a
    corner of that matrix (the numpy backend's covariance eigh is E x E);
-6. print the ``kernels`` JSON line, then the result line.
+   and the fused path on bfloat16 storage with E // 8 scaled events, card
+   against CPU, for sztorc, fixed-variance and ica;
+6. print the ``kernels`` JSON line (each kernel with the storage types it
+   takes and its bfloat16 time, plain time and bound beside the int8
+   ones), then the result line.
 
 It exits non-zero, and prints no result line, when there is no CUDA
 device, when the package is not beside it, or when any phase fails. It
@@ -105,6 +119,12 @@ MESH_SHARDS = 4
 #: 16000``, metric ``..._scaled16000`` in docs/MEASUREMENTS_r05.json),
 #: above E // 8, so the fused gate closes
 PLAIN_SCALED = 16_000
+#: scaled events of the fused path's cells on bfloat16 storage, the last
+#: ones on [-5, 15]: the project's recorded ``bench.py --scaled 1000`` and
+#: ``--scaled 4000`` runs at 10k x 100k (``scaled_1k``, ``scaled_4k`` in
+#: docs/MEASUREMENTS_r03.json, where the reference resolved bfloat16
+#: storage and the fused path), at most E // 8
+SCALED_FUSED = (1000, 4000)
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
@@ -155,6 +175,10 @@ PATH_KERNELS = {
     "sztorc plain": ("apply_weighted_cov", "scores_dirfix_pass"),
     "gram plain": (),
 }
+#: the storage types each kernel takes (fill_stats_pass: int8 and float32,
+#: as the reference runs it on int8 alone)
+STORAGES = {k: ("int8", "float32", "bfloat16") for k in KERNELS}
+STORAGES["fill_stats_pass"] = ("int8", "float32")
 PATH_FORBIDS = {
     "sztorc": ("storage_matvec",),
     "fixed-variance": ("storage_matmat",),
@@ -396,6 +420,8 @@ def run(args) -> int:
                             single, card, resolve_params, place_event_shards)
         separable_paths(torch, args, drive, x8, truth, card, resolve_params)
         fill_stats_ab(torch, pipeline, drive, x8, card)
+        scaled_fused_paths(torch, args, drive, x8, truth, card, dev,
+                           resolve_params)
         if args.profile:
             for tag, x, algo, k in (
                     ("sztorc_mesh", placed, "sztorc", 5),
@@ -465,6 +491,7 @@ def run(args) -> int:
                 f"and cpu agree (exact keys equal, continuous max |diff| "
                 f"{worst:.3e} <= {MULTI_ATOL})")
         oracle_card_vs_cpu(torch, ck, xm_cpu, PLAIN_SCALED)
+        bf16_card_vs_cpu(torch, sharded_consensus, xm_cpu, dev)
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -476,7 +503,11 @@ def run(args) -> int:
          "bound_by": stats[k]["bound_by"],
          "library_ms": stats[k]["library_ms"],
          "float32_ms": stats[k].get("float32_ms"),
-         "dense_float32_ms": stats[k].get("dense_float32_ms")}
+         "dense_float32_ms": stats[k].get("dense_float32_ms"),
+         "storages": list(STORAGES[k]),
+         "bfloat16_ms": stats[k].get("bfloat16_ms"),
+         "bfloat16_plain_ms": stats[k].get("bfloat16_plain_ms"),
+         "bfloat16_bound_ms": stats[k].get("bfloat16_bound_ms")}
         for k in KERNELS]}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"ok": True, "device": {
@@ -487,8 +518,8 @@ def run(args) -> int:
 
 def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
     """Phase 3: every kernel against its plain version at full size on
-    int8 and float32+NaN storage, timed beside its bound, and the
-    uncentered products beside one PyTorch call on dense float32.
+    int8, float32+NaN and bfloat16+NaN storage, timed beside its bound,
+    and the uncentered products beside one PyTorch call on dense float32.
     Returns the per-kernel numbers of the ``kernels`` line."""
     R, E = args.reporters, args.events
     stats = {k: {"max_abs_err": 0.0, "library_ms": None} for k in KERNELS}
@@ -506,51 +537,64 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
         W = torch.randn((BLOCK_K + 1, R), generator=g, device=dev)
         xf = torch.where(x8 < 0, torch.full((), float("nan"), device=dev),
                          x8.to(torch.float32) * 0.5)
-        for storage, x in (("int8", x8), ("float32", xf)):
+        # bfloat16: the last eighth of the events continuous in [0, 1] (as
+        # rescaled scaled events are) with continuous fills there, so that
+        # the uncentered products' bfloat16 fill and the sweeps' float32
+        # fill differ
+        n_sc = E // 8
+        xb = xf.clone()
+        xb[:, E - n_sc:] = torch.where(
+            torch.isnan(xb[:, E - n_sc:]), xb[:, E - n_sc:],
+            torch.rand((R, n_sc), generator=g, device=dev))
+        xb = xb.to(torch.bfloat16)
+        fill_b = fill.clone()
+        fill_b[E - n_sc:] = torch.rand(n_sc, generator=g, device=dev)
+        for storage, x, fl in (("int8", x8, fill), ("float32", xf, fill),
+                               ("bfloat16", xb, fill_b)):
             nb = x.numel() * x.element_size()
             checks = {
                 "apply_weighted_cov": (
-                    lambda: ck.apply_weighted_cov(x, mu, rep, v, fill),
-                    lambda: ck.apply_weighted_cov_plain(x, mu, rep, v, fill),
+                    lambda: ck.apply_weighted_cov(x, mu, rep, v, fl),
+                    lambda: ck.apply_weighted_cov_plain(x, mu, rep, v, fl),
                     nb + 4 * (3 * E + R) + 4 * E, 4 * R * E),
                 "scores_dirfix_pass": (
-                    lambda: ck.scores_dirfix_pass(x, rep, v, fill),
-                    lambda: ck.scores_dirfix_pass_plain(x, rep, v, fill),
+                    lambda: ck.scores_dirfix_pass(x, rep, v, fl),
+                    lambda: ck.scores_dirfix_pass_plain(x, rep, v, fl),
                     nb + 4 * (2 * E + R) + 4 * (3 * E + R), 8 * R * E),
                 "storage_matvec": (
-                    lambda: ck.storage_matvec(x, v, fill),
-                    lambda: ck.storage_matvec_plain(x, v, fill),
+                    lambda: ck.storage_matvec(x, v, fl),
+                    lambda: ck.storage_matvec_plain(x, v, fl),
                     nb + 4 * 2 * E + 4 * R, 2 * R * E),
                 # k = 12 in one row-tile launch (up to 16 columns a launch)
                 "storage_matmat": (
-                    lambda: ck.storage_matmat(x, V12, fill),
-                    lambda: ck.storage_matmat_plain(x, V12, fill),
+                    lambda: ck.storage_matmat(x, V12, fl),
+                    lambda: ck.storage_matmat_plain(x, V12, fl),
                     nb + 4 * (E + SEPARABLE_K * E) + 4 * SEPARABLE_K * R,
                     2 * SEPARABLE_K * R * E),
                 "resolve_certainty_fused": (
-                    lambda: ck.resolve_certainty_fused(x, rep, fill, 1.0,
+                    lambda: ck.resolve_certainty_fused(x, rep, fl, 1.0,
                                                        0.1),
-                    lambda: ck.resolve_certainty_fused_plain(x, rep, fill,
+                    lambda: ck.resolve_certainty_fused_plain(x, rep, fl,
                                                              1.0, 0.1),
                     nb + 4 * (E + R) + 4 * (4 * E + 2 * R), 10 * R * E),
                 # the loop's sweeps (no projections out); the final
                 # Rayleigh-Ritz form is checked and timed below
                 "apply_weighted_cov_block": (
-                    lambda: ck.apply_weighted_cov_block(x, mu, rep, V, fill),
+                    lambda: ck.apply_weighted_cov_block(x, mu, rep, V, fl),
                     lambda: ck.apply_weighted_cov_block_plain(x, mu, rep, V,
-                                                              fill),
+                                                              fl),
                     nb + 4 * (2 * E + R + BLOCK_K * E) + 4 * BLOCK_K * E,
                     4 * BLOCK_K * R * E),
                 "apply_weighted_cov_block emit_t": (
-                    lambda: ck.apply_weighted_cov_block(x, mu, rep, V, fill,
+                    lambda: ck.apply_weighted_cov_block(x, mu, rep, V, fl,
                                                         emit_t=True),
                     lambda: ck.apply_weighted_cov_block_plain(
-                        x, mu, rep, V, fill, emit_t=True),
+                        x, mu, rep, V, fl, emit_t=True),
                     nb + 4 * (2 * E + R + BLOCK_K * E)
                     + 4 * BLOCK_K * (E + R), 4 * BLOCK_K * R * E),
                 "storage_rows_matmat": (
-                    lambda: ck.storage_rows_matmat(x, W, fill),
-                    lambda: ck.storage_rows_matmat_plain(x, W, fill),
+                    lambda: ck.storage_rows_matmat(x, W, fl),
+                    lambda: ck.storage_rows_matmat_plain(x, W, fl),
                     nb + 4 * ((BLOCK_K + 1) * R + E)
                     + 4 * (BLOCK_K + 1) * E, 2 * (BLOCK_K + 1) * R * E),
                 "fill_stats_pass": (
@@ -558,6 +602,8 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                     lambda: ck.fill_stats_pass_plain(x, rep),
                     nb + 4 * R + 4 * 2 * E, 5 * R * E),
             }
+            checks = {c: v for c, v in checks.items()
+                      if storage in STORAGES[c.split()[0]]}
             for check, (kern, plain, n_bytes, n_flops) in checks.items():
                 kname = check.split()[0]
                 got, ref = kern(), plain()
@@ -599,15 +645,19 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                                         bound_ms=b_ms, bound_by=b_by)
                 if storage == "float32" and check == kname:
                     stats[kname]["float32_ms"] = k_ms
+                if storage == "bfloat16" and check == kname:
+                    stats[kname].update(bfloat16_ms=k_ms,
+                                        bfloat16_plain_ms=p_ms,
+                                        bfloat16_bound_ms=b_ms)
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], worst_abs)
             # resolve's halves: the column-panel kernel (one read of X,
             # rep and fill; four E-vectors out), then the row-tile pass at
             # k = 2 over [cert; 1] (one read of X and 2E; 2R out)
-            cert = ck._resolve_columns(x, rep, fill, 1.0, 0.1)[2]
+            cert = ck._resolve_columns(x, rep, fl, 1.0, 0.1)[2]
             vt = torch.stack([cert, torch.ones_like(cert)])
             halves = (("column half", lambda: ck._resolve_columns(
-                x, rep, fill, 1.0, 0.1), nb + 4 * (R + E) + 4 * 4 * E),
+                x, rep, fl, 1.0, 0.1), nb + 4 * (R + E) + 4 * 4 * E),
                       ("row half", lambda: ck._absent_rows(x, vt),
                        nb + 4 * 2 * E + 4 * 2 * R))
             for half, fn, n_bytes in halves:
@@ -617,29 +667,42 @@ def kernel_phase(torch, args, ck, _fill_stats, dev, card) -> dict:
                     f"{bound_ms(n_bytes, 0)[0]:.4f} ms (bytes) on {card}")
         log(f"resolve_certainty_fused around the call: int8 "
             f"{stats['resolve_certainty_fused']['ms']:.4f} ms, float32+NaN "
-            f"{stats['resolve_certainty_fused']['float32_ms']:.4f} ms on "
+            f"{stats['resolve_certainty_fused']['float32_ms']:.4f} ms, "
+            f"bfloat16+NaN "
+            f"{stats['resolve_certainty_fused']['bfloat16_ms']:.4f} ms on "
             f"{card}")
         del xf
         # the matvecs are the row-tile pass at k = 1, whose tiling does
-        # not depend on k: on int8 each equals the k = 1 block call
-        same = {
-            "storage_matvec": (ck.storage_matvec(x8, v, fill),
-                               ck.storage_matmat(x8, v[:, None],
-                                                 fill)[:, 0]),
-            "scores_dirfix_pass": (ck.scores_dirfix_pass(x8, rep, v,
-                                                         fill)[0],
-                                   ck.storage_matvec(x8, v, fill)),
-            "apply_weighted_cov": (
-                ck.apply_weighted_cov(x8, mu, rep, v, fill),
-                ck.apply_weighted_cov_block(x8, mu, rep, v[:, None],
-                                            fill)[0][:, 0]),
-        }
-        for kname, (a, b) in same.items():
-            if not torch.equal(a, b):
-                raise RuntimeError(f"{kname} [int8]: not the bits of the "
-                                   "k = 1 row-tile call")
-        log("storage_matvec, scores_dirfix_pass t, apply_weighted_cov "
-            "[int8]: equal bit for bit to the k = 1 block calls")
+        # not depend on k: each equals the k = 1 block call (on bfloat16
+        # both products take the fill rounded to bfloat16, the sweeps'
+        # scores pass the float32 fill: a dense matrix compares them)
+        xbd = torch.nan_to_num(xb, nan=0.5)
+        for storage, x, fl in (("int8", x8, fill), ("bfloat16", xb, fill_b),
+                               ("bfloat16 dense", xbd, None)):
+            same = {
+                "storage_matvec": (ck.storage_matvec(x, v, fl),
+                                   ck.storage_matmat(x, v[:, None],
+                                                     fl)[:, 0]),
+                "apply_weighted_cov_block": (
+                    ck.apply_weighted_cov_block(x, mu, rep, V, fl)[0][:, :2],
+                    ck.apply_weighted_cov_block(x, mu, rep, V[:, :2],
+                                                fl)[0]),
+            }
+            if storage != "bfloat16":
+                same["scores_dirfix_pass"] = (
+                    ck.scores_dirfix_pass(x, rep, v, fl)[0],
+                    ck.storage_matvec(x, v, fl))
+                same["apply_weighted_cov"] = (
+                    ck.apply_weighted_cov(x, mu, rep, v, fl),
+                    ck.apply_weighted_cov_block(x, mu, rep, v[:, None],
+                                                fl)[0][:, 0])
+            for kname, (a, b) in same.items():
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"{kname} [{storage}]: not the bits "
+                                       "of the k = 1 (or k = 2) call")
+            log(f"{', '.join(same)} [{storage}]: equal bit for bit to the "
+                "smaller-k block calls")
+        del xb, xbd
         # how the two uncentered block products' time grows with k, on
         # int8: one launch each
         grows = [("storage_matmat", k, torch.randn((E, k), generator=g,
@@ -916,6 +979,111 @@ def fill_stats_ab(torch, pipeline, drive, x, card):
         f"{worst:.3e} <= {MID_ATOL}")
 
 
+def scaled_fused_paths(torch, args, drive, x8, truth, card, dev,
+                       resolve_params):
+    """The fused path on bfloat16 storage with scaled events: the float
+    reports of ``x8`` with the last ``SCALED_FUSED`` events mapped by
+    ``20 x - 5`` (the reference's ``bench.py --scaled``), sztorc at
+    ``max_iterations`` 1 and 3 and, at the first count, fixed-variance and
+    ica. The gate must open; B.2 must launch once a scoring and resolve
+    once a resolution; binary outcomes must recover the truth and scaled
+    ones equal ``20 truth - 5`` (0 and 1 are on the bfloat16 lattice, so
+    exactly)."""
+    from pyconsensus_tpu_torch import ConsensusParams, sharded_consensus
+
+    R, E = x8.shape
+    for i, n_sc in enumerate(SCALED_FUSED):
+        n_sc = min(n_sc, E // 8)
+        xf = float_reports(torch, x8, n_sc)
+        bounds = scaled_bounds(E, n_sc)
+        binary = slice(0, E - n_sc)
+        cells = [("sztorc", 1), ("sztorc", 3)]
+        if i == 0:
+            cells += [("fixed-variance", 1), ("ica", 1)]
+        for algo, mi in cells:
+            small = "power-fused" if algo == "sztorc" else "power"
+            p = ConsensusParams(algorithm=algo, storage_dtype="bfloat16",
+                                max_iterations=mi, power_tol=1e-5,
+                                pca_method="auto" if R > 4096 else small)
+            resolved = resolve_params(p._replace(any_scaled=True,
+                                                 n_scaled=n_sc), R, E, dev)
+            if not resolved.fused_resolution:
+                raise RuntimeError(f"{algo}, {n_sc} scaled, bfloat16: the "
+                                   "fused path did not open")
+            label = (f"{algo}, {n_sc} scaled, bfloat16 fused, "
+                     f"max_iterations={mi}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, rate, counts = drive(xf, p, label, event_bounds=bounds)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_result(torch, out, R, E, algo, lattice=binary)
+            final = out["outcomes_final"]
+            ok_bin = float((final[binary] == truth[binary]).float().mean())
+            ok_sc = float((final[E - n_sc:] == 20.0 * truth[E - n_sc:] - 5.0)
+                          .float().mean())
+            iters = int(out["iterations"])
+            n = args.resolutions
+            if counts["resolve_certainty_fused"] != n:
+                raise RuntimeError(f"{label}: resolve launched "
+                                   f"{counts['resolve_certainty_fused']} "
+                                   f"times in {n} resolutions")
+            if algo == "sztorc" and counts["scores_dirfix_pass"] != n * iters:
+                raise RuntimeError(f"{label}: scores_dirfix_pass launched "
+                                   f"{counts['scores_dirfix_pass']} times")
+            log(f"{label} (pca_method {resolved.pca_method}): {rate:.4f} "
+                f"resolutions/s ({1e3 / rate:.3f} ms each) on {card}; peak "
+                f"{peak:.3f} GiB; iterations {iters}, binary outcomes == "
+                f"truth {ok_bin:.6f}, scaled outcomes == 20 truth - 5 "
+                f"{ok_sc:.6f}; launches a resolution: B.1 "
+                f"{counts['apply_weighted_cov'] / n:g}, B.2 "
+                f"{counts['scores_dirfix_pass'] / n:g}, resolve "
+                f"{counts['resolve_certainty_fused'] / n:g}; launches "
+                f"{counts}")
+            if ok_bin < 0.99 or ok_sc < 0.99:
+                raise RuntimeError(f"{label}: the outcomes do not recover the "
+                                   "truth")
+        if args.profile and i == 0:
+            profile_resolution(torch, sharded_consensus, xf,
+                               ConsensusParams(storage_dtype="bfloat16",
+                                               power_tol=1e-5,
+                                               pca_method="auto"),
+                               card, "sztorc_scaled_bf16_fused",
+                               event_bounds=bounds)
+        del xf
+        torch.cuda.empty_cache()
+
+
+def bf16_card_vs_cpu(torch, sharded_consensus, xm_cpu, dev):
+    """Phase 5's bfloat16 fused path: the middle-size float reports with
+    their last E // 8 events scaled, sztorc, fixed-variance and ica at
+    ``max_iterations`` 1 and 3, on the card against the CPU (sztorc within
+    ``MID_ATOL``, the others within ``MULTI_ATOL``; binary outcomes
+    exact)."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    R, E = xm_cpu.shape
+    n_sc = E // 8
+    xs = float_reports(torch, xm_cpu, n_sc)
+    xs_dev = xs.to(dev)
+    bounds = scaled_bounds(E, n_sc)
+    for algo, atol in (("sztorc", MID_ATOL), ("fixed-variance", MULTI_ATOL),
+                       ("ica", MULTI_ATOL)):
+        for mi in (1, 3):
+            p = ConsensusParams(algorithm=algo, storage_dtype="bfloat16",
+                                max_iterations=mi, pca_method="power",
+                                power_tol=1e-5)
+            a = sharded_consensus(xs_dev, event_bounds=bounds, params=p)
+            b = sharded_consensus(xs, event_bounds=bounds, params=p,
+                                  device="cpu")
+            what = (f"card vs cpu {algo} bfloat16, {n_sc} scaled, "
+                    f"max_iterations={mi}")
+            worst = compare_outputs(torch, a, b, atol, what,
+                                    scaled_from=E - n_sc)
+            log(f"{what}: exact keys equal on the binary events, continuous "
+                f"max |diff| {worst:.3e} <= {atol}; iterations "
+                f"{int(a['iterations'])}")
+
+
 def scaled_bounds(E, n_scaled):
     """The last ``n_scaled`` of E events scaled on [-5, 15]
     (``bench.py --scaled``)."""
@@ -981,6 +1149,27 @@ def plain_paths(torch, args, drive, card, dev, sharded_consensus,
         if ok_bin < 0.99 or ok_sc < 0.99:
             raise RuntimeError(f"{label}: the outcomes do not recover the "
                                "truth")
+    # the filled matrix stored in bfloat16, as the reference's auto
+    # storage picks where the fused gate closes
+    p = ConsensusParams(power_tol=1e-5, pca_method="auto",
+                        storage_dtype="bfloat16")
+    label = f"sztorc, {n_sc} scaled, plain core, bfloat16, max_iterations=1"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, rate, counts = drive(xf, p, label, "sztorc plain",
+                              event_bounds=bounds)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_result(torch, out, R, E, lattice=binary)
+    final = out["outcomes_final"]
+    ok_bin = float((final[binary] == truth[binary]).float().mean())
+    ok_sc = float(((final[E - n_sc:] - (20.0 * truth[E - n_sc:] - 5.0))
+                   .abs() <= 1e-3).float().mean())
+    log(f"{label}: {rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) on "
+        f"{card}; peak {peak:.3f} GiB; binary outcomes == truth "
+        f"{ok_bin:.6f}, scaled outcomes == 20 truth - 5 {ok_sc:.6f}; "
+        f"launches {counts}")
+    if ok_bin < 0.99 or ok_sc < 0.99:
+        raise RuntimeError(f"{label}: the outcomes do not recover the truth")
     if args.profile:
         profile_resolution(torch, sharded_consensus, xf,
                            ConsensusParams(power_tol=1e-5, pca_method="auto"),

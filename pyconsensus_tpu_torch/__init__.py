@@ -4,11 +4,11 @@ The port runs the ``Oracle`` (``backend="torch"``: the plain pipeline
 over the whole filled matrix, every PCA method, scaled events;
 ``backend="numpy"``: the numpy pipeline), and, through
 ``sharded_consensus``, the fused resolution on NaN-threaded storage (int8
-sentinel or float32 with NaN): sztorc, fixed-variance and ica on one
-device, and sztorc on an event mesh driven by one process
-(``parallel.mesh``). Every Pallas kernel of the JAX package has a
-counterpart written by hand in CUDA for sm_90a (``csrc/``). Entry
-points::
+sentinel, or float32 or bfloat16 with NaN): sztorc, fixed-variance and
+ica on one device, with scaled events up to E // 8 of them, and sztorc
+on an event mesh driven by one process (``parallel.mesh``). Every
+Pallas kernel of the JAX package has a counterpart written by hand in
+CUDA for sm_90a (``csrc/``). Entry points::
 
     from pyconsensus_tpu_torch import Oracle, sharded_consensus
     result = Oracle(reports).consensus()    # device=None: the card

@@ -14,12 +14,13 @@
 // needs the outcome, so a panel of C columns is walked twice: walk 1 sums
 // numer and tw, the block turns them into outcomes, walk 2 sums the
 // certainty. The panel (R x C, 16 bytes a row at R = 10000: C = 16 int8,
-// 4 float32) stays in shared memory between the walks, so X is read from
+// 8 bfloat16, 4 float32) stays in shared memory between the walks, so X is read from
 // device memory once for the column half.
 //   - Persistent grid: one 512-thread block an SM; block b takes panels
 //     b, b + G, b + 2G, ... (G blocks) in that static order.
 //   - Thread-owned rows: thread t owns column group t % NG (CW = 16 /
-//     itemsize columns, one 16-byte granule of a row, or the whole row
+//     itemsize columns: 16 int8, 8 bfloat16 or 4 float32, one 16-byte
+//     granule of a row, or the whole row
 //     when it is narrower) and rows t / NG + k * (512 / NG). It copies
 //     exactly the granules it later reads, so a slot is never handed from
 //     one thread to another: the ring needs no block barrier, and a block
@@ -46,7 +47,10 @@
 //     presence * rs. Walk 2 compares bytes, four a word: an entry agrees
 //     with the outcome when its byte is the outcome's code 2 * outcome, or
 //     when it is absent and the column's fill equals the outcome; the
-//     match bit becomes 1.0 and an FMA adds rs.
+//     match bit becomes 1.0 and an FMA adds rs. bfloat16 and float32
+//     decode to their float32 values (bfloat16 by shifting its bits into
+//     the high half of a float32, exact) and walk as floats, walk 2 from
+//     shared memory like the int8 one.
 //   - Block sums: each warp halves its CW columns across its lanes at each
 //     shuffle (CW - 1 + log2(32 / CW) shuffles, not 5 CW), then the warp
 //     partials are summed in warp order by one thread a column (a shuffle
@@ -60,9 +64,9 @@
 // thread, zero past E; columns past E are never written.
 //
 // Bound. Bytes: one read of X is R*E*itemsize (1.0 GB at 10000 x 100000
-// int8, ~0.30 ms at 3.35 TB/s). The column half reads X once, the row half
+// int8, ~0.30 ms at 3.35 TB/s; 2.0 GB, ~0.60 ms, at bfloat16). The column half reads X once, the row half
 // (the row-tile pass) once more, so resolution cannot beat twice the byte
-// bound (0.60 ms at int8, 2.39 at float32); the one-read fusion of the row
+// bound (0.60 ms at int8, 1.19 at bfloat16, 2.39 at float32); the one-read fusion of the row
 // half into this kernel is later work.
 
 #include <atomic>
@@ -237,6 +241,25 @@ __device__ __forceinline__ void decode(const Vec<int8_t, CW>& p,
   for (int j = 0; j < CW; ++j) absent[j] = val[j] < 0.f;
 }
 
+// bfloat16: two entries a 32-bit word, each 16-bit half the high half of
+// its float32 value (pyc::decode for a one-column granule)
+template <int CW>
+__device__ __forceinline__ void decode(const Vec<__nv_bfloat16, CW>& p,
+                                       float (&val)[CW], bool (&absent)[CW]) {
+  if constexpr (CW >= 2) {
+#pragma unroll
+    for (int w = 0; w < CW / 2; ++w) {
+      const unsigned b = reinterpret_cast<const unsigned*>(p.v)[w];
+      val[2 * w] = pyc::bf16_bits_to_float(b);
+      val[2 * w + 1] = __uint_as_float(b & 0xFFFF0000u);
+      absent[2 * w] = isnan(val[2 * w]);
+      absent[2 * w + 1] = isnan(val[2 * w + 1]);
+    }
+  } else {
+    pyc::decode(p.v[0], val[0], absent[0]);
+  }
+}
+
 template <int CW>
 __device__ __forceinline__ void decode(const Vec<float, CW>& p,
                                        float (&val)[CW], bool (&absent)[CW]) {
@@ -327,7 +350,8 @@ __device__ __forceinline__ void copy_granule(T* dst, const T* __restrict__ x,
     }
   }
 #pragma unroll
-  for (int j = 0; j < CW; ++j) dst[j] = col + j < E ? src[j] : T(0);
+  for (int j = 0; j < CW; ++j)
+    dst[j] = col + j < E ? src[j] : pyc::zero<T>();
 }
 
 // Walk 2 of one int8 granule by bytes, four columns a word: an entry
@@ -489,9 +513,12 @@ resolve_cols_kernel(const T* __restrict__ x, long long R, long long E,
   if (tid < ns) bar_init(bars + tid, kResThreads);
   // the granules of rows past R are never copied: zero them once, so
   // that a step walks all its U rows with no test (their rs is 0)
+  Vec<T, CW> zeros;
+#pragma unroll
+  for (int j = 0; j < CW; ++j) zeros.v[j] = pyc::zero<T>();
   for (int i = 0; i < ns * U; ++i)
     *reinterpret_cast<Vec<T, CW>*>(ring + static_cast<long long>(i) *
-                                              kResThreads * GB) = Vec<T, CW>{};
+                                              kResThreads * GB) = zeros;
   __syncthreads();
 
   int slot0 = 0;               // the slot of the panel's first chunk
@@ -693,23 +720,34 @@ int resolve_cols(const T* x, long long R, long long E, int C, int n_sm,
 
 extern "C" {
 
-// C: panel width in {1, 2, 4, 8, 16, 32}, whose panel's chunks must fit
-// the ring at this R; n_sm: blocks of the persistent grid (one an SM);
-// rep_sum = sum(rep) and full_total, each one float on the device; lo /
-// hi: the catch band's f32 bounds 0.5 -/+ (tolerance + atol).
-int pyc_resolve_cols(const void* x, int is_int8, long long R, long long E,
+// storage: 0 float32 (NaN absent), 1 int8 sentinel, 2 bfloat16 (NaN
+// absent); C: panel width in {1, 2, 4, 8, 16, 32}, whose panel's chunks
+// must fit the ring at this R; n_sm: blocks of the persistent grid (one an
+// SM); rep_sum = sum(rep) and full_total, each one float on the device; lo
+// / hi: the catch band's f32 bounds 0.5 -/+ (tolerance + atol).
+int pyc_resolve_cols(const void* x, int storage, long long R, long long E,
                      int C, int n_sm, const float* rep,
                      const float* fill, const float* rep_sum,
                      const float* full_total, float lo, float hi, float* raw,
                      float* out, float* cert, float* pcol, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (is_int8)
-    return resolve_cols(static_cast<const int8_t*>(x), R, E, C, n_sm, rep,
-                        fill, rep_sum, full_total, lo, hi, raw, out, cert,
-                        pcol, s);
-  return resolve_cols(static_cast<const float*>(x), R, E, C, n_sm, rep, fill,
-                      rep_sum, full_total, lo, hi, raw, out, cert, pcol, s);
+  switch (storage) {
+    case 0:
+      return resolve_cols(static_cast<const float*>(x), R, E, C, n_sm, rep,
+                          fill, rep_sum, full_total, lo, hi, raw, out, cert,
+                          pcol, s);
+    case 1:
+      return resolve_cols(static_cast<const int8_t*>(x), R, E, C, n_sm, rep,
+                          fill, rep_sum, full_total, lo, hi, raw, out, cert,
+                          pcol, s);
+    case 2:
+      return resolve_cols(static_cast<const __nv_bfloat16*>(x), R, E, C,
+                          n_sm, rep, fill, rep_sum, full_total, lo, hi, raw,
+                          out, cert, pcol, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

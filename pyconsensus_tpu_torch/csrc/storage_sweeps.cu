@@ -47,8 +47,9 @@
 //       below. The fill statistics are a column pass of their own with
 //       two sums per column, into per-chunk partials. No float atomics
 //       anywhere.
-// xc is decoded in registers: int8 x * 0.5 with x < 0 absent, float with
-// NaN absent; with a fill vector an absent entry takes a_e (fill - mu for
+// xc is decoded in registers: int8 x * 0.5 with x < 0 absent, float32 and
+// bfloat16 (its bits the high half of a float32, exact) with NaN absent;
+// with a fill vector an absent entry takes a_e (fill - mu for
 // the covariance, fill for the uncentered products), otherwise val - m_e
 // when centered and val when not (the uncentered passes compile the
 // centering out and read no mean); under the absent op (resolve's row
@@ -56,20 +57,22 @@
 // integers below 2^24 in any order.
 //
 // Bound. One read of X is R*E*itemsize (1.0 GB at 10000 x 100000 int8,
-// ~0.30 ms at 3.35 TB/s); the fill statistics are bound by it. The two
+// ~0.30 ms at 3.35 TB/s; 2.0 GB, ~0.60 ms, at bfloat16); the fill
+// statistics are bound by it. The two
 // tile passes do 2kRE float32 operations: at int8 they are bound by the
 // one read of X up to k = 8 (0.30 ms; at k = 1, the matvecs, the
 // operations alone would take 0.03 ms) and by the operations above it
 // (0.358 ms at k = 12, 0.478 at k = 16, at 67 TFLOP/s), so there the FMA
-// pipe and the instructions around it hold them; on float32 storage
-// (4 GB, 1.19 ms) by bytes. A covariance application reads X twice
+// pipe and the instructions around it hold them; on bfloat16 (2 GB,
+// 0.60 ms) and float32 storage (4 GB, 1.19 ms) by bytes at every k <= 16.
+// A covariance application reads X twice
 // (row-tile pass, then column-tile pass), so it cannot beat twice the
 // byte bound; the one-read fusion is later work.
 //
 // The row-tile pass. A block owns 64 rows and one of S ranges of E (grid
-// (ceil(R / 64), S)); it walks its range in chunks of 512 bytes a row and
-// copies each chunk's X tile (32 KB), the chunk of V^T as float32
-// (k x 512 int8 columns) and of fill (and mu) into shared memory once for
+// (ceil(R / 64), S)); it walks its range in chunks of 512 bytes a row (512
+// int8, 256 bfloat16 or 128 float32 columns) and copies each chunk's X
+// tile (32 KB), the chunk of V^T as float32 (k x 512 int8 columns) and of fill (and mu) into shared memory once for
 // all 64 rows, with 16-byte cp.async copies through a ring of 3 stages,
 // so the copy of chunk q + 2 overlaps the FMAs of chunk q (at k = 1, the
 // matvecs, two blocks share an SM, and the centered int8 ring has two
@@ -86,7 +89,8 @@
 // takes k <= 16, so k = 12 reads X once.
 //
 // The column-tile pass is the same tiling turned on its side. A block
-// owns a tile of 512 bytes of each row (512 int8 or 128 float32 columns)
+// owns a tile of 512 bytes of each row (512 int8, 256 bfloat16 or 128
+// float32 columns)
 // and one of S ranges of rows (grid (ceil(E / tile), S)); it walks its
 // range in chunks of 64 rows, and the same 3-stage cp.async ring brings
 // each chunk's X tile (32 KB) and W's chunk as float32 (k x 64) into
@@ -96,7 +100,7 @@
 // address arithmetic cost 0.05-0.07 ms a launch, tools/col_tile_lab.py);
 // the ragged edges take the row-tile pass's checked helpers. A thread
 // owns 4 adjacent columns and sums 4 x k of them over its share of each
-// chunk's rows (32 rows at int8, 8 at float32); per 4 rows it loads each
+// chunk's rows (32 rows at int8, 16 at bfloat16, 8 at float32); per 4 rows it loads each
 // W row's 4 values as one float4 that every lane of the warp reads at
 // the same address (a broadcast), so a W value feeds 4 columns' FMAs and
 // a decoded entry k. The row groups' sums of a column are added in a
@@ -251,7 +255,7 @@ __device__ __forceinline__ void stage_x_tile(T* xs, const T* __restrict__ x,
     for (int i = threadIdx.x; i < kTileRows * BK; i += kTileThreads) {
       const long long row = r0 + i / BK;
       const long long e = e0 + i % BK;
-      xs[i] = (row < R && e < E) ? x[row * E + e] : T(0);
+      xs[i] = (row < R && e < E) ? x[row * E + e] : pyc::zero<T>();
     }
   }
 }
@@ -289,6 +293,19 @@ __device__ __forceinline__ void decode4(const int8_t* p, float (&val)[4],
                   0.5f, -4194368.f);
     absent[j] = val[j] < 0.f;
   }
+}
+
+// bfloat16: four entries are one 8-byte load; each 16-bit half of a word
+// is the high half of its float32 value
+__device__ __forceinline__ void decode4(const __nv_bfloat16* p,
+                                        float (&val)[4], bool (&absent)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  val[0] = pyc::bf16_bits_to_float(q.x);
+  val[1] = __uint_as_float(q.x & 0xFFFF0000u);
+  val[2] = pyc::bf16_bits_to_float(q.y);
+  val[3] = __uint_as_float(q.y & 0xFFFF0000u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) absent[j] = isnan(val[j]);
 }
 
 __device__ __forceinline__ void decode4(const float* p, float (&val)[4],
@@ -426,9 +443,10 @@ row_tile_kernel(const T* __restrict__ x, long long R, long long E,
 
 // Geometry of the column-tile pass: the row-tile pass's X tile (64 rows x
 // 512 bytes) walked down the rows. A thread owns 4 adjacent columns of
-// the tile: tile_cols / 4 threads span a row (128 at int8, 32 at
-// float32), and the block's 256 threads form row groups (2 or 8) that
-// each sum 32 or 8 rows of every chunk. Two blocks share an SM.
+// the tile: tile_cols / 4 threads span a row (128 at int8, 64 at
+// bfloat16, 32 at float32), and the block's 256 threads form row groups
+// (2, 4 or 8) that each sum 32, 16 or 8 rows of every chunk. Two blocks
+// share an SM.
 constexpr int kColTileBlocksPerSm = 2;
 
 template <typename T>
@@ -856,82 +874,108 @@ int fill_stats(const T* x, long long R, long long E, const float* rep,
   return reduce_chunks(partial, n_chunks, 2 * E, out, s);
 }
 
+// Storage codes of the extern "C" entry points, and their element sizes.
+constexpr int kFloat32 = 0;
+constexpr int kInt8 = 1;
+constexpr int kBfloat16 = 2;
+
+int storage_itemsize(int storage) {
+  return storage == kInt8 ? 1 : (storage == kBfloat16 ? 2 : 4);
+}
+
+// f(x as a pointer to the storage type); an unknown code is refused
+template <typename F>
+int with_storage(int storage, const void* x, F&& f) {
+  switch (storage) {
+    case kFloat32:
+      return f(static_cast<const float*>(x));
+    case kInt8:
+      return f(static_cast<const int8_t*>(x));
+    case kBfloat16:
+      return f(static_cast<const __nv_bfloat16*>(x));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// storage: 0 float32 (NaN absent), 1 int8 sentinel, 2 bfloat16 (NaN
+// absent).
+
 // out[c, e] = sum_i w[c, i] * xc[i, e] for c < k; w is (k, R) and out
 // (k, E). With m (centered), k in 1..8; without, k in 1..16. n_splits > 1
 // goes through partial[n_splits, k, E] and a fixed-order reduce.
-int pyc_col_pass(const void* x, int is_int8, long long R, long long E,
+int pyc_col_pass(const void* x, int storage, long long R, long long E,
                  const float* m, const float* a, const float* w, int k,
                  int n_splits, float* partial, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_int8)
-    return col_tile_pass(static_cast<const int8_t*>(x), R, E, m, a, w, k,
-                         n_splits, partial, out, s);
-  return col_tile_pass(static_cast<const float*>(x), R, E, m, a, w, k,
-                       n_splits, partial, out, s);
+  return with_storage(storage, x, [&](auto xp) {
+    return col_tile_pass(xp, R, E, m, a, w, k, n_splits, partial, out, s);
+  });
 }
 
 // Row ranges (partials) of pyc_col_pass, and E ranges of
 // pyc_row_tile_pass, for an R x E matrix on a card of n_sm SMs (the
 // caller queries it once per device).
-int pyc_col_tile_splits(long long R, long long E, int is_int8, int n_sm) {
-  return col_tile_splits(R, E, is_int8 ? 1 : 4, n_sm < 1 ? 1 : n_sm);
+int pyc_col_tile_splits(long long R, long long E, int storage, int n_sm) {
+  return col_tile_splits(R, E, storage_itemsize(storage),
+                         n_sm < 1 ? 1 : n_sm);
 }
 
-int pyc_row_tile_splits(long long R, long long E, int is_int8, int n_sm) {
-  return row_tile_splits(R, E, is_int8 ? 1 : 4, n_sm < 1 ? 1 : n_sm);
+int pyc_row_tile_splits(long long R, long long E, int storage, int n_sm) {
+  return row_tile_splits(R, E, storage_itemsize(storage),
+                         n_sm < 1 ? 1 : n_sm);
 }
 
 // t[c, i] = sum_e xc[i, e] * vt[c, e] for c < k; vt is (k, E) and t
 // (k, R). With m (centered), k in 1..8; without, k in 1..16. n_splits > 1
 // goes through partial[n_splits, k, R] and a fixed-order reduce.
-int pyc_row_tile_pass(const void* x, int is_int8, long long R, long long E,
+int pyc_row_tile_pass(const void* x, int storage, long long R, long long E,
                       const float* m, const float* a, const float* vt, int k,
                       int n_splits, float* partial, float* t, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_splits < 1 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_int8)
-    return row_tile_pass(static_cast<const int8_t*>(x), R, E, m, a, vt, k,
-                         n_splits, partial, t, s);
-  return row_tile_pass(static_cast<const float*>(x), R, E, m, a, vt, k,
-                       n_splits, partial, t, s);
+  return with_storage(storage, x, [&](auto xp) {
+    return row_tile_pass(xp, R, E, m, a, vt, k, n_splits, partial, t, s);
+  });
 }
 
 // t[c, i] = sum_e [x_ie absent] vt[c, e] for c < k, k = 2 only (resolve's
 // row half, vt = [cert; 1]); n_splits > 1 goes through partial[n_splits,
 // 2, R] and a fixed-order reduce.
-int pyc_row_tile_absent(const void* x, int is_int8, long long R, long long E,
+int pyc_row_tile_absent(const void* x, int storage, long long R, long long E,
                         const float* vt, int k, int n_splits, float* partial,
                         float* t, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k != 2 || n_splits < 1 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_int8)
-    return row_tile_absent(static_cast<const int8_t*>(x), R, E, vt, n_splits,
-                           partial, t, s);
-  return row_tile_absent(static_cast<const float*>(x), R, E, vt, n_splits,
-                         partial, t, s);
+  return with_storage(storage, x, [&](auto xp) {
+    return row_tile_absent(xp, R, E, vt, n_splits, partial, t, s);
+  });
 }
 
 // out[0, e] = sum_i rep_i [present], out[1, e] = sum_i rep_i value_ie,
-// through partial[n_chunks, 2, E] and a fixed-order reduce.
-int pyc_fill_stats(const void* x, int is_int8, long long R, long long E,
+// through partial[n_chunks, 2, E] and a fixed-order reduce. int8 and
+// float32 storage only: the reference runs this kernel on int8 alone.
+int pyc_fill_stats(const void* x, int storage, long long R, long long E,
                    const float* rep, long long n_chunks, float* partial,
                    float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks < 1 || n_chunks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_int8)
+  if (storage == kInt8)
     return fill_stats(static_cast<const int8_t*>(x), R, E, rep, n_chunks,
                       partial, out, s);
-  return fill_stats(static_cast<const float*>(x), R, E, rep, n_chunks,
-                    partial, out, s);
+  if (storage == kFloat32)
+    return fill_stats(static_cast<const float*>(x), R, E, rep, n_chunks,
+                      partial, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Shared device helpers of the port's storage kernels: the storage decode
-// (pallas_kernels._decode_block), aligned vector loads and a fixed-order
-// block sum.
+// (pallas_kernels._decode_block) of int8 sentinel, float32 and bfloat16
+// storage, aligned vector loads and a fixed-order block sum.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -20,8 +21,32 @@ __device__ __forceinline__ void decode(float s, float& val, bool& absent) {
   absent = isnan(s);
 }
 
+// bfloat16 storage: the 16 bits are the high half of a float32 (exact,
+// no rounding); NaN marks an absent entry.
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
+__device__ __forceinline__ void decode(__nv_bfloat16 s, float& val,
+                                       bool& absent) {
+  val = bf16_bits_to_float(__bfloat16_as_ushort(s));
+  absent = isnan(val);
+}
+
+// The zero of a storage type, for the copies past R or E. bfloat16 takes
+// its bits: its default constructor need not clear them.
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0);
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
+
 // VW consecutive elements loaded in one aligned access (16 bytes for
-// int8 x16 and float x4).
+// int8 x16, bfloat16 x8 and float x4).
 template <typename T, int VW>
 struct alignas(sizeof(T) * VW) Vec {
   T v[VW];

@@ -15,12 +15,14 @@ Three pipelines:
   sztorc ``"power-fused"`` arm runs the sweeps on ``apply_weighted_cov``
   and ``scores_dirfix_pass`` over the dense filled matrix;
 - :func:`_consensus_core_fused`, the light fused pipeline on NaN-threaded
-  storage (int8 sentinel or float with NaN), whose filled matrix never
-  exists:
+  storage (int8 sentinel, or float32 or bfloat16 with NaN), whose filled
+  matrix never exists:
 
-      fill stats (plain torch, or fill_stats_pass under the gate) ->
+      rescale (scaled events) -> fill stats (plain torch, or
+      fill_stats_pass under the gate) -> storage cast ->
       [scoring -> row reward -> smooth] x iterations ->
-      resolve_certainty_fused -> bonuses (plain torch)
+      resolve_certainty_fused -> gather-median tail (scaled events) ->
+      bonuses (plain torch)
 
   Its scoring step is, by algorithm: ``sztorc``, power iteration over
   apply_weighted_cov, then scores_dirfix_pass and the direction fix;
@@ -29,7 +31,10 @@ Three pipelines:
   explained variance; ``ica``, the same subspace, FastICA on the whitened
   scores, and one storage_rows_matmat for the extracted component's
   direction fix. Every kernel reconstructs absent entries from the
-  per-column fill vector.
+  per-column fill vector. A small minority of scaled events (at most
+  E // 8, the front door's gate) rides the binary kernels and is then
+  re-resolved on a gather of its columns: the exact weighted median and
+  the tolerance-agreement certainty.
 
 The accumulation dtype is the reputation's dtype, as in the reference; the
 kernels compute in float32.
@@ -59,10 +64,11 @@ __all__ = ["ConsensusParams", "consensus_np", "consensus_torch",
            "ROADMAP_BF16", "ROADMAP_MESH_PLAIN"]
 
 #: where the parts the port refuses are queued (ROADMAP.md section A)
-ROADMAP_SCALED_FUSED = ("ROADMAP.md §A.2.2 (scaled events on the fused "
-                        "path: the gather-median tail)")
+ROADMAP_SCALED_FUSED = ("ROADMAP.md §A.10 (scaled events on an event "
+                        "mesh: the shard-local gather-median tail)")
 ROADMAP_CLUSTERING = "ROADMAP.md §A.6 (clustering)"
-ROADMAP_BF16 = "ROADMAP.md §A.3 (bfloat16 storage)"
+ROADMAP_BF16 = ("ROADMAP.md §A.10 (bfloat16 storage and matvec_dtype on an "
+                "event mesh)")
 ROADMAP_MESH_PLAIN = ("ROADMAP.md §A.10 (the plain pipeline on an event "
                       "mesh: fixed-variance, ica, and sztorc where the "
                       "fused gate closes)")
@@ -72,6 +78,8 @@ FUSED_ALGORITHMS = ("sztorc", "fixed-variance", "ica")
 CLUSTERING_ALGORITHMS = ("k-means", "dbscan-jit", "hierarchical", "dbscan")
 #: every algorithm the reference knows
 ALGORITHMS = FUSED_ALGORITHMS + CLUSTERING_ALGORITHMS
+#: the matvec narrowing casts ("" = none)
+MATVEC_DTYPES = ("", "float32", "bfloat16")
 
 #: thread the whitening subspace into iterated ica as the orthogonal
 #: iteration's warm start. Off, as in the reference: the warm basis moves
@@ -107,7 +115,8 @@ class ConsensusParams(NamedTuple):
     power_tol: float = 0.0
     matvec_dtype: str = ""
     #: "" keeps the input's float storage (NaN marks absence); "int8"
-    #: stores ``round(2 * value)`` with -1 for absence (binary events)
+    #: stores ``round(2 * value)`` with -1 for absence (binary events);
+    #: "bfloat16" halves float32's bytes (NaN marks absence)
     storage_dtype: str = ""
     any_scaled: bool = True
     has_na: bool = True
@@ -125,43 +134,53 @@ def _le(a: torch.Tensor, bound: float) -> torch.Tensor:
 
 
 def _fill_stats(reports: torch.Tensor, reputation: torch.Tensor,
-                tolerance: float, storage_dtype: str):
+                tolerance: float, storage_dtype: str, scaled=None):
     """Storage encode plus the per-column fill statistics: returns
     ``(x, fill, tw, numer)`` where ``tw`` is the present reputation mass,
     ``numer`` the present reputation-weighted sum and ``fill`` their
-    catch-snapped ratio (0.5 for a column with no present mass). With
+    catch-snapped ratio (0.5 for a column with no present mass; the
+    ``scaled`` columns keep the raw weighted mean). With
     ``storage_dtype="int8"`` the statistics come from the decoded storage,
-    so pre-encoded input and encode-per-resolution give the same bits."""
+    so pre-encoded input and encode-per-resolution give the same bits.
+    Float storage takes them from the float reports and casts after them
+    (on bfloat16 the values round, the statistics do not)."""
     acc = reputation.dtype
     if storage_dtype == "int8":
         x = reports if reports.dtype == torch.int8 else encode_reports(reports)
         if _FILL_STATS_KERNEL:
             tw, numer = fill_stats_pass(x, reputation)
-            return (x, *_snap_fill(tw.to(acc), numer.to(acc), tolerance))
+            return (x, *_snap_fill(tw.to(acc), numer.to(acc), tolerance,
+                                   scaled))
         # a present entry holds x * 0.5 and an absent one counts 0: clamp
         # the sentinel to 0 and fold the 0.5 into the weights (a power of
         # two, so every product rounds as it would on the decoded value)
         tw = reputation @ (x >= 0).to(acc)
         numer = (0.5 * reputation) @ torch.clamp(x, min=0).to(acc)
-        return (x, *_snap_fill(tw, numer, tolerance))
+        return (x, *_snap_fill(tw, numer, tolerance, scaled))
     na = torch.isnan(reports)
-    x = reports.to(getattr(torch, storage_dtype)) if storage_dtype \
-        else reports
+    tw = reputation @ (~na).to(acc)
     zeroed = torch.where(na, torch.zeros((), dtype=reports.dtype,
                                          device=reports.device),
                          reports).to(acc)
-    tw = reputation @ (~na).to(acc)
+    del na
     numer = reputation @ zeroed
-    return (x, *_snap_fill(tw, numer, tolerance))
+    del zeroed
+    x = reports.to(getattr(torch, storage_dtype)) if storage_dtype \
+        else reports
+    return (x, *_snap_fill(tw, numer, tolerance, scaled))
 
 
-def _snap_fill(tw, numer, tolerance: float):
-    """The catch-snapped fill vector from the present-weight stats.
-    Returns ``(fill, tw, numer)``."""
+def _snap_fill(tw, numer, tolerance: float, scaled=None):
+    """The catch-snapped fill vector from the present-weight stats; the
+    ``scaled`` columns (None: none) keep the raw weighted mean. Returns
+    ``(fill, tw, numer)``."""
     one = torch.ones_like(tw)
     fill = torch.where(tw > 0.0, numer / torch.where(tw > 0.0, tw, one),
                        torch.full_like(tw, 0.5))
-    return tk.catch(fill, tolerance), tw, numer
+    snapped = tk.catch(fill, tolerance)
+    if scaled is not None:
+        snapped = torch.where(scaled, fill, snapped)
+    return snapped, tw, numer
 
 
 def encode_reports(reports: torch.Tensor) -> torch.Tensor:
@@ -242,10 +261,8 @@ def _check_fused_params(reports_dtype, p: ConsensusParams) -> None:
         raise ValueError(
             "storage_dtype='int8' supports binary/categorical events only: "
             "scaled columns rescale to continuous values in [0, 1] that "
-            "the half-unit int8 lattice would corrupt")
-    if p.any_scaled or p.n_scaled:
-        raise NotImplementedError(f"scaled events on the fused path are not "
-                                  f"ported yet: {ROADMAP_SCALED_FUSED}")
+            "the half-unit int8 lattice would corrupt; use "
+            "storage_dtype='bfloat16' for scaled workloads")
     if p.algorithm not in FUSED_ALGORITHMS:
         raise NotImplementedError(
             f"the fused path scores {'/'.join(FUSED_ALGORITHMS)} only, got "
@@ -301,11 +318,12 @@ def _redistribute(scores_at, masked_mu, old_rep: torch.Tensor,
 
 def _assemble(p: ConsensusParams, old_rep, this_rep, rep, loading,
               converged, iters, ica_conv, raw, adjusted, certainty, pcol,
-              prow, narow) -> dict:
+              prow, narow, final=None) -> dict:
     """The O(R + E) back half after the resolve sweep (bonuses and the
     light result dict), in the reputation dtype. Every (E,) input covers
     the real events, so the means run over the real event count on any
-    layout."""
+    layout. ``final``: the unscaled outcomes (None: ``adjusted``, all
+    events binary)."""
     acc = rep.dtype
     raw = raw.to(acc)
     adjusted = adjusted.to(acc)
@@ -331,7 +349,7 @@ def _assemble(p: ConsensusParams, old_rep, this_rep, rep, loading,
         "na_row": narow > 0.0,
         "outcomes_raw": raw,
         "outcomes_adjusted": adjusted,
-        "outcomes_final": adjusted,
+        "outcomes_final": adjusted if final is None else final.to(acc),
         "iterations": iters,
         "convergence": converged,
         "certainty": certainty,
@@ -354,16 +372,60 @@ def _assemble(p: ConsensusParams, old_rep, this_rep, rep, loading,
     return result
 
 
+def _scaled_tail(p: ConsensusParams, gathered, idx, rep, fill, mins,
+                 maxs, raw, adjusted, certainty, prow):
+    """The gather-median tail of the fused path
+    (``pyconsensus_tpu/models/pipeline.py:858-907``): the kernels'
+    catch-snapped means are wrong for the scaled columns, so their
+    gathered, rescaled reports (``gathered`` (R, n_scaled), the float
+    matrix's bits) are rounded to the storage dtype as the kernels saw
+    them, filled, and re-resolved by the exact weighted median and the
+    tolerance-agreement certainty; ``prow`` swaps the kernels' certainty
+    of those columns for it. O(R * n_scaled). Returns ``(raw, adjusted,
+    certainty, prow, final)`` in the reputation dtype, ``final`` unscaled."""
+    acc = rep.dtype
+    xs = gathered
+    if p.storage_dtype:
+        xs = xs.to(getattr(torch, p.storage_dtype))
+    xs = xs.to(acc)
+    pres = ~torch.isnan(xs)
+    filled_s = torch.where(pres, xs, fill[idx].to(acc)[None, :])
+    del xs
+    med = tk.weighted_median_cols(filled_s, rep, pres)
+    tw_s = rep @ pres.to(acc)
+    out_s = torch.where(tw_s > 0.0, med, raw[idx])
+    agree_s = torch.abs(filled_s - out_s[None, :]) <= p.catch_tolerance
+    cert_s = rep @ agree_s.to(acc)
+    prow = prow + (~pres).to(acc) @ (cert_s - certainty[idx])
+    certainty = certainty.index_copy(0, idx, cert_s)
+    raw = raw.index_copy(0, idx, out_s)
+    adjusted = adjusted.index_copy(0, idx, out_s)           # no catch snap
+    final = adjusted.index_copy(0, idx,
+                                out_s * (maxs[idx] - mins[idx]) + mins[idx])
+    return raw, adjusted, certainty, prow, final
+
+
 def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
                           p: ConsensusParams) -> dict:
     """The light pipeline on the fused kernel path
     (``pipeline._consensus_core_fused``) for sztorc, fixed-variance and
-    ica. ``scaled``/``mins``/``maxs`` are accepted for the reference's
-    signature; scaled events raise."""
+    ica. With scaled events the reports are rescaled into one new buffer,
+    the ``p.n_scaled`` scaled columns gathered from it, and the buffer
+    dropped once the storage cast is made; the gather-median tail then
+    re-resolves those columns (:func:`_scaled_tail`)."""
     _check_fused_params(reports.dtype, p)
     old_rep = tk.normalize(reputation)
+    acc = old_rep.dtype
+    gathered = idx = None
+    if p.any_scaled:
+        reports = tk.rescale(reports, scaled, mins, maxs)    # NaN stays NaN
+        if p.n_scaled:
+            idx = tk._scaled_index(scaled, p.n_scaled)
+            gathered = reports.index_select(1, idx)
     x, fill, tw0, numer0 = _fill_stats(reports, old_rep, p.catch_tolerance,
-                                       p.storage_dtype)
+                                       p.storage_dtype,
+                                       scaled if p.any_scaled else None)
+    del reports
     full0 = torch.sum(old_rep)
     mu1 = numer0 + (full0 - tw0) * fill
     xs = tk.matvec_narrow(x, p.matvec_dtype)
@@ -390,10 +452,16 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
     rep, this_rep, loading, converged, iters, ica_conv = _redistribute(
         scores_at, lambda r: _masked_mu(x, fill, r), old_rep, mu1,
         _subspace_carry_shape(p, R, E), p)
-    outs = resolve_certainty_fused(x, rep, fill, torch.sum(rep),
-                                   float(p.catch_tolerance))
+    raw, adjusted, certainty, pcol, prow, narow = resolve_certainty_fused(
+        x, rep, fill, torch.sum(rep), float(p.catch_tolerance))
+    final = None
+    if gathered is not None:
+        raw, adjusted, certainty, prow, final = _scaled_tail(
+            p, gathered, idx, rep, fill, mins, maxs, raw.to(acc),
+            adjusted.to(acc), certainty.to(acc), prow.to(acc))
     return _assemble(p, old_rep, this_rep, rep, loading, converged, iters,
-                     ica_conv, *outs)
+                     ica_conv, raw, adjusted, certainty, pcol, prow, narow,
+                     final)
 
 
 def _consensus_core_light(reports, reputation, scaled, mins, maxs,
@@ -527,10 +595,13 @@ def _scores(filled, rep, p: ConsensusParams, v_init=None):
     """``(adj_scores, warm-start carry or None, ica_converged or None)``
     over the dense filled matrix. ``v_init`` warm-starts sztorc's power
     family (its (E,) loading) and fixed-variance's orthogonal iteration
-    (its (E, k) block); ica starts cold unless ``_ICA_WARM_START``."""
+    (its (E, k) block); ica starts cold unless ``_ICA_WARM_START``.
+    ``p.matvec_dtype`` narrows sztorc's power sweeps, as in the
+    reference."""
     if p.algorithm == "sztorc":
         return (*sztorc_scores(filled, rep, p.pca_method, p.power_iters,
-                               p.power_tol, v_init=v_init), None)
+                               p.power_tol, v_init=v_init,
+                               matvec_dtype=p.matvec_dtype), None)
     if p.algorithm == "fixed-variance":
         return (*fixed_variance_scores(filled, rep, p.variance_threshold,
                                        p.max_components, p.pca_method,
@@ -573,6 +644,14 @@ def _iterate(filled, old_rep, p: ConsensusParams):
             torch.tensor(iters, dtype=torch.int32, device=dev), ica_conv)
 
 
+def check_matvec_dtype(matvec_dtype: str) -> None:
+    """Refuse a narrowing cast the kernels and the plain core do not
+    take."""
+    if matvec_dtype not in MATVEC_DTYPES:
+        raise ValueError(f"matvec_dtype={matvec_dtype!r}: choose from "
+                         f"{MATVEC_DTYPES}")
+
+
 def _check_plain_params(reports, p: ConsensusParams) -> None:
     if reports.dtype == torch.int8:
         raise ValueError(
@@ -585,10 +664,7 @@ def _check_plain_params(reports, p: ConsensusParams) -> None:
             "consensus with a power-family pca_method and binary events): "
             "the plain core stores the interpolated matrix, whose "
             "continuous fills the half-unit int8 lattice would corrupt")
-    if p.storage_dtype == "bfloat16" or p.matvec_dtype:
-        raise NotImplementedError(
-            f"storage_dtype={p.storage_dtype!r}, matvec_dtype="
-            f"{p.matvec_dtype!r}: {ROADMAP_BF16}")
+    check_matvec_dtype(p.matvec_dtype)
     if p.algorithm in CLUSTERING_ALGORITHMS:
         raise NotImplementedError(f"algorithm={p.algorithm!r}: "
                                   f"{ROADMAP_CLUSTERING}")
@@ -602,8 +678,11 @@ def _consensus_core(reports, reputation, scaled, mins, maxs,
     ._consensus_core``) for sztorc, fixed-variance and ica. ``any_scaled``
     False skips rescale and the median, ``has_na`` False the fill and the
     absent accounting. ``light`` leaves out the (R, E) outputs and drops
-    each (R, E) intermediate as soon as nothing reads it. Returns the flat
-    result dict of tensors."""
+    each (R, E) intermediate as soon as nothing reads it. A
+    ``storage_dtype`` stores the filled matrix in that dtype (bfloat16:
+    one 2-byte buffer): sztorc's ``power-fused`` sweeps it on the kernels
+    as it is, every other product reads it in the reputation dtype
+    (``torch_kernels._dot``). Returns the flat result dict of tensors."""
     _check_plain_params(reports, p)
     old_rep = tk.normalize(reputation)
     rescaled = (tk.rescale(reports, scaled, mins, maxs) if p.any_scaled

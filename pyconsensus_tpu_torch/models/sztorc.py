@@ -61,19 +61,23 @@ def fixed_variance_scores_np(reports_filled, reputation, variance_threshold,
 
 def sztorc_scores(filled: torch.Tensor, reputation: torch.Tensor,
                   pca_method: str = "auto", power_iters: int = 128,
-                  power_tol: float = 0.0, v_init=None):
+                  power_tol: float = 0.0, v_init=None,
+                  matvec_dtype: str = ""):
     """Direction-fixed first-component scores over the dense filled
     matrix. Where the method resolves to ``"power-fused"`` the sweeps run
     on ``apply_weighted_cov`` and the scores and direction fix on one
     ``scores_dirfix_pass``. ``v_init`` warm-starts the power-family
-    methods. Returns ``(adj_scores, loading)``."""
+    methods; ``matvec_dtype`` narrows their sweeps' operand. Returns
+    ``(adj_scores, loading)``."""
     method = tk.resolve_pca_method(*filled.shape, pca_method, filled.device)
     if method == "power-fused":
         return tk.sztorc_scores_power_fused(filled, reputation, power_iters,
-                                            power_tol, v_init=v_init)
+                                            power_tol, matvec_dtype,
+                                            v_init=v_init)
     loading, scores = tk.weighted_prin_comp(filled, reputation, method,
                                             power_iters, power_tol,
-                                            v_init=v_init)
+                                            v_init=v_init,
+                                            matvec_dtype=matvec_dtype)
     return tk.direction_fixed_scores(scores, filled, reputation), loading
 
 

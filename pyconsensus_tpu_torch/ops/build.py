@@ -32,24 +32,25 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 #: C signature of every entry point: argtypes (pointers and the stream as
-#: c_void_p, so ctypes never truncates them to 32 bits) and int return
+#: c_void_p, so ctypes never truncates them to 32 bits) and int return;
+#: ``storage`` is 0 for float32, 1 for int8 sentinel, 2 for bfloat16
 _SIGNATURES = {
     "storage_sweeps.cu": {
-        # x, is_int8, R, E, m, a, w, k, n_splits, partial, out, stream
+        # x, storage, R, E, m, a, w, k, n_splits, partial, out, stream
         "pyc_col_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P, _P),
-        # R, E, is_int8, n_sm
+        # R, E, storage, n_sm
         "pyc_col_tile_splits": (_LL, _LL, _I, _I),
         "pyc_row_tile_splits": (_LL, _LL, _I, _I),
-        # x, is_int8, R, E, m, a, vt, k, n_splits, partial, t, stream
+        # x, storage, R, E, m, a, vt, k, n_splits, partial, t, stream
         "pyc_row_tile_pass": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _P, _P,
                               _P),
-        # x, is_int8, R, E, vt, k, n_splits, partial, t, stream
+        # x, storage, R, E, vt, k, n_splits, partial, t, stream
         "pyc_row_tile_absent": (_P, _I, _LL, _LL, _P, _I, _I, _P, _P, _P),
-        # x, is_int8, R, E, rep, n_chunks, partial, out, stream
+        # x, storage, R, E, rep, n_chunks, partial, out, stream
         "pyc_fill_stats": (_P, _I, _LL, _LL, _P, _LL, _P, _P, _P),
     },
     "resolve.cu": {
-        # x, is_int8, R, E, C, n_sm, rep, fill, rep_sum, full_total, lo,
+        # x, storage, R, E, C, n_sm, rep, fill, rep_sum, full_total, lo,
         # hi, raw, out, cert, pcol, stream
         "pyc_resolve_cols": (_P, _I, _LL, _LL, _I, _I, _P, _P, _P, _P, _F,
                              _F, _P, _P, _P, _P, _P),

@@ -29,10 +29,25 @@ return order:
 A wrapper takes its plain version (``*_plain``, plain torch with the same
 arithmetic) only for a matrix that lies on the CPU. For a CUDA matrix it
 launches the kernel or raises; nothing falls back. Storage is int8
-sentinel storage (``round(2 * value)``, ``-1`` absent) or float32 with
-NaN marking absence. The kernels accumulate in float32 and reduce across
-blocks in a fixed order (per-block partials, then a second pass), never
-with float atomics.
+sentinel storage (``round(2 * value)``, ``-1`` absent), or float32 or
+bfloat16 with NaN marking absence (``fill_stats_pass`` takes int8 and
+float32 only, as in the reference). The kernels decode every entry to its
+exact float32 value, accumulate in float32 and reduce across blocks in a
+fixed order (per-block partials, then a second pass), never with float
+atomics.
+
+Two fill forms, as in the reference. ``apply_weighted_cov``,
+``scores_dirfix_pass`` and ``resolve_certainty_fused`` give an absent
+entry the float32 fill (``pallas_kernels._decode_block``).
+``storage_matvec``, ``storage_matmat``, ``storage_rows_matmat`` and
+``apply_weighted_cov_block`` on bfloat16 storage give it the fill rounded
+to bfloat16 (``pallas_kernels._decode_filled_bf16``): binary fills are on
+the bfloat16 lattice, so only the continuous fills of scaled columns
+round. The plain versions and the launches round the fill
+(``_lattice_fill``); the kernels stay exact float32 inside. The
+reference's bfloat16 MXU products with a compensated vector (``_vector_aux``,
+``_matrix_aux``) are not carried over: a float32 FMA of the decoded entry
+and the float32 vector is at least as exact.
 """
 
 from __future__ import annotations
@@ -127,13 +142,17 @@ def require_hopper(device: torch.device) -> None:
             "for Hopper (sm_90a) only")
 
 
+#: element sizes of the storage the kernels take: int8, bfloat16, float32
+_ITEMSIZES = (1, 2, 4)
+
+
 def fused_pca_fits(n_events: int, itemsize: int) -> bool:
     """Whether the storage sweeps (``apply_weighted_cov``,
-    ``scores_dirfix_pass``) take an E-wide matrix of ``itemsize`` bytes.
-    Unlike the TPU kernels, which hold E-wide panels in VMEM, they keep
-    nothing E-wide on chip: a block streams its rows or columns, so any
-    width the 32-bit grid can index fits."""
-    return itemsize in (1, 4) and 1 <= n_events < 2 ** 31
+    ``scores_dirfix_pass``) take an E-wide matrix of ``itemsize`` bytes
+    (int8, bfloat16 or float32). Unlike the TPU kernels, which hold E-wide
+    panels in VMEM, they keep nothing E-wide on chip: a block streams its
+    rows or columns, so any width the 32-bit grid can index fits."""
+    return itemsize in _ITEMSIZES and 1 <= n_events < 2 ** 31
 
 
 def cov_block_kernel_fits(n_events: int, n_components: int,
@@ -165,7 +184,8 @@ def _resolve_ring(block_cols: int, itemsize: int):
     before the ring)``. A thread owns one granule of a panel row (the row
     up to 16 bytes); the slots fill the shared memory beside the
     mbarriers, the three rows of per-warp partials and the outcome and
-    fill columns, at most ``_RES_MAX_SLOTS`` of them."""
+    fill columns, at most ``_RES_MAX_SLOTS`` of them. A 16-byte granule
+    holds 16 int8, 8 bfloat16 or 4 float32 columns."""
     gb = min(block_cols * itemsize, 16)
     rows = _RES_THREADS // (block_cols * itemsize // gb)
     aux = -(-(_RES_MAX_SLOTS * 8 + 4 * (3 * (_RES_THREADS // 32) * block_cols
@@ -202,19 +222,23 @@ def resolve_kernel_fits(n_reporters: int, itemsize: int) -> bool:
     the one-column panel ``R * itemsize`` within
     ``_RES_MAX_PANEL_BYTES``, the gate the front door routes by, at
     which :func:`resolve_block_cols` always finds a width."""
-    return itemsize in (1, 4) and n_reporters * itemsize <= \
+    return itemsize in _ITEMSIZES and n_reporters * itemsize <= \
         _RES_MAX_PANEL_BYTES
 
 
 # -- shared checks -----------------------------------------------------------
 
+#: the storage codes of the C entry points (csrc/*.cu)
+_STORAGE_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+
+
 def _check_matrix(x: torch.Tensor):
     if not isinstance(x, torch.Tensor) or x.dim() != 2:
         raise ValueError("storage matrix must be a 2-D tensor")
     if x.device.type == "cuda":
-        if x.dtype not in (torch.int8, torch.float32):
-            raise TypeError("the CUDA kernels take int8 sentinel or float32 "
-                            f"storage, got {x.dtype}")
+        if x.dtype not in _STORAGE_CODES:
+            raise TypeError("the CUDA kernels take int8 sentinel, bfloat16 "
+                            f"or float32 storage, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError("storage matrix must be contiguous")
     elif x.device.type != "cpu":
@@ -261,16 +285,27 @@ def _aligned(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _decode(x: torch.Tensor):
     """``(values f32, absent)`` of a storage matrix (the plain form of
-    ``pallas_kernels._decode_block``)."""
+    ``pallas_kernels._decode_block``): bfloat16 and float32 values upcast
+    exactly, NaN absent."""
     xp = x.to(torch.float32)
     if x.dtype == torch.int8:
         return xp * 0.5, xp < 0.0
     return xp, torch.isnan(xp)
 
 
+def _lattice_fill(x: torch.Tensor, fill):
+    """The fill of the uncentered products and the block covariance
+    (``pallas_kernels._decode_filled_bf16``): rounded to bfloat16 on
+    bfloat16 storage, as it is; None stays None."""
+    if fill is None or x.dtype != torch.bfloat16:
+        return fill
+    return fill.to(torch.bfloat16).to(fill.dtype)
+
+
 def _launch_args(x: torch.Tensor):
+    """``(storage code, stream)`` of a launch over ``x``."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return int(x.dtype == torch.int8), stream
+    return _STORAGE_CODES[x.dtype], stream
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -288,10 +323,10 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _row_tile_splits(R: int, E: int, is_int8: int, index: int) -> int:
+def _row_tile_splits(R: int, E: int, storage: int, index: int) -> int:
     """``pyc_row_tile_splits`` for a matrix on CUDA device ``index``,
-    asked once per shape and storage type."""
-    return _storage_lib().pyc_row_tile_splits(R, E, is_int8,
+    asked once per shape and storage code."""
+    return _storage_lib().pyc_row_tile_splits(R, E, storage,
                                               _sm_count(index))
 
 
@@ -303,14 +338,14 @@ def _col_pass(lib, x, m, a, w):
     and reduces them in a fixed order."""
     R, E = x.shape
     k = w.shape[0]
-    is_int8, stream = _launch_args(x)
-    n_splits = lib.pyc_col_tile_splits(R, E, is_int8,
+    storage, stream = _launch_args(x)
+    n_splits = lib.pyc_col_tile_splits(R, E, storage,
                                        _sm_count(x.device.index))
     out = torch.empty((k, E), dtype=torch.float32, device=x.device)
     partial = (torch.empty((n_splits, k, E), dtype=torch.float32,
                            device=x.device) if n_splits > 1 else out)
     _raise_on(lib.pyc_col_pass(
-        x.data_ptr(), is_int8, R, E,
+        x.data_ptr(), storage, R, E,
         m.data_ptr() if m is not None else None,
         a.data_ptr() if a is not None else None, w.data_ptr(), k, n_splits,
         partial.data_ptr(), out.data_ptr(), stream), "pyc_col_pass")
@@ -338,7 +373,8 @@ def _grouped(x: torch.Tensor, k: int, width: int, part,
 
 
 def _filled(x, fill):
-    """The plain filled view of storage ``x`` in f32."""
+    """The plain filled view of storage ``x`` in f32, ``fill`` as it is
+    given."""
     val, absent = _decode(x)
     return (torch.where(absent, fill.to(torch.float32), val)
             if fill is not None else val)
@@ -408,12 +444,13 @@ def power_iteration_fused(x, mu, denom, rep, n_iters: int, tol: float,
 
 def storage_matvec_plain(x, v, fill=None):
     """Plain torch ``filled(x) @ v`` (f32)."""
-    return _filled(x, fill) @ v.to(torch.float32)
+    return _filled(x, _lattice_fill(x, fill)) @ v.to(torch.float32)
 
 
 def storage_matvec(x, v, fill=None):
     """The uncentered ``filled(x) @ v`` over storage ``x`` (R, E); absent
-    entries take ``fill``. Returns (R,) f32: the event-sharded path sums
+    entries take ``fill`` (rounded to bfloat16 on bfloat16 storage).
+    Returns (R,) f32: the event-sharded path sums
     it across shards before it centers. Replaces
     ``pallas_kernels.storage_matvec``."""
     R, E = _check_matrix(x)
@@ -421,6 +458,7 @@ def storage_matvec(x, v, fill=None):
     fill = _vec(fill, E, x, "fill") if fill is not None else None
     if x.device.type == "cpu":
         return storage_matvec_plain(x, v, fill)
+    fill = _lattice_fill(x, fill)
     lib = _storage_lib()
     with torch.cuda.device(x.device):
         t = _row_tile(lib, x, None, fill, v[:, None])[0]
@@ -463,9 +501,11 @@ def scores_dirfix_pass(x, rep, loading, fill=None):
 
 def apply_weighted_cov_block_plain(x, mu, rep, V, fill=None, emit_t=False):
     """Plain torch ``(X - 1 mu^T)^T (rep * T)`` with ``T = (X - 1 mu^T) V``;
-    absent entries take ``fill - mu`` when ``fill`` is given. Returns
-    ``(y (E, k), T (R, k) or None)``, all f32."""
+    absent entries take ``fill - mu`` when ``fill`` is given (the fill
+    rounded to bfloat16 on bfloat16 storage). Returns ``(y (E, k), T (R,
+    k) or None)``, all f32."""
     val, absent = _decode(x)
+    fill = _lattice_fill(x, fill)
     mu = mu.to(torch.float32)
     if fill is not None:
         xc = torch.where(absent, fill.to(torch.float32) - mu, val - mu)
@@ -479,7 +519,8 @@ def apply_weighted_cov_block_plain(x, mu, rep, V, fill=None, emit_t=False):
 def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
     """``(X - 1 mu^T)^T (rep * ((X - 1 mu^T) V))`` for an (E, k) block over
     storage ``x`` (R, E), centered in-register; with ``fill`` the absent
-    entries take ``fill - mu``. Returns ``(y (E, k), t)`` f32, where ``t``
+    entries take ``fill - mu`` (the fill rounded to bfloat16 on bfloat16
+    storage). Returns ``(y (E, k), t)`` f32, where ``t``
     is the centered ``(X - 1 mu^T) V`` (R, k) under ``emit_t`` and None
     otherwise; the caller divides ``y`` by the unbiased-weight
     denominator. Replaces ``pallas_kernels.apply_weighted_cov_block``."""
@@ -489,6 +530,7 @@ def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
     fill = _vec(fill, E, x, "fill") if fill is not None else None
     if x.device.type == "cpu":
         return apply_weighted_cov_block_plain(x, mu, rep, V, fill, emit_t)
+    fill = _lattice_fill(x, fill)
     k = V.shape[1]
     if not cov_block_kernel_fits(E, k, x.element_size()):
         raise ValueError(f"apply_weighted_cov_block takes 1 <= k <= "
@@ -506,7 +548,7 @@ def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
 
 def storage_matmat_plain(x, V, fill=None):
     """Plain torch ``filled(x) @ V`` (f32)."""
-    return _filled(x, fill) @ V.to(torch.float32)
+    return _filled(x, _lattice_fill(x, fill)) @ V.to(torch.float32)
 
 
 def _row_tile(lib, x, m, a, V, absent: bool = False):
@@ -524,18 +566,18 @@ def _row_tile(lib, x, m, a, V, absent: bool = False):
     k = V.shape[1]
     vt = _aligned(V.T.contiguous())                             # (k, E)
     m, a = _aligned(m), _aligned(a)
-    is_int8, stream = _launch_args(x)
-    n_splits = _row_tile_splits(R, E, is_int8, x.device.index)
+    storage, stream = _launch_args(x)
+    n_splits = _row_tile_splits(R, E, storage, x.device.index)
     t = torch.empty((k, R), dtype=torch.float32, device=x.device)
     partial = (torch.empty((n_splits, k, R), dtype=torch.float32,
                            device=x.device) if n_splits > 1 else t)
     if absent:
         _raise_on(lib.pyc_row_tile_absent(
-            x.data_ptr(), is_int8, R, E, vt.data_ptr(), k, n_splits,
+            x.data_ptr(), storage, R, E, vt.data_ptr(), k, n_splits,
             partial.data_ptr(), t.data_ptr(), stream), "pyc_row_tile_absent")
         return t
     _raise_on(lib.pyc_row_tile_pass(
-        x.data_ptr(), is_int8, R, E,
+        x.data_ptr(), storage, R, E,
         m.data_ptr() if m is not None else None,
         a.data_ptr() if a is not None else None, vt.data_ptr(), k, n_splits,
         partial.data_ptr(), t.data_ptr(), stream), "pyc_row_tile_pass")
@@ -545,7 +587,8 @@ def _row_tile(lib, x, m, a, V, absent: bool = False):
 def storage_matmat(x, V, fill=None):
     """The uncentered ``filled(x) @ V`` for an (E, k) block over storage
     ``x`` (R, E), any ``k >= 1``; absent entries take ``fill``. Returns
-    (R, k) f32; centering is the caller's (``T - 1 (mu @ V)``). Replaces
+    (R, k) f32; centering is the caller's (``T - 1 (mu @ V)``). The fill
+    rounds to bfloat16 on bfloat16 storage. Replaces
     ``pallas_kernels.storage_matmat``."""
     R, E = _check_matrix(x)
     V = _block(V, E, x, "V")
@@ -555,6 +598,7 @@ def storage_matmat(x, V, fill=None):
         return _grouped(x, k, MAX_TILE_K,
                         lambda g: storage_matmat_plain(x, V[:, g], fill), 1)
     lib = _storage_lib()
+    fill = _lattice_fill(x, fill)
     out = _grouped(x, k, MAX_TILE_K,
                    lambda g: _row_tile(lib, x, None, fill, V[:, g]).T, 1)
     _COUNTS["storage_matmat"] += 1
@@ -581,14 +625,15 @@ def _pad_weights(W, R: int, x: torch.Tensor) -> torch.Tensor:
 
 def storage_rows_matmat_plain(x, W, fill=None):
     """Plain torch ``W @ filled(x)`` (f32)."""
-    return W.to(torch.float32) @ _filled(x, fill)
+    return W.to(torch.float32) @ _filled(x, _lattice_fill(x, fill))
 
 
 def storage_rows_matmat(x, W, fill=None):
     """``W @ filled(x)`` for a (k, R') stack of row vectors over storage
     ``x`` (R, E), uncentered, any ``k >= 1`` in groups of at most
     ``MAX_ROWS_K`` (16) rows, one column-tile launch each; a W narrower
-    than R is zero-padded. Returns (k, E) f32. Replaces
+    than R is zero-padded; the fill rounds to bfloat16 on bfloat16
+    storage. Returns (k, E) f32. Replaces
     ``pallas_kernels.storage_rows_matmat``."""
     R, E = _check_matrix(x)
     W = _pad_weights(W, R, x)
@@ -599,6 +644,7 @@ def storage_rows_matmat(x, W, fill=None):
                         lambda g: storage_rows_matmat_plain(x, W[g], fill),
                         0)
     lib = _storage_lib()
+    fill = _lattice_fill(x, fill)
     out = _grouped(x, k, MAX_ROWS_K,
                    lambda g: _col_pass(lib, x, None, fill, W[g]), 0)
     _COUNTS["storage_rows_matmat"] += 1
@@ -625,8 +671,12 @@ def fill_stats_pass(x, rep):
     """The per-column fill statistics over storage ``x`` (R, E) in one
     sweep: ``(tw, numer)``, both (E,) f32, where ``tw`` is the present
     reputation mass and ``numer`` the present reputation-weighted value
-    sum. Replaces ``pallas_kernels.fill_stats_pass``."""
+    sum. int8 and float32 storage, as the reference runs it at int8
+    alone. Replaces ``pallas_kernels.fill_stats_pass``."""
     R, E = _check_matrix(x)
+    if x.dtype not in (torch.int8, torch.float32):
+        raise TypeError(f"fill_stats_pass takes int8 sentinel or float32 "
+                        f"storage, got {x.dtype}")
     rep = _vec(rep, R, x, "rep")
     if x.device.type == "cpu":
         return fill_stats_pass_plain(x, rep)
@@ -636,9 +686,9 @@ def fill_stats_pass(x, rep):
         partial = torch.empty((n_chunks, 2, E), dtype=torch.float32,
                               device=x.device)
         out = torch.empty((2, E), dtype=torch.float32, device=x.device)
-        is_int8, stream = _launch_args(x)
+        storage, stream = _launch_args(x)
         _raise_on(lib.pyc_fill_stats(
-            x.data_ptr(), is_int8, R, E, rep.data_ptr(), n_chunks,
+            x.data_ptr(), storage, R, E, rep.data_ptr(), n_chunks,
             partial.data_ptr(), out.data_ptr(), stream), "pyc_fill_stats")
     _COUNTS["fill_stats_pass"] += 1
     return out[0], out[1]
@@ -729,9 +779,9 @@ def _resolve_columns(x, rep, fill, full_total, tolerance: float, cert=None):
     rep_sum = rep.sum()
     outs = [torch.empty(E, dtype=f32, device=x.device) if o is None else o
             for o in (None, None, cert, None)]
-    is_int8, stream = _launch_args(x)
+    storage, stream = _launch_args(x)
     _raise_on(lib.pyc_resolve_cols(
-        x.data_ptr(), is_int8, R, E, C, _sm_count(x.device.index),
+        x.data_ptr(), storage, R, E, C, _sm_count(x.device.index),
         rep.data_ptr(), fill.data_ptr(), rep_sum.data_ptr(), ft.data_ptr(),
         lo, hi, *[o.data_ptr() for o in outs], stream), "pyc_resolve_cols")
     return tuple(outs)

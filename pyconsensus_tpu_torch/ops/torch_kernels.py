@@ -78,8 +78,14 @@ def catch(x: torch.Tensor, tolerance: float) -> torch.Tensor:
 def _decode_storage(x: torch.Tensor, fill: torch.Tensor,
                     acc: torch.dtype) -> torch.Tensor:
     """Filled view of int8 sentinel storage or NaN-threaded float storage
-    in the ``acc`` dtype (the plain elementwise decode); with ``fill``
-    None, ``x`` is the dense filled matrix itself."""
+    in the ``acc`` dtype: the reference's XLA decode
+    (``jax_kernels._decode_storage``), which the weighted column means and
+    the orthogonal iteration's trace read. On float storage the fill takes
+    the storage dtype first, as there (on bfloat16 it rounds). The
+    kernels' plain versions decode apart (``cuda_kernels._decode`` with
+    the float32 fill, ``cuda_kernels._lattice_fill``), as the Pallas
+    kernels do. With ``fill`` None, ``x`` is the dense filled matrix
+    itself."""
     if fill is None:
         return x.to(acc)
     if x.dtype == torch.int8:
@@ -133,10 +139,27 @@ def _power_loop(apply_cov: Callable, E: int, n_iters: int, tol: float,
 
 
 def matvec_narrow(x: torch.Tensor, matvec_dtype: str) -> torch.Tensor:
-    """The matvec narrowing cast, skipped for int8 sentinel storage."""
+    """The matvec narrowing cast, skipped for int8 sentinel storage
+    (``jax_kernels.matvec_narrow``); ``"bfloat16"`` gives the sweeps
+    bfloat16 storage, which the kernels take."""
     if matvec_dtype and x.dtype != torch.int8:
         return x.to(getattr(torch, matvec_dtype))
     return x
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, storage: torch.dtype,
+         acc: torch.dtype) -> torch.Tensor:
+    """``a @ b``, one operand the filled matrix of dtype ``storage`` and
+    the other a vector or a thin block: the reference's
+    ``jnp.matmul(a.astype(storage), b.astype(storage),
+    preferred_element_type=acc)``. Both operands take the storage dtype
+    and the result ``acc``. On bfloat16 storage the product runs in
+    ``acc``, where each product of two bfloat16 values is exact and no sum
+    rounds to bfloat16; on other storage in the storage dtype."""
+    a, b = a.to(storage), b.to(storage)
+    if storage == torch.bfloat16:
+        return a.to(acc) @ b.to(acc)
+    return (a @ b).to(acc)
 
 
 def _mu_denom(x: torch.Tensor, fill, reputation: torch.Tensor):
@@ -264,9 +287,9 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
         # the dense filled matrix: two plain products a sweep, as in the
         # reference's XLA arm (which folds no scores out either)
         def apply_cov_block(V, emit_t=False):
-            t = (x @ V.to(x.dtype)).to(acc) - (mu @ V)[None, :]
+            t = _dot(x, V, x.dtype, acc) - (mu @ V)[None, :]
             rt = reputation[:, None] * t
-            y = ((x.T @ rt.to(x.dtype)).to(acc)
+            y = (_dot(x.T, rt, x.dtype, acc)
                  - mu[:, None] * torch.sum(rt, dim=0)[None, :])
             return y / denom, None
     elif cov_block_kernel_fits(E, k, x.element_size()):
@@ -514,21 +537,24 @@ def _first_pc_eigh_gram(dev, denom, reputation):
 
 
 def _first_pc_power(filled, mu, denom, reputation, n_iters: int = 128,
-                    tol: float = 0.0, v_init=None):
+                    tol: float = 0.0, v_init=None, matvec_dtype: str = ""):
     """Matrix-free power iteration in the reputation dtype: each sweep is
     two products with the raw filled matrix, centered by
-    ``D v = X v - (mu . v) 1`` and ``D^T w = X^T w - mu sum(w)``."""
+    ``D v = X v - (mu . v) 1`` and ``D^T w = X^T w - mu sum(w)``.
+    ``matvec_dtype`` narrows the sweeps' operand only; the scores take the
+    filled matrix."""
     acc = reputation.dtype
+    mm = filled.to(getattr(torch, matvec_dtype)) if matvec_dtype else filled
 
     def apply_cov(v):
-        t = (filled @ v.to(filled.dtype)).to(acc) - mu @ v
+        t = _dot(mm, v, mm.dtype, acc) - mu @ v
         rt = reputation * t
-        y = (rt.to(filled.dtype) @ filled).to(acc) - mu * torch.sum(rt)
+        y = _dot(rt, mm, mm.dtype, acc) - mu * torch.sum(rt)
         return y / denom
 
     loading, _ = _power_loop(apply_cov, filled.shape[1], n_iters, tol,
                              filled.device, v_init=v_init, dtype=acc)
-    return loading, (filled @ loading.to(filled.dtype)).to(acc) - mu @ loading
+    return loading, _dot(filled, loading, filled.dtype, acc) - mu @ loading
 
 
 def resolve_pca_method(R: int, E: int, method: str,
@@ -562,19 +588,22 @@ def resolve_pca_method(R: int, E: int, method: str,
 
 def weighted_prin_comp(filled: torch.Tensor, reputation: torch.Tensor,
                        method: str = "auto", power_iters: int = 128,
-                       power_tol: float = 0.0, v_init=None):
+                       power_tol: float = 0.0, v_init=None,
+                       matvec_dtype: str = ""):
     """First principal component of the reputation-weighted covariance
     (``jax_kernels.weighted_prin_comp``) by ``"eigh-cov"``,
     ``"eigh-gram"`` or ``"power"``, ``"auto"`` resolved by
     :func:`resolve_pca_method`. ``"power-fused"`` is sztorc's alone and
-    scores through :func:`sztorc_scores_power_fused`. Returns
-    ``(loading (E,), scores (R,))``, the sign fixed downstream."""
+    scores through :func:`sztorc_scores_power_fused`. ``matvec_dtype``
+    narrows the power sweeps' operand. Returns ``(loading (E,), scores (R,))``,
+    the sign fixed downstream."""
     R, E = filled.shape
     method = resolve_pca_method(R, E, method, filled.device)
     if method == "power":
         mu, denom = _mu_denom(filled, None, reputation)
         return _first_pc_power(filled, mu, denom, reputation,
-                               power_iters, power_tol, v_init=v_init)
+                               power_iters, power_tol, v_init=v_init,
+                               matvec_dtype=matvec_dtype)
     dev, denom = _center(filled, reputation)
     if method == "eigh-cov":
         return _first_pc_eigh_cov(dev, denom, reputation)
@@ -607,7 +636,7 @@ def weighted_prin_comps(filled: torch.Tensor, reputation: torch.Tensor,
         mu, denom = _mu_denom(filled, None, reputation)
         loadings, eig, total, _ = _top_pcs_orth_iter(
             filled, mu, denom, reputation, k, v_init=v_init)
-        scores = ((filled @ loadings.to(filled.dtype)).to(loadings.dtype)
+        scores = (_dot(filled, loadings, filled.dtype, loadings.dtype)
                   - (mu @ loadings)[None, :])
         return loadings, scores, _explained(eig, total)
     dev, denom = _center(filled, reputation)
@@ -642,7 +671,7 @@ def direction_fixed_scores(scores: torch.Tensor, filled: torch.Tensor,
     set1 = scores + torch.abs(torch.min(scores))
     set2 = scores - torch.max(scores)
     W = torch.stack([reputation.to(acc), normalize(set1), normalize(set2)])
-    old, new1, new2 = (W.to(filled.dtype) @ filled).to(acc)
+    old, new1, new2 = _dot(W, filled, filled.dtype, acc)
     d1 = torch.sum((new1 - old) ** 2)
     d2 = torch.sum((new2 - old) ** 2)
     return torch.where(d1 - d2 <= DIRFIX_TIE_ATOL * (d1 + d2), set1, -set2)
@@ -737,7 +766,7 @@ def resolve_outcomes(present, filled: torch.Tensor,
     acc = smooth_rep.dtype
     R, E = filled.shape
     full_total = torch.sum(smooth_rep)
-    full_mean = ((smooth_rep.to(filled.dtype) @ filled).to(acc)
+    full_mean = (_dot(smooth_rep, filled, filled.dtype, acc)
                  / torch.where(full_total == 0.0, 1.0, full_total))
     if has_na:
         pw = present.to(acc)

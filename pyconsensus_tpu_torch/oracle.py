@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from .faults.degrade import quarantine_nonfinite, result_nonfinite
 from .faults.errors import InputError, NumericsError
@@ -111,8 +112,14 @@ def assemble_result(raw: dict) -> dict:
 
 
 def _host(v):
-    """A result value on the host: one copy per tensor."""
-    return v.cpu().numpy() if hasattr(v, "cpu") else v
+    """A result value on the host: one copy per tensor (a bfloat16 one, the
+    compact filled matrix, as its exact float32 values: numpy has no
+    bfloat16)."""
+    if not hasattr(v, "cpu"):
+        return v
+    if v.dtype == torch.bfloat16:
+        v = v.float()
+    return v.cpu().numpy()
 
 
 class Oracle:
@@ -136,9 +143,10 @@ class Oracle:
         ``power-fused`` (the sweeps on the Hopper kernels).
     power_iters, power_tol : the power-iteration cap and early-exit
         tolerance (0 = machine-precision floor, < 0 = none).
-    matvec_dtype, storage_dtype : ``storage_dtype="float32"`` stores the
-        filled matrix in float32; bfloat16 is not ported, and int8 needs
-        the fused path (``sharded_consensus``).
+    matvec_dtype, storage_dtype : ``storage_dtype="float32"`` or
+        ``"bfloat16"`` stores the filled matrix in that dtype (int8 needs
+        the fused path, ``sharded_consensus``); ``matvec_dtype=
+        "bfloat16"`` narrows sztorc's power sweeps alone.
     verbose : print a summary after ``consensus()``.
     device : the torch backend's device; None means the card.
     """

@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from ..models.pipeline import (ConsensusParams, _assemble,
+from ..models.pipeline import (ROADMAP_BF16, ROADMAP_SCALED_FUSED,
+                               ConsensusParams, _assemble,
                                _check_fused_params, _fill_stats, _masked_mu,
                                _redistribute)
 from ..ops import torch_kernels as tk
@@ -42,8 +43,14 @@ def fused_sharded_consensus(placed: EventShards, reputation: torch.Tensor,
     the light result dict on the mesh's first device, with every (E,)
     vector over the real events. ``p`` must already be resolved
     (``sharded_consensus`` does that): sztorc, a power-family PCA
-    method, binary events."""
+    method, binary events, int8 or float32 storage."""
     _check_fused_params(placed.dtype, p)
+    if p.any_scaled or p.n_scaled:
+        raise NotImplementedError(f"scaled events on an event mesh: "
+                                  f"{ROADMAP_SCALED_FUSED}")
+    if "bfloat16" in (p.storage_dtype, p.matvec_dtype):
+        raise NotImplementedError(f"bfloat16 on an event mesh: "
+                                  f"{ROADMAP_BF16}")
     if p.algorithm != "sztorc":
         raise ValueError(
             "the event-sharded fused path scores with sztorc power "

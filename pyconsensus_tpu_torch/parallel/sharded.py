@@ -8,14 +8,18 @@ version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels:
 on one device for sztorc and for the multi-component variants
 fixed-variance and ica, on an event mesh of more than one shard for
 sztorc (``parallel/fused_sharded.py``); scaled events may not exceed
-E // 8 of the events. Where it closes on one device (exact eigh PCA, which
+E // 8 of the events, and on one device they take the gather-median
+tail. Where it closes on one device (exact eigh PCA, which
 ``pca_method="auto"`` picks at R <= 4096, and for the multi-component
 variants also at E <= 1024; scaled events beyond E // 8; float storage
 off the kernels' fit), the plain core over the whole filled matrix
-serves (``models/pipeline.py _consensus_core``). What the port does not
-cover yet raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings it: scaled events on the fused path, the other algorithms,
-bfloat16 storage, the plain core on an event mesh and batch meshes.
+serves (``models/pipeline.py _consensus_core``). Storage is the float
+reports as float32, int8 sentinel storage or bfloat16
+(:func:`resolve_auto_storage` is the reference's rule between the last
+two). What the port does not cover yet raises ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings it: the other algorithms, and
+on an event mesh scaled events, bfloat16, the plain core and batch
+meshes.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from ..faults.errors import InputError
 from ..models.pipeline import (CLUSTERING_ALGORITHMS, FUSED_ALGORITHMS,
                                ROADMAP_BF16, ROADMAP_CLUSTERING,
                                ROADMAP_MESH_PLAIN, ROADMAP_SCALED_FUSED,
-                               ConsensusParams, _consensus_core_light)
+                               ConsensusParams, _consensus_core_light,
+                               check_matvec_dtype)
 from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
                                 require_hopper, resolve_kernel_fits)
 from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
@@ -39,13 +44,15 @@ from ..oracle import parse_event_bounds
 from .fused_sharded import fused_sharded_consensus
 from .mesh import EventShards, as_mesh, place_event_shards
 
-__all__ = ["sharded_consensus", "resolve_device", "resolve_params"]
+__all__ = ["sharded_consensus", "resolve_device", "resolve_params",
+           "resolve_auto_storage"]
 
 _SHARDABLE_PCA = ("eigh-gram", "power", "power-fused")
 _KNOWN_PCA = ("auto", "eigh-cov") + _SHARDABLE_PCA
 _MULTI_COMPONENT = ("fixed-variance", "ica")
 #: storage dtypes the kernels take ("" = the input's float storage)
-_STORAGE = ("", "float32", "int8")
+_STORAGE = ("", "float32", "int8", "bfloat16")
+_ITEMSIZE = {"int8": 1, "bfloat16": 2}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -91,7 +98,7 @@ def _pick_pca_method(params: ConsensusParams, n_reporters: int,
 
 
 def _itemsize(p: ConsensusParams) -> int:
-    return 1 if p.storage_dtype == "int8" else 4
+    return _ITEMSIZE.get(p.storage_dtype, 4)
 
 
 def _multi_fits(p: ConsensusParams, n_reporters: int, n_events: int) -> bool:
@@ -137,11 +144,16 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
             "storage_dtype='int8' supports binary/categorical events "
             "only: scaled columns rescale to continuous values in [0, 1] "
             "that the half-unit int8 lattice would corrupt")
-    if p.storage_dtype not in _STORAGE or p.matvec_dtype:
+    if p.storage_dtype not in _STORAGE:
+        raise ValueError(f"storage_dtype={p.storage_dtype!r}: choose from "
+                         f"{_STORAGE}")
+    check_matvec_dtype(p.matvec_dtype)
+    if n_event > 1 and (p.storage_dtype == "bfloat16"
+                        or p.matvec_dtype == "bfloat16"):
         raise NotImplementedError(
-            f"storage_dtype={p.storage_dtype!r}, "
-            f"matvec_dtype={p.matvec_dtype!r}: the port takes int8 "
-            f"sentinel or float32 storage; {ROADMAP_BF16}")
+            f"storage_dtype={p.storage_dtype!r}, matvec_dtype="
+            f"{p.matvec_dtype!r} on an event mesh of {n_event} shards: "
+            f"{ROADMAP_BF16}")
     if p.algorithm in CLUSTERING_ALGORITHMS:
         raise NotImplementedError(f"algorithm={p.algorithm!r}: "
                                   f"{ROADMAP_CLUSTERING}")
@@ -157,11 +169,10 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
     p = p._replace(pca_method=_pick_pca_method(p, R, E))
     p = p._replace(fused_resolution=_use_fused_resolution(p, R, E, n_event))
     if p.fused_resolution:
-        if p.any_scaled:
+        if p.any_scaled and n_event > 1:
             raise NotImplementedError(
-                f"{p.n_scaled} scaled of {E} events (at most E // 8) take "
-                f"the fused path with its gather-median tail: "
-                f"{ROADMAP_SCALED_FUSED}")
+                f"{p.n_scaled} scaled of {E} events (at most E // 8) on an "
+                f"event mesh of {n_event} shards: {ROADMAP_SCALED_FUSED}")
         return p
     if p.storage_dtype == "int8":
         raise ValueError(
@@ -179,11 +190,45 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
 
 
 def _place_reports(reports, device: torch.device) -> torch.Tensor:
-    """int8 sentinel storage keeps its dtype; float reports compute in
-    float32 (the kernels' storage type)."""
+    """int8 sentinel storage keeps its dtype; float reports are placed as
+    float32 (a bfloat16 ``storage_dtype`` casts them after the fill
+    statistics and the rescale, in ``pipeline._fill_stats``)."""
     t = torch.as_tensor(reports)
     dtype = torch.int8 if t.dtype == torch.int8 else torch.float32
     return t.to(device=device, dtype=dtype).contiguous()
+
+
+def resolve_auto_storage(p: ConsensusParams, R: int, E: int, device=None,
+                         n_event: int = 1) -> tuple:
+    """The reference's storage rule (``pyconsensus_tpu/parallel/
+    sharded.py resolve_auto_storage``) on ``device`` (None: the card) or
+    an event mesh of ``n_event`` shards: int8 sentinel storage exactly
+    when the workload is all-binary and the int8 parameters resolve onto
+    the fused kernel path (int8's half-unit lattice is exact there and
+    reads a quarter of float32's bytes); bfloat16 otherwise (half the
+    bytes; snapped binary outcomes stay exact, and the scaled medians
+    read bfloat16 values). ``p.any_scaled`` must be set as
+    ``sharded_consensus`` sets it. The fused path opens on an sm_90 card
+    and on the CPU (the kernels' plain versions), where the reference's
+    opens on a TPU only. Returns ``(storage_dtype, reason)``."""
+    dev = resolve_device(device)
+    if p.any_scaled:
+        return "bfloat16", ("scaled events present: int8's half-unit "
+                            "lattice cannot carry continuous rescaled "
+                            "values")
+    require_hopper(dev)
+    trial = p._replace(storage_dtype="int8")
+    trial = trial._replace(pca_method=_pick_pca_method(trial, R, E))
+    # the event mesh's fused path scores sztorc alone
+    if ((n_event == 1 or trial.algorithm == "sztorc")
+            and _use_fused_resolution(trial, R, E, n_event)):
+        return "int8", (f"all-binary workload on the fused path "
+                        f"(pca_method={trial.pca_method!r}, "
+                        f"n_event={n_event}, device={dev})")
+    return "bfloat16", (f"fused gate closed (algorithm={p.algorithm!r}, "
+                        f"resolved pca_method={trial.pca_method!r}, "
+                        f"n_event={n_event}, device={dev}, "
+                        f"allow_fused={p.allow_fused}, R={R}, E={E})")
 
 
 def _place_reputation(reputation, R: int, device: torch.device):

@@ -722,3 +722,216 @@ def test_front_door_scaled_beyond_e8_takes_the_plain_core(dev,
     assert counts["resolve_certainty_fused"] == 0, counts
     b = sharded_consensus(x, event_bounds=bounds, params=p, device="cpu")
     _compare(a, b, 1e-5, reports.shape[1] - 150)
+
+
+# -- bfloat16 storage ---------------------------------------------------------
+
+def bf16_storage(seed, R, E, na_frac=0.1, offset=False):
+    """bfloat16 storage of binary reports whose last eighth of the columns
+    is scaled (continuous values in [0, 1]), NaN absent, with its first and
+    last columns all absent; a fill continuous on the scaled columns.
+    ``offset`` puts the matrix 2 bytes past a 16-byte boundary (a view of
+    a larger buffer). Returns ``(x bf16 (CPU), rep, fill, mu, v)``."""
+    x_f, _, rep, fill, _, v = make_storage(seed, R, E, na_frac=na_frac)
+    rng = np.random.default_rng(seed + 1)
+    n_sc = max(1, E // 8)
+    x_f[:, E - n_sc:] = np.where(np.isnan(x_f[:, E - n_sc:]), np.nan,
+                                 rng.random((R, n_sc)))
+    x_f[:, 0] = np.nan
+    x_f[:, -1] = np.nan
+    fill[E - n_sc:] = rng.random(n_sc).astype(np.float32)
+    x = _t(x_f).to(torch.bfloat16)
+    if offset:
+        buf = torch.empty(R * E + 8, dtype=torch.bfloat16)
+        x = buf[1:1 + R * E].view(R, E).copy_(x)
+    xf = x.float().numpy()
+    mu = (rep @ np.where(np.isnan(xf), fill[None, :], xf)).astype(np.float32)
+    return x, rep, fill, mu, v
+
+
+def _bf16_launches(x, rep, fill, mu, v, k_block=5, k_wide=17):
+    """Every wrapper over storage ``x`` (on its device): name -> output
+    tuple."""
+    E, R = x.shape[1], x.shape[0]
+    g = torch.Generator().manual_seed(E)
+    V = torch.randn((E, k_wide), generator=g).to(x.device)
+    W = torch.randn((k_wide, R), generator=g).to(x.device)
+    rep, fill, mu, v = (_t(a).to(x.device) for a in (rep, fill, mu, v))
+    return {
+        "apply_weighted_cov": (ck.apply_weighted_cov(x, mu, rep, v, fill),),
+        "apply_weighted_cov dense": (ck.apply_weighted_cov(
+            torch.nan_to_num(x, nan=0.5), mu, rep, v),),
+        "scores_dirfix_pass": ck.scores_dirfix_pass(x, rep, v, fill),
+        "storage_matvec": (ck.storage_matvec(x, v, fill),),
+        "storage_matmat": (ck.storage_matmat(x, V, fill),),
+        "storage_rows_matmat": (ck.storage_rows_matmat(x, W, fill),),
+        "apply_weighted_cov_block": ck.apply_weighted_cov_block(
+            x, mu, rep, V[:, :k_block], fill, emit_t=True),
+        "resolve_certainty_fused": ck.resolve_certainty_fused(x, rep, fill,
+                                                              1.0, 0.1),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,E", SHAPES + [(65, 4097), (1, 301)])
+@pytest.mark.parametrize("offset", [False, True])
+def test_bf16_launches_match_plain(dev, R, E, offset):
+    """Each bfloat16 launch against its plain version at ragged R and E
+    (an odd E puts every other row 2 bytes off a 16-byte boundary;
+    ``offset`` the whole matrix), with NaN in the first and last column
+    and continuous fills; resolve's snapped outcomes and absent counts
+    exact."""
+    x, rep, fill, mu, v = bf16_storage(R * 5 + E, R, E, offset=offset)
+    assert (x.data_ptr() % 16 != 0) == offset
+    got = _bf16_launches(x.to(dev) if not offset else _offset_on(x, dev),
+                         rep, fill, mu, v)
+    torch.cuda.synchronize()
+    ref = _bf16_launches(x, rep, fill, mu, v)
+    for name, outs in ref.items():
+        for i, (a, b) in enumerate(zip(got[name], outs)):
+            if b is None:
+                continue
+            assert torch.isfinite(a).all(), name
+            _close(a, b, f"{name} [{i}]")
+    for i in (1, 5):
+        assert torch.equal(got["resolve_certainty_fused"][i].cpu(),
+                           ref["resolve_certainty_fused"][i])
+
+
+def _offset_on(x, dev):
+    """``x`` on ``dev`` as a view 2 bytes past a 16-byte boundary."""
+    R, E = x.shape
+    buf = torch.empty(R * E + 8, dtype=x.dtype, device=dev)
+    out = buf[1:1 + R * E].view(R, E)
+    out.copy_(x.to(dev))
+    assert out.data_ptr() % 16 == 2
+    return out
+
+
+@pytest.mark.cuda
+def test_bf16_every_launch_counts(dev):
+    """Each wrapper launches its kernel on bfloat16 storage (the counts
+    rise by one a call) and none takes a plain version on the card."""
+    x, rep, fill, mu, v = bf16_storage(3, 200, 1003)
+    ck.reset_launch_counts()
+    _bf16_launches(x.to(dev), rep, fill, mu, v)
+    counts = ck.launch_counts()
+    for name in ("apply_weighted_cov", "scores_dirfix_pass", "storage_matvec",
+                 "storage_matmat", "storage_rows_matmat",
+                 "apply_weighted_cov_block", "resolve_certainty_fused"):
+        assert counts[name] >= 1, counts
+    assert counts["apply_weighted_cov"] == 2 and counts["fill_stats_pass"] \
+        == 0, counts
+    with pytest.raises(TypeError, match="fill_stats_pass"):
+        ck.fill_stats_pass(x.to(dev), _t(rep).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1003, 4096])
+def test_bf16_tile_passes_are_k_independent(dev, E):
+    """The row-tile and column-tile passes on bfloat16 take each output
+    column or row in the same order at any k: the first columns of a
+    k = 16 launch equal a k = 3 launch bit for bit, and the matvec equals
+    the k = 1 block call."""
+    x, rep, fill, mu, v = bf16_storage(7, 333, E)
+    xd = x.to(dev)
+    fd, vd = _t(fill).to(dev), _t(v).to(dev)
+    g = torch.Generator().manual_seed(1)
+    V = torch.randn((E, 16), generator=g).to(dev)
+    W = torch.randn((16, 333), generator=g).to(dev)
+    wide = ck.storage_matmat(xd, V, fd)
+    assert torch.equal(wide[:, :3], ck.storage_matmat(xd, V[:, :3], fd))
+    rows = ck.storage_rows_matmat(xd, W, fd)
+    assert torch.equal(rows[:3], ck.storage_rows_matmat(xd, W[:3], fd))
+    assert torch.equal(ck.storage_matvec(xd, vd, fd),
+                       ck.storage_matmat(xd, vd[:, None], fd)[:, 0])
+    mud, repd = _t(mu).to(dev), _t(rep).to(dev)
+    y8 = ck.apply_weighted_cov_block(xd, mud, repd, V[:, :8], fd)[0]
+    y2 = ck.apply_weighted_cov_block(xd, mud, repd, V[:, :2], fd)[0]
+    assert torch.equal(y8[:, :2], y2)
+
+
+@pytest.mark.cuda
+def test_bf16_repeats_bitwise(dev):
+    """A second call of every bfloat16 launch gives the same bits."""
+    x, rep, fill, mu, v = bf16_storage(9, 1000, 4099)
+    xd = x.to(dev)
+    a = _bf16_launches(xd, rep, fill, mu, v)
+    b = _bf16_launches(xd, rep, fill, mu, v)
+    for name in a:
+        for u, w in zip(a[name], b[name]):
+            if u is not None:
+                assert torch.equal(u, w), name
+
+
+@pytest.mark.cuda
+def test_bf16_resolve_largest_gated_r(dev):
+    """The largest R the gate admits at bfloat16 (114,048: a one-column
+    panel of 228,096 bytes), one column a panel."""
+    R = 228096 // 2
+    assert ck.resolve_kernel_fits(R, 2) and not ck.resolve_kernel_fits(R + 1,
+                                                                        2)
+    assert ck.resolve_block_cols(R, 2) == 1
+    x, rep, fill, mu, v = bf16_storage(R, R, 37)
+    got, ref = _resolve_both(x, rep, fill, dev)
+    _resolve_agrees(got, ref, f"resolve bfloat16 R={R}")
+
+
+def scaled_minority(seed, R=203, E=1037, n_scaled=100):
+    """Ragged shapes, 5% absent, the last ``n_scaled`` events (at most
+    E // 8) scaled on [-5, 15]: the fused path with its gather-median
+    tail."""
+    reports, bounds, rep = plain_inputs(seed, R, E, n_scaled)
+    assert n_scaled <= E // 8
+    return reports, bounds, rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,atol", [("sztorc", 1e-5),
+                                            ("fixed-variance", 2e-3),
+                                            ("ica", 2e-3)])
+@pytest.mark.parametrize("storage", ["bfloat16", ""])
+def test_scaled_fused_card_matches_cpu(dev, algorithm, atol, storage):
+    """The fused path with scaled events on the card against its CPU run:
+    the kernels launch (bfloat16 or float32 storage), the tail re-resolves
+    the scaled columns, and the keys agree (binary outcomes exact)."""
+    reports, bounds, rep = scaled_minority(43)
+    p = ConsensusParams(algorithm=algorithm, pca_method="power",
+                        storage_dtype=storage, power_iters=64,
+                        power_tol=-1.0, max_iterations=3)
+    x = reports.astype(np.float32)
+    ck.reset_launch_counts()
+    a = sharded_consensus(_t(x).to(dev), reputation=_t(rep).to(dev),
+                          event_bounds=bounds, params=p)
+    counts = ck.launch_counts()
+    arm = ("apply_weighted_cov", "scores_dirfix_pass") \
+        if algorithm == "sztorc" else ("apply_weighted_cov_block",
+                                       "storage_rows_matmat")
+    for name in arm + ("resolve_certainty_fused",):
+        assert counts[name] > 0, counts
+    b = sharded_consensus(x, reputation=rep, event_bounds=bounds, params=p,
+                          device="cpu")
+    _compare(a, b, atol, reports.shape[1] - 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,matvec", [("bfloat16", ""),
+                                            ("", "bfloat16")])
+def test_plain_core_bf16_card_matches_cpu(dev, storage, matvec):
+    """The plain core's bfloat16 filled matrix (or bfloat16 sweeps):
+    ``power-fused`` sztorc sweeps it on B.1 and B.2 at bfloat16 on the
+    card and agrees with its CPU run."""
+    from pyconsensus_tpu_torch import Oracle
+
+    reports, bounds, rep = plain_inputs(47)
+    kw = dict(reports=reports, event_bounds=bounds, reputation=rep,
+              pca_method="power-fused", max_iterations=3, power_iters=64,
+              power_tol=-1.0, storage_dtype=storage, matvec_dtype=matvec)
+    ck.reset_launch_counts()
+    a = Oracle(**kw).resolve_raw()
+    counts = ck.launch_counts()
+    b = Oracle(device="cpu", **kw).resolve_raw()
+    assert counts["apply_weighted_cov"] > 0, counts
+    assert counts["scores_dirfix_pass"] > 0, counts
+    assert counts["resolve_certainty_fused"] == 0, counts
+    _compare(a, b, 1e-5, reports.shape[1] - 150)

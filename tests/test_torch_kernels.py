@@ -387,7 +387,10 @@ def test_hopper_fit_gates():
     assert not ck.resolve_kernel_fits(300_000, 1)
     assert ck.resolve_smem_bytes(10000, 16, 1) <= ck.SMEM_PER_BLOCK
     assert ck.fused_pca_fits(100_000, 1) and ck.fused_pca_fits(100_000, 4)
-    assert not ck.fused_pca_fits(100_000, 2)
+    # bfloat16 storage: 8 columns a 16-byte panel row at R = 10000
+    assert ck.fused_pca_fits(100_000, 2)
+    assert ck.resolve_block_cols(10000, 2) == 8
+    assert not ck.fused_pca_fits(100_000, 8)
     # the one-pass block kernel is instantiated for k = 1..8; the
     # uncentered products split any k into groups of at most 16 columns
     # (storage_matmat, MAX_TILE_K) or 16 rows (storage_rows_matmat,
@@ -395,13 +398,14 @@ def test_hopper_fit_gates():
     assert (ck.MAX_BLOCK_K, ck.MAX_TILE_K, ck.MAX_ROWS_K) == (8, 16, 16)
     for fits in (ck.cov_block_kernel_fits, ck.matmat_kernels_fit):
         assert fits(100_000, 1, 1) and fits(100_000, 8, 4)
-        assert not fits(100_000, 0, 1) and not fits(100_000, 5, 2)
+        assert fits(100_000, 5, 2)
+        assert not fits(100_000, 0, 1) and not fits(100_000, 5, 8)
     assert not ck.cov_block_kernel_fits(100_000, 9, 1)
     assert ck.matmat_kernels_fit(100_000, 9, 1)
     assert ck.matmat_kernels_fit(100_000, 13, 4)
 
 
-@pytest.mark.parametrize("itemsize", [1, 4])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
 def test_resolve_ring_takes_every_gated_r(itemsize):
     """The gate keeps the first resolve kernel's answers (a one-column
     panel of at most 228,096 bytes), and at every R it admits the chunk
@@ -410,7 +414,7 @@ def test_resolve_ring_takes_every_gated_r(itemsize):
     top = 228096 // itemsize
     assert ck.resolve_kernel_fits(top, itemsize)
     assert not ck.resolve_kernel_fits(top + 1, itemsize)
-    assert not ck.resolve_kernel_fits(1000, 2)
+    assert not ck.resolve_kernel_fits(1000, 8)
     widths = []
     for R in list(range(1, top, 61)) + [top]:
         C = ck.resolve_block_cols(R, itemsize)

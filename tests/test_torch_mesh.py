@@ -197,7 +197,8 @@ def test_effective_median_block():
 
 
 @pytest.mark.parametrize("case", ["batch", "fixed-variance", "ica", "scaled",
-                                  "auto_small_r", "k-means"])
+                                  "auto_small_r", "k-means", "bfloat16",
+                                  "matvec"])
 def test_mesh_refusals_name_the_roadmap(case):
     reports, rep = make_inputs(1, 24, 40)
     p = ConsensusParams(**BASE)
@@ -207,15 +208,19 @@ def test_mesh_refusals_name_the_roadmap(case):
             make_mesh(batch=2, devices=["cpu"] * 4)
         return
     # the plain pipeline on a mesh (fixed-variance, ica, and the Gram eigh
-    # that "auto" picks at R <= 4096) is §A.10, clustering §A.6, and a
-    # scaled minority (1 of 40 <= E // 8) the fused path's median, §A.2.2
-    match = {"k-means": "ROADMAP.md §A.6",
-             "scaled": "ROADMAP.md §A.2.2"}.get(case, "ROADMAP.md §A.10")
+    # that "auto" picks at R <= 4096), a scaled minority (1 of 40 <=
+    # E // 8: the shard-local gather-median tail) and bfloat16 storage
+    # are §A.10, clustering §A.6
+    match = {"k-means": "ROADMAP.md §A.6"}.get(case, "ROADMAP.md §A.10")
     if case in ("fixed-variance", "ica", "k-means"):
         p = p._replace(algorithm=case)
     elif case == "scaled":
         kw["event_bounds"] = [{"scaled": True, "min": 0, "max": 2}] + \
             [None] * 39
+    elif case == "bfloat16":
+        p = p._replace(storage_dtype="bfloat16")
+    elif case == "matvec":
+        p = p._replace(matvec_dtype="bfloat16")
     else:
         p = p._replace(pca_method="auto")
     with pytest.raises(NotImplementedError, match=match):

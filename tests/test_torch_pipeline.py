@@ -195,17 +195,47 @@ def assert_plain_parity(algorithm, pca_method, max_components=5, R=24,
                                   "mesh", "bfloat16"])
 def test_refusals_name_the_roadmap(case):
     """What the port does not cover raises naming its roadmap item;
-    ``"auto"`` at R <= 4096 now resolves to the Gram eigh on the plain
-    core and serves."""
+    ``"auto"`` at R <= 4096 resolves to the Gram eigh on the plain core
+    and serves. A scaled minority on the fused path (the gather-median
+    tail) and bfloat16 storage serve too: those cases hold the port to
+    the reference's fused path (exact keys equal, the rest within 1e-5,
+    the scaled event's outcome within 1e-5 of the span)."""
     reports = make_reports(1, 24, 12).astype(np.float32)
     p = ConsensusParams(**BASE)
     kw = {}
     match = "ROADMAP"
-    if case == "scaled":            # 1 of 12 <= E // 8: the fused path
-        kw["event_bounds"] = [{"scaled": True, "min": 0, "max": 2}] + \
-            [None] * 11
-        match = "ROADMAP.md §A.2.2"
-    elif case == "algorithm":
+    if case in ("scaled", "bfloat16"):
+        E = 12
+        scaled = np.zeros(E, bool)
+        mins, maxs = np.zeros(E, np.float32), np.ones(E, np.float32)
+        storage = ""
+        if case == "scaled":        # 1 of 12 <= E // 8: the fused path
+            kw["event_bounds"] = [{"scaled": True, "min": 0, "max": 2}] + \
+                [None] * 11
+            scaled[0], maxs[0] = True, 2.0
+            reports[:, 0] *= 2.0
+        else:
+            storage = "bfloat16"
+        p = p._replace(storage_dtype=storage)
+        out = sharded_consensus(reports, params=p, device="cpu", **kw)
+        ref_p = RefParams(**BASE, storage_dtype=storage,
+                          any_scaled=bool(scaled.any()),
+                          n_scaled=int(scaled.sum()), has_na=True,
+                          fused_resolution=True)
+        ref = _consensus_core_fused(jnp.asarray(reports),
+                                    jnp.asarray(np.full(24, 1 / 24,
+                                                        np.float32)),
+                                    jnp.asarray(scaled), jnp.asarray(mins),
+                                    jnp.asarray(maxs), ref_p)
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+        for key in ("outcomes_adjusted", "outcomes_final"):
+            np.testing.assert_allclose(out[key][scaled].numpy() / 2.0,
+                                       ref[key][scaled] / 2.0, atol=1e-5)
+            out[key] = out[key][~scaled]
+            ref[key] = ref[key][~scaled]
+        assert_matches(out, ref)
+        return
+    if case == "algorithm":
         p = p._replace(algorithm="k-means")
         match = "ROADMAP.md §A.6"
     elif case == "auto_small_r":
@@ -216,15 +246,12 @@ def test_refusals_name_the_roadmap(case):
         assert not resolved.fused_resolution
         assert_plain_parity("sztorc", "auto")
         return
-    elif case == "mesh":            # fixed-variance on an event mesh
+    else:                           # fixed-variance on an event mesh
         from pyconsensus_tpu_torch.parallel.mesh import make_mesh
 
         p = p._replace(algorithm="fixed-variance")
         kw["mesh"] = make_mesh(devices=["cpu"] * 2)
         match = "ROADMAP.md §A.10"
-    else:
-        p = p._replace(storage_dtype="bfloat16")
-        match = "ROADMAP.md §A.3"
     if "mesh" not in kw:
         kw["device"] = "cpu"
     with pytest.raises(NotImplementedError, match=match):
