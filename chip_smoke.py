@@ -61,7 +61,17 @@ Phases, each printing its seconds:
    peak memory and launches of B.1, B.2 and resolve, and its binary
    outcomes must recover the truth and its scaled ones ``20 truth - 5``
    exactly;
-5. run the same paths at a middle size on the card and on the CPU
+5. ``ShardedOracle`` at full size on the generator's matrix (host int8
+   storage, ``storage_dtype="int8"``): its rate as passed and after
+   ``place()``, beside ``sharded_consensus``'s in the same phase, with
+   B.1, B.2 and B.3 launched and the outcomes recovering the truth; then
+   a ``FaultPlan`` NaN storm at ``oracle.raw_result`` that must walk
+   exactly one hop, ``power-fused -> eigh-gram``, on the card (counted
+   in ``pyconsensus_fallbacks_total``), with the recovered outcomes
+   equal to a clean eigh-gram resolution's, the seconds of both and the
+   recovery's peak memory; then the span tree and counters of one traced
+   resolution;
+6. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two; then the ``Oracle`` (``backend="torch"``) on the card against
    its CPU run, with and without scaled events, under ``"auto"`` (the
@@ -70,7 +80,7 @@ Phases, each printing its seconds:
    corner of that matrix (the numpy backend's covariance eigh is E x E);
    and the fused path on bfloat16 storage with E // 8 scaled events, card
    against CPU, for sztorc, fixed-variance and ica;
-6. print the ``kernels`` JSON line (each kernel with the storage types it
+7. print the ``kernels`` JSON line (each kernel with the storage types it
    takes and its bfloat16 time, plain time and bound beside the int8
    ones), then the result line.
 
@@ -125,6 +135,9 @@ PLAIN_SCALED = 16_000
 #: docs/MEASUREMENTS_r03.json, where the reference resolved bfloat16
 #: storage and the fused path), at most E // 8
 SCALED_FUSED = (1000, 4000)
+#: timed resolutions of ShardedOracle as passed: each uploads the float
+#: reports (8 GB of float64 at 10k x 100k) again
+SHARDED_ORACLE_PASSED = 3
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
@@ -447,6 +460,9 @@ def run(args) -> int:
     with phase(f"plain paths {R}x{E} float32"):
         plain_paths(torch, args, drive, card, dev, sharded_consensus,
                     resolve_params)
+
+    with phase(f"ShardedOracle and the fallback chain {R}x{E} int8"):
+        sharded_oracle_phase(torch, args, card, dev, launches)
 
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
         xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
@@ -1206,6 +1222,177 @@ def plain_paths(torch, args, drive, card, dev, sharded_consensus,
                 raise RuntimeError(f"{label}: the outcomes do not recover "
                                    "the truth")
     del xg
+    torch.cuda.empty_cache()
+
+
+def sharded_oracle_phase(torch, args, card, dev, launches):
+    """Phase 5: ``ShardedOracle`` on the generator's matrix (host int8
+    sentinel storage, decoded by the ``Oracle``'s intake) with
+    ``storage_dtype="int8"``: its rate as passed (the float reports
+    uploaded every call) and after ``place()`` (the int8 storage placed
+    once), beside ``sharded_consensus`` on the same matrix pre-encoded on
+    the card, each with the launch counts set to 0 just before and read
+    just after (B.1, B.2 and B.3 must launch). Then a ``FaultPlan`` with a
+    NaN storm at ``oracle.raw_result``: exactly one hop, ``power-fused ->
+    eigh-gram``, counted in ``pyconsensus_fallbacks_total``, and the
+    recovered outcomes equal to a clean ``pca_method="eigh-gram"``
+    resolution's (a ``ShardedOracle``: the plain core without the (R, E)
+    outputs, as the rung runs it) and to the truth; the seconds and peak
+    device memory of both. Then the span tree of one traced
+    resolution and the counters it moved."""
+    import numpy as np
+
+    from pyconsensus_tpu_torch import (ConsensusParams, ShardedOracle,
+                                       faults, obs, sharded_consensus)
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+
+    R, E = args.reporters, args.events
+    method = "auto" if R > 4096 else "power-fused"
+    x8, truth = gen_reports(torch, R, E, args.seed + 6, dev)
+    truth = truth.cpu().numpy()
+    host = x8.cpu().numpy()
+    kw = dict(storage_dtype="int8", power_tol=1e-5, pca_method=method)
+
+    def timed(fn, n, label):
+        """A warm-up, then ``n`` timed calls between launch-count resets;
+        the kernels of sztorc's fused path must have launched."""
+        fn()
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        rate = n / (time.perf_counter() - t0)
+        counts = ck.launch_counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        missing = [k for k in PATH_KERNELS["sztorc"] if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"{label}: kernels of the path never "
+                               f"launched: {missing} ({counts})")
+        per = {k: v / n for k, v in counts.items() if v}
+        log(f"{label}: {rate:.4f} resolutions/s ({1e3 / rate:.3f} ms "
+            f"each) on {card}; launches a resolution {per}")
+        return out, rate
+
+    def outcomes(out):
+        o = out["events"]["outcomes_final"] if "events" in out else \
+            out["outcomes_final"].cpu().numpy()
+        return np.asarray(o)
+
+    t0 = time.perf_counter()
+    oracle = ShardedOracle(reports=host, encoded=True, device=dev, **kw)
+    log(f"ShardedOracle intake (int8 decoded to float64 on the host, "
+        f"quarantine, parameters): {time.perf_counter() - t0:.3f} s; "
+        f"pca_method {oracle.params.pca_method}, fused "
+        f"{oracle.params.fused_resolution}")
+    if not oracle.params.fused_resolution:
+        raise RuntimeError("ShardedOracle did not open the fused path")
+    res = {}
+    out, res["as passed"] = timed(oracle.consensus, SHARDED_ORACLE_PASSED,
+                                  "ShardedOracle as passed")
+    as_passed = outcomes(out)
+    t0 = time.perf_counter()
+    oracle.place()
+    torch.cuda.synchronize()
+    log(f"ShardedOracle.place(): {time.perf_counter() - t0:.3f} s")
+    out, res["placed"] = timed(oracle.consensus, args.resolutions,
+                               "ShardedOracle placed")
+    placed = outcomes(out)
+    p = ConsensusParams(max_iterations=1, **kw)
+    out, res["sharded_consensus"] = timed(
+        lambda: sharded_consensus(x8, params=p, device=dev),
+        args.resolutions, "sharded_consensus on the card's int8 storage")
+    direct = outcomes(out)
+    del x8
+    for label, o in (("as passed", as_passed), ("placed", placed)):
+        if not np.array_equal(o, direct):
+            raise RuntimeError(f"ShardedOracle {label}: outcomes differ from "
+                               "sharded_consensus's")
+    correct = float((placed == truth).mean())
+    log(f"ShardedOracle rates on {card}: as passed "
+        f"{res['as passed']:.4f}, placed {res['placed']:.4f}, "
+        f"sharded_consensus {res['sharded_consensus']:.4f} resolutions/s; "
+        f"outcomes == truth {correct:.6f}, equal to sharded_consensus's")
+    if correct < 0.99:
+        raise RuntimeError("ShardedOracle: the outcomes do not recover the "
+                           "truth")
+
+    # the chain: one hop, power-fused -> eigh-gram, on the card
+    storm = {"site": "oracle.raw_result", "kind": "nan_storm",
+             "occurrences": [0], "args": {"fraction": 1.0}}
+
+    def hops():
+        series = obs.REGISTRY.snapshot().get(
+            "pyconsensus_fallbacks_total", {}).get("series", {})
+        return {tuple(json.loads(k)[n] for n in ("from", "to", "reason")): v
+                for k, v in series.items()}
+
+    before = hops()
+    plan = faults.FaultPlan(seed=args.seed, rules=[storm])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with faults.armed(plan):
+        recovered = oracle.consensus()
+    torch.cuda.synchronize()
+    t_recovery = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec_counts = {k: v for k, v in ck.launch_counts().items() if v}
+    after = hops()
+    moved = {k: after[k] - before.get(k, 0.0) for k in after
+             if after[k] != before.get(k, 0.0)}
+    if moved != {("power-fused", "eigh-gram", "nonfinite_result"): 1.0}:
+        raise RuntimeError(f"the NaN storm walked {moved} (fired "
+                           f"{plan.fired}), not one power-fused -> "
+                           "eigh-gram hop")
+    # the clean run: the same plain core, light as the rung is
+    clean_oracle = ShardedOracle(reports=oracle.reports,
+                                 pca_method="eigh-gram", power_tol=1e-5,
+                                 device=dev)
+    if clean_oracle.params.fused_resolution:
+        raise RuntimeError("the eigh-gram run opened the fused path")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clean = clean_oracle.consensus()
+    torch.cuda.synchronize()
+    t_clean = time.perf_counter() - t0
+    peak_clean = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = outcomes(recovered)
+    if not np.array_equal(got, outcomes(clean)):
+        raise RuntimeError("the recovered outcomes differ from a clean "
+                           "eigh-gram resolution's")
+    if not np.isfinite(recovered["agents"]["smooth_rep"]).all():
+        raise RuntimeError("the recovered reputation is not finite")
+    correct = float((got == truth).mean())
+    log(f"fallback on {card}: fired {plan.fired}, hops {moved}; recovery "
+        f"{t_recovery:.3f} s (the fused attempt, then eigh-gram on the "
+        f"card), peak {peak:.3f} GiB, launches {rec_counts}; clean "
+        f"eigh-gram resolution {t_clean:.3f} s, peak {peak_clean:.3f} GiB "
+        f"(the placed int8 storage included); recovered outcomes equal "
+        f"the clean run's, == truth {correct:.6f}")
+    if correct < 0.99:
+        raise RuntimeError("the recovered outcomes do not recover the truth")
+    del clean_oracle
+
+    obs.reset()
+    oracle.consensus()
+    tree = obs.span_tree(obs.events())
+    if [t["name"] for t in tree] != ["oracle.consensus"] or [
+            c["name"] for c in tree[0]["children"]] != ["pipeline.dispatch"]:
+        raise RuntimeError(f"span tree {obs.report()}")
+    log("span tree of one traced ShardedOracle resolution:")
+    for line in obs.report().splitlines():
+        log(f"  {line}")
+    log("counters it moved:")
+    for name, entry in obs.REGISTRY.snapshot().items():
+        if entry["kind"] != "histogram":
+            for key, v in entry["series"].items():
+                log(f"  {name}{key or ''} {v}")
+    del oracle
     torch.cuda.empty_cache()
 
 

@@ -6,14 +6,18 @@ over the whole filled matrix, every PCA method, scaled events;
 ``sharded_consensus``, the fused resolution on NaN-threaded storage (int8
 sentinel, or float32 or bfloat16 with NaN): sztorc, fixed-variance and
 ica on one device, with scaled events up to E // 8 of them, and sztorc
-on an event mesh driven by one process (``parallel.mesh``). Every
-Pallas kernel of the JAX package has a counterpart written by hand in
-CUDA for sm_90a (``csrc/``). Entry points::
+on an event mesh driven by one process (``parallel.mesh``);
+``ShardedOracle`` is the ``Oracle`` over that dispatch. Every Pallas
+kernel of the JAX package has a counterpart written by hand in CUDA for
+sm_90a (``csrc/``). A non-finite result walks the reference's fallback
+chain (``faults``: fault plans, the error taxonomy, retry); spans and
+metrics go to ``obs``. Entry points::
 
-    from pyconsensus_tpu_torch import Oracle, sharded_consensus
+    from pyconsensus_tpu_torch import Oracle, ShardedOracle, sharded_consensus
     result = Oracle(reports).consensus()    # device=None: the card
     out = sharded_consensus(reports, params=ConsensusParams(
         storage_dtype="int8"))
+    result = ShardedOracle(reports, storage_dtype="int8").place().consensus()
 
 The package imports torch, numpy and the standard library only.
 """
@@ -23,9 +27,10 @@ from .models.pipeline import (ConsensusParams, decode_reports,
                               lattice_exact)
 from .oracle import (ALGORITHMS, BACKENDS, Oracle, assemble_result,
                      parse_event_bounds)
-from .parallel.sharded import resolve_device, sharded_consensus
+from .parallel.sharded import ShardedOracle, resolve_device, \
+    sharded_consensus
 
-__all__ = ["Oracle", "ALGORITHMS", "BACKENDS", "ConsensusParams",
-           "sharded_consensus", "resolve_device",
+__all__ = ["Oracle", "ShardedOracle", "ALGORITHMS", "BACKENDS",
+           "ConsensusParams", "sharded_consensus", "resolve_device",
            "encode_reports", "encode_reports_host", "decode_reports",
            "lattice_exact", "assemble_result", "parse_event_bounds"]

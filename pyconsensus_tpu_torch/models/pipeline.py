@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..faults.errors import InputError
 from ..ops import numpy_kernels as nk
 from ..ops import torch_kernels as tk
@@ -542,8 +543,15 @@ def consensus_np(reports, reputation, scaled, mins, maxs, p: ConsensusParams):
     reports = np.asarray(reports, dtype=np.float64)
     old_rep = nk.normalize(np.asarray(reputation, dtype=np.float64))
     scaled = np.asarray(scaled, dtype=bool)
-    rescaled = nk.rescale(reports, scaled, mins, maxs)
-    filled = nk.interpolate(rescaled, old_rep, scaled, p.catch_tolerance)
+    with obs.span("np.fill", algorithm=p.algorithm):
+        n_na = int(np.isnan(reports).sum())
+        if n_na:
+            obs.counter(
+                "pyconsensus_na_fills_total",
+                "NaN report cells filled by interpolate, per backend",
+                labels=("backend",)).inc(n_na, backend="numpy")
+        rescaled = nk.rescale(reports, scaled, mins, maxs)
+        filled = nk.interpolate(rescaled, old_rep, scaled, p.catch_tolerance)
 
     rep = old_rep
     this_rep = old_rep
@@ -551,24 +559,33 @@ def consensus_np(reports, reputation, scaled, mins, maxs, p: ConsensusParams):
     ica_converged = None
     converged = False
     iterations = 0
-    for _ in range(max(p.max_iterations, 1)):
-        adj, loading, ica_converged = _scores_np(filled, rep, p)
-        this_rep = nk.row_reward_weighted(adj, rep)
-        new_rep = nk.smooth(this_rep, rep, p.alpha)
-        delta = float(np.max(np.abs(new_rep - rep)))
-        rep = new_rep
-        iterations += 1
-        if delta <= p.convergence_tolerance:
-            converged = True
-            break
+    residual = obs.histogram(
+        "pyconsensus_convergence_residual",
+        "max-abs reputation change per redistribution iteration",
+        labels=("backend",), buckets=obs.MAGNITUDE_BUCKETS)
+    with obs.span("np.iterate", algorithm=p.algorithm) as sp:
+        for _ in range(max(p.max_iterations, 1)):
+            adj, loading, ica_converged = _scores_np(filled, rep, p)
+            this_rep = nk.row_reward_weighted(adj, rep)
+            new_rep = nk.smooth(this_rep, rep, p.alpha)
+            delta = float(np.max(np.abs(new_rep - rep)))
+            residual.observe(delta, backend="numpy")
+            rep = new_rep
+            iterations += 1
+            if delta <= p.convergence_tolerance:
+                converged = True
+                break
+        sp.set_attr("iterations", iterations)
+        sp.set_attr("converged", converged)
 
-    outcomes_raw, outcomes_adjusted = nk.resolve_outcomes(
-        rescaled, filled, rep, scaled, p.catch_tolerance)
-    outcomes_final = nk.unscale_outcomes(outcomes_adjusted, scaled, mins,
-                                         maxs)
-    extras = nk.certainty_and_bonuses(rescaled, filled, rep,
-                                      outcomes_adjusted, scaled,
-                                      p.catch_tolerance)
+    with obs.span("np.resolve", algorithm=p.algorithm):
+        outcomes_raw, outcomes_adjusted = nk.resolve_outcomes(
+            rescaled, filled, rep, scaled, p.catch_tolerance)
+        outcomes_final = nk.unscale_outcomes(outcomes_adjusted, scaled, mins,
+                                             maxs)
+        extras = nk.certainty_and_bonuses(rescaled, filled, rep,
+                                          outcomes_adjusted, scaled,
+                                          p.catch_tolerance)
     result = {
         "original": reports,
         "rescaled": rescaled,
@@ -730,11 +747,14 @@ def _consensus_core(reports, reputation, scaled, mins, maxs,
 
 
 def consensus_torch(reports, reputation, scaled, mins, maxs,
-                    p: ConsensusParams, device=None) -> dict:
+                    p: ConsensusParams, device=None,
+                    light: bool = False) -> dict:
     """The plain core on ``device`` (None: the card, which must be sm_90)
     in the default float dtype (``torch.get_default_dtype()``), from host
     or device inputs; a pre-encoded int8 matrix is decoded first. Returns
-    the flat result dict of tensors on the device."""
+    the flat result dict of tensors on the device (``light``: without the
+    (R, E) ones). The ``pipeline.dispatch`` span measures the dispatch
+    and observes nothing, so it adds no wait for the device."""
     from ..ops.cuda_kernels import require_hopper
     from ..parallel.sharded import resolve_device
 
@@ -751,6 +771,8 @@ def consensus_torch(reports, reputation, scaled, mins, maxs,
     def put(a, dt):
         return torch.as_tensor(a).to(device=dev, dtype=dt)
 
-    return _consensus_core(put(reports, dtype), put(reputation, dtype),
-                           put(scaled, torch.bool), put(mins, dtype),
-                           put(maxs, dtype), p)
+    with obs.span("pipeline.dispatch", algorithm=p.algorithm,
+                  path="plain"):
+        return _consensus_core(put(reports, dtype), put(reputation, dtype),
+                               put(scaled, torch.bool), put(mins, dtype),
+                               put(maxs, dtype), p, light=light)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops import numpy_kernels as nk
 from ..ops import torch_kernels as tk
 
@@ -27,9 +28,10 @@ __all__ = ["sztorc_scores_np", "fixed_variance_scores_np", "sztorc_scores",
 def sztorc_scores_np(reports_filled, reputation):
     """Direction-fixed first-component scores (numpy). Returns
     ``(adj_scores, loading)``."""
-    loading, scores = nk.weighted_prin_comp(reports_filled, reputation)
-    return (nk.direction_fixed_scores(scores, reports_filled, reputation),
-            loading)
+    with obs.span("np.scores", algorithm="sztorc"):
+        loading, scores = nk.weighted_prin_comp(reports_filled, reputation)
+        return (nk.direction_fixed_scores(scores, reports_filled,
+                                          reputation), loading)
 
 
 def _component_weights_np(explained, variance_threshold):
@@ -48,15 +50,16 @@ def fixed_variance_scores_np(reports_filled, reputation, variance_threshold,
                              max_components):
     """``fixed-variance`` (numpy). Returns ``(adj_scores, loading 0)``."""
     k = min(max_components, min(reports_filled.shape))
-    loadings, scores, explained = nk.weighted_prin_comps(reports_filled,
-                                                         reputation, k)
-    w = _component_weights_np(explained, variance_threshold)
-    adj = np.zeros(reports_filled.shape[0], dtype=np.float64)
-    for c in range(k):
-        adj_c = nk.direction_fixed_scores(scores[:, c], reports_filled,
-                                          reputation)
-        adj = adj + w[c] * adj_c
-    return adj, loadings[:, 0]
+    with obs.span("np.scores", algorithm="fixed-variance", components=k):
+        loadings, scores, explained = nk.weighted_prin_comps(reports_filled,
+                                                             reputation, k)
+        w = _component_weights_np(explained, variance_threshold)
+        adj = np.zeros(reports_filled.shape[0], dtype=np.float64)
+        for c in range(k):
+            adj_c = nk.direction_fixed_scores(scores[:, c], reports_filled,
+                                              reputation)
+            adj = adj + w[c] * adj_c
+        return adj, loadings[:, 0]
 
 
 def sztorc_scores(filled: torch.Tensor, reputation: torch.Tensor,

@@ -12,7 +12,10 @@ raw values plus an ``event_bounds`` entry ``{"scaled": True, "min": m,
 "max": M}``. ``backend="torch"`` (the default) runs the plain core on
 ``device`` (None: the card; ``"cpu"`` on request), ``backend="numpy"``
 the numpy pipeline on the host. ``consensus()`` returns the reference's
-nested result dict of host numpy values.
+nested result dict of host numpy values. A torch result with non-finite
+decision outputs walks the reference's fallback chain (power-fused ->
+eigh-gram -> numpy, ``faults.degrade``) and raises the classified
+error when every rung stays non-finite.
 """
 
 from __future__ import annotations
@@ -22,15 +25,18 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .faults.degrade import quarantine_nonfinite, result_nonfinite
-from .faults.errors import InputError, NumericsError
+from . import obs
+from .faults import degrade as _degrade
+from .faults import plan as _faults
+from .faults.errors import InputError
 from .models.pipeline import (ALGORITHMS, ConsensusParams, consensus_np,
                               consensus_torch, decode_reports,
                               resolve_encoded)
-from .ops.torch_kernels import gather_median_pays
+from .ops.torch_kernels import gather_median_pays, resolve_pca_method
 
 __all__ = ["Oracle", "ALGORITHMS", "BACKENDS", "STORAGE_DTYPES",
-           "parse_event_bounds", "assemble_result"]
+           "parse_event_bounds", "assemble_result",
+           "record_consensus_result"]
 
 BACKENDS = ("numpy", "torch")
 #: legal storage_dtype values ("" = the default float dtype)
@@ -44,9 +50,6 @@ _ALGORITHM_ALIASES = {
     "kmeans": "k-means",
     "agglomerative": "hierarchical",
 }
-#: where the fallback chain for a non-finite result is queued
-_ROADMAP_FALLBACK = ("ROADMAP.md §A.2.3 (the fallback chain: power-fused, "
-                     "then eigh-gram, then numpy)")
 
 
 def parse_event_bounds(event_bounds, n_events: int):
@@ -109,6 +112,39 @@ def assemble_result(raw: dict) -> dict:
     if "ica_converged" in raw:
         result["ica_converged"] = bool(raw["ica_converged"])
     return result
+
+
+def record_consensus_result(result: dict, algorithm: str,
+                            backend: str) -> None:
+    """Emit the per-``consensus()`` convergence metrics from an assembled
+    HOST result dict: everything read here is an O(R) vector or scalar
+    already on the host, so this adds no device sync. Shared by
+    :class:`Oracle` and ``parallel.ShardedOracle``."""
+    obs.counter(
+        "pyconsensus_consensus_total",
+        "finished consensus() resolutions",
+        labels=("algorithm", "backend", "converged")).inc(
+            algorithm=algorithm, backend=backend,
+            converged=str(bool(result["convergence"])).lower())
+    obs.histogram(
+        "pyconsensus_consensus_iterations",
+        "reputation-redistribution iterations per consensus() call",
+        labels=("algorithm", "backend"),
+        buckets=obs.ITERATION_BUCKETS).observe(
+            int(result["iterations"]), algorithm=algorithm, backend=backend)
+    agents = result["agents"]
+    old = np.asarray(agents["old_rep"], dtype=np.float64)
+    mass = obs.histogram(
+        "pyconsensus_redistribution_mass",
+        "reputation mass moved per resolution: raw (catch) redistribution "
+        "|this_rep - old_rep|/2 and smoothed |smooth_rep - old_rep|/2",
+        labels=("kind",), buckets=obs.MAGNITUDE_BUCKETS)
+    mass.observe(0.5 * float(np.abs(
+        np.asarray(agents["this_rep"], dtype=np.float64) - old).sum()),
+        kind="raw")
+    mass.observe(0.5 * float(np.abs(
+        np.asarray(agents["smooth_rep"], dtype=np.float64) - old).sum()),
+        kind="smooth")
 
 
 def _host(v):
@@ -247,18 +283,21 @@ class Oracle:
                 f"clustering algorithms ({algorithm!r}): the interpolated "
                 "fill values are continuous")
 
-        # after every validation: rows holding ±Inf are not heard
-        self.reports, self.quarantined_rows, has_na = quarantine_nonfinite(
-            self.reports)
-        self.reputation = rep
-        self.backend = backend
-        self.verbose = verbose
         if backend == "torch":
             from .parallel.sharded import resolve_device
 
             self.device = resolve_device(device)
         else:
             self.device = None
+        # the chaos hook, then quarantine, after every validation: a
+        # refused construction counts no quarantined row. Rows holding
+        # ±Inf are not heard; the isfinite scan gives has_na as well
+        self.reports = _faults.corrupt("oracle.reports", self.reports)
+        self.reports, self.quarantined_rows, has_na = \
+            _degrade.quarantine_nonfinite(self.reports)
+        self.reputation = rep
+        self.backend = backend
+        self.verbose = verbose
         n_sc = int(self.scaled.sum())
         self.params = ConsensusParams(
             # the exact count where the median gathers the scaled columns
@@ -283,6 +322,12 @@ class Oracle:
             storage_dtype=str(storage_dtype),
         )
 
+    #: the fallback rungs drop the (R, E) outputs (``ShardedOracle``'s
+    #: result never carries them)
+    _LIGHT_RECOVERY = False
+    #: extra attributes of the ``oracle.consensus`` span
+    _SPAN_ATTRS: dict = {}
+
     def resolve_raw(self) -> dict:
         """Run the pipeline: the flat result dict, tensors left on the
         device on the torch backend."""
@@ -293,23 +338,77 @@ class Oracle:
                                self.mins, self.maxs, self.params,
                                device=self.device)
 
+    # -- graceful degradation (faults.degrade's fallback chain) -----------
+
+    def _resolve_once(self, update: dict) -> dict:
+        """One rung of the fallback chain: the resolution again with
+        ConsensusParams overrides on the torch backend (on the Oracle's
+        device), or the numpy pipeline on the host when ``update ==
+        {"backend": "numpy"}``. ``ShardedOracle`` inherits this as its
+        recovery route: the rare re-resolve trades the fused path for the
+        plain core on purpose."""
+        if update.get("backend") == "numpy":
+            return consensus_np(self.reports, self.reputation, self.scaled,
+                                self.mins, self.maxs, self.params)
+        p2 = self.params._replace(**update)
+        if p2.storage_dtype == "int8":
+            # int8 sentinel storage serves only the fused path the chain
+            # falls back FROM; the rung runs the plain core on the floats
+            p2 = p2._replace(storage_dtype="")
+        return consensus_torch(self.reports, self.reputation, self.scaled,
+                               self.mins, self.maxs, p2, device=self.device,
+                               light=self._LIGHT_RECOVERY)
+
+    def _effective_pca_method(self) -> str:
+        """The pca_method the torch path actually RAN: ``"auto"`` resolves
+        by shape (``torch_kernels.resolve_pca_method``), so the chain keys
+        on the resolved method; an unresolved ``"auto"`` would skip the
+        eigh-gram rung where auto picks power iteration."""
+        R, E = self.reports.shape
+        return resolve_pca_method(R, E, self.params.pca_method,
+                                  self.device or torch.device("cpu"))
+
+    def _degraded_raw(self) -> dict:
+        """Walk the fallback chain after a non-finite result, emitting
+        ``pyconsensus_fallbacks_total{from,to,reason}`` per hop; raises the
+        classified taxonomy error when every rung stays non-finite."""
+        effective = self._effective_pca_method()
+        for frm, to, update in _degrade.fallback_steps(effective,
+                                                       self.backend):
+            _degrade.record_fallback(frm, to, "nonfinite_result")
+            raw = {k: _host(v) for k, v in self._resolve_once(update).items()}
+            if not _degrade.result_nonfinite(raw):
+                return raw
+        _degrade.raise_exhausted(effective, self.params.algorithm)
+
+    def _fetch_raw(self) -> dict:
+        """Fetch the flat result to the host (the completion barrier) and
+        run the degradation checks: the ``oracle.raw_result`` chaos site
+        simulates an internal NaN storm, and a non-finite torch result
+        walks the fallback chain instead of being returned. A launch or
+        build error raised while resolving propagates: it starts no
+        rung."""
+        raw = {k: _host(v) for k, v in self.resolve_raw().items()}
+        raw = _faults.corrupt("oracle.raw_result", raw)
+        if self.backend == "torch" and _degrade.result_nonfinite(raw):
+            raw = self._degraded_raw()
+        return raw
+
     def consensus(self) -> dict:
         """Resolve outcomes and reputation: the reference-shaped nested
-        result dict of host numpy values, plus ``quarantined_rows``. A
-        torch result with non-finite decision outputs raises
-        ``NumericsError``: the fallback chain that would re-resolve it is
-        not ported yet."""
-        raw = {k: _host(v) for k, v in self.resolve_raw().items()}
-        if self.backend == "torch" and result_nonfinite(raw):
-            raise NumericsError(
-                f"non-finite values in the {self.params.algorithm!r} "
-                f"resolution outputs (pca_method={self.params.pca_method!r})"
-                f"; refusing to return them: {_ROADMAP_FALLBACK}",
-                algorithm=self.params.algorithm)
-        result = assemble_result(raw)
+        result dict of host numpy values, plus ``quarantined_rows`` (the
+        reporter rows not heard for carrying ±Inf, empty on clean
+        inputs)."""
+        with obs.span("oracle.consensus",
+                      algorithm=self.params.algorithm, backend=self.backend,
+                      reporters=self.reports.shape[0],
+                      events=self.reports.shape[1], **self._SPAN_ATTRS):
+            # the host fetch is the span's completion barrier
+            result = assemble_result(self._fetch_raw())
         result["quarantined_rows"] = (
             np.array([], dtype=np.int64) if self.quarantined_rows is None
             else np.asarray(self.quarantined_rows))
+        record_consensus_result(result, self.params.algorithm, self.backend)
         if self.verbose:
             with np.printoptions(precision=6, suppress=True):
                 self._print_summary(result)

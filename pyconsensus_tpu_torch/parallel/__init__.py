@@ -2,7 +2,9 @@
 docstring)."""
 
 from .mesh import EventShards, make_mesh, place_event_shards
-from .sharded import resolve_auto_storage, resolve_device, sharded_consensus
+from .sharded import (ShardedOracle, resolve_auto_storage, resolve_device,
+                      sharded_consensus)
 
 __all__ = ["make_mesh", "place_event_shards", "EventShards",
-           "sharded_consensus", "resolve_device", "resolve_auto_storage"]
+           "sharded_consensus", "ShardedOracle", "resolve_device",
+           "resolve_auto_storage"]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..models.pipeline import (ROADMAP_BF16, ROADMAP_SCALED_FUSED,
                                ConsensusParams, _assemble,
                                _check_fused_params, _fill_stats, _masked_mu,
@@ -60,6 +61,16 @@ def fused_sharded_consensus(placed: EventShards, reputation: torch.Tensor,
         raise ValueError(
             "the event-sharded fused path requires a power-family "
             f"pca_method, got {p.pca_method!r}")
+    # dispatch only: the span observes nothing, so it adds no wait for the
+    # devices (the power loop's own exit tests read the card as ever)
+    with obs.span("fused_sharded.dispatch", event_shards=len(placed.mesh),
+                  reporters=placed.shape[0], events=placed.n_events):
+        return _resolve(placed, reputation, p)
+
+
+def _resolve(placed: EventShards, reputation: torch.Tensor,
+             p: ConsensusParams) -> dict:
+    """The body of :func:`fused_sharded_consensus`, under its span."""
     dev0 = placed.mesh[0]
     E = placed.n_events
     old_rep = tk.normalize(reputation.to(dev0))

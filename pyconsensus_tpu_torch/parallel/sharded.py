@@ -20,6 +20,14 @@ two). What the port does not cover yet raises ``NotImplementedError``
 naming the ``ROADMAP.md`` item that brings it: the other algorithms, and
 on an event mesh scaled events, bfloat16, the plain core and batch
 meshes.
+
+:class:`ShardedOracle` is the ``Oracle`` over the same dispatch: the
+class API with ``mesh=``, ``place()`` to keep the reports on the card
+between resolutions, and the ``Oracle``'s fallback chain as its recovery
+route. Every dispatch counts its path in
+``pyconsensus_sharded_resolutions_total`` and
+``pyconsensus_kernel_path_total`` (host-static labels: nothing is read
+back from the device).
 """
 
 from __future__ import annotations
@@ -29,23 +37,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..faults.degrade import quarantine_nonfinite
+from .. import obs
+from ..faults import degrade as _degrade
+from ..faults import plan as _faults
 from ..faults.errors import InputError
 from ..models.pipeline import (CLUSTERING_ALGORITHMS, FUSED_ALGORITHMS,
                                ROADMAP_BF16, ROADMAP_CLUSTERING,
                                ROADMAP_MESH_PLAIN, ROADMAP_SCALED_FUSED,
                                ConsensusParams, _consensus_core_light,
-                               check_matvec_dtype)
+                               check_matvec_dtype, encode_reports)
 from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
                                 require_hopper, resolve_kernel_fits)
 from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
                                  gather_median_pays)
-from ..oracle import parse_event_bounds
+from ..oracle import Oracle, parse_event_bounds
 from .fused_sharded import fused_sharded_consensus
-from .mesh import EventShards, as_mesh, place_event_shards
+from .mesh import EventShards, as_mesh, make_mesh, place_event_shards
 
-__all__ = ["sharded_consensus", "resolve_device", "resolve_params",
-           "resolve_auto_storage"]
+__all__ = ["sharded_consensus", "ShardedOracle", "resolve_device",
+           "resolve_params", "resolve_auto_storage"]
 
 _SHARDABLE_PCA = ("eigh-gram", "power", "power-fused")
 _KNOWN_PCA = ("auto", "eigh-cov") + _SHARDABLE_PCA
@@ -246,6 +256,58 @@ def _place_reputation(reputation, R: int, device: torch.device):
     return t
 
 
+def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> None:
+    """Count one dispatch by its resolved path (host-static labels; the
+    result stays on the device, so nothing here can add a sync). The
+    label values name the port's implementations: the path ``fused``,
+    ``fused_sharded`` or ``plain`` (the reference's ``xla``), the kernel
+    family ``cuda`` (the reference's ``pallas``)."""
+    if p.fused_resolution:
+        path = "fused_sharded" if n_event > 1 else "fused"
+    else:
+        path = "plain"
+    obs.counter(
+        "pyconsensus_sharded_resolutions_total",
+        "sharded_consensus dispatches by resolved execution path",
+        labels=("path", "algorithm", "storage")).inc(
+            path=path, algorithm=p.algorithm,
+            storage=p.storage_dtype or "full")
+    obs.counter(
+        "pyconsensus_kernel_path_total",
+        "resolutions dispatched by kernel family (which kernel family "
+        "actually served traffic)", labels=("path",)).inc(
+            path="cuda" if p.fused_resolution else "plain")
+    obs.gauge(
+        "pyconsensus_mesh_event_shards",
+        "event-axis width of the mesh used by the latest sharded "
+        "resolution").set(n_event)
+
+
+def _dispatch(reports, rep: torch.Tensor, scaled, mins, maxs,
+              p: ConsensusParams, dev: torch.device, mesh) -> dict:
+    """Count, place and run one resolution with resolved ``p``: the fused
+    path over an event mesh of more than one shard, else the light
+    pipeline on ``dev`` (the fused path or the plain core)."""
+    n_event = len(mesh) if mesh is not None else 1
+    _record_sharded_dispatch(p, n_event)
+    if n_event > 1:
+        if not isinstance(reports, EventShards):
+            reports = place_event_shards(reports, mesh)
+        return fused_sharded_consensus(reports, rep, p)
+    x = (reports.shards[0] if isinstance(reports, EventShards)
+         else _place_reports(reports, dev))
+    # the bounds in the storage's float type, as the reference takes them
+    # in its default dtype
+    fdt = torch.float32
+    args = (torch.as_tensor(scaled, device=dev),
+            torch.as_tensor(mins, dtype=fdt, device=dev),
+            torch.as_tensor(maxs, dtype=fdt, device=dev))
+    # dispatch only: the result stays on the device
+    with obs.span("pipeline.dispatch", algorithm=p.algorithm,
+                  path="fused" if p.fused_resolution else "plain"):
+        return _consensus_core_light(x, rep, *args, p)
+
+
 def sharded_consensus(reports, reputation=None, event_bounds=None,
                       params: Optional[ConsensusParams] = None, device=None,
                       *, mesh=None) -> dict:
@@ -283,7 +345,12 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
     scaled, mins, maxs = parse_event_bounds(event_bounds, E)
     p = p._replace(n_scaled=int(scaled.sum()))
     if is_host and reports.dtype != np.int8:
-        reports, quarantined, host_has_na = quarantine_nonfinite(reports)
+        # the chaos hook and the ±Inf quarantine on host float matrices
+        # (int8 sentinel storage carries no Inf); the isfinite scan gives
+        # has_na as well
+        reports = _faults.corrupt("sharded.reports", reports)
+        reports, quarantined, host_has_na = \
+            _degrade.quarantine_nonfinite(reports)
     if is_host and reports.dtype == np.int8:
         has_na = bool((reports < 0).any())
     elif is_host:
@@ -295,21 +362,76 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
         require_hopper(d)
     p = resolve_params(p, R, E, dev, n_event)
     rep = _place_reputation(reputation, R, dev)
-    if n_event > 1:
-        if not isinstance(reports, EventShards):
-            reports = place_event_shards(reports, mesh)
-        result = fused_sharded_consensus(reports, rep, p)
-    else:
-        x = (reports.shards[0] if isinstance(reports, EventShards)
-             else _place_reports(reports, dev))
-        # the bounds in the storage's float type, as the reference takes
-        # them in its default dtype
-        fdt = torch.float32
-        result = _consensus_core_light(
-            x, rep, torch.as_tensor(scaled, device=dev),
-            torch.as_tensor(mins, dtype=fdt, device=dev),
-            torch.as_tensor(maxs, dtype=fdt, device=dev), p)
+    result = _dispatch(reports, rep, scaled, mins, maxs, p, dev, mesh)
     result["quarantined_rows"] = (np.array([], dtype=np.int64)
                                   if quarantined is None
                                   else np.asarray(quarantined))
     return result
+
+
+class ShardedOracle(Oracle):
+    """The :class:`~pyconsensus_tpu_torch.oracle.Oracle` resolved through
+    the front door's dispatch (``pyconsensus_tpu/parallel/sharded.py
+    ShardedOracle``): the fused path where the gate opens (on one device
+    or, for sztorc, over an event mesh), the plain core where it closes
+    on one device. The constructor adds ``mesh=`` (``make_mesh``; default
+    one shard on ``device``, which defaults to the card).
+    ``consensus()`` returns the reference-shaped dict without the (R, E)
+    matrices. A non-finite result walks the inherited fallback chain on
+    the mesh's first device: the re-resolve trades the fused path for the
+    plain core on purpose, and drops the (R, E) outputs too.
+
+    Only ``backend="torch"``. What the port's mesh does not cover raises
+    naming ``ROADMAP.md`` §A.10, as ``sharded_consensus`` does."""
+
+    _LIGHT_RECOVERY = True
+    _SPAN_ATTRS = {"sharded": True}
+
+    def __init__(self, *args, mesh=None, device=None, **kwargs):
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass either device= or mesh=, not both")
+            mesh = as_mesh(mesh)
+            device = mesh[0]
+        super().__init__(*args, device=device, **kwargs)
+        if self.backend != "torch":
+            raise ValueError("ShardedOracle requires backend='torch'")
+        self.mesh = mesh if mesh is not None else make_mesh(
+            devices=[self.device])
+        for d in self.mesh:
+            require_hopper(d)
+        R, E = self.reports.shape
+        self.params = resolve_params(
+            self.params._replace(n_scaled=int(self.scaled.sum())), R, E,
+            self.device, len(self.mesh))
+        self._placed = None
+
+    def place(self) -> "ShardedOracle":
+        """Place the reports on the mesh (and the reputation on its first
+        device) once, so that each later ``consensus()`` uploads nothing.
+        With ``storage_dtype="int8"`` the placed storage is the int8
+        encoding, made once on the device: the fused path would encode
+        the float reports on every call, to the same bits. ``reports``
+        stays the host matrix the recovery rungs read: change it and call
+        ``place()`` again."""
+        placed = place_event_shards(self.reports, self.mesh)
+        if self.params.storage_dtype == "int8":
+            placed = placed._replace(shards=tuple(
+                encode_reports(x) for x in placed.shards))
+        self._placed = (placed, self._device_reputation())
+        return self
+
+    def _device_reputation(self) -> torch.Tensor:
+        # in the default dtype, as the Oracle's plain core takes it
+        return torch.as_tensor(self.reputation,
+                               dtype=torch.get_default_dtype(),
+                               device=self.device)
+
+    def resolve_raw(self) -> dict:
+        """The flat light result dict, tensors left on the mesh's first
+        device."""
+        reports, rep = (self._placed if self._placed is not None
+                        else (self.reports, self._device_reputation()))
+        mesh = self.mesh if len(self.mesh) > 1 else None
+        return _dispatch(reports, rep, self.scaled, self.mins, self.maxs,
+                         self.params, self.device, mesh)

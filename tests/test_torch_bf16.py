@@ -36,12 +36,13 @@ since every value is on the bfloat16 lattice).
   beyond E // 8 close the fused gate) against ``consensus_light_jit``:
   exact keys as above, continuous keys within 1e-5 for sztorc and 2e-3
   for fixed-variance and ica. sztorc's ``"power"`` arm on bfloat16
-  operands is held to 1e-4: its loading moved by up to 2.0e-5 against
-  the reference's XLA graph in these cases, whose products the port
-  takes exactly in the reputation dtype (``torch_kernels._dot``). The
-  reference's own ``TestStorageDtype`` contract holds on the port's
-  ``Oracle``: bfloat16 outcomes equal full-precision ones, ``smooth_rep``
-  within 5e-3.
+  operands keeps 1e-4 on every continuous key but the loading, whose
+  band after 64 forced sweeps is measured from the reference itself
+  (:func:`reference_loading_move`); at 8 sweeps and one iteration its
+  loading is held to sztorc's 1e-5. The reference's own
+  ``TestStorageDtype`` contract holds on the port's ``Oracle``:
+  bfloat16 outcomes equal full-precision ones, ``smooth_rep`` within
+  5e-3.
 - **``resolve_auto_storage``** answers as the reference's, whose fused
   gate opens on a TPU only (its ``jax.default_backend`` is set to
   ``"tpu"`` for the comparison).
@@ -270,10 +271,11 @@ def make_scaled_reports(seed, R, E, cols):
     return reports, bounds
 
 
-def assert_parity(out, ref, scaled, atol):
+def assert_parity(out, ref, scaled, atol, loading_atol=None):
     """Exact keys equal on the binary events; the scaled events' outcomes
     (``outcomes_final`` over the span of 20) and every continuous key
-    within ``atol``; ``first_loading`` up to sign."""
+    within ``atol``; ``first_loading`` up to sign, within
+    ``loading_atol`` (default ``atol``)."""
     assert set(ref) <= set(out)
     for key, a in ref.items():
         a = np.asarray(a)
@@ -288,7 +290,8 @@ def assert_parity(out, ref, scaled, atol):
             else:
                 np.testing.assert_array_equal(b, a, err_msg=key)
         elif key == "first_loading":
-            _close(np.abs(b), np.abs(a), 0, atol, key)
+            _close(np.abs(b), np.abs(a), 0,
+                   atol if loading_atol is None else loading_atol, key)
         else:
             _close(b, a, 0, atol, key)
 
@@ -376,33 +379,99 @@ PLAIN_CASES = [("sztorc", "power-fused", "bfloat16", ""),
                ("ica", "eigh-cov", "bfloat16", "")]
 
 
-@pytest.mark.parametrize("algo,method,storage,matvec", PLAIN_CASES)
-def test_plain_core_bf16_matches_reference(algo, method, storage, matvec):
-    """8 scaled events of 48 (beyond E // 8) close the fused gate: the
-    plain core stores the filled matrix in bfloat16 (or narrows sztorc's
-    sweeps with ``matvec_dtype``), three iterations."""
+#: the reporters whose reputation :func:`reference_loading_move` nudges
+NUDGED = (0, 7, 20)
+#: the band of sztorc's bfloat16 "power" loading over the reference's own
+#: move under those nudges
+LOADING_FACTOR = 4
+
+
+def _plain_core_pair(algo, method, storage, matvec, power_iters,
+                     max_iterations):
+    """The plain-core case of the tests below: returns ``(out, run_ref,
+    rep, scaled)``, where ``run_ref(rep)`` resolves the same inputs with
+    the reference (``consensus_light_jit``) at reputation ``rep``."""
     R, E = 31, 48
     cols = list(range(E - 8, E))
     reports, bounds = make_scaled_reports(R + E, R, E, cols)
     rep = np.random.default_rng(1).random(R)
     scaled, mins, maxs = parse_event_bounds(bounds, E)
-    kw = dict(algorithm=algo, pca_method=method, power_iters=64,
-              power_tol=-1.0, max_iterations=3, storage_dtype=storage,
-              matvec_dtype=matvec)
+    kw = dict(algorithm=algo, pca_method=method, power_iters=power_iters,
+              power_tol=-1.0, max_iterations=max_iterations,
+              storage_dtype=storage, matvec_dtype=matvec)
     p = resolve_params(ConsensusParams(**kw)._replace(
         any_scaled=True, n_scaled=len(cols)), R, E, torch.device("cpu"))
     assert not p.fused_resolution and p.pca_method == method
     out = sharded_consensus(reports.astype(np.float32), reputation=rep,
                             event_bounds=bounds,
                             params=ConsensusParams(**kw), device="cpu")
-    ref = consensus_light_jit(
-        jnp.asarray(reports.astype(np.float32)), jnp.asarray(rep),
-        jnp.asarray(scaled), jnp.asarray(mins.astype(np.float32)),
-        jnp.asarray(maxs.astype(np.float32)),
-        RefParams(**kw, any_scaled=True, n_scaled=len(cols), has_na=True))
+
+    def run_ref(r):
+        return consensus_light_jit(
+            jnp.asarray(reports.astype(np.float32)), jnp.asarray(r),
+            jnp.asarray(scaled), jnp.asarray(mins.astype(np.float32)),
+            jnp.asarray(maxs.astype(np.float32)),
+            RefParams(**kw, any_scaled=True, n_scaled=len(cols),
+                      has_na=True))
+
+    return out, run_ref, rep, scaled
+
+
+def reference_loading_move(run_ref, rep, base):
+    """The largest move of the reference's own ``first_loading`` (up to
+    sign) when one reporter's reputation moves by one ulp
+    (``np.nextafter``), over the reporters :data:`NUDGED`."""
+    base = np.abs(np.asarray(base["first_loading"], dtype=np.float64))
+    move = 0.0
+    for i in NUDGED:
+        nudged = rep.copy()
+        nudged[i] = np.nextafter(nudged[i], np.inf)
+        got = np.abs(np.asarray(run_ref(nudged)["first_loading"],
+                                dtype=np.float64))
+        move = max(move, float(np.max(np.abs(got - base))))
+    return move
+
+
+@pytest.mark.parametrize("algo,method,storage,matvec", PLAIN_CASES)
+def test_plain_core_bf16_matches_reference(algo, method, storage, matvec):
+    """8 scaled events of 48 (beyond E // 8) close the fused gate: the
+    plain core stores the filled matrix in bfloat16 (or narrows sztorc's
+    sweeps with ``matvec_dtype``), three iterations of 64 forced sweeps.
+
+    sztorc's ``"power"`` loading is held to the reference's own
+    sensitivity, not to a fixed band. Each sweep rounds ``v`` and ``rt``
+    to bfloat16; the full-precision centering terms (``mu @ v``,
+    ``mu * sum(rt)``) then amplify a last-bit float64 difference about
+    three times a sweep until bfloat16 roundings flip. The port matches
+    the reference to about 1e-15 before the first flip, and after 64
+    sweeps the reference itself moves its loading by up to 2.8e-4 when
+    one reporter's reputation moves by one ulp, outcomes unchanged. So
+    the band is ``LOADING_FACTOR`` (4) times the reference's own move
+    under one-ulp nudges at the reporters ``NUDGED``, and never below
+    the arm's 1e-4; every other continuous key keeps 1e-4, every exact
+    key stays equal. ``test_plain_core_bf16_power_short_sweeps`` keeps
+    the tight band where no rounding has flipped."""
+    out, run_ref, rep, scaled = _plain_core_pair(algo, method, storage,
+                                                 matvec, 64, 3)
+    ref = run_ref(rep)
     atol = (2e-3 if algo != "sztorc" else 1e-4 if method == "power"
             else 1e-5)
-    assert_parity(out, ref, scaled, atol)
+    loading_atol = None
+    if algo == "sztorc" and method == "power":
+        loading_atol = max(1e-4, LOADING_FACTOR * reference_loading_move(
+            run_ref, rep, ref))
+    assert_parity(out, ref, scaled, atol, loading_atol)
+
+
+@pytest.mark.parametrize("storage,matvec", [("bfloat16", ""),
+                                            ("", "bfloat16")])
+def test_plain_core_bf16_power_short_sweeps(storage, matvec):
+    """sztorc's bfloat16 ``"power"`` arm at 8 sweeps and one iteration,
+    before the roundings flip: the loading within sztorc's 1e-5, as
+    every other continuous key and the other sztorc arms."""
+    out, run_ref, rep, scaled = _plain_core_pair("sztorc", "power",
+                                                 storage, matvec, 8, 1)
+    assert_parity(out, run_ref(rep), scaled, 1e-5)
 
 
 class TestStorageDtype:

@@ -935,3 +935,114 @@ def test_plain_core_bf16_card_matches_cpu(dev, storage, matvec):
     assert counts["scores_dirfix_pass"] > 0, counts
     assert counts["resolve_certainty_fused"] == 0, counts
     _compare(a, b, 1e-5, reports.shape[1] - 150)
+
+
+# -- ShardedOracle and the fallback chain on the card -------------------------
+
+def _oracle_inputs(seed, R=300, E=2000):
+    """Binary collusion reports with NaN non-reports, float64 on the
+    host (the Oracle's intake)."""
+    x_f, _, _, _, _, _ = make_storage(seed, R, E, na_frac=0.05)
+    return x_f.astype(np.float64)
+
+
+def _nested_agree(got, ref, atol, what):
+    """Oracle results: exact keys equal, the rest within ``atol``."""
+    assert int(got["iterations"]) == int(ref["iterations"]), what
+    for group in ("agents", "events"):
+        assert set(got[group]) == set(ref[group]), what
+        for key, a in ref[group].items():
+            a, b = np.asarray(a), np.asarray(got[group][key])
+            if key in EXACT_KEYS:
+                assert np.array_equal(b, a), f"{what}: {key}"
+            elif key == "adj_first_loadings":
+                assert np.abs(np.abs(b) - np.abs(a)).max() <= atol, key
+            else:
+                assert np.abs(b.astype(np.float64) - a).max() <= atol, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_oracle_card_matches_cpu(dev, shards):
+    """``ShardedOracle`` on int8 storage on the card (one shard, or a
+    virtual mesh of four on card 0) against its CPU mesh: B.1-B.3 launch
+    (the mesh's matvecs in place of B.1), placed or not the same bits."""
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.parallel import make_mesh
+
+    reports = _oracle_inputs(61)
+    kw = dict(reports=reports, storage_dtype="int8", pca_method="power",
+              power_iters=48, power_tol=-1.0, max_iterations=3)
+    card = ShardedOracle(mesh=make_mesh(devices=[dev] * shards), **kw)
+    ck.reset_launch_counts()
+    a = card.consensus()
+    counts = ck.launch_counts()
+    arm = ("storage_matvec", "storage_rows_matmat") if shards > 1 else (
+        "apply_weighted_cov", "scores_dirfix_pass")
+    for name in arm + ("resolve_certainty_fused",):
+        assert counts[name] > 0, counts
+    b = ShardedOracle(mesh=make_mesh(devices=["cpu"] * shards),
+                      **kw).consensus()
+    _nested_agree(a, b, 1e-5, f"{shards} shards")
+    again = card.place().consensus()
+    for group in ("agents", "events"):
+        for key, v in a[group].items():
+            assert np.array_equal(np.asarray(again[group][key]),
+                                  np.asarray(v)), key
+
+
+@pytest.mark.cuda
+def test_fallback_hop_on_the_card(dev):
+    """A NaN storm at the fetch walks ``power-fused -> eigh-gram`` on the
+    card: one hop counted, the recovered outcomes those of a clean
+    ``pca_method="eigh-gram"`` resolution on the card, and the recovered
+    result the CPU recovery's within sztorc's band."""
+    from pyconsensus_tpu_torch import Oracle, ShardedOracle, faults, obs
+
+    reports = _oracle_inputs(67)
+    kw = dict(reports=reports, storage_dtype="int8", max_iterations=3,
+              pca_method="power-fused")
+    labels = {"from": "power-fused", "to": "eigh-gram",
+              "reason": "nonfinite_result"}
+    storm = {"site": "oracle.raw_result", "kind": "nan_storm",
+             "occurrences": [0], "args": {"fraction": 1.0}}
+    got = {}
+    for where in (dev, "cpu"):
+        before = obs.value("pyconsensus_fallbacks_total", **labels) or 0
+        oracle = ShardedOracle(device=where, **kw)
+        with faults.armed(faults.FaultPlan(seed=0, rules=[storm])):
+            got[str(where)] = oracle.consensus()
+        assert obs.value("pyconsensus_fallbacks_total",
+                         **labels) == before + 1
+    clean = Oracle(reports=reports, pca_method="eigh-gram",
+                   max_iterations=3).consensus()
+    recovered = got[str(dev)]
+    assert np.array_equal(recovered["events"]["outcomes_final"],
+                          clean["events"]["outcomes_final"])
+    assert np.isfinite(recovered["agents"]["smooth_rep"]).all()
+    _nested_agree(recovered, got["cpu"], 1e-5, "card vs cpu recovery")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [False, True])
+def test_launch_failure_propagates_and_starts_no_rung(dev, monkeypatch,
+                                                      sharded):
+    """A launch that reports an error (the wrappers' error check made to
+    fail) leaves ``consensus()`` as a RuntimeError; no fallback hop is
+    counted and no rung runs."""
+    from pyconsensus_tpu_torch import Oracle, ShardedOracle, obs
+
+    def failed(err, what):
+        raise RuntimeError(f"{what}: CUDA launch failed with error 700")
+
+    monkeypatch.setattr(ck, "_raise_on", failed)
+    reports = _oracle_inputs(71)
+    oracle = (ShardedOracle(reports=reports, storage_dtype="int8",
+                            pca_method="power-fused")
+              if sharded else
+              Oracle(reports=reports, pca_method="power-fused"))
+    before = obs.REGISTRY.snapshot().get("pyconsensus_fallbacks_total")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        oracle.consensus()
+    assert obs.REGISTRY.snapshot().get(
+        "pyconsensus_fallbacks_total") == before

@@ -239,10 +239,17 @@ def test_refusals_name_the_roadmap(case):
             Oracle(reports=CANONICAL, backend="numpy", **kw).consensus()
 
 
-def test_non_finite_result_raises(monkeypatch):
-    """A non-finite torch result is refused, never returned or re-run
-    elsewhere."""
-    from pyconsensus_tpu_torch import oracle
+@pytest.mark.parametrize("method,hops", [
+    ("power", [("power", "eigh-gram"), ("torch:eigh-gram", "numpy")]),
+    ("eigh-gram", [("torch:eigh-gram", "numpy")]),
+    ("auto", [("torch:eigh-cov", "numpy")]),
+])
+def test_non_finite_result_walks_the_fallback_chain(monkeypatch, method,
+                                                    hops):
+    """A torch result that stays non-finite on every torch rung walks the
+    reference's chain down to the numpy pipeline, hop by hop, and returns
+    the numpy backend's result bit for bit."""
+    from pyconsensus_tpu_torch import obs, oracle
 
     real = oracle.consensus_torch
 
@@ -252,8 +259,42 @@ def test_non_finite_result_raises(monkeypatch):
         return out
 
     monkeypatch.setattr(oracle, "consensus_torch", poisoned)
-    with pytest.raises(NumericsError, match="§A.2.3"):
-        Oracle(reports=CANONICAL, device="cpu").consensus()
+    counts = [obs.value("pyconsensus_fallbacks_total", **{
+        "from": f, "to": t, "reason": "nonfinite_result"}) or 0
+        for f, t in hops]
+    got = Oracle(reports=CANONICAL, device="cpu", pca_method=method,
+                 max_iterations=3).consensus()
+    assert [obs.value("pyconsensus_fallbacks_total", **{
+        "from": f, "to": t, "reason": "nonfinite_result"})
+        for f, t in hops] == [c + 1 for c in counts]
+    want = Oracle(reports=CANONICAL, backend="numpy",
+                  max_iterations=3).consensus()
+    for group in ("agents", "events"):
+        for key, a in want[group].items():
+            np.testing.assert_array_equal(got[group][key], a, err_msg=key)
+
+
+def test_non_finite_everywhere_raises(monkeypatch):
+    """When the numpy rung is non-finite too, the result is refused with
+    the classified error: ConvergenceError from a power-family start."""
+    from pyconsensus_tpu_torch import oracle
+    from pyconsensus_tpu_torch.faults.errors import ConvergenceError
+
+    for name in ("consensus_torch", "consensus_np"):
+        real = getattr(oracle, name)
+
+        def poisoned(*a, _real=real, **k):
+            out = _real(*a, **k)
+            out["smooth_rep"] = out["smooth_rep"] * float("nan")
+            return out
+
+        monkeypatch.setattr(oracle, name, poisoned)
+    with pytest.raises(ConvergenceError, match="PYC202"):
+        Oracle(reports=CANONICAL, device="cpu",
+               pca_method="power").consensus()
+    with pytest.raises(NumericsError, match="PYC201"):
+        Oracle(reports=CANONICAL, device="cpu",
+               pca_method="eigh-gram").consensus()
 
 
 def test_validation():

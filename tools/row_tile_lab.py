@@ -38,6 +38,12 @@ at 3.35 TB/s, or 2kRE float32 operations at 67 TFLOP/s), and, for the
 variants that sum, the largest error on the first and last 256 rows
 against a float64 product over max(max |ref|, 1). Compare variants only
 within one call.
+
+``--device-refs`` keeps the float64 references on the card while the
+variants launch (the lab's first flow, in which the first case's
+reference was twice found overwritten by the end of the run) and checks
+at the end that each still equals its host copy bit for bit (with or
+without ``CUDA_LAUNCH_BLOCKING=1``).
 """
 
 from __future__ import annotations
@@ -189,6 +195,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None,
                     help="root of a checkout whose row pass is timed as the "
                     "'parent' variant")
+    ap.add_argument("--device-refs", action="store_true",
+                    help="keep the float64 references on the card and "
+                    "check at the end that none changed")
     args = ap.parse_args(argv)
     names = list(args.names)
     if args.parent and "parent" not in names:
@@ -225,8 +234,9 @@ def main(argv=None) -> int:
              ("int8 k=5 centered", x8, 5, mu, a),
              ("float32 k=12", xf, 12, None, fill))
     # the float64 references, taken before any launch and kept on the host
+    # (with --device-refs on the card, their host copies kept apart)
     rows = torch.cat([torch.arange(256), torch.arange(R - 256, R)]).to(dev)
-    refs = {}
+    refs, host_refs = {}, {}
     for case, x, k, m, av in cases:
         xs = x[rows]
         val = xs.double() * 0.5 if x.dtype == torch.int8 else xs.double()
@@ -234,7 +244,9 @@ def main(argv=None) -> int:
         xc = val - m.double() if m is not None else val
         if av is not None:
             xc = torch.where(absent, av.double()[None, :], xc)
-        refs[case] = (vts[k].double() @ xc.T).cpu()
+        ref = vts[k].double() @ xc.T
+        host_refs[case] = ref.cpu()
+        refs[case] = ref if args.device_refs else host_refs[case]
         del xs, val, absent, xc
     times, errs = {}, {}
     for _ in range(2):
@@ -243,9 +255,10 @@ def main(argv=None) -> int:
                 if name == "parent" and k != 1:
                     continue
                 once = launcher(torch, name, path, x, k, m, av, vts[k], n_sm)
-                got = once()[:, rows].double().cpu()
+                got = once()[:, rows].double()
                 if name not in ("copy_only", "compute_only"):
                     ref = refs[case]
+                    got = got.to(ref.device)
                     errs[name, case] = float((got - ref).abs().max()) / max(
                         float(ref.abs().max()), 1.0)
                 times.setdefault((name, case), []).append(
@@ -262,6 +275,15 @@ def main(argv=None) -> int:
               + f" ms (bound {b_ms:.4f} {b_by}"
               + (f", err {err:.1e}" if err is not None else "")
               + f") on {card}")
+    if args.device_refs:
+        torch.cuda.synchronize()
+        moved = [case for case in refs
+                 if not torch.equal(refs[case].cpu(), host_refs[case])]
+        print(f"device references unchanged after every launch: "
+              f"{not moved}" + (f" (changed: {moved})" if moved else ""),
+              flush=True)
+        if moved:
+            return 1
     return 0
 
 
