@@ -4,9 +4,11 @@ On the CPU each wrapper runs its plain torch version; the same numpy
 inputs (float32 throughout) go through ``pyconsensus_tpu``'s Pallas
 kernel with ``interpret=True``. Tolerances allow float32 sums taken in
 another order and the TPU kernels' compensated dots (about 2^-17
-relative): apply_weighted_cov rtol 3e-5 / atol 1e-6, scores_dirfix,
-fill_stats and resolve rtol 1e-5 / atol 1e-6; resolve's snapped outcomes
-are exact. apply_weighted_cov_block and storage_rows_matmat sum k-wide
+relative): apply_weighted_cov rtol 3e-5 / atol 1e-6; scores_dirfix's
+``c`` and ``o``, fill_stats and resolve rtol 1e-5 / atol 1e-6; resolve's
+snapped outcomes are exact. scores_dirfix's ``t`` and ``q`` are held to
+1e-5 of their largest magnitude, and ``q`` on both sides to the float32
+bound of its sum against a float64 truth. apply_weighted_cov_block and storage_rows_matmat sum k-wide
 products of both signs, so their outputs are held to 3e-5 of the largest
 magnitude of the output (the compensated split's error scales with the
 terms, not with an entry that cancels to near zero).
@@ -115,8 +117,34 @@ def test_scores_dirfix_pass_matches_pallas(R, E, storage, with_fill):
                                 interpret=True)
     got = ck.scores_dirfix_pass(_t(x), _t(rep), _t(v),
                                 fill=None if f is None else _t(f))
-    for name, g, r in zip("tqco", got, ref):
+    # t = X v and q = t^T X sum terms of both signs: an entry of q that
+    # cancels (near -0.37 out of partial sums near 110 at 23 x 300) is
+    # held to the largest magnitude, as B.6 and B.8 are
+    for name, g, r in zip("tq", got, ref):
+        _close_scaled(g.numpy(), r, f"scores_dirfix {name}", frac=1e-5)
+    for name, g, r in zip("co", got[2:], ref[2:]):
         _close(g.numpy(), r, 1e-5, 1e-6, f"scores_dirfix {name}")
+    _dirfix_q_within_float32_of_truth(x_f, fill if with_fill else None,
+                                      np.asarray(ref[0]), got[1].numpy(),
+                                      np.asarray(ref[1]))
+
+
+def _dirfix_q_within_float32_of_truth(x_f, fill, t_ref, q_port, q_pallas):
+    """Both sides' ``q`` against the float64 truth ``t_ref^T X`` (``X``
+    the filled matrix, absent entries 1.0 where no fill is given): each
+    entry within ``R * 2^-24`` of its terms' scale ``sum_r |t_r X_rc|``,
+    the float32 bound of an R-term sum. At 23 x 300 without the fill the
+    port sat at 4.34e-7 of that scale and the Pallas kernel at 1.26e-7."""
+    R = x_f.shape[0]
+    X = np.where(np.isnan(x_f), 1.0 if fill is None else fill[None, :],
+                 x_f).astype(np.float64)
+    t = t_ref.astype(np.float64)
+    truth = t @ X
+    scale = np.abs(t) @ np.abs(X)
+    bound = R * 2.0 ** -24
+    for name, q in (("port", q_port), ("pallas", q_pallas)):
+        err = np.max(np.abs(q.astype(np.float64) - truth) / scale)
+        assert err <= bound, (name, err, bound)
 
 
 @pytest.mark.parametrize("R,E", SHAPES)
