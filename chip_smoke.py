@@ -71,7 +71,20 @@ Phases, each printing its seconds:
    equal to a clean eigh-gram resolution's, the seconds of both and the
    recovery's peak memory; then the span tree and counters of one traced
    resolution;
-6. run the same paths at a middle size on the card and on the CPU
+6. the clustering variants, which launch none of the kernels (the
+   reference's clustering reaches no Pallas kernel): ``sharded_consensus``
+   on the generator's float32 reports at full size with the storage
+   ``resolve_auto_storage`` picks (bfloat16), k-means at
+   ``max_iterations`` 1 and 3 and dbscan-jit at the defaults and at the
+   radius that follows the geometry (``eps = sqrt(0.15 E)``), each with
+   its rate, peak memory and every launch count 0; then hierarchical and
+   dbscan at ``HYBRID_R`` x ``HYBRID_E`` (4096 x 32768) through
+   ``ShardedOracle`` (defaults and geometry) and ``Oracle`` (geometry),
+   each with its seconds split by the spans into ``hybrid.device_prep``,
+   ``hybrid.cluster`` and the finish, ``native=True`` on every
+   clustering span and the cluster count. Every outcome must recover the
+   truth;
+7. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two; then the ``Oracle`` (``backend="torch"``) on the card against
    its CPU run, with and without scaled events, under ``"auto"`` (the
@@ -79,8 +92,11 @@ Phases, each printing its seconds:
    ``backend="numpy"`` against ``backend="torch"`` on the CPU on a
    corner of that matrix (the numpy backend's covariance eigh is E x E);
    and the fused path on bfloat16 storage with E // 8 scaled events, card
-   against CPU, for sztorc, fixed-variance and ica;
-7. print the ``kernels`` JSON line (each kernel with the storage types it
+   against CPU, for sztorc, fixed-variance and ica; and the four
+   clustering algorithms through the ``Oracle`` (exact keys, clusters and
+   reputation order equal), then ``compare_algorithms`` over all seven,
+   whose disagreement matrix must equal the CPU run's;
+8. print the ``kernels`` JSON line (each kernel with the storage types it
    takes and its bfloat16 time, plain time and bound beside the int8
    ones), then the result line.
 
@@ -138,6 +154,14 @@ SCALED_FUSED = (1000, 4000)
 #: timed resolutions of ShardedOracle as passed: each uploads the float
 #: reports (8 GB of float64 at 10k x 100k) again
 SHARDED_ORACLE_PASSED = 3
+#: the hybrid clustering cells (hierarchical, dbscan): the project's
+#: recorded hybrid shape (``hybrid_hierarchical_4096x32768`` and
+#: ``hybrid_dbscan_4096x32768`` in docs/MEASUREMENTS_r05.json)
+HYBRID_R, HYBRID_E = 4096, 32768
+#: the squared radii that follow the generator's geometry, in units of E:
+#: honest pairs sit near d^2 = 0.095 E, honest-liar pairs near 0.9 E
+#: (dbscan's eps^2 and hierarchy's threshold^2)
+DBSCAN_EPS2_PER_E, HIER_T2_PER_E = 0.15, 0.3
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
@@ -187,6 +211,8 @@ PATH_KERNELS = {
     # Gram eigh runs no storage kernel
     "sztorc plain": ("apply_weighted_cov", "scores_dirfix_pass"),
     "gram plain": (),
+    # k-means and dbscan-jit: the plain core's clustering, no PCA
+    "clustering": (),
 }
 #: the storage types each kernel takes (fill_stats_pass: int8 and float32,
 #: as the reference runs it on int8 alone)
@@ -202,6 +228,7 @@ PATH_FORBIDS = {
     "sztorc plain": tuple(k for k in KERNELS if k not in (
         "apply_weighted_cov", "scores_dirfix_pass")),
     "gram plain": tuple(KERNELS),
+    "clustering": tuple(KERNELS),
 }
 
 
@@ -464,6 +491,10 @@ def run(args) -> int:
     with phase(f"ShardedOracle and the fallback chain {R}x{E} int8"):
         sharded_oracle_phase(torch, args, card, dev, launches)
 
+    with phase("clustering"):
+        clustering_paths(torch, args, drive, card, dev)
+        hybrid_paths(torch, args, card, dev)
+
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
         xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
         xm_cpu = xm.cpu()
@@ -508,6 +539,7 @@ def run(args) -> int:
                 f"{worst:.3e} <= {MULTI_ATOL})")
         oracle_card_vs_cpu(torch, ck, xm_cpu, PLAIN_SCALED)
         bf16_card_vs_cpu(torch, sharded_consensus, xm_cpu, dev)
+        clustering_card_vs_cpu(torch, ck, xm_cpu)
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -1396,6 +1428,200 @@ def sharded_oracle_phase(torch, args, card, dev, launches):
     torch.cuda.empty_cache()
 
 
+def geometry_knobs(E):
+    """The clustering radii that follow the generator's geometry at E
+    events, and k-means' two clusters."""
+    return dict(num_clusters=2, dbscan_eps=(DBSCAN_EPS2_PER_E * E) ** 0.5,
+                dbscan_min_samples=4,
+                hierarchy_threshold=(HIER_T2_PER_E * E) ** 0.5)
+
+
+def clustering_paths(torch, args, drive, card, dev):
+    """The clustering phase's device half: ``sharded_consensus`` on the
+    generator's float32 reports at full size with the storage that
+    ``resolve_auto_storage`` picks (the reference's ``bench.py
+    --algorithm k-means|dbscan-jit``): k-means at ``max_iterations`` 1
+    and 3, dbscan-jit at the defaults (every reporter is noise at this
+    width) and at the radius that follows the geometry. Each prints its
+    rate, peak device memory and storage, launches no storage kernel, and
+    must recover the truth."""
+    from pyconsensus_tpu_torch import ConsensusParams
+    from pyconsensus_tpu_torch.parallel.sharded import (resolve_auto_storage,
+                                                        resolve_params)
+
+    R, E = args.reporters, args.events
+    x8, truth = gen_reports(torch, R, E, args.seed + 7, dev)
+    xf = float_reports(torch, x8, 0)
+    del x8
+    geo = geometry_knobs(E)
+    for algo, knobs, tag in (
+            ("k-means", dict(max_iterations=1), "max_iterations=1"),
+            ("k-means", dict(max_iterations=3), "max_iterations=3"),
+            ("dbscan-jit", {}, "defaults (eps 0.5, min_samples 2)"),
+            ("dbscan-jit", dict(dbscan_eps=geo["dbscan_eps"],
+                                dbscan_min_samples=4),
+             f"eps {geo['dbscan_eps']:.4f} = sqrt({DBSCAN_EPS2_PER_E} E), "
+             "min_samples 4")):
+        p = ConsensusParams(algorithm=algo, **knobs)
+        storage, reason = resolve_auto_storage(p._replace(any_scaled=False),
+                                               R, E, dev)
+        p = p._replace(storage_dtype=storage)
+        resolved = resolve_params(p._replace(any_scaled=False), R, E, dev)
+        if resolved.fused_resolution:
+            raise RuntimeError(f"{algo}: the fused gate opened")
+        label = f"{algo} {R}x{E} {tag}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, rate, counts = drive(xf, p, label, "clustering")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_result(torch, out, R, E, algo)
+        correct = float((out["outcomes_adjusted"] == truth).float().mean())
+        groups = int(torch.unique(out["this_rep"]).numel())
+        log(f"{label}: {rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) "
+            f"on {card}; peak {peak:.3f} GiB; storage {storage!r} ({reason});"
+            f" iterations {int(out['iterations'])}, distinct this_rep "
+            f"values {groups}, outcomes == truth {correct:.6f}; storage "
+            f"kernel launches {sum(counts.values())}")
+        if correct < 0.99:
+            raise RuntimeError(f"{label}: the outcomes do not recover the "
+                               "truth")
+    del xf
+    torch.cuda.empty_cache()
+
+
+def hybrid_paths(torch, args, card, dev):
+    """The clustering phase's hybrid half at ``HYBRID_R`` x ``HYBRID_E``
+    (float64 host reports from the generator): hierarchical and dbscan
+    through ``ShardedOracle`` at the defaults and at the radius that
+    follows the geometry, and through ``Oracle(backend="torch")`` at the
+    latter. Each prints its seconds split by the spans into
+    ``hybrid.device_prep``, ``hybrid.cluster`` and the finish (the rest
+    of ``oracle.consensus``), its peak device memory and cluster count;
+    every clustering span must report ``native=True``, the outcomes must
+    recover the truth, and at the geometry radius the largest cluster
+    must be the honest block's."""
+    import numpy as np
+
+    from pyconsensus_tpu_torch import Oracle, ShardedOracle, obs
+
+    R, E = args.hybrid_r, args.hybrid_e
+    x8, truth = gen_reports(torch, R, E, args.seed + 8, dev)
+    # a liar reports the anti-truth: most of its present votes differ
+    agree = (x8 == (2.0 * truth).to(torch.int8)[None, :]).float().mean(1)
+    honest = (agree > 0.5).cpu().numpy()
+    host = float_reports(torch, x8, 0).double().cpu().numpy()
+    truth = truth.cpu().numpy()
+    del x8
+    torch.cuda.empty_cache()
+    geo = geometry_knobs(E)
+    for algo in ("hierarchical", "dbscan"):
+        knob = (dict(hierarchy_threshold=geo["hierarchy_threshold"])
+                if algo == "hierarchical" else
+                dict(dbscan_eps=geo["dbscan_eps"], dbscan_min_samples=4))
+        for cls, knobs, tag in ((ShardedOracle, {}, "defaults"),
+                                (ShardedOracle, knob, "geometry"),
+                                (Oracle, knob, "geometry")):
+            label = (f"{cls.__name__} {algo} {R}x{E} {tag} "
+                     f"{knobs or ''}").rstrip()
+            oracle = cls(reports=host, algorithm=algo, **knobs)
+            obs.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = oracle.consensus()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            events = obs.events()
+            secs = {name: sum(e["duration_s"] for e in events
+                              if e["name"] == name)
+                    for name in ("oracle.consensus", "hybrid.device_prep",
+                                 "hybrid.cluster")}
+            spans = [e for e in events if e["name"] == f"clustering.{algo}"]
+            if not spans or not all(e["attrs"]["native"] is True
+                                    for e in spans):
+                raise RuntimeError(f"{label}: the host clustering did not "
+                                   f"run on the native library: "
+                                   f"{[e['attrs'] for e in spans]}")
+            clusters = spans[-1]["attrs"]["clusters"]
+            finish = (secs["oracle.consensus"] - secs["hybrid.device_prep"]
+                      - secs["hybrid.cluster"])
+            correct = float((res["events"]["outcomes_final"] == truth)
+                            .mean())
+            this = res["agents"]["this_rep"]
+            top = np.isclose(this, this.max(), rtol=1e-6, atol=0)
+            top_honest = bool(top[~honest].sum() == 0
+                              and top.sum() >= 0.9 * honest.sum())
+            log(f"{label}: {secs['oracle.consensus']:.3f} s = "
+                f"hybrid.device_prep {secs['hybrid.device_prep']:.3f} s + "
+                f"hybrid.cluster {secs['hybrid.cluster']:.3f} s + finish "
+                f"{finish:.3f} s on {card}; peak {peak:.3f} GiB; native "
+                f"True; clusters {clusters}; largest cluster honest "
+                f"{top_honest} ({int(top.sum())} reporters, "
+                f"{int(honest.sum())} honest); outcomes == truth "
+                f"{correct:.6f}")
+            if correct < 0.99:
+                raise RuntimeError(f"{label}: the outcomes do not recover "
+                                   "the truth")
+            if tag == "geometry" and not top_honest:
+                raise RuntimeError(f"{label}: the largest cluster is not "
+                                   "the honest block")
+            del oracle
+    torch.cuda.empty_cache()
+
+
+def clustering_card_vs_cpu(torch, ck, xm_cpu):
+    """The four clustering algorithms at the middle size through the
+    ``Oracle`` on the card against its CPU run at the geometry radius,
+    ``max_iterations=3``: exact keys equal, the clusters (through
+    ``this_rep``) and the reputation's order equal, the rest within
+    ``MID_ATOL``; then ``compare_algorithms`` over all seven on the card
+    and on the CPU, whose disagreement matrices must be equal."""
+    import numpy as np
+
+    from pyconsensus_tpu_torch import (Oracle, compare_algorithms,
+                                       disagreement_matrix)
+
+    R, E = xm_cpu.shape
+    host = float_reports(torch, xm_cpu, 0).double().numpy()
+    geo = geometry_knobs(E)
+
+    def partition(v):
+        v = np.asarray(torch.as_tensor(v).cpu().double())
+        return np.isclose(v[:, None], v[None, :], rtol=1e-5, atol=0)
+
+    for algo in ("k-means", "dbscan-jit", "hierarchical", "dbscan"):
+        kw = dict(reports=host, algorithm=algo, max_iterations=3, **geo)
+        ck.reset_launch_counts()
+        a = Oracle(**kw).resolve_raw()
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        b = Oracle(device="cpu", **kw).resolve_raw()
+        what = f"Oracle {algo} {R}x{E}: card vs cpu"
+        worst = compare_outputs(torch, a, b, MID_ATOL, what)
+        if counts:
+            raise RuntimeError(f"{what}: storage kernels launched {counts}")
+        if not np.array_equal(partition(a["this_rep"]),
+                              partition(b["this_rep"])):
+            raise RuntimeError(f"{what}: the clusters differ")
+        order = [np.argsort(np.asarray(v.cpu().double()), kind="stable")
+                 for v in (a["smooth_rep"], b["smooth_rep"])]
+        if not np.array_equal(*order):
+            raise RuntimeError(f"{what}: the reputation's order differs")
+        groups = int(np.unique(np.asarray(b["this_rep"].cpu())).size)
+        log(f"{what} agree (exact keys, clusters and reputation order "
+            f"equal, continuous max |diff| {worst:.3e} <= {MID_ATOL}); "
+            f"iterations {int(a['iterations'])}, distinct this_rep values "
+            f"{groups}")
+    kw = dict(max_iterations=3, **geo)
+    card_res = compare_algorithms(host, **kw)
+    cpu_res = compare_algorithms(host, device="cpu", **kw)
+    m_card = disagreement_matrix(card_res)
+    m_cpu = disagreement_matrix(cpu_res)
+    log(f"compare_algorithms {R}x{E} over {list(card_res)}: disagreement "
+        f"matrix on the card {m_card.tolist()}, on the cpu "
+        f"{m_cpu.tolist()}")
+    if not np.array_equal(m_card, m_cpu):
+        raise RuntimeError("compare_algorithms: the card's disagreement "
+                           "matrix differs from the cpu's")
+
+
 def oracle_card_vs_cpu(torch, ck, xm_cpu, n_scaled):
     """Phase 5's Oracle: ``backend="torch"`` on the card against its own
     CPU run (sztorc within ``MID_ATOL``, fixed-variance and ica within
@@ -1463,7 +1689,7 @@ def check_result(torch, out, R, E, algorithm="sztorc", lattice=None):
               "author_bonus": (E,)}
     if algorithm == "ica":
         shapes["ica_converged"] = ()
-    else:
+    elif algorithm in ("sztorc", "fixed-variance"):
         shapes["first_loading"] = (E,)
     for key, shape in shapes.items():
         v = out[key]
@@ -1524,6 +1750,8 @@ def main(argv=None) -> int:
     ap.add_argument("--events", type=int, default=100_000)
     ap.add_argument("--mid-r", type=int, default=1024)
     ap.add_argument("--mid-e", type=int, default=8192)
+    ap.add_argument("--hybrid-r", type=int, default=HYBRID_R)
+    ap.add_argument("--hybrid-e", type=int, default=HYBRID_E)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20,
                     help="timed calls per kernel (median reported)")

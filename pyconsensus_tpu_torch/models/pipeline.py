@@ -5,15 +5,21 @@ Data flow of one resolution:
     rescale -> fill -> [scoring -> row reward -> smooth] x iterations ->
     outcome resolution -> catch snap -> unscale -> certainty and bonuses
 
-Three pipelines:
+Four pipelines:
 
 - :func:`consensus_np`, the numpy backend: the reference's numpy pipeline,
-  bit for bit;
+  bit for bit, for all seven algorithms;
 - :func:`_consensus_core`, the plain core over the whole filled matrix
-  (the reference's XLA core): every algorithm of the fused path, every
-  PCA method, scaled events. :func:`consensus_torch` dispatches to it. Its
-  sztorc ``"power-fused"`` arm runs the sweeps on ``apply_weighted_cov``
-  and ``scores_dirfix_pass`` over the dense filled matrix;
+  (the reference's XLA core): the ``JIT_ALGORITHMS`` (sztorc,
+  fixed-variance, ica, and the device clustering k-means and
+  dbscan-jit), every PCA method, scaled events. :func:`consensus_torch`
+  dispatches to it. Its sztorc ``"power-fused"`` arm runs the sweeps on
+  ``apply_weighted_cov`` and ``scores_dirfix_pass`` over the dense filled
+  matrix;
+- :func:`_consensus_hybrid`, the ``HYBRID_ALGORITHMS`` (hierarchical and
+  dbscan): rescale, fill and the (R, R) distances on the device, the
+  clustering iterations on the host (the native runtime), outcomes and
+  certainty on the device again;
 - :func:`_consensus_core_fused`, the light fused pipeline on NaN-threaded
   storage (int8 sentinel, or float32 or bfloat16 with NaN), whose filled
   matrix never exists:
@@ -53,6 +59,7 @@ from ..faults.errors import InputError
 from ..ops import numpy_kernels as nk
 from ..ops import torch_kernels as tk
 from ..ops.cuda_kernels import fill_stats_pass, resolve_certainty_fused
+from . import clustering as cl
 from .ica import ica_k, ica_scores, ica_scores_np, ica_scores_storage
 from .sztorc import (fixed_variance_k, fixed_variance_scores,
                      fixed_variance_scores_np, fixed_variance_scores_storage,
@@ -61,24 +68,26 @@ from .sztorc import (fixed_variance_k, fixed_variance_scores,
 __all__ = ["ConsensusParams", "consensus_np", "consensus_torch",
            "encode_reports", "encode_reports_host", "decode_reports",
            "lattice_exact", "looks_encoded", "resolve_encoded",
-           "ALGORITHMS", "ROADMAP_CLUSTERING", "ROADMAP_SCALED_FUSED",
-           "ROADMAP_BF16", "ROADMAP_MESH_PLAIN"]
+           "ALGORITHMS", "JIT_ALGORITHMS", "HYBRID_ALGORITHMS",
+           "ROADMAP_SCALED_FUSED", "ROADMAP_BF16", "ROADMAP_MESH_PLAIN"]
 
 #: where the parts the port refuses are queued (ROADMAP.md section A)
 ROADMAP_SCALED_FUSED = ("ROADMAP.md §A.10 (scaled events on an event "
                         "mesh: the shard-local gather-median tail)")
-ROADMAP_CLUSTERING = "ROADMAP.md §A.6 (clustering)"
 ROADMAP_BF16 = ("ROADMAP.md §A.10 (bfloat16 storage and matvec_dtype on an "
                 "event mesh)")
-ROADMAP_MESH_PLAIN = ("ROADMAP.md §A.10 (the plain pipeline on an event "
-                      "mesh: fixed-variance, ica, and sztorc where the "
+ROADMAP_MESH_PLAIN = ("ROADMAP.md §A.10 (the plain pipeline and the "
+                      "hybrid clustering on an event mesh: fixed-variance, "
+                      "ica, the clustering variants, and sztorc where the "
                       "fused gate closes)")
-#: the algorithms the fused path and the plain core score
+#: the algorithms the fused path scores
 FUSED_ALGORITHMS = ("sztorc", "fixed-variance", "ica")
-#: the clustering algorithms, not ported yet
-CLUSTERING_ALGORITHMS = ("k-means", "dbscan-jit", "hierarchical", "dbscan")
+#: the algorithms the plain core scores on the device
+JIT_ALGORITHMS = FUSED_ALGORITHMS + ("k-means", "dbscan-jit")
+#: the algorithms with a host clustering step (the hybrid path)
+HYBRID_ALGORITHMS = ("hierarchical", "dbscan")
 #: every algorithm the reference knows
-ALGORITHMS = FUSED_ALGORITHMS + CLUSTERING_ALGORITHMS
+ALGORITHMS = JIT_ALGORITHMS + HYBRID_ALGORITHMS
 #: the matvec narrowing casts ("" = none)
 MATVEC_DTYPES = ("", "float32", "bfloat16")
 
@@ -231,13 +240,16 @@ def _masked_mu(x: torch.Tensor, fill: torch.Tensor,
 
 def _subspace_carry_shape(p: ConsensusParams, R: int, E: int):
     """Shape of the warm-start carry between redistribution iterations:
-    fixed-variance's (E, k) block, otherwise an (E,) vector (ica runs its
-    whitening cold unless ``_ICA_WARM_START``, and then carries nothing)."""
+    fixed-variance's (E, k) block, sztorc's (E,) loading, an (E,) vector
+    for ica (which runs its whitening cold unless ``_ICA_WARM_START``,
+    and then carries nothing), None for the clustering variants."""
     if p.algorithm == "fixed-variance":
         return (E, fixed_variance_k(R, E, p.max_components))
     if p.algorithm == "ica" and _ICA_WARM_START:
         return (E, ica_k(R, E, p.max_components))
-    return (E,)
+    if p.algorithm in ("sztorc", "ica"):
+        return (E,)
+    return None
 
 
 def _reported_loading(p: ConsensusParams, loading: torch.Tensor):
@@ -265,9 +277,9 @@ def _check_fused_params(reports_dtype, p: ConsensusParams) -> None:
             "the half-unit int8 lattice would corrupt; use "
             "storage_dtype='bfloat16' for scaled workloads")
     if p.algorithm not in FUSED_ALGORITHMS:
-        raise NotImplementedError(
+        raise ValueError(
             f"the fused path scores {'/'.join(FUSED_ALGORITHMS)} only, got "
-            f"algorithm={p.algorithm!r}: {ROADMAP_CLUSTERING}")
+            f"algorithm={p.algorithm!r}")
 
 
 def _redistribute(scores_at, masked_mu, old_rep: torch.Tensor,
@@ -528,9 +540,17 @@ def _scores_np(filled, rep, p: ConsensusParams):
     if algo == "ica":
         adj, conv = ica_scores_np(filled, rep, p.max_components)
         return adj, None, conv
-    if algo in CLUSTERING_ALGORITHMS:
-        raise NotImplementedError(f"algorithm={algo!r}: "
-                                  f"{ROADMAP_CLUSTERING}")
+    if algo == "k-means":
+        return cl.kmeans_conformity_np(filled, rep, p.num_clusters), None, None
+    if algo == "dbscan-jit":
+        return cl.dbscan_jit_conformity_np(filled, rep, p.dbscan_eps,
+                                           p.dbscan_min_samples), None, None
+    if algo == "hierarchical":
+        return cl.hierarchical_conformity(filled, rep,
+                                          p.hierarchy_threshold), None, None
+    if algo == "dbscan":
+        return cl.dbscan_conformity(filled, rep, p.dbscan_eps,
+                                    p.dbscan_min_samples), None, None
     raise InputError(f"unknown algorithm: {algo!r}")
 
 
@@ -608,13 +628,21 @@ def consensus_np(reports, reputation, scaled, mins, maxs, p: ConsensusParams):
     return result
 
 
-def _scores(filled, rep, p: ConsensusParams, v_init=None):
+def _scores(filled, rep, p: ConsensusParams, v_init=None, sq_dists=None):
     """``(adj_scores, warm-start carry or None, ica_converged or None)``
     over the dense filled matrix. ``v_init`` warm-starts sztorc's power
     family (its (E,) loading) and fixed-variance's orthogonal iteration
     (its (E, k) block); ica starts cold unless ``_ICA_WARM_START``.
     ``p.matvec_dtype`` narrows sztorc's power sweeps, as in the
-    reference."""
+    reference. ``sq_dists`` gives dbscan-jit the (R, R) squared distances
+    of ``filled``, which do not change between iterations."""
+    if p.algorithm == "k-means":
+        return (cl.kmeans_conformity(filled, rep, p.num_clusters), None,
+                None)
+    if p.algorithm == "dbscan-jit":
+        return (cl.dbscan_jit_conformity(filled, rep, p.dbscan_eps,
+                                         p.dbscan_min_samples,
+                                         sq_dists=sq_dists), None, None)
     if p.algorithm == "sztorc":
         return (*sztorc_scores(filled, rep, p.pca_method, p.power_iters,
                                p.power_tol, v_init=v_init,
@@ -637,12 +665,18 @@ def _iterate(filled, old_rep, p: ConsensusParams):
     R, E = filled.shape
     dev = old_rep.device
     rep, this_rep = old_rep, old_rep
-    # zeros on iteration 1: the cold start of both iterations
-    loading = torch.zeros(_subspace_carry_shape(p, R, E),
-                          dtype=old_rep.dtype, device=dev)
+    # zeros on iteration 1: the cold start of both iterations; the
+    # clustering variants carry nothing
+    shape = _subspace_carry_shape(p, R, E)
+    loading = (None if shape is None else
+               torch.zeros(shape, dtype=old_rep.dtype, device=dev))
+    # dbscan-jit's distances are the same every iteration: one Gram
+    sq = (cl.pairwise_sq_dists(filled.to(old_rep.dtype))
+          if p.algorithm == "dbscan-jit" else None)
     ica_conv, conv, iters = True, False, 0
     for _ in range(max(p.max_iterations, 1)):
-        adj, carry, ica_c = _scores(filled, rep, p, v_init=loading)
+        adj, carry, ica_c = _scores(filled, rep, p, v_init=loading,
+                                    sq_dists=sq)
         if carry is not None:
             loading = carry
         if ica_c is not None:
@@ -682,17 +716,16 @@ def _check_plain_params(reports, p: ConsensusParams) -> None:
             "the plain core stores the interpolated matrix, whose "
             "continuous fills the half-unit int8 lattice would corrupt")
     check_matvec_dtype(p.matvec_dtype)
-    if p.algorithm in CLUSTERING_ALGORITHMS:
-        raise NotImplementedError(f"algorithm={p.algorithm!r}: "
-                                  f"{ROADMAP_CLUSTERING}")
-    if p.algorithm not in FUSED_ALGORITHMS:
-        raise InputError(f"unknown algorithm: {p.algorithm!r}")
+    if p.algorithm not in JIT_ALGORITHMS:
+        raise InputError(f"algorithm {p.algorithm!r} is not scored by the "
+                         f"plain core (hybrid algorithms: "
+                         f"{HYBRID_ALGORITHMS})")
 
 
 def _consensus_core(reports, reputation, scaled, mins, maxs,
                     p: ConsensusParams, light: bool = False) -> dict:
     """The plain core over the whole filled matrix (``pipeline
-    ._consensus_core``) for sztorc, fixed-variance and ica. ``any_scaled``
+    ._consensus_core``) for the ``JIT_ALGORITHMS``. ``any_scaled``
     False skips rescale and the median, ``has_na`` False the fill and the
     absent accounting. ``light`` leaves out the (R, E) outputs and drops
     each (R, E) intermediate as soon as nothing reads it. A
@@ -746,15 +779,104 @@ def _consensus_core(reports, reputation, scaled, mins, maxs,
     return result
 
 
+def _consensus_hybrid(reports, reputation, scaled, mins, maxs,
+                      p: ConsensusParams, light: bool = False) -> dict:
+    """The hybrid path for hierarchical and dbscan
+    (``pipeline._consensus_hybrid``): rescale, fill and the (R, R)
+    squared distances on the device (``hybrid.device_prep``, which waits
+    for the distances); the clustering iterations on the host against
+    those distances in float64 (``hybrid.cluster``), with the O(R)
+    reputation updates; outcomes, certainty and bonuses on the device
+    with the host's reputation. The filled matrix never leaves the
+    device. ``light`` leaves out the (R, E) outputs. Returns the flat
+    result dict of tensors."""
+    if p.storage_dtype == "int8" or reports.dtype == torch.int8:
+        raise ValueError(
+            "storage_dtype='int8' is not supported by the hybrid "
+            "clustering path: the interpolated fill values are continuous "
+            "— use storage_dtype='bfloat16'")
+    dev = reports.device
+    with obs.span("hybrid.device_prep", algorithm=p.algorithm) as sp:
+        old_rep = tk.normalize(reputation)
+        rescaled = tk.rescale(reports, scaled, mins, maxs)
+        filled, present = tk.interpolate_masked(rescaled, old_rep, scaled,
+                                                p.catch_tolerance)
+        sq_dev = sp.observe(cl.pairwise_sq_dists(filled))
+        # the host clusters float64 distances whatever the storage; the
+        # device phases after it read the compact filled matrix
+        if p.storage_dtype:
+            filled = filled.to(getattr(torch, p.storage_dtype))
+    sq = sq_dev.to("cpu", torch.float64).numpy()
+    del sq_dev
+    rep = old_rep.to("cpu", torch.float64).numpy()
+    # a shape-only placeholder: with the distances supplied, the host
+    # clustering never reads the matrix
+    filled_host = np.empty((filled.shape[0], 0))
+    this_rep = rep
+    converged = False
+    iterations = 0
+    residual = obs.histogram(
+        "pyconsensus_convergence_residual",
+        "max-abs reputation change per redistribution iteration",
+        labels=("backend",), buckets=obs.MAGNITUDE_BUCKETS)
+    with obs.span("hybrid.cluster", algorithm=p.algorithm) as sp:
+        for _ in range(max(p.max_iterations, 1)):
+            if p.algorithm == "hierarchical":
+                adj = cl.hierarchical_conformity(
+                    filled_host, rep, p.hierarchy_threshold, sq_dists=sq)
+            else:
+                adj = cl.dbscan_conformity(filled_host, rep, p.dbscan_eps,
+                                           p.dbscan_min_samples, sq_dists=sq)
+            this_rep = nk.row_reward_weighted(adj, rep)
+            new_rep = nk.smooth(this_rep, rep, p.alpha)
+            delta = float(np.max(np.abs(new_rep - rep)))
+            residual.observe(delta, backend="hybrid")
+            rep = new_rep
+            iterations += 1
+            if delta <= p.convergence_tolerance:
+                converged = True
+                break
+        sp.set_attr("iterations", iterations)
+        sp.set_attr("converged", converged)
+
+    acc = old_rep.dtype
+    rep_dev = torch.as_tensor(rep, dtype=acc, device=dev)
+    outcomes_raw, outcomes_adjusted = tk.resolve_outcomes(
+        present, filled, rep_dev, scaled, p.catch_tolerance,
+        any_scaled=p.any_scaled, has_na=p.has_na,
+        median_block=p.median_block, n_scaled=p.n_scaled)
+    result = ({} if light else
+              {"original": reports, "rescaled": rescaled, "filled": filled})
+    result.update({
+        "old_rep": old_rep,
+        "this_rep": torch.as_tensor(this_rep, dtype=acc, device=dev),
+        "smooth_rep": rep_dev,
+        "na_row": (~present).any(dim=1),
+        "outcomes_raw": outcomes_raw,
+        "outcomes_adjusted": outcomes_adjusted,
+        "outcomes_final": tk.unscale_outcomes(outcomes_adjusted, scaled,
+                                              mins, maxs),
+        "iterations": torch.tensor(iterations, dtype=torch.int32,
+                                   device=dev),
+        "convergence": torch.tensor(converged, device=dev),
+    })
+    result.update(tk.certainty_and_bonuses(
+        present, filled, rep_dev, outcomes_adjusted, scaled,
+        p.catch_tolerance, any_scaled=p.any_scaled))
+    return result
+
+
 def consensus_torch(reports, reputation, scaled, mins, maxs,
                     p: ConsensusParams, device=None,
                     light: bool = False) -> dict:
-    """The plain core on ``device`` (None: the card, which must be sm_90)
-    in the default float dtype (``torch.get_default_dtype()``), from host
-    or device inputs; a pre-encoded int8 matrix is decoded first. Returns
-    the flat result dict of tensors on the device (``light``: without the
-    (R, E) ones). The ``pipeline.dispatch`` span measures the dispatch
-    and observes nothing, so it adds no wait for the device."""
+    """The plain core, or the hybrid path for the ``HYBRID_ALGORITHMS``,
+    on ``device`` (None: the card, which must be sm_90) in the default
+    float dtype (``torch.get_default_dtype()``), from host or device
+    inputs; a pre-encoded int8 matrix is decoded first. Returns the flat
+    result dict of tensors on the device (``light``: without the (R, E)
+    ones). The plain core's ``pipeline.dispatch`` span measures the
+    dispatch and observes nothing, so it adds no wait for the device; the
+    hybrid path's waits for the distances it fetches."""
     from ..ops.cuda_kernels import require_hopper
     from ..parallel.sharded import resolve_device
 
@@ -771,8 +893,10 @@ def consensus_torch(reports, reputation, scaled, mins, maxs,
     def put(a, dt):
         return torch.as_tensor(a).to(device=dev, dtype=dt)
 
+    hybrid = p.algorithm in HYBRID_ALGORITHMS
+    core = _consensus_hybrid if hybrid else _consensus_core
     with obs.span("pipeline.dispatch", algorithm=p.algorithm,
-                  path="plain"):
-        return _consensus_core(put(reports, dtype), put(reputation, dtype),
-                               put(scaled, torch.bool), put(mins, dtype),
-                               put(maxs, dtype), p, light=light)
+                  path="hybrid" if hybrid else "plain"):
+        return core(put(reports, dtype), put(reputation, dtype),
+                    put(scaled, torch.bool), put(mins, dtype),
+                    put(maxs, dtype), p, light=light)

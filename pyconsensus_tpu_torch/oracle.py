@@ -10,8 +10,9 @@ Usage::
 non-report; binary events take values in {0, 0.5, 1}; scaled events carry
 raw values plus an ``event_bounds`` entry ``{"scaled": True, "min": m,
 "max": M}``. ``backend="torch"`` (the default) runs the plain core on
-``device`` (None: the card; ``"cpu"`` on request), ``backend="numpy"``
-the numpy pipeline on the host. ``consensus()`` returns the reference's
+``device`` (None: the card; ``"cpu"`` on request), or for hierarchical
+and dbscan the hybrid path (distances on the device, clustering on the
+host), ``backend="numpy"`` the numpy pipeline on the host. ``consensus()`` returns the reference's
 nested result dict of host numpy values. A torch result with non-finite
 decision outputs walks the reference's fallback chain (power-fused ->
 eigh-gram -> numpy, ``faults.degrade``) and raises the classified
@@ -29,9 +30,9 @@ from . import obs
 from .faults import degrade as _degrade
 from .faults import plan as _faults
 from .faults.errors import InputError
-from .models.pipeline import (ALGORITHMS, ConsensusParams, consensus_np,
-                              consensus_torch, decode_reports,
-                              resolve_encoded)
+from .models.pipeline import (ALGORITHMS, HYBRID_ALGORITHMS,
+                              ConsensusParams, consensus_np, consensus_torch,
+                              decode_reports, resolve_encoded)
 from .ops.torch_kernels import gather_median_pays, resolve_pca_method
 
 __all__ = ["Oracle", "ALGORITHMS", "BACKENDS", "STORAGE_DTYPES",
@@ -41,8 +42,6 @@ __all__ = ["Oracle", "ALGORITHMS", "BACKENDS", "STORAGE_DTYPES",
 BACKENDS = ("numpy", "torch")
 #: legal storage_dtype values ("" = the default float dtype)
 STORAGE_DTYPES = ("", "float32", "bfloat16", "int8")
-#: the host clustering algorithms, which take no int8 storage
-_HYBRID_ALGORITHMS = ("hierarchical", "dbscan")
 #: accepted lowercase spellings -> canonical algorithm name
 _ALGORITHM_ALIASES = {
     "pca": "sztorc",
@@ -171,10 +170,13 @@ class Oracle:
     catch_tolerance, alpha, variance_threshold, max_components,
     max_iterations, convergence_tolerance : the consensus knobs.
     num_clusters, hierarchy_threshold, dbscan_eps, dbscan_min_samples :
-        the clustering knobs (clustering is not ported yet).
+        the clustering knobs.
     algorithm : ``sztorc`` (aliases ``pca``, ``first-component``),
-        ``fixed-variance`` or ``ica``.
-    backend : ``"torch"`` (the plain core on ``device``) or ``"numpy"``.
+        ``fixed-variance``, ``ica``, ``k-means`` (alias ``kmeans``),
+        ``dbscan-jit``, ``hierarchical`` (alias ``agglomerative``) or
+        ``dbscan``.
+    backend : ``"torch"`` (on ``device``: the plain core, or the hybrid
+        path for hierarchical and dbscan) or ``"numpy"``.
     pca_method : ``auto`` | ``eigh-cov`` | ``eigh-gram`` | ``power`` |
         ``power-fused`` (the sweeps on the Hopper kernels).
     power_iters, power_tol : the power-iteration cap and early-exit
@@ -277,7 +279,7 @@ class Oracle:
         if storage_dtype not in STORAGE_DTYPES:
             raise ValueError(f"unknown storage_dtype {storage_dtype!r}; "
                              f"choose from {STORAGE_DTYPES}")
-        if storage_dtype == "int8" and algorithm in _HYBRID_ALGORITHMS:
+        if storage_dtype == "int8" and algorithm in HYBRID_ALGORITHMS:
             raise ValueError(
                 "storage_dtype='int8' is not supported by the hybrid "
                 f"clustering algorithms ({algorithm!r}): the interpolated "

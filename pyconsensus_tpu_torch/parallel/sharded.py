@@ -13,13 +13,15 @@ tail. Where it closes on one device (exact eigh PCA, which
 ``pca_method="auto"`` picks at R <= 4096, and for the multi-component
 variants also at E <= 1024; scaled events beyond E // 8; float storage
 off the kernels' fit), the plain core over the whole filled matrix
-serves (``models/pipeline.py _consensus_core``). Storage is the float
-reports as float32, int8 sentinel storage or bfloat16
-(:func:`resolve_auto_storage` is the reference's rule between the last
-two). What the port does not cover yet raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings it: the other algorithms, and
-on an event mesh scaled events, bfloat16, the plain core and batch
-meshes.
+serves (``models/pipeline.py _consensus_core``), as it does for k-means
+and dbscan-jit; hierarchical and dbscan take the hybrid path
+(``_consensus_hybrid``: distances on the device, clustering on the host).
+Storage is the float reports as float32, int8 sentinel storage or
+bfloat16 (:func:`resolve_auto_storage` is the reference's rule between
+the last two). What the port does not cover yet raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it: on
+an event mesh scaled events, bfloat16, the plain core, the clustering
+variants and batch meshes.
 
 :class:`ShardedOracle` is the ``Oracle`` over the same dispatch: the
 class API with ``mesh=``, ``place()`` to keep the reports on the card
@@ -41,11 +43,12 @@ from .. import obs
 from ..faults import degrade as _degrade
 from ..faults import plan as _faults
 from ..faults.errors import InputError
-from ..models.pipeline import (CLUSTERING_ALGORITHMS, FUSED_ALGORITHMS,
-                               ROADMAP_BF16, ROADMAP_CLUSTERING,
+from ..models.pipeline import (ALGORITHMS, FUSED_ALGORITHMS,
+                               HYBRID_ALGORITHMS, ROADMAP_BF16,
                                ROADMAP_MESH_PLAIN, ROADMAP_SCALED_FUSED,
                                ConsensusParams, _consensus_core_light,
-                               check_matvec_dtype, encode_reports)
+                               _consensus_hybrid, check_matvec_dtype,
+                               encode_reports)
 from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
                                 require_hopper, resolve_kernel_fits)
 from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
@@ -164,15 +167,13 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
             f"storage_dtype={p.storage_dtype!r}, matvec_dtype="
             f"{p.matvec_dtype!r} on an event mesh of {n_event} shards: "
             f"{ROADMAP_BF16}")
-    if p.algorithm in CLUSTERING_ALGORITHMS:
-        raise NotImplementedError(f"algorithm={p.algorithm!r}: "
-                                  f"{ROADMAP_CLUSTERING}")
-    if p.algorithm not in FUSED_ALGORITHMS:
+    if p.algorithm not in ALGORITHMS:
         raise InputError(f"unknown algorithm: {p.algorithm!r}")
     if n_event > 1 and p.algorithm != "sztorc":
         raise NotImplementedError(
-            f"algorithm={p.algorithm!r} on an event-sharded mesh takes the "
-            f"reference's XLA path: {ROADMAP_MESH_PLAIN}")
+            f"algorithm={p.algorithm!r} on an event mesh of {n_event} "
+            f"shards takes the reference's XLA or hybrid path: "
+            f"{ROADMAP_MESH_PLAIN}")
     # the kernel wrappers serve the CPU through their plain versions and
     # an sm_90 card through the kernels; any other card is refused
     require_hopper(device)
@@ -259,10 +260,13 @@ def _place_reputation(reputation, R: int, device: torch.device):
 def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> None:
     """Count one dispatch by its resolved path (host-static labels; the
     result stays on the device, so nothing here can add a sync). The
-    label values name the port's implementations: the path ``fused``,
-    ``fused_sharded`` or ``plain`` (the reference's ``xla``), the kernel
-    family ``cuda`` (the reference's ``pallas``)."""
-    if p.fused_resolution:
+    label values name the port's implementations: the path ``hybrid``,
+    ``fused``, ``fused_sharded`` or ``plain`` (the reference's ``xla``),
+    the kernel family ``cuda`` (the reference's ``pallas``), ``hybrid``
+    or ``plain``."""
+    if p.algorithm in HYBRID_ALGORITHMS:
+        path = "hybrid"
+    elif p.fused_resolution:
         path = "fused_sharded" if n_event > 1 else "fused"
     else:
         path = "plain"
@@ -276,7 +280,8 @@ def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> None:
         "pyconsensus_kernel_path_total",
         "resolutions dispatched by kernel family (which kernel family "
         "actually served traffic)", labels=("path",)).inc(
-            path="cuda" if p.fused_resolution else "plain")
+            path="cuda" if p.fused_resolution else
+            ("hybrid" if path == "hybrid" else "plain"))
     obs.gauge(
         "pyconsensus_mesh_event_shards",
         "event-axis width of the mesh used by the latest sharded "
@@ -287,7 +292,8 @@ def _dispatch(reports, rep: torch.Tensor, scaled, mins, maxs,
               p: ConsensusParams, dev: torch.device, mesh) -> dict:
     """Count, place and run one resolution with resolved ``p``: the fused
     path over an event mesh of more than one shard, else the light
-    pipeline on ``dev`` (the fused path or the plain core)."""
+    pipeline on ``dev`` (the fused path or the plain core) or, for the
+    ``HYBRID_ALGORITHMS``, the light hybrid path."""
     n_event = len(mesh) if mesh is not None else 1
     _record_sharded_dispatch(p, n_event)
     if n_event > 1:
@@ -302,6 +308,10 @@ def _dispatch(reports, rep: torch.Tensor, scaled, mins, maxs,
     args = (torch.as_tensor(scaled, device=dev),
             torch.as_tensor(mins, dtype=fdt, device=dev),
             torch.as_tensor(maxs, dtype=fdt, device=dev))
+    if p.algorithm in HYBRID_ALGORITHMS:
+        with obs.span("pipeline.dispatch", algorithm=p.algorithm,
+                      path="hybrid"):
+            return _consensus_hybrid(x, rep, *args, p, light=True)
     # dispatch only: the result stays on the device
     with obs.span("pipeline.dispatch", algorithm=p.algorithm,
                   path="fused" if p.fused_resolution else "plain"):

@@ -1046,3 +1046,57 @@ def test_launch_failure_propagates_and_starts_no_rung(dev, monkeypatch,
         oracle.consensus()
     assert obs.REGISTRY.snapshot().get(
         "pyconsensus_fallbacks_total") == before
+
+
+# -- the clustering variants on the card ---------------------------------------
+
+def _cluster_knobs(algorithm, E):
+    """Radii that follow the geometry of ``make_storage``'s reports:
+    honest pairs sit near d^2 = 0.17 E, honest-liar pairs near 0.8 E."""
+    radius = float(np.sqrt(0.4 * E))
+    return {"k-means": {"num_clusters": 2},
+            "dbscan-jit": {"dbscan_eps": radius, "dbscan_min_samples": 4},
+            "hierarchical": {"hierarchy_threshold": radius},
+            "dbscan": {"dbscan_eps": radius,
+                       "dbscan_min_samples": 4}}[algorithm]
+
+
+def _same_partition(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.array_equal(np.isclose(a[:, None], a[None, :], rtol=1e-5,
+                                     atol=0),
+                          np.isclose(b[:, None], b[None, :], rtol=1e-5,
+                                     atol=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["k-means", "dbscan-jit",
+                                       "hierarchical", "dbscan"])
+@pytest.mark.parametrize("sharded", [False, True])
+def test_clustering_card_matches_cpu(dev, algorithm, sharded):
+    """The clustering variants at 512 x 2048, the ``Oracle`` (or
+    ``ShardedOracle``) on the card against its CPU run in float32: exact
+    keys equal, the clusters (through ``this_rep``) and the reputation's
+    order equal, the rest within 1e-5; no storage kernel launches; the
+    hybrid two cluster through the native library."""
+    from pyconsensus_tpu_torch import Oracle, ShardedOracle, obs
+
+    reports = _oracle_inputs(81, R=512, E=2048)
+    cls = ShardedOracle if sharded else Oracle
+    kw = dict(reports=reports, algorithm=algorithm, max_iterations=3,
+              **_cluster_knobs(algorithm, reports.shape[1]))
+    obs.reset()
+    ck.reset_launch_counts()
+    a = cls(**kw).consensus()
+    assert not any(ck.launch_counts().values()), ck.launch_counts()
+    spans = [e for e in obs.events()
+             if e["name"] in ("clustering.hierarchical", "clustering.dbscan")]
+    if algorithm in ("hierarchical", "dbscan"):
+        assert spans and all(e["attrs"]["native"] for e in spans)
+    b = cls(device="cpu", **kw).consensus()
+    _nested_agree(a, b, 1e-5, algorithm)
+    assert _same_partition(a["agents"]["this_rep"], b["agents"]["this_rep"])
+    assert np.array_equal(np.argsort(a["agents"]["smooth_rep"],
+                                     kind="stable"),
+                          np.argsort(b["agents"]["smooth_rep"],
+                                     kind="stable"))

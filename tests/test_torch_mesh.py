@@ -207,11 +207,11 @@ def test_mesh_refusals_name_the_roadmap(case):
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
             make_mesh(batch=2, devices=["cpu"] * 4)
         return
-    # the plain pipeline on a mesh (fixed-variance, ica, and the Gram eigh
-    # that "auto" picks at R <= 4096), a scaled minority (1 of 40 <=
-    # E // 8: the shard-local gather-median tail) and bfloat16 storage
-    # are §A.10, clustering §A.6
-    match = {"k-means": "ROADMAP.md §A.6"}.get(case, "ROADMAP.md §A.10")
+    # the plain pipeline on a mesh (fixed-variance, ica, k-means, and the
+    # Gram eigh that "auto" picks at R <= 4096), a scaled minority (1 of
+    # 40 <= E // 8: the shard-local gather-median tail) and bfloat16
+    # storage are §A.10
+    match = "ROADMAP.md §A.10"
     if case in ("fixed-variance", "ica", "k-means"):
         p = p._replace(algorithm=case)
     elif case == "scaled":

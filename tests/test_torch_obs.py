@@ -8,8 +8,9 @@ the emission sites against the reference's: the same span names, metric
 names and labels for the same resolution, with the port's label values
 where one names an implementation.
 
-Compile observability (``instrument_jit``) and the hybrid clustering
-spans have no port yet (``ROADMAP.md`` §A.11, §A.6).
+Compile observability (``instrument_jit``) has no port yet
+(``ROADMAP.md`` §A.11); the hybrid clustering spans are held in
+``tests/test_torch_clustering.py``.
 """
 
 import json

@@ -202,6 +202,8 @@ def test_result_dict_and_quarantine(capsys):
     assert "ica_converged" in Oracle(reports=CANONICAL, algorithm="ica",
                                      device="cpu").consensus()
     assert BACKENDS == ("numpy", "torch")
+    assert ALGORITHMS == ("sztorc", "fixed-variance", "ica", "k-means",
+                          "dbscan-jit", "hierarchical", "dbscan")
     assert set(PORTED) < set(ALGORITHMS)
 
 
@@ -231,12 +233,20 @@ def test_refusals_name_the_roadmap(case):
                                        want["agents"]["smooth_rep"],
                                        atol=1e-5)
         return
-    match = "§A.6"
-    with pytest.raises(NotImplementedError, match=match):
-        o.consensus()
-    if case == "clustering":
-        with pytest.raises(NotImplementedError, match=match):
-            Oracle(reports=CANONICAL, backend="numpy", **kw).consensus()
+    # clustering serves since §A.6 landed: k-means on the torch and the
+    # numpy backends against the reference's
+    for mi in (1, 3):
+        got = Oracle(reports=CANONICAL, device="cpu", max_iterations=mi,
+                     **kw).consensus()
+        assert_oracles_match(got, RefOracle(reports=CANONICAL,
+                                            backend="jax", max_iterations=mi,
+                                            **kw).consensus())
+        got = Oracle(reports=CANONICAL, backend="numpy", max_iterations=mi,
+                     **kw).consensus()
+        want = RefOracle(reports=CANONICAL, backend="numpy",
+                         max_iterations=mi, **kw).consensus()
+        np.testing.assert_array_equal(got["agents"]["smooth_rep"],
+                                      want["agents"]["smooth_rep"])
 
 
 @pytest.mark.parametrize("method,hops", [

@@ -196,10 +196,11 @@ def assert_plain_parity(algorithm, pca_method, max_components=5, R=24,
 def test_refusals_name_the_roadmap(case):
     """What the port does not cover raises naming its roadmap item;
     ``"auto"`` at R <= 4096 resolves to the Gram eigh on the plain core
-    and serves. A scaled minority on the fused path (the gather-median
-    tail) and bfloat16 storage serve too: those cases hold the port to
-    the reference's fused path (exact keys equal, the rest within 1e-5,
-    the scaled event's outcome within 1e-5 of the span)."""
+    and serves, as k-means does (both against the reference's light XLA
+    core). A scaled minority on the fused path (the gather-median tail)
+    and bfloat16 storage serve too: those cases hold the port to the
+    reference's fused path (exact keys equal, the rest within 1e-5, the
+    scaled event's outcome within 1e-5 of the span)."""
     reports = make_reports(1, 24, 12).astype(np.float32)
     p = ConsensusParams(**BASE)
     kw = {}
@@ -236,8 +237,9 @@ def test_refusals_name_the_roadmap(case):
         assert_matches(out, ref)
         return
     if case == "algorithm":
-        p = p._replace(algorithm="k-means")
-        match = "ROADMAP.md §A.6"
+        # k-means serves on the plain core since §A.6 landed
+        assert_plain_parity("k-means", "auto")
+        return
     elif case == "auto_small_r":
         resolved = resolve_params(p._replace(pca_method="auto",
                                              any_scaled=False),
