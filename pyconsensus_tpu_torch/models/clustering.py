@@ -83,8 +83,7 @@ def _d2_threshold_t(d2: torch.Tensor, eps: float) -> torch.Tensor:
     dtype, the Python scalars rounded to it as the reference's weak
     scalars are."""
     e2 = eps * eps
-    top = (torch.clamp(torch.max(d2), min=0.0) if d2.numel()
-           else torch.zeros((), dtype=d2.dtype, device=d2.device))
+    top = torch.clamp(torch.max(d2), min=0.0)
     one = torch.ones((), dtype=d2.dtype, device=d2.device)
     cap = torch.tensor(DBSCAN_D2_RTOL_CAP * e2, dtype=d2.dtype,
                        device=d2.device)

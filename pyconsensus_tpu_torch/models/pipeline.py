@@ -479,8 +479,12 @@ def _consensus_core_fused(reports, reputation, scaled, mins, maxs,
 
 def _consensus_core_light(reports, reputation, scaled, mins, maxs,
                           p: ConsensusParams) -> dict:
-    """The light pipeline (no (R, E) outputs): the fused path where the
-    front door opened it, the plain core otherwise."""
+    """The light pipeline (no (R, E) outputs): the hybrid path for the
+    ``HYBRID_ALGORITHMS``, the fused path where the front door opened it,
+    the plain core otherwise."""
+    if p.algorithm in HYBRID_ALGORITHMS:
+        return _consensus_hybrid(reports, reputation, scaled, mins, maxs,
+                                 p, light=True)
     if p.fused_resolution:
         return _consensus_core_fused(reports, reputation, scaled, mins, maxs,
                                      p)

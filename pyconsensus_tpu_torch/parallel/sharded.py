@@ -47,8 +47,7 @@ from ..models.pipeline import (ALGORITHMS, FUSED_ALGORITHMS,
                                HYBRID_ALGORITHMS, ROADMAP_BF16,
                                ROADMAP_MESH_PLAIN, ROADMAP_SCALED_FUSED,
                                ConsensusParams, _consensus_core_light,
-                               _consensus_hybrid, check_matvec_dtype,
-                               encode_reports)
+                               check_matvec_dtype, encode_reports)
 from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
                                 require_hopper, resolve_kernel_fits)
 from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
@@ -257,9 +256,10 @@ def _place_reputation(reputation, R: int, device: torch.device):
     return t
 
 
-def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> None:
-    """Count one dispatch by its resolved path (host-static labels; the
-    result stays on the device, so nothing here can add a sync). The
+def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> str:
+    """Count one dispatch by its resolved path, and return the path
+    (host-static labels; the result stays on the device, so nothing here
+    can add a sync). The
     label values name the port's implementations: the path ``hybrid``,
     ``fused``, ``fused_sharded`` or ``plain`` (the reference's ``xla``),
     the kernel family ``cuda`` (the reference's ``pallas``), ``hybrid``
@@ -280,22 +280,22 @@ def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> None:
         "pyconsensus_kernel_path_total",
         "resolutions dispatched by kernel family (which kernel family "
         "actually served traffic)", labels=("path",)).inc(
-            path="cuda" if p.fused_resolution else
-            ("hybrid" if path == "hybrid" else "plain"))
+            path=path if path in ("hybrid", "plain") else "cuda")
     obs.gauge(
         "pyconsensus_mesh_event_shards",
         "event-axis width of the mesh used by the latest sharded "
         "resolution").set(n_event)
+    return path
 
 
 def _dispatch(reports, rep: torch.Tensor, scaled, mins, maxs,
               p: ConsensusParams, dev: torch.device, mesh) -> dict:
     """Count, place and run one resolution with resolved ``p``: the fused
     path over an event mesh of more than one shard, else the light
-    pipeline on ``dev`` (the fused path or the plain core) or, for the
-    ``HYBRID_ALGORITHMS``, the light hybrid path."""
+    pipeline on ``dev`` (the fused path, the plain core or the hybrid
+    path)."""
     n_event = len(mesh) if mesh is not None else 1
-    _record_sharded_dispatch(p, n_event)
+    path = _record_sharded_dispatch(p, n_event)
     if n_event > 1:
         if not isinstance(reports, EventShards):
             reports = place_event_shards(reports, mesh)
@@ -308,13 +308,9 @@ def _dispatch(reports, rep: torch.Tensor, scaled, mins, maxs,
     args = (torch.as_tensor(scaled, device=dev),
             torch.as_tensor(mins, dtype=fdt, device=dev),
             torch.as_tensor(maxs, dtype=fdt, device=dev))
-    if p.algorithm in HYBRID_ALGORITHMS:
-        with obs.span("pipeline.dispatch", algorithm=p.algorithm,
-                      path="hybrid"):
-            return _consensus_hybrid(x, rep, *args, p, light=True)
-    # dispatch only: the result stays on the device
-    with obs.span("pipeline.dispatch", algorithm=p.algorithm,
-                  path="fused" if p.fused_resolution else "plain"):
+    # dispatch only (the hybrid path waits for its distances): the result
+    # stays on the device
+    with obs.span("pipeline.dispatch", algorithm=p.algorithm, path=path):
         return _consensus_core_light(x, rep, *args, p)
 
 
