@@ -323,7 +323,8 @@ def run(args) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from pyconsensus_tpu_torch import ConsensusParams, sharded_consensus
+        from pyconsensus_tpu_torch import (ConsensusParams, _native,
+                                           sharded_consensus)
         from pyconsensus_tpu_torch.models import pipeline
         from pyconsensus_tpu_torch.models.pipeline import _fill_stats
         from pyconsensus_tpu_torch.ops import build
@@ -375,6 +376,14 @@ def run(args) -> int:
         log(f"ptxas lines reporting spills or stack: {len(spills)}")
         for ln in spills[:8]:
             log(f"  {ln}")
+        # the hybrid clustering's host runtime (g++, native/cluster.cpp):
+        # the card's machine has no sklearn to fall back on
+        t0 = time.perf_counter()
+        if _native.load() is None:
+            raise RuntimeError("the native clustering library did not build "
+                               "from native/cluster.cpp")
+        log(f"built native/cluster.cpp in {time.perf_counter() - t0:.1f} s "
+            f"-> {os.path.relpath(_native.library_path(), here)}")
 
     if args.mesh_devices > torch.cuda.device_count():
         raise RuntimeError(f"--mesh-devices {args.mesh_devices}: only "
@@ -1513,6 +1522,10 @@ def hybrid_paths(torch, args, card, dev):
     truth = truth.cpu().numpy()
     del x8
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ShardedOracle(reports=host, algorithm="dbscan").consensus()
+    log(f"hybrid warm-up (dbscan, untimed cell): "
+        f"{time.perf_counter() - t0:.3f} s")
     geo = geometry_knobs(E)
     for algo in ("hierarchical", "dbscan"):
         knob = (dict(hierarchy_threshold=geo["hierarchy_threshold"])
