@@ -11,7 +11,8 @@ Phases, each printing its seconds:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
 2. build the CUDA kernels from ``pyconsensus_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel; the compiler's ``-Xptxas -v`` report
-   goes to ``chiprun_out/chip_smoke_build.log``);
+   goes to ``chiprun_out/chip_smoke_build.log``), then the native
+   clustering library from ``native/cluster.cpp`` (g++);
 3. hold each kernel against its plain torch version on the card at full
    size, on int8 sentinel storage, on float32+NaN storage and on
    bfloat16+NaN storage (its last eighth of the events continuous, as
@@ -1500,10 +1501,10 @@ def clustering_paths(torch, args, drive, card, dev):
 
 def hybrid_paths(torch, args, card, dev):
     """The clustering phase's hybrid half at ``HYBRID_R`` x ``HYBRID_E``
-    (float64 host reports from the generator): hierarchical and dbscan
-    through ``ShardedOracle`` at the defaults and at the radius that
-    follows the geometry, and through ``Oracle(backend="torch")`` at the
-    latter. Each prints its seconds split by the spans into
+    (float64 host reports from the generator), after one untimed
+    warm-up: hierarchical and dbscan through ``ShardedOracle`` at the
+    defaults and at the radius that follows the geometry, and through
+    ``Oracle(backend="torch")`` at the latter. Each prints its seconds split by the spans into
     ``hybrid.device_prep``, ``hybrid.cluster`` and the finish (the rest
     of ``oracle.consensus``), its peak device memory and cluster count;
     every clustering span must report ``native=True``, the outcomes must
