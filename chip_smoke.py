@@ -102,7 +102,20 @@ Phases, each printing its seconds:
    the native loader (``native/loader.cpp``, built with g++), and a
    ``ReputationLedger`` of 3 rounds saved, verified and loaded, whose 4th
    round equals an uninterrupted ledger's;
-8. run the same paths at a middle size on the card and on the CPU
+8. the serve tier (``pyconsensus_tpu_torch.serve``, about 10 s): the
+   reference's recorded serve block (``SERVE_SHAPES``, 48 requests from 8
+   closed-loop threads through the padded buckets: throughput, p50 / p99,
+   mean occupancy, the cache hit ratio, no build after the warm-up,
+   every launch count 0); the ``bucket_cuda`` class at
+   ``LATENCY_SHAPES`` (50 x 500, 200 x 2000 and the class bound 1024 x
+   4096), 15 blocking requests each, p50 / p99 and B.1, B.2 and B.3
+   launches a request, each result bit for bit the direct fused
+   ``ShardedOracle``; the top padded bucket (1024 x 4096) under 8
+   concurrent 1000 x 4000 requests with 8 scaled events (launches 0);
+   and a 1024-reporter market session of 8 blocks of 512 events, exact
+   and incremental (the seconds of an append and a resolve, outcomes
+   equal to the direct ``Oracle``, the warm drift within its band);
+9. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two; then the ``Oracle`` (``backend="torch"``) on the card against
    its CPU run, with and without scaled events, under ``"auto"`` (the
@@ -114,7 +127,7 @@ Phases, each printing its seconds:
    clustering algorithms through the ``Oracle`` (exact keys, clusters and
    reputation order equal), then ``compare_algorithms`` over all seven,
    whose disagreement matrix must equal the CPU run's;
-9. print the ``kernels`` JSON line (each kernel with the storage types it
+10. print the ``kernels`` JSON line (each kernel with the storage types it
    takes and its bfloat16 time, plain time and bound beside the int8
    ones), then the result line.
 
@@ -193,6 +206,27 @@ SIM_ITERS = (1, 5)
 #: sweep lanes replayed through the Oracle, and the checkpointed chunk
 SIM_REPLAY = 64
 SIM_CHUNK = 1024
+#: the serve phase. The reference's recorded serve block
+#: (``bench.py:1053-1110``): two shapes at na_frac 0.05, 48 requests at
+#: concurrency 8 through ``ServeConfig(batch_window_ms=2.0, max_batch=8,
+#: pallas_buckets=False)``; its latency shapes (``bench.py:181``) plus the
+#: low-latency class bound, 15 blocking requests each; the top default
+#: bucket (1024 x 4096) filled by 8 concurrent 1000 x 4000 requests with
+#: 8 scaled events; a 1024-reporter market session of 8 blocks of 512
+#: events, exact and incremental
+SERVE_SHAPES = ((24, 96), (48, 192))
+SERVE_REQUESTS, SERVE_CONCURRENCY = 48, 8
+SERVE_NA = 0.05
+LATENCY_SHAPES = ((50, 500), (200, 2000), (1024, 4096))
+LATENCY_SAMPLES = 15
+TOP_REQUEST, TOP_SCALED, TOP_CONCURRENT = (1000, 4000), 8, 8
+SESSION_R, SESSION_BLOCKS, SESSION_BLOCK_E = 1024, 8, 512
+SESSION_ROUNDS = 4
+#: continuous keys of a served result against the direct resolution
+SERVE_ATOL = 1e-5
+#: the storage kernels of the bucket_cuda class
+CUDA_TIER_KERNELS = ("apply_weighted_cov", "scores_dirfix_pass",
+                     "resolve_certainty_fused")
 OUT_DIR = "chiprun_out"
 
 KERNELS = {
@@ -538,6 +572,9 @@ def run(args) -> int:
     with phase("simulator and persistence"):
         sim_phase(torch, args, ck, card, dev)
         persistence_phase(torch, args, ck, card, dev)
+
+    with phase("serve"):
+        serve_phase(torch, ck, card, dev, launches, args.seed)
 
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
         xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
@@ -1795,6 +1832,320 @@ def persistence_phase(torch, args, ck, card, dev):
         f"{', '.join(f'{t:.3f}' for t in secs)} s; save + verify + load "
         f"{t_ckpt:.3f} s ({summary}); round 4 after the reload equals the "
         f"uninterrupted ledger's bit for bit (outcomes and reputation)")
+
+
+def serve_reports(rng, R, E, na_frac=SERVE_NA, n_scaled=0):
+    """A collusion round drawn with numpy (a fifth of the reporters on the
+    anti-truth, honest ones flipping at 0.1, ``na_frac`` absent), the last
+    ``n_scaled`` events scaled on [-5, 15]. Returns ``(reports, bounds,
+    truth)``."""
+    import numpy as np
+
+    truth = rng.choice([0.0, 1.0], size=E)
+    x = np.tile(truth, (R, 1))
+    x = np.abs(x - (rng.random((R, E)) < 0.1))
+    x[: R // 5] = 1.0 - truth
+    x[rng.random((R, E)) < na_frac] = np.nan
+    bounds = None
+    if n_scaled:
+        bounds = [None] * (E - n_scaled) + [
+            {"scaled": True, "min": -5.0, "max": 15.0}] * n_scaled
+        x[:, E - n_scaled:] = x[:, E - n_scaled:] * 20.0 - 5.0
+    return x, bounds, truth
+
+
+def served_close(got, ref, atol, what, exact_all=False):
+    """Outcomes and iterations equal; every continuous key of the nested
+    results within ``atol`` (``exact_all``: every key bit for bit).
+    Returns the largest continuous difference."""
+    import numpy as np
+
+    worst = 0.0
+    for key in ("outcomes_adjusted", "outcomes_final"):
+        if not np.array_equal(got["events"][key], ref["events"][key]):
+            raise RuntimeError(f"{what}: {key} differ from the direct "
+                               "resolution")
+    if got["iterations"] != ref["iterations"]:
+        raise RuntimeError(f"{what}: iterations {got['iterations']} != "
+                           f"{ref['iterations']}")
+    for group in ("agents", "events"):
+        for key, v in ref[group].items():
+            a = np.asarray(got[group][key], dtype=np.float64)
+            b = np.asarray(v, dtype=np.float64)
+            if key == "adj_first_loadings":
+                a, b = np.abs(a), np.abs(b)
+            d = float(np.max(np.abs(a - b))) if a.size else 0.0
+            if exact_all and d != 0.0:
+                raise RuntimeError(f"{what}: {key} is not bit for bit the "
+                                   f"direct resolution's (max |diff| {d})")
+            worst = max(worst, d)
+    if worst > atol:
+        raise RuntimeError(f"{what}: continuous keys {worst:.3e} > {atol}")
+    return worst
+
+
+def launch_text(counts):
+    """``counts`` as a short text: the kernels that launched, or that
+    none did."""
+    hot = {k: v for k, v in counts.items() if v}
+    return str(hot) if hot else "every launch count 0"
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def serve_phase(torch, ck, card, dev, launches, seed,
+                requests=SERVE_REQUESTS, latency_shapes=LATENCY_SHAPES,
+                samples=LATENCY_SAMPLES, top=TOP_REQUEST,
+                session_r=SESSION_R, block_e=SESSION_BLOCK_E):
+    """Phase 8, the serve tier (``pyconsensus_tpu_torch.serve``) on the
+    card, each line beside ``card``:
+
+    1. the reference's recorded serve block: ``SERVE_SHAPES`` warmed,
+       ``requests`` closed-loop requests from ``SERVE_CONCURRENCY``
+       threads; throughput, p50 / p99, mean batch occupancy, the cache
+       hit ratio; no build after the warm-up, every launch count 0, each
+       result equal to the direct ``Oracle(pca_method="power")``;
+    2. the ``bucket_cuda`` class under the default config at
+       ``latency_shapes``: ``samples`` blocking requests each, p50 / p99
+       and B.1, B.2 and B.3 launches a request (each must launch), every
+       result bit for bit the direct fused ``ShardedOracle`` and within
+       ``SERVE_ATOL`` of the plain ``Oracle``;
+    3. the top padded bucket: ``TOP_CONCURRENT`` concurrent ``top``
+       requests with ``TOP_SCALED`` scaled events (no ``cuda`` ride),
+       every launch count 0, each result against the direct ``Oracle``;
+    4. a market session of ``session_r`` reporters, ``SESSION_BLOCKS``
+       appended blocks of ``block_e`` events, exact and with
+       ``incremental_sessions=True`` over ``SESSION_ROUNDS`` rounds: the
+       seconds of an append and a resolve, outcomes equal to the direct
+       ``Oracle`` on the assembled matrix, a warm round's drift within
+       ``incremental_drift_band``, every launch count 0.
+
+    ``dev`` may be the CPU for a rehearsal (then the class runs its plain
+    versions and launches nothing)."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import Oracle, ShardedOracle, obs
+    from pyconsensus_tpu_torch.serve import (ConsensusService, ServeConfig,
+                                             incremental_drift_band)
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counted():
+        counts = ck.launch_counts()
+        for k in counts:
+            launches[k] += counts[k]
+        return counts
+
+    def occupancy():
+        ser = obs.REGISTRY.snapshot().get(
+            "pyconsensus_serve_batch_occupancy", {}).get("series", {})
+        ser = next(iter(ser.values()), {"sum": 0.0, "count": 0})
+        return ser["sum"], ser["count"]
+
+    rng = np.random.default_rng(seed + 14)
+
+    # 1. the recorded serve block: the padded micro-batching tier
+    cfg = ServeConfig(batch_window_ms=2.0, max_batch=8,
+                      pallas_buckets=False)
+    svc = ConsensusService(cfg, device=dev)
+    buckets = svc.buckets_for(SERVE_SHAPES)
+    svc.warm_buckets(buckets)
+    svc.start(warmup=False)
+    warm_builds = svc.cache.builds
+    mats = [serve_reports(rng, *SERVE_SHAPES[i % 2])[0]
+            for i in range(requests)]
+    lat = [0.0] * requests
+    results = [None] * requests
+    occ0 = occupancy()
+    sync()
+    ck.reset_launch_counts()
+
+    def client(worker):
+        for i in range(worker, requests, SERVE_CONCURRENCY):
+            t0 = time.perf_counter()
+            results[i] = svc.submit(reports=mats[i]).result(timeout=120)
+            lat[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+        list(pool.map(client, range(SERVE_CONCURRENCY)))
+    wall = time.perf_counter() - t0
+    counts = counted()
+    builds = svc.cache.builds - warm_builds
+    hit = svc.cache.hit_ratio()
+    occ1 = occupancy()
+    svc.close(drain=True)
+    if any(counts.values()):
+        raise RuntimeError(f"serve block: kernels launched on the padded "
+                           f"path: {counts}")
+    if builds:
+        raise RuntimeError(f"serve block: {builds} builds after warm-up")
+    worst = max(served_close(results[i], Oracle(
+        reports=mats[i], pca_method="power", device=dev).consensus(),
+        SERVE_ATOL, f"serve block request {i}") for i in range(requests))
+    mean_occ = (occ1[0] - occ0[0]) / max(1, occ1[1] - occ0[1])
+    ms = [1e3 * x for x in lat]
+    log(f"serve block {SERVE_SHAPES} (buckets {buckets}), {requests} "
+        f"requests at concurrency {SERVE_CONCURRENCY}, pipeline depth "
+        f"{svc.pipeline_depth}: {requests / wall:.4f} requests/s, p50 "
+        f"{percentile(ms, 0.5):.3f} ms, p99 {percentile(ms, 0.99):.3f} "
+        f"ms, mean occupancy {mean_occ:.3f}, cache hit ratio {hit:.4f}; "
+        f"builds after warm-up {builds}, {launch_text(counts)}; outcomes "
+        f"equal to the direct Oracle, continuous max |diff| {worst:.3e} "
+        f"on {card}")
+
+    # 2. the bucket_cuda class at the reference's latency shapes and at
+    # the class bound
+    svc = ConsensusService(ServeConfig(pallas_warmup=tuple(latency_shapes),
+                                       pallas_buckets=True),
+                           device=dev)
+    svc.start()
+    warm_builds = svc.cache.builds
+    for R, E in latency_shapes:
+        reqs = [serve_reports(rng, R, E)[0] for _ in range(samples)]
+        lat, outs = [], []
+        sync()
+        ck.reset_launch_counts()
+        for x in reqs:
+            t0 = time.perf_counter()
+            outs.append(svc.resolve(reports=x, timeout=120))
+            lat.append(1e3 * (time.perf_counter() - t0))
+        counts = counted()
+        per = {k: counts[k] / samples for k in CUDA_TIER_KERNELS}
+        if on_card and not all(counts[k] >= samples
+                               for k in CUDA_TIER_KERNELS):
+            raise RuntimeError(f"bucket_cuda {R}x{E}: a kernel of the "
+                               f"class was not launched by every request: "
+                               f"{counts}")
+        stray = {k: v for k, v in counts.items()
+                 if v and k not in CUDA_TIER_KERNELS}
+        if stray:
+            raise RuntimeError(f"bucket_cuda {R}x{E}: other kernels "
+                               f"launched: {stray}")
+        worst_plain = 0.0
+        for i, (x, got) in enumerate(zip(reqs, outs)):
+            served_close(got, ShardedOracle(
+                x, pca_method="power", device=dev).consensus(), 0.0,
+                f"bucket_cuda {R}x{E} request {i}", exact_all=True)
+            worst_plain = max(worst_plain, served_close(
+                got, Oracle(reports=x, pca_method="power",
+                            device=dev).consensus(),
+                SERVE_ATOL, f"bucket_cuda {R}x{E} request {i} vs plain"))
+        log(f"bucket_cuda {R}x{E}, {samples} blocking requests: p50 "
+            f"{percentile(lat, 0.5):.3f} ms, p99 {percentile(lat, 0.99):.3f}"
+            f" ms; launches a request B.1 {per['apply_weighted_cov']:.2f}, "
+            f"B.2 {per['scores_dirfix_pass']:.2f}, B.3 "
+            f"{per['resolve_certainty_fused']:.2f}; every result bit for "
+            f"bit the direct fused ShardedOracle, the plain Oracle within "
+            f"{worst_plain:.3e} on {card}")
+    builds = svc.cache.builds - warm_builds
+    svc.close(drain=True)
+    if builds:
+        raise RuntimeError(f"bucket_cuda: {builds} builds after warm-up")
+
+    # 3. the top padded bucket, filled by concurrent scaled requests
+    svc = ConsensusService(ServeConfig(), device=dev).start()
+    R, E = top
+    reqs = [serve_reports(rng, R, E, n_scaled=TOP_SCALED)
+            for _ in range(TOP_CONCURRENT + 1)]
+    svc.resolve(reports=reqs[0][0], event_bounds=reqs[0][1],
+                timeout=120)                       # builds the bucket
+    warm_builds = svc.cache.builds
+    sync()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [svc.submit(reports=x, event_bounds=b) for x, b, _ in reqs[1:]]
+    outs = [f.result(timeout=240) for f in futs]
+    wall = time.perf_counter() - t0
+    counts = counted()
+    builds = svc.cache.builds - warm_builds
+    key = svc.cache.keys()[0]
+    svc.close(drain=True)
+    if any(counts.values()) or builds:
+        raise RuntimeError(f"top bucket: launches {counts}, builds "
+                           f"{builds} (0 and 0 expected)")
+    worst = 0.0
+    for i, ((x, b, truth), got) in enumerate(zip(reqs[1:], outs)):
+        worst = max(worst, served_close(got, Oracle(
+            reports=x, event_bounds=b, pca_method="power",
+            device=dev).consensus(), SERVE_ATOL, f"top bucket request {i}"))
+        o = got["events"]["outcomes_final"]
+        right = float(np.mean(np.concatenate([
+            o[:E - TOP_SCALED] == truth[:E - TOP_SCALED],
+            o[E - TOP_SCALED:] == 20.0 * truth[E - TOP_SCALED:] - 5.0])))
+        if right < 0.99:
+            raise RuntimeError(f"top bucket request {i}: outcomes do not "
+                               f"recover the truth ({right})")
+    log(f"top bucket {key.rows}x{key.events} x {key.batch} lanes, "
+        f"{TOP_CONCURRENT} concurrent {R}x{E} requests with {TOP_SCALED} "
+        f"scaled events: {wall:.3f} s for all ({TOP_CONCURRENT / wall:.4f}"
+        f" requests/s); {launch_text(counts)}, builds 0; outcomes and "
+        f"iterations equal to the direct Oracle, continuous max |diff| "
+        f"{worst:.3e} on {card}")
+
+    # 4. a market session, exact then incremental
+    for incremental in (False, True):
+        svc = ConsensusService(ServeConfig(
+            incremental_sessions=incremental), device=dev).start()
+        svc.create_session("m", n_reporters=session_r)
+        sess = svc.sessions.get("m")
+        appends, resolves, drifts = [], [], []
+        paths = []
+        sync()
+        ck.reset_launch_counts()
+        for rnd in range(SESSION_ROUNDS if incremental else 1):
+            rep_in = sess.reputation.copy()
+            blocks = [serve_reports(rng, session_r, block_e)[0]
+                      for _ in range(SESSION_BLOCKS)]
+            for blk in blocks:
+                t0 = time.perf_counter()
+                svc.append("m", blk)
+                sync()
+                appends.append(time.perf_counter() - t0)
+            exact = sess.peek_resolve() if incremental else None
+            t0 = time.perf_counter()
+            got = svc.submit(session="m").result(timeout=120)
+            resolves.append(time.perf_counter() - t0)
+            paths.append(sess.last_resolve_path)
+            full = np.concatenate(blocks, axis=1)
+            ref = Oracle(reports=full, reputation=rep_in,
+                         device=dev).consensus()
+            if not np.array_equal(got["events"]["outcomes_adjusted"],
+                                  ref["events"]["outcomes_adjusted"]):
+                raise RuntimeError(f"session round {rnd}: outcomes differ "
+                                   "from the direct Oracle")
+            if exact is not None and sess.last_resolve_path ==                     "incremental":
+                d = max(float(np.max(np.abs(
+                    np.asarray(got["agents"][a]) - exact[b])))
+                    for a, b in (("smooth_rep", "smooth_rep"),
+                                 ("this_rep", "this_rep")))
+                drifts.append(d)
+        counts = counted()
+        svc.close(drain=True)
+        if any(counts.values()):
+            raise RuntimeError(f"session: kernels launched {counts}")
+        band = incremental_drift_band(sess.dtype)
+        if any(d > band for d in drifts):
+            raise RuntimeError(f"session: warm drift {max(drifts)} > band "
+                               f"{band}")
+        log(f"session {session_r} reporters x {SESSION_BLOCKS} blocks of "
+            f"{block_e} events, {'incremental' if incremental else 'exact'}"
+            f" ({', '.join(paths)}): append {np.mean(appends):.4f} s "
+            f"(max {max(appends):.4f}), resolve "
+            + ", ".join(f"{r:.4f}" for r in resolves)
+            + f" s; outcomes equal to the direct Oracle"
+            + (f"; warm drift max {max(drifts):.3e} <= {band}"
+               if drifts else "")
+            + f"; {launch_text(counts)} on {card}")
 
 
 def geometry_knobs(E):

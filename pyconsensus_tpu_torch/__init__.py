@@ -18,7 +18,10 @@ algorithms. The collusion simulator (``sim``: ``CollusionSimulator``,
 sweep as one batched computation on the device, and ``ReputationLedger``
 (``ledger``) and ``io`` persist reputation across rounds and report
 matrices (npz and npy files shared with the JAX package; CSV through the
-native loader ``native/loader.cpp``). Every Pallas kernel of the JAX
+native loader ``native/loader.cpp``). ``serve`` runs the oracle as a
+service on one device: ``ConsensusService`` with padded shape buckets,
+the ``bucket_cuda`` low-latency class on the kernels, and named market
+sessions with incremental resolves. Every Pallas kernel of the JAX
 package has a counterpart
 written by hand in CUDA for sm_90a (``csrc/``). A non-finite result
 walks the reference's fallback chain (``faults``: fault plans, the error
@@ -33,6 +36,8 @@ taxonomy, retry); spans and metrics go to ``obs``. Entry points::
     sweep = sim.CollusionSimulator(n_reporters=50, n_events=25).run(
         [0.0, 0.1, 0.2, 0.3, 0.4], [0.05, 0.1], n_trials=1000)
     ledger = ReputationLedger(n_reporters=50); ledger.resolve(reports)
+    with ConsensusService(ServeConfig()) as svc:
+        result = svc.submit(reports=reports).result()
 
 The package imports torch, numpy and the standard library only (scipy or
 sklearn only where the native clustering library is unavailable).
@@ -47,11 +52,12 @@ from .parallel.sharded import ShardedOracle, resolve_device, \
     sharded_consensus
 from .sweep import compare_algorithms, disagreement_matrix
 from .ledger import ReputationLedger
-from . import io, sim
+from . import io, serve, sim
+from .serve import ConsensusService, ServeConfig
 
 __all__ = ["Oracle", "ShardedOracle", "ALGORITHMS", "BACKENDS",
            "ConsensusParams", "sharded_consensus", "resolve_device",
            "encode_reports", "encode_reports_host", "decode_reports",
            "lattice_exact", "assemble_result", "parse_event_bounds",
            "compare_algorithms", "disagreement_matrix", "ReputationLedger",
-           "io", "sim"]
+           "ConsensusService", "ServeConfig", "io", "serve", "sim"]

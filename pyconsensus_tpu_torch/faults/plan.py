@@ -47,17 +47,23 @@ import numpy as np
 __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
            "arm", "disarm", "armed", "active_plan", "fire", "corrupt"]
 
-#: The named injection sites of the port — every :func:`fire` /
+#: The 17 named injection sites of the port — every :func:`fire` /
 #: :func:`corrupt` hook call in the package names exactly one of these,
 #: and every entry here is reached by at least one hook call (the tests
 #: check both directions against the source). Each is a site of the JAX
-#: package's catalog, so a plan written for it arms the same sites here.
+#: package's catalog, so a plan written for it arms the same sites here:
+#: persistence (``io.*``, ``ledger.*``, ``sweep.chunk.*``), the front
+#: doors (``sharded.reports``, ``oracle.*``) and the serve tier
+#: (``serve.*``: submit, dispatch, the executable cache's store and a
+#: session's append).
 FAULT_SITES = (
     "io.read", "io.decode", "io.write", "io.stage",
     "ledger.save", "ledger.load",
     "sweep.chunk.data", "sweep.chunk.write",
     "sweep.chunk.pre_commit", "sweep.chunk.post_commit",
     "sharded.reports", "oracle.reports", "oracle.raw_result",
+    "serve.enqueue", "serve.dispatch", "serve.cache_store",
+    "serve.session_append",
 )
 
 

@@ -95,18 +95,26 @@ def _decode_storage(x: torch.Tensor, fill: torch.Tensor,
 
 def _power_loop(apply_cov: Callable, E: int, n_iters: int, tol: float,
                 device, v_init: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32,
+                base: Optional[torch.Tensor] = None):
     """Power-iteration loop (``jax_kernels._power_loop``): one
     application to the fixed seed of ``dtype`` (blended with a warm start
     when ``v_init`` is non-zero), then sweeps until successive unit
     iterates satisfy ``|<w, v>| >= 1 - max(tol, 8 eps(dtype))``;
     ``tol < 0`` runs exactly ``n_iters`` sweeps. The kernels' loop runs in
     float32, the plain core's in the reputation dtype. The exit test reads
-    one scalar back per sweep. Returns ``(loading, n_sweeps)``."""
+    one scalar back per sweep. ``base`` (an (E,) tensor) replaces the
+    seed draw: the serve tier's padded buckets pass the true-width seed
+    zero-extended to the bucket width, since a bucket-width draw's pad
+    entries would enter the seed's norm, and so the warm-start blend.
+    Returns ``(loading, n_sweeps)``."""
     no_exit = tol < 0
     tol = max(float(tol), 8.0 * float(torch.finfo(dtype).eps))
-    base = torch.from_numpy(power_seed(E, str(dtype).removeprefix(
-        "torch.")).copy()).to(device)
+    if base is None:
+        base = torch.from_numpy(power_seed(E, str(dtype).removeprefix(
+            "torch.")).copy()).to(device)
+    else:
+        base = base.to(device=device, dtype=dtype)
     base_unit = base / torch.linalg.vector_norm(base)
     if v_init is None:
         seed = base

@@ -1188,3 +1188,135 @@ def test_sim_chunked_matches_monolithic_on_card(dev, tmp_path):
             if key != "mean":
                 np.testing.assert_array_equal(got[key], mono[key],
                                               err_msg=key)
+
+
+# -- the serve tier on the card --------------------------------------------
+
+
+def _serve_reports(seed, R, E, na_frac=0.05):
+    rng = np.random.default_rng(seed)
+    truth = rng.choice([0.0, 1.0], size=E)
+    reports = np.tile(truth, (R, 1))
+    reports = np.abs(reports - (rng.random((R, E)) < 0.1))
+    reports[: R // 5] = 1.0 - truth
+    reports[rng.random((R, E)) < na_frac] = np.nan
+    return reports
+
+
+def _serve_bitwise(a, b):
+    for group in ("agents", "events"):
+        for key, v in b[group].items():
+            np.testing.assert_array_equal(np.asarray(a[group][key]),
+                                          np.asarray(v), err_msg=key)
+    for key in ("iterations", "convergence", "certainty", "participation"):
+        assert a[key] == b[key], key
+
+
+def _serve_close(a, b, atol, what):
+    for key in ("outcomes_adjusted", "outcomes_final"):
+        np.testing.assert_array_equal(a["events"][key], b["events"][key],
+                                      err_msg=f"{what} {key}")
+    assert a["iterations"] == b["iterations"], what
+    for group in ("agents", "events"):
+        for key, v in b[group].items():
+            if key in ("na_row", "adj_first_loadings"):
+                continue
+            np.testing.assert_allclose(
+                np.asarray(a[group][key], dtype=np.float64),
+                np.asarray(v, dtype=np.float64), atol=atol, rtol=0,
+                err_msg=f"{what} {key}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["", "int8"])
+@pytest.mark.parametrize("shape", [(50, 500), (200, 2000)])
+def test_serve_cuda_tier_bitwise_direct_oracle(dev, storage, shape):
+    """``bucket_cuda`` on the card ("auto" engages on sm_90) launches
+    B.1, B.2 and B.3 and equals the direct fused ``ShardedOracle`` bit
+    for bit."""
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+
+    reports = _serve_reports(11, *shape)
+    kw = {"storage_dtype": storage} if storage else {}
+    with ConsensusService(ServeConfig()) as svc:
+        svc.submit(reports=reports, **kw).result(timeout=300)   # builds
+        builds = svc.cache.builds
+        ck.reset_launch_counts()
+        got = svc.submit(reports=reports, **kw).result(timeout=300)
+        counts = ck.launch_counts()
+        assert svc.cache.builds == builds == 1
+    assert counts["apply_weighted_cov"] >= 2, counts
+    assert counts["scores_dirfix_pass"] == 1, counts
+    assert counts["resolve_certainty_fused"] == 1, counts
+    direct = ShardedOracle(reports, pca_method="power", **kw)
+    assert direct.params.fused_resolution
+    _serve_bitwise(got, direct.consensus())
+
+
+@pytest.mark.cuda
+def test_serve_padded_card_matches_cpu(dev):
+    """The padded tier on the card against the CPU: no kernel launches,
+    outcomes equal, continuous keys within float32's band."""
+    from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+
+    mats = [_serve_reports(20 + i, 40 + 7 * i, 100 + 30 * i)
+            for i in range(4)]
+    cfg = ServeConfig(pallas_buckets=False, batch_window_ms=5.0)
+    ck.reset_launch_counts()
+    with ConsensusService(cfg) as svc:
+        card = [f.result(timeout=300)
+                for f in [svc.submit(reports=m) for m in mats]]
+    assert not any(ck.launch_counts().values()), ck.launch_counts()
+    with ConsensusService(cfg, device="cpu") as svc:
+        cpu = [f.result(timeout=300)
+               for f in [svc.submit(reports=m) for m in mats]]
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        _serve_close(a, b, 1e-5, f"request {i}")
+
+
+@pytest.mark.cuda
+def test_serve_template_reuse_depth3_matches_depth1(dev):
+    """Pinned templates rewritten under ``non_blocking`` uploads at depth
+    3 give the bits of the synchronous depth 1."""
+    from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+
+    mats = [_serve_reports(40 + i, 20 + (i % 4) * 3, 60 + (i % 3) * 20)
+            for i in range(16)]
+
+    def run(depth):
+        cfg = ServeConfig(pallas_buckets=False, pipeline_depth=depth,
+                          batch_window_ms=1.0, max_batch=4)
+        with ConsensusService(cfg) as svc:
+            futs = [svc.submit(reports=m) for m in mats]
+            return [f.result(timeout=300) for f in futs]
+
+    for a, b in zip(run(1), run(3)):
+        _serve_bitwise(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("incremental", [False, True])
+def test_serve_session_card_matches_cpu(dev, incremental):
+    """A market session's rounds on the card against the CPU: no kernel
+    launches, outcomes equal, reputations within float32's band."""
+    from pyconsensus_tpu_torch.serve import MarketSession
+
+    R = 96
+    card = MarketSession("m", R, incremental=incremental, refresh_every=3)
+    cpu = MarketSession("m", R, incremental=incremental, refresh_every=3,
+                        device="cpu")
+    ck.reset_launch_counts()
+    for rnd in range(4):
+        for b in range(3):
+            block = _serve_reports(100 * rnd + b, R, 64)
+            card.append(block)
+            cpu.append(block)
+        a, c = card.resolve(), cpu.resolve()
+        assert card.last_resolve_path == cpu.last_resolve_path
+        np.testing.assert_array_equal(a["outcomes_adjusted"],
+                                      c["outcomes_adjusted"])
+        for key in ("smooth_rep", "certainty", "reporter_bonus"):
+            np.testing.assert_allclose(a[key], c[key], atol=2e-5, rtol=0,
+                                       err_msg=key)
+    assert not any(ck.launch_counts().values()), ck.launch_counts()
