@@ -5,9 +5,9 @@ The batcher thread drains the request queue: the oldest request opens a
 batch, compatible requests (identical ``batch_key``: bucket shape,
 static params, kernel path) arriving within the coalescing window join
 it up to ``max_batch``, and the group dispatches through ONE padded
-bucket executable of fixed capacity. A request's bits never depend on
-what it was co-batched with: each lane runs the unbatched padded
-pipeline on its own slices (``serve.kernels``).
+bucket executable of fixed capacity, its occupied lanes swept together.
+A request's bits never depend on what it was co-batched with: a lane's
+arithmetic reads its own slices alone (``serve.kernels``).
 
 **Pipelined dispatch.** A padded dispatch leaves its result on the
 device and joins a bounded in-flight ring (``ServeConfig.pipeline_depth``,
@@ -18,7 +18,7 @@ before any other route's dispatch. The pad buffers are per-key
 ``non_blocking`` uploads are pinned by a CUDA event the template waits
 on before a lane is rewritten. Each dispatch is a pure function of its
 own inputs, so the depth changes no bit. On the card the power loop
-reads one scalar back per sweep, so a dispatch holds the host until its
+reads one flag back per sweep, so a dispatch holds the host until its
 last sweep; the ring overlaps the result fetch and the next request's
 padding only.
 
@@ -43,6 +43,7 @@ import torch
 from .. import obs
 from ..faults import plan as _faults
 from ..oracle import Oracle, assemble_result, record_consensus_result
+from ..parallel.sharded import resolve_device
 from . import kernels as sk
 from .cache import BucketKey
 from .cuda import CUDA_KERNEL_PATH, cuda_bucket_inputs
@@ -83,7 +84,8 @@ class _Inflight:
 
 class Microbatcher:
     """The dispatch engine: one daemon thread owning device dispatch on
-    ``device`` in ``dtype``. The parallelism that matters (lanes, the
+    ``device`` (None: the card, raising without one) in ``dtype``. The
+    parallelism that matters (lanes, the
     kernels' blocks) lives inside a dispatch."""
 
     def __init__(self, queue, cache, config, sessions, admission,
@@ -93,7 +95,7 @@ class Microbatcher:
         self.config = config
         self.sessions = sessions
         self.admission = admission
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype or torch.get_default_dtype()
         self._thread = None
         #: the exception that ended the batcher thread (None: running)
@@ -287,8 +289,14 @@ class Microbatcher:
     def _retire(self, inf: _Inflight) -> None:
         """Fetch one in-flight dispatch's results and resolve its
         waiters. A device-side failure surfaces here, on this group."""
-        lanes = inf.raw if isinstance(inf.raw, list) else [inf.raw]
         try:
+            # one fetch a key for the whole dispatch, then the lanes
+            host = {k: sk._host(v) for k, v in inf.raw.items()}
+            if inf.key.batch > 1:
+                lanes = [{k: v[i] for k, v in host.items()}
+                         for i in range(len(inf.live))]
+            else:
+                lanes = [host]
             flats = [sk.slice_result(lane, r.shape[0], r.shape[1])
                      for lane, r in zip(lanes, inf.live)]
         except BaseException as exc:  # noqa: BLE001 — later dispatches

@@ -27,6 +27,7 @@ import torch
 
 from .. import obs
 from ..faults import plan as _faults
+from ..parallel.sharded import resolve_device
 from . import kernels as sk
 from .cuda import (CUDA_KERNEL_PATH, PLAIN_KERNEL_PATH,
                    make_cuda_bucket_executable)
@@ -53,12 +54,13 @@ _BUILD_ENTRY = {PLAIN_KERNEL_PATH: "serve_bucket",
 
 def warm_inputs(key, device=None, dtype: torch.dtype = None) -> list:
     """The zero inputs that warm ``key``'s executable on ``device`` in
-    ``dtype`` (None: the CPU, the default dtype). A zero matrix resolves
+    ``dtype`` (None: the card, raising without one; the default dtype).
+    A zero matrix resolves
     degenerately fast (the power loop's zero-covariance guard exits on
     the first sweep) while still running every phase; ``has_na`` params
     get one NaN so the fill runs too."""
     rows, events, batch = key.rows, key.events, key.batch
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     dt = dtype or torch.get_default_dtype()
     p = key.params
 
@@ -136,7 +138,8 @@ class BucketKey(tuple):
 
 class ExecutableCache:
     """Bucket-keyed LRU of built executables with hit, miss, eviction and
-    build metrics, for one ``device`` (None: the CPU) and ``dtype``.
+    build metrics, for one ``device`` (None: the card, raising without
+    one; only ``device="cpu"`` runs the plain versions) and ``dtype``.
     Thread-safe; builds run under the cache's lock (the batcher is the
     only caller after warm-up, and serialized builds keep the build
     accounting exact)."""
@@ -149,7 +152,7 @@ class ExecutableCache:
             raise NotImplementedError(
                 f"an AOT executable store: {ROADMAP_AOT}")
         self.capacity = int(capacity)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype or torch.get_default_dtype()
         self._entries: OrderedDict = OrderedDict()
         self._lock = threading.RLock()
@@ -248,6 +251,4 @@ class ExecutableCache:
         handles made)."""
         entry = self.get(key)
         out = entry(*warm_inputs(key, self.device, self.dtype), key.params)
-        if isinstance(out, list):
-            out = out[0]
         out["smooth_rep"].cpu()

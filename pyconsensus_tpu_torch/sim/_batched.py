@@ -17,16 +17,16 @@ redistribution loop with the reference's per-lane rules:
 
 **A lane does not depend on the batch.** Every contraction is an
 elementwise product and a sum over a fixed axis in a fixed pairwise order
-(:func:`fsum`), never a library product or reduction whose algorithm may
-change with the number of lanes (a batched GEMM or a reduction's launch
-configuration can). Products and sums are correctly rounded on the CPU
-and on the card alike, and so are divisions and square roots as
-:func:`_div` and :func:`_sqrt` take them, so a lane gives the same bits
-alone, inside any
-batch and on either device in the same dtype, on the power path; on the
-eigh paths up to the eigensolver (on the card one solver call a
-matrix). Live lanes are gathered into a smaller working set as they
-finish, which changes nothing for the same reason.
+(``ops/lanes.py``: :func:`fsum`), never a library product or reduction
+whose algorithm may change with the number of lanes (a batched GEMM or a
+reduction's launch configuration can). Products and sums are correctly
+rounded on the CPU and on the card alike, and so are divisions and
+square roots as ``_div`` and ``_sqrt`` take them, so a lane gives the
+same bits alone, inside any batch and on either device in the same
+dtype, on the power path; on the eigh paths up to the eigensolver (on
+the card one solver call a matrix). Live lanes are gathered into a
+smaller working set as they finish, which changes nothing for the same
+reason.
 """
 
 from __future__ import annotations
@@ -36,6 +36,10 @@ import torch
 from ..models.pipeline import ConsensusParams
 from ..ops import torch_kernels as tk
 from ..ops.constants import DIRFIX_TIE_ATOL
+from ..ops.lanes import div as _div
+from ..ops.lanes import fsum
+from ..ops.lanes import guard as _guard
+from ..ops.lanes import sqrt as _sqrt
 from ..ops.prng import power_seed
 
 __all__ = ["fsum", "pca_method_for", "iterate", "resolve_binary",
@@ -55,48 +59,8 @@ _COV_EIGH_MAX_E = 1024
 _EIGH_CHUNK_ELEMS = 1 << 26
 
 
-def fsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` in a fixed pairwise order: entry ``i`` is added to
-    entry ``i + n // 2`` until one is left (an odd count adds its last
-    entry into the first). Each step is one elementwise add, so the bits
-    depend on the axis length alone."""
-    dim = dim % x.dim()
-    n = x.shape[dim]
-    while n > 1:
-        h = n // 2
-        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
-        if n % 2:
-            y.narrow(dim, 0, 1).add_(x.narrow(dim, n - 1, 1))
-        x, n = y, h
-    return x.squeeze(dim)
-
-
-def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a / b`` correctly rounded on either device. torch's float32
-    division and square root on the card need not round as IEEE does (its
-    square root was measured one ulp from the CPU's on an H100); its
-    float64 ones do, and one float64 operation rounded to float32 is the
-    float32 operation's correctly rounded result (53 >= 2 * 24 + 2
-    bits)."""
-    if a.dtype == torch.float32:
-        return (a.double() / b.double()).float()
-    return a / b
-
-
-def _sqrt(a: torch.Tensor) -> torch.Tensor:
-    """``sqrt(a)`` correctly rounded on either device (see :func:`_div`)."""
-    if a.dtype == torch.float32:
-        return torch.sqrt(a.double()).float()
-    return torch.sqrt(a)
-
-
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return _sqrt(fsum(v * v, -1))
-
-
-def _guard(x: torch.Tensor) -> torch.Tensor:
-    """``where(x == 0, 1, x)``: a divisor that is never zero."""
-    return torch.where(x == 0.0, torch.ones_like(x), x)
 
 
 def pca_method_for(R: int, E: int, method: str) -> str:
