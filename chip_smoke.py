@@ -115,7 +115,23 @@ Phases, each printing its seconds:
    and a 1024-reporter market session of 8 blocks of 512 events, exact
    and incremental (the seconds of an append and a resolve, outcomes
    equal to the direct ``Oracle``, the warm drift within its band);
-9. run the same paths at a middle size on the card and on the CPU
+9. streaming and the CLI (``streaming_phase``), which launch none of the
+   kernels but the CLI's in-memory ``--shard`` run: sztorc streamed from
+   the host at full size (panels of ``--panel-events``) against the
+   in-memory ``Oracle`` (seconds side by side, 0 outcome flips, the
+   ``smooth_rep`` gap under ``STREAM_PARITY_ATOL``); the recorded
+   out-of-core configuration, 10,000 x 500,000 float32 (``OOC_E``,
+   ``--ooc-events``, cut to fit the disk) staged to ``.npy`` in
+   ``STAGE_DIR`` and resolved memory-mapped under sztorc,
+   fixed-variance and dbscan-jit (seconds, panels a pass, peak device
+   memory below the source's bytes and, for sztorc, within 10% of the
+   full-size streaming peak); k-means at ``KMEANS_OOC_E`` events;
+   hierarchical and dbscan at the hybrid shape against the in-memory
+   ``Oracle``; two hosts on one card (threads) equal to one; and
+   ``python -m pyconsensus_tpu_torch`` as subprocesses: ``--example``,
+   ``--file <.npy> --shard`` (B.1, B.2 and B.3 launched) and ``--file
+   <.npy> --stream`` with equal outcome counts;
+10. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two; then the ``Oracle`` (``backend="torch"``) on the card against
    its CPU run, with and without scaled events, under ``"auto"`` (the
@@ -127,7 +143,7 @@ Phases, each printing its seconds:
    clustering algorithms through the ``Oracle`` (exact keys, clusters and
    reputation order equal), then ``compare_algorithms`` over all seven,
    whose disagreement matrix must equal the CPU run's;
-10. print the ``kernels`` JSON line (each kernel with the storage types it
+11. print the ``kernels`` JSON line (each kernel with the storage types it
    takes and its bfloat16 time, plain time and bound beside the int8
    ones), then the result line.
 
@@ -235,6 +251,19 @@ SERVE_ATOL = 1e-5
 CUDA_TIER_KERNELS = ("apply_weighted_cov", "scores_dirfix_pass",
                      "resolve_certainty_fused")
 OUT_DIR = "chiprun_out"
+#: the streaming phase: the driver's default panel; the recorded
+#: out-of-core configuration (``docs/MEASUREMENTS_r05.json:257-325``,
+#: "beyond HBM": 10,000 x 500,000 float32, memory-mapped from .npy);
+#: k-means' width (each of its 32 Lloyd iterations is two passes over
+#: the source);
+#: the staging directory beside the checkout (listed in .gitignore); the
+#: streamed result's smooth_rep against the in-memory one (the reference
+#: recorded 1.04e-5 on its chip)
+STREAM_PANEL = 8192
+OOC_E = 500_000
+KMEANS_OOC_E = 32_768
+STAGE_DIR = ".ooc_stage"
+STREAM_PARITY_ATOL = 1e-4
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -317,16 +346,19 @@ def phase(name: str):
 
 
 def gen_reports(torch, R, E, seed, device, na_frac=0.02, liar_frac=0.1,
-                noise=0.05, rows=1000):
+                noise=0.05, rows=1000, liar=None):
     """The collusion threat model of the JAX package's simulator (honest
     reporters flip the truth at ``noise``, a ``liar_frac`` share reports
     the shared anti-truth, ``na_frac`` of entries absent), drawn with an
     explicit ``torch.Generator`` straight into int8 sentinel storage.
-    Returns ``(x int8 (R, E), truth (E,) float32)``."""
+    ``liar`` (an (R,) bool tensor) fixes the colluding block, so column
+    chunks drawn apart share it. Returns ``(x int8 (R, E), truth (E,)
+    float32)``."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     truth = torch.rand(E, generator=g, device=device) < 0.5
-    liar = torch.rand(R, generator=g, device=device) < liar_frac
+    if liar is None:
+        liar = torch.rand(R, generator=g, device=device) < liar_frac
     x = torch.empty((R, E), dtype=torch.int8, device=device)
     for r0 in range(0, R, rows):
         r1 = min(R, r0 + rows)
@@ -583,6 +615,9 @@ def run(args) -> int:
 
     with phase("serve"):
         serve_phase(torch, ck, card, dev, launches, args.seed)
+
+    with phase("streaming and the CLI"):
+        streaming_phase(torch, args, ck, card, dev, launches, here)
 
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
         xm, _ = gen_reports(torch, args.mid_r, args.mid_e, args.seed + 3, dev)
@@ -2329,6 +2364,431 @@ def serve_phase(torch, ck, card, dev, launches, seed,
             + f"; {launch_text(counts)} on {card}")
 
 
+def stream_check(torch, out, R, E, algorithm, truth, label):
+    """``check_result`` on a streamed (host numpy) result, and the truth
+    recovered (>= 0.99 of the snapped outcomes). Returns that share."""
+    check_result(torch, {k: torch.as_tensor(v) for k, v in out.items()},
+                 R, E, algorithm)
+    correct = float((out["outcomes_adjusted"] == truth).mean())
+    if correct < 0.99:
+        raise RuntimeError(f"{label}: the outcomes do not recover the truth "
+                           f"({correct:.6f})")
+    return correct
+
+
+def report_chunks(torch, R, E, seed, dev, chunk=16_384):
+    """The generator's float32 reports (NaN absent) drawn on the card in
+    column chunks with one colluding block: yields ``(c0, c1, reports
+    (R, c1 - c0) float32 host, truth (c1 - c0,) float64 host)``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    liar = torch.rand(R, generator=g, device=dev) < 0.1
+    for i, c0 in enumerate(range(0, E, chunk)):
+        c1 = min(E, c0 + chunk)
+        x8, t = gen_reports(torch, R, c1 - c0, seed * 1000 + i, dev,
+                            liar=liar)
+        yield (c0, c1, float_reports(torch, x8, 0).cpu().numpy(),
+               t.double().cpu().numpy())
+        del x8
+
+
+def host_reports(torch, R, E, seed, dev):
+    """:func:`report_chunks` gathered into one host matrix:
+    ``(reports (R, E) float32, truth (E,) float64)``."""
+    import numpy as np
+
+    out = np.empty((R, E), dtype=np.float32)
+    truth = np.empty(E)
+    for c0, c1, x, t in report_chunks(torch, R, E, seed, dev):
+        out[:, c0:c1] = x
+        truth[c0:c1] = t
+    return out, truth
+
+
+def streamed(torch, ck, src, p, panel, label, **kw):
+    """One ``streaming_consensus`` call on the card with the launch counts
+    set to 0 just before and read just after (the driver launches no
+    kernel of ours: every count must stay 0) and the peak device memory
+    from a reset. Returns ``(out, seconds, peak GiB)``."""
+    from pyconsensus_tpu_torch import streaming_consensus
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = streaming_consensus(src, panel_events=panel, params=p, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = ck.launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{label}: the streaming driver launched a "
+                           f"kernel: {counts}")
+    return out, secs, peak
+
+
+def two_hosts(torch, src, p, panel):
+    """Two threads as hosts on the card, panels ``h::2`` each, summing
+    through a rendezvous in host order (``contrib[0] + contrib[1]``, on
+    the card for the statistics, on the host for the (R, k) and output
+    stacks). Returns both results."""
+    import threading
+
+    from pyconsensus_tpu_torch import streaming_consensus
+
+    bar = threading.Barrier(2, timeout=600)
+    contrib, summed, results, errors = {}, {}, {}, []
+
+    def make_allreduce(i):
+        def allreduce(x):
+            contrib[i] = x
+            bar.wait()
+            if i == 0:
+                summed["v"] = contrib[0] + contrib[1]
+            bar.wait()
+            out = summed["v"]
+            bar.wait()
+            return out
+        return allreduce
+
+    def host(i):
+        try:
+            results[i] = streaming_consensus(
+                src, panel_events=panel, params=p, host_id=i, n_hosts=2,
+                allreduce=make_allreduce(i))
+        except Exception as exc:           # noqa: BLE001 — re-raised below
+            errors.append(exc)
+            bar.abort()
+
+    threads = [threading.Thread(target=host, args=(i,), daemon=True)
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=1200)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a host thread of the two-host split hung")
+    return results[0], results[1]
+
+
+def staging_root(here):
+    """The staging directory beside the checkout (``.ooc_stage/``, listed
+    in ``.gitignore``; never ``chiprun_out/``, which is merged back), its
+    free bytes and its file system's type (from ``/proc/mounts``)."""
+    root = os.path.join(here, STAGE_DIR)
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    fstype, best = "unknown", ""
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) > 2 and root.startswith(parts[1]) \
+                        and len(parts[1]) > len(best):
+                    best, fstype = parts[1], parts[2]
+    except OSError:
+        pass
+    return root, free, fstype, best
+
+
+def stage_npy(torch, path, R, E, seed, dev):
+    """Write :func:`report_chunks`' float32 reports (R, E) to an ``.npy``
+    column chunk by column chunk, so the host holds one chunk. Returns
+    ``(truth (E,), seconds)``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                   shape=(R, E))
+    truth = np.empty(E)
+    for c0, c1, x, t in report_chunks(torch, R, E, seed, dev):
+        mm[:, c0:c1] = x
+        truth[c0:c1] = t
+    mm.flush()
+    del mm
+    return truth, time.perf_counter() - t0
+
+
+def streaming_phase(torch, args, ck, card, dev, launches, here):
+    """Phase "streaming and the CLI": the out-of-core driver
+    (``streaming_consensus``) and the command line on the card.
+
+    1. parity at the bench shape: the generator's float32 reports with NaN
+       (``--reporters`` x ``--events``) on the host, sztorc at
+       ``max_iterations=1`` streamed in panels of ``--panel-events``
+       against the in-memory ``Oracle(backend="torch")``: seconds side by
+       side, 0 outcome flips, the largest ``smooth_rep`` gap under
+       ``STREAM_PARITY_ATOL``, the peak device memory;
+    2. the recorded out-of-core configuration: ``--ooc-events`` (500,000)
+       columns of float32 staged column-chunk by column-chunk to an
+       ``.npy`` in ``STAGE_DIR`` (E cut to fit the free disk, never R),
+       resolved memory-mapped under sztorc, fixed-variance and dbscan-jit:
+       seconds, panels a pass, peak device memory (below the source's
+       bytes; sztorc's within 10% of part 1's streaming peak), the truth;
+    3. k-means at R x ``--kmeans-events`` (32,768), and hierarchical and
+       dbscan at ``--hybrid-r`` x ``--hybrid-e`` against the in-memory
+       ``Oracle`` (outcomes equal, the host clustering native);
+    4. two hosts on one card (threads) equal to one: sztorc at part 1's
+       shape, k-means at part 3's;
+    5. the command line as subprocesses: ``--example`` (under
+       ``--profile``), ``--file <part 1's matrix as .npy> --shard``
+       (B.1-B.3 launches printed) and ``--file ... --stream``, each
+       exiting 0, the streamed outcome counts equal to the in-memory
+       run's.
+    """
+    import numpy as np
+
+    from pyconsensus_tpu_torch import ConsensusParams, Oracle, obs
+    from pyconsensus_tpu_torch.models.clustering import KMEANS_ITERS
+
+    R, E, P = args.reporters, args.events, args.panel_events
+    stage, free, fstype, mount = staging_root(here)
+    log(f"staging directory {stage}: {free / 1e9:.3f} GB free "
+        f"(shutil.disk_usage), file system {fstype} at {mount!r}")
+    try:
+        # -- 1. parity at the bench shape --------------------------------
+        host, truth = host_reports(torch, R, E, args.seed + 11, dev)
+        p1 = ConsensusParams(max_iterations=1)
+        tag = f"sztorc {R}x{E} float32+NaN"
+        secs_s, peaks = [], []
+        for _ in range(2):             # the first carries the warm-ups
+            out_s, secs, peak = streamed(torch, ck, host, p1, P, tag)
+            secs_s.append(secs)
+            peaks.append(peak)
+        # whether the prefetched panel is allocated at the peak is a race
+        # of the two threads: one panel (0.31 GiB at 10k x 8192) either way
+        peak_s = max(peaks)
+        stream_check(torch, out_s, R, E, "sztorc", truth, tag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oracle = Oracle(reports=host, max_iterations=1)
+        t_intake = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = oracle.consensus()
+        t_mem = time.perf_counter() - t0
+        del oracle
+        torch.cuda.empty_cache()
+        flips = int((res["events"]["outcomes_adjusted"]
+                     != out_s["outcomes_adjusted"]).sum())
+        gap = float(np.abs(res["agents"]["smooth_rep"]
+                           - out_s["smooth_rep"]).max())
+        n_panels = -(-E // P)
+        log(f"streaming parity {tag}: out of core {secs_s[1]:.3f} s "
+            f"(first call {secs_s[0]:.3f} s; {n_panels} panels of {P}, two "
+            f"passes), peak {peak_s:.3f} GiB (the two calls {peaks[0]:.3f}, "
+            f"{peaks[1]:.3f}); in memory Oracle "
+            f"consensus() {t_mem:.3f} s + intake {t_intake:.3f} s; out of "
+            f"core / in memory {secs_s[1] / t_mem:.2f}x "
+            f"({secs_s[1] / (t_mem + t_intake):.2f}x with the intake) on "
+            f"{card}; outcome flips {flips}, max |smooth_rep gap| "
+            f"{gap:.3e} (limit {STREAM_PARITY_ATOL})")
+        if flips or gap > STREAM_PARITY_ATOL:
+            raise RuntimeError(f"{tag}: the streamed resolution differs "
+                               "from the in-memory one")
+
+        # -- 4a. two hosts at the bench shape (part 1's single host) ------
+        t0 = time.perf_counter()
+        worst = max(compare_outputs(torch, r, out_s, MID_ATOL,
+                                    f"two hosts {tag} host {i}")
+                    for i, r in enumerate(two_hosts(torch, host, p1, P)))
+        log(f"two hosts on one card {tag}: {time.perf_counter() - t0:.3f} s"
+            f"; each host equal to one host (exact keys equal, continuous "
+            f"max |diff| {worst:.3e} <= {MID_ATOL})")
+
+        # -- 5. the command line ------------------------------------------
+        cli_phase(torch, host, stage, launches, card)
+        del host, res
+
+        # -- 2. the recorded out-of-core configuration -------------------
+        E_ooc = min(args.ooc_events,
+                    int(0.4 * free / (4 * R)) // P * P)
+        if E_ooc < args.ooc_events:
+            log(f"out-of-core E cut from {args.ooc_events} to {E_ooc} to "
+                f"fit 40% of the staging disk's {free / 1e9:.3f} GB free")
+        path = os.path.join(stage, "reports.npy")
+        truth_ooc, t_stage = stage_npy(torch, path, R, E_ooc,
+                                       args.seed + 12, dev)
+        src_bytes = 4 * R * E_ooc
+        log(f"staged {R}x{E_ooc} float32 ({src_bytes / 1e9:.3f} GB) to "
+            f"{os.path.relpath(path, here)} in {t_stage:.3f} s "
+            f"({src_bytes / 1e9 / t_stage:.3f} GB/s)")
+        geo = geometry_knobs(E_ooc)
+        for algo, knobs in (("sztorc", {}), ("fixed-variance", {}),
+                            ("dbscan-jit", dict(
+                                dbscan_eps=geo["dbscan_eps"],
+                                dbscan_min_samples=4))):
+            p = ConsensusParams(algorithm=algo, max_iterations=1, **knobs)
+            label = f"{algo} {R}x{E_ooc} memory-mapped .npy"
+            out, secs, peak = streamed(torch, ck, path, p, P, label)
+            correct = stream_check(torch, out, R, E_ooc, algo, truth_ooc,
+                                   label)
+            log(f"out of core {label}: {secs:.3f} s on {card}; "
+                f"{-(-E_ooc // P)} panels a pass; peak {peak:.3f} GiB of a "
+                f"{src_bytes / 2 ** 30:.3f} GiB source; outcomes == truth "
+                f"{correct:.6f}; iterations {out['iterations']}")
+            if peak * 2 ** 30 >= src_bytes:
+                raise RuntimeError(f"{label}: the peak device memory is not "
+                                   "below the source's bytes")
+            if algo == "sztorc" and abs(peak - peak_s) > 0.1 * peak_s:
+                raise RuntimeError(
+                    f"{label}: the peak {peak:.3f} GiB grew with E from "
+                    f"{peak_s:.3f} GiB at {R}x{E}")
+        os.unlink(path)
+
+        # -- 3. k-means, and the hybrids against the in-memory Oracle ------
+        Ek = args.kmeans_events
+        host_k, truth_k = host_reports(torch, R, Ek, args.seed + 13, dev)
+        pk = ConsensusParams(algorithm="k-means", max_iterations=1)
+        label = f"k-means {R}x{Ek}"
+        out_k, secs, peak = streamed(torch, ck, host_k, pk, P, label)
+        correct = stream_check(torch, out_k, R, Ek, "k-means", truth_k,
+                               label)
+        passes = 3 + 2 * KMEANS_ITERS
+        log(f"out of core {label}: {secs:.3f} s on {card}; "
+            f"{-(-Ek // P)} panels a pass, {passes} passes (the seeds, "
+            f"{KMEANS_ITERS} Lloyd iterations of two, the final assignment,"
+            f" the resolve); peak {peak:.3f} GiB; outcomes == truth "
+            f"{correct:.6f}")
+        t0 = time.perf_counter()
+        worst = max(compare_outputs(torch, r, out_k, MID_ATOL,
+                                    f"two hosts {label} host {i}")
+                    for i, r in enumerate(two_hosts(torch, host_k, pk, P)))
+        log(f"two hosts on one card {label}: "
+            f"{time.perf_counter() - t0:.3f} s; each host equal to one "
+            f"host (exact keys equal, continuous max |diff| {worst:.3e} <= "
+            f"{MID_ATOL})")
+        del host_k
+        Rh, Eh = args.hybrid_r, args.hybrid_e
+        host_h, truth_h = host_reports(torch, Rh, Eh, args.seed + 14, dev)
+        geo = geometry_knobs(Eh)
+        for algo in ("hierarchical", "dbscan"):
+            knobs = (dict(hierarchy_threshold=geo["hierarchy_threshold"])
+                     if algo == "hierarchical" else
+                     dict(dbscan_eps=geo["dbscan_eps"],
+                          dbscan_min_samples=4))
+            p = ConsensusParams(algorithm=algo, max_iterations=1, **knobs)
+            label = f"{algo} {Rh}x{Eh}"
+            obs.reset()
+            out, secs, peak = streamed(torch, ck, host_h, p, P, label)
+            spans = [e for e in obs.events()
+                     if e["name"] == f"clustering.{algo}"]
+            if not spans or not all(e["attrs"]["native"] is True
+                                    for e in spans):
+                raise RuntimeError(f"{label}: the host clustering did not "
+                                   "run on the native library")
+            stream_check(torch, out, Rh, Eh, algo, truth_h, label)
+            t0 = time.perf_counter()
+            ref = Oracle(reports=host_h, algorithm=algo, max_iterations=1,
+                         **knobs).consensus()
+            t_mem = time.perf_counter() - t0
+            if not np.array_equal(ref["events"]["outcomes_adjusted"],
+                                  out["outcomes_adjusted"]):
+                raise RuntimeError(f"{label}: outcomes differ from the "
+                                   "in-memory Oracle's")
+            log(f"out of core {label}: {secs:.3f} s (in memory Oracle "
+                f"{t_mem:.3f} s) on {card}; peak {peak:.3f} GiB; clusters "
+                f"{spans[-1]['attrs']['clusters']}; native True; outcomes "
+                f"equal to the in-memory Oracle's")
+        del host_h
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _cli(args, here, timeout=900):
+    """``python -m pyconsensus_tpu_torch <args>`` from the checkout; on
+    failure its output is raised."""
+    run = subprocess.run([sys.executable, "-m", "pyconsensus_tpu_torch",
+                          *args], capture_output=True, text=True,
+                         cwd=here, timeout=timeout)
+    if run.returncode != 0:
+        raise RuntimeError(f"pyconsensus_tpu_torch {' '.join(args)} exited "
+                           f"{run.returncode}:\n{run.stdout[-4000:]}\n"
+                           f"{run.stderr[-4000:]}")
+    return run.stdout
+
+
+def cli_phase(torch, host, stage, launches, card):
+    """Part 5: the command line as subprocesses on the card: the default
+    demo under ``--profile`` (a ``torch.profiler`` trace holding device
+    kernels), then part 1's matrix as an ``.npy`` through ``--shard``
+    (``ShardedOracle`` in memory; the module runs under a wrapper that
+    prints its launch counts at exit) and through ``--stream``, one
+    iteration each. Each exits 0, and the streamed outcome counts equal
+    the in-memory run's."""
+    import re
+
+    import numpy as np
+
+    here = os.path.dirname(stage)
+    prof = os.path.join(stage, "profile")
+    t0 = time.perf_counter()
+    out = _cli(["--example", "--profile", prof], here)
+    if "Example (dense binary)" not in out:
+        raise RuntimeError("--example printed no demo table")
+    traces = [f for f in os.listdir(prof) if f.startswith("trace-")]
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"cli --example --profile: exit 0 in {time.perf_counter() - t0:.3f}"
+        f" s; {len(traces)} torch.profiler trace(s), {len(events)} events, "
+        f"{on_card} of them device kernels")
+    if not on_card:
+        raise RuntimeError("--profile recorded no device kernel")
+    path = os.path.join(stage, "bench.npy")
+    np.save(path, host)
+    wrapper = ("import atexit, json, runpy, sys; "
+               "from pyconsensus_tpu_torch.ops import cuda_kernels as ck; "
+               "atexit.register(lambda: print('LAUNCHES ' + "
+               "json.dumps(ck.launch_counts()), flush=True)); "
+               "sys.argv = ['pyconsensus_tpu_torch'] + sys.argv[1:]; "
+               "runpy.run_module('pyconsensus_tpu_torch', "
+               "run_name='__main__', alter_sys=True)")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", wrapper, "--file", path,
+                          "--shard", "--iterations", "1"],
+                         capture_output=True, text=True, cwd=here,
+                         timeout=900)
+    t_shard = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"cli --file --shard exited {run.returncode}:\n"
+                           f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+    counts = json.loads(run.stdout.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+    for k in CUDA_TIER_KERNELS:
+        if counts.get(k, 0) == 0:
+            raise RuntimeError(f"cli --shard: {k} never launched: {counts}")
+        launches[k] += counts[k]
+    finals, in_events = [], False
+    for line in run.stdout.splitlines():
+        s = line.strip()
+        if s == "Events":
+            in_events = True
+        elif in_events and re.match(r"^\d+\s", s):
+            finals.append(float(s.split()[2]))
+        elif in_events and s.startswith("participation"):
+            break
+    finals = np.asarray(finals)
+    mem_counts = "/".join(str(int((finals == v).sum()))
+                          for v in (0.0, 0.5, 1.0))
+    t0 = time.perf_counter()
+    out = _cli(["--file", path, "--stream", "--iterations", "1"], here)
+    t_stream = time.perf_counter() - t0
+    m = re.search(r"outcomes 0/0\.5/1: (\d+/\d+/\d+)", out)
+    if m is None or m.group(1) != mem_counts or len(finals) != host.shape[1]:
+        raise RuntimeError(f"cli --stream outcome counts "
+                           f"{m and m.group(1)} != --shard's {mem_counts} "
+                           f"({len(finals)} events parsed)")
+    os.unlink(path)
+    log(f"cli --file {host.shape[0]}x{host.shape[1]} .npy --shard: exit 0 "
+        f"in {t_shard:.3f} s, launches "
+        f"{ {k: counts[k] for k in CUDA_TIER_KERNELS} }; --stream: exit 0 "
+        f"in {t_stream:.3f} s; outcomes 0/0.5/1 {m.group(1)} in both, on "
+        f"{card}")
+
+
 def geometry_knobs(E):
     """The clustering radii that follow the generator's geometry at E
     events, and k-means' two clusters."""
@@ -2664,6 +3124,12 @@ def main(argv=None) -> int:
                     help="also profile one main-path resolution")
     ap.add_argument("--resolutions", type=int, default=5,
                     help="timed resolutions per main-path configuration")
+    ap.add_argument("--panel-events", type=int, default=STREAM_PANEL,
+                    help="the streaming phase's panel width")
+    ap.add_argument("--ooc-events", type=int, default=OOC_E,
+                    help="events of the out-of-core configuration")
+    ap.add_argument("--kmeans-events", type=int, default=KMEANS_OOC_E,
+                    help="events of the out-of-core k-means")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")

@@ -21,7 +21,11 @@ matrices (npz and npy files shared with the JAX package; CSV through the
 native loader ``native/loader.cpp``). ``serve`` runs the oracle as a
 service on one device: ``ConsensusService`` with padded shape buckets,
 the ``bucket_cuda`` low-latency class on the kernels, and named market
-sessions with incremental resolves. Every Pallas kernel of the JAX
+sessions with incremental resolves. ``streaming_consensus`` resolves a
+matrix out of core, panel by panel from an array, a memory-mapped
+``.npy`` or a ``.csv``, for every algorithm and on one host or several
+(``parallel.distributed``); ``python -m pyconsensus_tpu_torch`` is the
+command line (``cli``). Every Pallas kernel of the JAX
 package has a counterpart
 written by hand in CUDA for sm_90a (``csrc/``). A non-finite result
 walks the reference's fallback chain (``faults``: fault plans, the error
@@ -38,6 +42,7 @@ taxonomy, retry); spans and metrics go to ``obs``. Entry points::
     ledger = ReputationLedger(n_reporters=50); ledger.resolve(reports)
     with ConsensusService(ServeConfig()) as svc:
         result = svc.submit(reports=reports).result()
+    out = streaming_consensus("reports.npy", panel_events=8192)
 
 The package imports torch, numpy and the standard library only (scipy or
 sklearn only where the native clustering library is unavailable).
@@ -50,13 +55,15 @@ from .oracle import (ALGORITHMS, BACKENDS, Oracle, assemble_result,
                      parse_event_bounds)
 from .parallel.sharded import ShardedOracle, resolve_device, \
     sharded_consensus
+from .parallel.streaming import streaming_consensus
 from .sweep import compare_algorithms, disagreement_matrix
 from .ledger import ReputationLedger
 from . import io, serve, sim
 from .serve import ConsensusService, ServeConfig
 
 __all__ = ["Oracle", "ShardedOracle", "ALGORITHMS", "BACKENDS",
-           "ConsensusParams", "sharded_consensus", "resolve_device",
+           "ConsensusParams", "sharded_consensus", "streaming_consensus",
+           "resolve_device",
            "encode_reports", "encode_reports_host", "decode_reports",
            "lattice_exact", "assemble_result", "parse_event_bounds",
            "compare_algorithms", "disagreement_matrix", "ReputationLedger",

@@ -90,8 +90,9 @@ def effective_median_block(median_block: int, mesh) -> int:
     shards the event axis, the caller's width otherwise
     (``mesh.py:32``: the blocked median's slices do not partition over
     the event axis, and each shard bounds its own sort temporaries).
-    Nothing calls it yet: only the plain pipeline's weighted median reads
-    ``median_block``, and the fused paths have none."""
+    The out-of-core driver's resolve pass calls it (with no mesh: its
+    ``mesh=`` is ``ROADMAP.md`` §A.10); the fused paths have no blocked
+    median."""
     if mesh is not None and len(mesh) > 1:
         return 0
     return median_block

@@ -1373,3 +1373,130 @@ def test_serve_session_card_matches_cpu(dev, incremental):
             np.testing.assert_allclose(a[key], c[key], atol=2e-5, rtol=0,
                                        err_msg=key)
     assert not any(ck.launch_counts().values()), ck.launch_counts()
+
+
+# -- the out-of-core driver ---------------------------------------------------
+
+
+def _stream_reports(seed, R, E, na_frac=0.05):
+    """Collusion reports: the truth flipped at 0.1 by the honest, a fifth
+    of the reporters on the anti-truth, ``na_frac`` absent."""
+    rng = np.random.default_rng(seed)
+    truth = rng.choice([0.0, 1.0], size=E)
+    reports = np.abs(np.tile(truth, (R, 1)) - (rng.random((R, E)) < 0.1))
+    reports[: R // 5] = 1.0 - truth
+    reports[rng.random((R, E)) < na_frac] = np.nan
+    return reports
+
+
+def _stream_params(algorithm, E, **kw):
+    """The clustering radii follow the generator's geometry (as
+    ``chip_smoke.py``'s): honest pairs near d^2 = 0.2 E, honest-liar pairs
+    near 0.8 E."""
+    return ConsensusParams(algorithm=algorithm, num_clusters=3,
+                           dbscan_eps=float(np.sqrt(0.4 * E)),
+                           hierarchy_threshold=float(np.sqrt(0.5 * E)), **kw)
+
+
+def _stream_close(a, b, atol, what):
+    for k in ("outcomes_adjusted", "outcomes_final", "na_row", "iterations",
+              "convergence", "ica_converged"):
+        if k in b:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                          err_msg=f"{what}: {k}")
+    for k in ("smooth_rep", "this_rep", "certainty", "reporter_bonus",
+              "participation_rows", "author_bonus"):
+        np.testing.assert_allclose(a[k], b[k], atol=atol, rtol=0,
+                                   err_msg=f"{what}: {k}")
+    if "first_loading" in b:
+        np.testing.assert_allclose(np.abs(a["first_loading"]),
+                                   np.abs(b["first_loading"]), atol=atol,
+                                   rtol=0, err_msg=f"{what}: first_loading")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["sztorc", "fixed-variance", "ica",
+                                       "k-means", "hierarchical", "dbscan",
+                                       "dbscan-jit"])
+def test_streaming_card_matches_cpu(dev, algorithm):
+    """``streaming_consensus`` on the card against the CPU at 256 x 2048
+    in float32 (ragged panels of 600): outcomes equal, continuous keys in
+    the float32 band (2e-3 for fixed-variance and ica), no kernel
+    launched."""
+    from pyconsensus_tpu_torch import streaming_consensus
+
+    reports = _stream_reports(7, 256, 2048)
+    p = _stream_params(algorithm, 2048, max_iterations=2)
+    ck.reset_launch_counts()
+    card = streaming_consensus(reports, panel_events=600, params=p)
+    assert not any(ck.launch_counts().values()), ck.launch_counts()
+    cpu = streaming_consensus(reports, panel_events=600, params=p,
+                              device="cpu")
+    atol = 2e-3 if algorithm in ("fixed-variance", "ica") else 1e-5
+    _stream_close(card, cpu, atol, algorithm)
+
+
+@pytest.mark.cuda
+def test_streaming_single_eigh_arm_at_4096(dev):
+    """At R = 4096 the spectrum is one ``torch.linalg.eigh`` of the
+    4096 x 4096 Gram on cuSOLVER, rank-deficient at E = 1024: outcomes
+    equal to the CPU's, no orthogonal-iteration fallback."""
+    from pyconsensus_tpu_torch import obs, streaming_consensus
+
+    reports = _stream_reports(8, 4096, 1024)
+    before = obs.value("pyconsensus_streaming_topk_fallback_total") or 0
+    card = streaming_consensus(reports, panel_events=256)
+    cpu = streaming_consensus(reports, panel_events=256, device="cpu")
+    assert (obs.value("pyconsensus_streaming_topk_fallback_total") or 0) \
+        == before
+    assert np.isfinite(card["smooth_rep"]).all()
+    _stream_close(card, cpu, 1e-5, "R = 4096")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["sztorc", "k-means"])
+def test_streaming_two_hosts_on_card(dev, algorithm):
+    """Two threads as hosts on one card, each with half the panels,
+    summing the stacked statistics on the card in host order: equal to
+    one host."""
+    import threading
+
+    from pyconsensus_tpu_torch import streaming_consensus
+
+    reports = _stream_reports(9, 256, 2048)
+    p = _stream_params(algorithm, 2048, max_iterations=2)
+    single = streaming_consensus(reports, panel_events=300, params=p)
+    bar = threading.Barrier(2, timeout=120)
+    contrib, summed, results, errors = {}, {}, {}, []
+
+    def make_allreduce(i):
+        def allreduce(x):
+            contrib[i] = x
+            bar.wait()
+            if i == 0:
+                summed["v"] = contrib[0] + contrib[1]
+            bar.wait()
+            out = summed["v"]
+            bar.wait()
+            return out
+        return allreduce
+
+    def host(i):
+        try:
+            results[i] = streaming_consensus(
+                reports, panel_events=300, params=p, host_id=i, n_hosts=2,
+                allreduce=make_allreduce(i))
+        except Exception as exc:
+            errors.append(exc)
+            bar.abort()
+
+    threads = [threading.Thread(target=host, args=(i,), daemon=True)
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert not any(t.is_alive() for t in threads)
+    for i in range(2):
+        _stream_close(results[i], single, 1e-5, f"host {i}")

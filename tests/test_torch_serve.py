@@ -1143,9 +1143,10 @@ def test_fault_sites_count_in_the_catalog_comment():
 
     src = open(plan.__file__).read()
     assert int(re.search(r"The (\d+) named injection sites", src)
-               .group(1)) == len(faults.FAULT_SITES) == 17
+               .group(1)) == len(faults.FAULT_SITES) == 18
     assert {"serve.enqueue", "serve.dispatch", "serve.cache_store",
-            "serve.session_append"} <= set(faults.FAULT_SITES)
+            "serve.session_append", "streaming.panel"} \
+        <= set(faults.FAULT_SITES)
 
 
 def test_package_exports_the_serve_tier():
