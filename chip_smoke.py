@@ -117,17 +117,18 @@ Phases, each printing its seconds:
    equal to the direct ``Oracle``, the warm drift within its band);
 9. streaming and the CLI (``streaming_phase``), which launch none of the
    kernels but the CLI's in-memory ``--shard`` run: sztorc streamed from
-   the host at full size (panels of ``--panel-events``) against the
+   the host at full size (panels of ``STREAM_PANEL``) against the
    in-memory ``Oracle`` (seconds side by side, 0 outcome flips, the
-   ``smooth_rep`` gap under ``STREAM_PARITY_ATOL``); the recorded
-   out-of-core configuration, 10,000 x 500,000 float32 (``OOC_E``,
-   ``--ooc-events``, cut to fit the disk) staged to ``.npy`` in
+   ``smooth_rep`` gap under ``STREAM_REP_RTOL`` of its largest value);
+   the recorded out-of-core configuration, 10,000 x 500,000 float32
+   (``OOC_E``, cut to fit the disk) staged to ``.npy`` in
    ``STAGE_DIR`` and resolved memory-mapped under sztorc,
    fixed-variance and dbscan-jit (seconds, panels a pass, peak device
    memory below the source's bytes and, for sztorc, within 10% of the
    full-size streaming peak); k-means at ``KMEANS_OOC_E`` events;
    hierarchical and dbscan at the hybrid shape against the in-memory
-   ``Oracle``; two hosts on one card (threads) equal to one; and
+   ``Oracle``; two hosts on one card (threads) equal to one (the
+   reputations within ``STREAM_REP_RTOL`` of their largest value); and
    ``python -m pyconsensus_tpu_torch`` as subprocesses: ``--example``,
    ``--file <.npy> --shard`` (B.1, B.2 and B.3 launched) and ``--file
    <.npy> --stream`` with equal outcome counts;
@@ -257,13 +258,14 @@ OUT_DIR = "chiprun_out"
 #: k-means' width (each of its 32 Lloyd iterations is two passes over
 #: the source);
 #: the staging directory beside the checkout (listed in .gitignore); the
-#: streamed result's smooth_rep against the in-memory one (the reference
-#: recorded 1.04e-5 on its chip)
+#: largest reputation gap of a streamed result against the in-memory one
+#: or two hosts against one, over the largest reputation (a reputation is
+#: about 1/R, so an absolute band would pass one wrong by all of itself)
 STREAM_PANEL = 8192
 OOC_E = 500_000
 KMEANS_OOC_E = 32_768
 STAGE_DIR = ".ooc_stage"
-STREAM_PARITY_ATOL = 1e-4
+STREAM_REP_RTOL = 1e-6
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -2474,6 +2476,33 @@ def two_hosts(torch, src, p, panel):
     return results[0], results[1]
 
 
+def rep_gap(a, b):
+    """The largest gap of two reputation vectors over the largest
+    reputation of ``b``."""
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def hosts_equal_one(torch, results, single, what):
+    """Each host's result against the single host's: ``compare_outputs``
+    within ``MID_ATOL``, and ``this_rep`` and ``smooth_rep`` within
+    ``STREAM_REP_RTOL`` of their largest value. Returns both worst
+    gaps."""
+    worst = rel = 0.0
+    for i, r in enumerate(results):
+        worst = max(worst, compare_outputs(torch, r, single, MID_ATOL,
+                                           f"{what} host {i}"))
+        for key in ("this_rep", "smooth_rep"):
+            gap = rep_gap(r[key], single[key])
+            if gap > STREAM_REP_RTOL:
+                raise RuntimeError(f"{what} host {i}: {key} differs by "
+                                   f"{gap:.3e} of its largest value")
+            rel = max(rel, gap)
+    return worst, rel
+
+
 def staging_root(here):
     """The staging directory beside the checkout (``.ooc_stage/``, listed
     in ``.gitignore``; never ``chiprun_out/``, which is merged back), its
@@ -2518,21 +2547,22 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
 
     1. parity at the bench shape: the generator's float32 reports with NaN
        (``--reporters`` x ``--events``) on the host, sztorc at
-       ``max_iterations=1`` streamed in panels of ``--panel-events``
+       ``max_iterations=1`` streamed in panels of ``STREAM_PANEL``
        against the in-memory ``Oracle(backend="torch")``: seconds side by
        side, 0 outcome flips, the largest ``smooth_rep`` gap under
-       ``STREAM_PARITY_ATOL``, the peak device memory;
-    2. the recorded out-of-core configuration: ``--ooc-events`` (500,000)
+       ``STREAM_REP_RTOL`` of its largest value, the peak device memory;
+    2. the recorded out-of-core configuration: ``OOC_E`` (500,000)
        columns of float32 staged column-chunk by column-chunk to an
        ``.npy`` in ``STAGE_DIR`` (E cut to fit the free disk, never R),
        resolved memory-mapped under sztorc, fixed-variance and dbscan-jit:
        seconds, panels a pass, peak device memory (below the source's
        bytes; sztorc's within 10% of part 1's streaming peak), the truth;
-    3. k-means at R x ``--kmeans-events`` (32,768), and hierarchical and
+    3. k-means at R x ``KMEANS_OOC_E`` (32,768), and hierarchical and
        dbscan at ``--hybrid-r`` x ``--hybrid-e`` against the in-memory
        ``Oracle`` (outcomes equal, the host clustering native);
-    4. two hosts on one card (threads) equal to one: sztorc at part 1's
-       shape, k-means at part 3's;
+    4. two hosts on one card (threads) equal to one, the reputations
+       within ``STREAM_REP_RTOL`` of their largest value: sztorc at part
+       1's shape, k-means at part 3's;
     5. the command line as subprocesses: ``--example`` (under
        ``--profile``), ``--file <part 1's matrix as .npy> --shard``
        (B.1-B.3 launches printed) and ``--file ... --stream``, each
@@ -2544,7 +2574,7 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
     from pyconsensus_tpu_torch import ConsensusParams, Oracle, obs
     from pyconsensus_tpu_torch.models.clustering import KMEANS_ITERS
 
-    R, E, P = args.reporters, args.events, args.panel_events
+    R, E, P = args.reporters, args.events, STREAM_PANEL
     stage, free, fstype, mount = staging_root(here)
     log(f"staging directory {stage}: {free / 1e9:.3f} GB free "
         f"(shutil.disk_usage), file system {fstype} at {mount!r}")
@@ -2573,8 +2603,7 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
         torch.cuda.empty_cache()
         flips = int((res["events"]["outcomes_adjusted"]
                      != out_s["outcomes_adjusted"]).sum())
-        gap = float(np.abs(res["agents"]["smooth_rep"]
-                           - out_s["smooth_rep"]).max())
+        gap = rep_gap(res["agents"]["smooth_rep"], out_s["smooth_rep"])
         n_panels = -(-E // P)
         log(f"streaming parity {tag}: out of core {secs_s[1]:.3f} s "
             f"(first call {secs_s[0]:.3f} s; {n_panels} panels of {P}, two "
@@ -2584,29 +2613,28 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
             f"core / in memory {secs_s[1] / t_mem:.2f}x "
             f"({secs_s[1] / (t_mem + t_intake):.2f}x with the intake) on "
             f"{card}; outcome flips {flips}, max |smooth_rep gap| "
-            f"{gap:.3e} (limit {STREAM_PARITY_ATOL})")
-        if flips or gap > STREAM_PARITY_ATOL:
+            f"{gap:.3e} of its largest value (limit {STREAM_REP_RTOL})")
+        if flips or gap > STREAM_REP_RTOL:
             raise RuntimeError(f"{tag}: the streamed resolution differs "
                                "from the in-memory one")
 
         # -- 4a. two hosts at the bench shape (part 1's single host) ------
         t0 = time.perf_counter()
-        worst = max(compare_outputs(torch, r, out_s, MID_ATOL,
-                                    f"two hosts {tag} host {i}")
-                    for i, r in enumerate(two_hosts(torch, host, p1, P)))
+        worst, rel = hosts_equal_one(torch, two_hosts(torch, host, p1, P),
+                                     out_s, f"two hosts {tag}")
         log(f"two hosts on one card {tag}: {time.perf_counter() - t0:.3f} s"
             f"; each host equal to one host (exact keys equal, continuous "
-            f"max |diff| {worst:.3e} <= {MID_ATOL})")
+            f"max |diff| {worst:.3e} <= {MID_ATOL}, reputations within "
+            f"{rel:.3e} of their largest <= {STREAM_REP_RTOL})")
 
         # -- 5. the command line ------------------------------------------
         cli_phase(torch, host, stage, launches, card)
         del host, res
 
         # -- 2. the recorded out-of-core configuration -------------------
-        E_ooc = min(args.ooc_events,
-                    int(0.4 * free / (4 * R)) // P * P)
-        if E_ooc < args.ooc_events:
-            log(f"out-of-core E cut from {args.ooc_events} to {E_ooc} to "
+        E_ooc = min(OOC_E, int(0.4 * free / (4 * R)) // P * P)
+        if E_ooc < OOC_E:
+            log(f"out-of-core E cut from {OOC_E} to {E_ooc} to "
                 f"fit 40% of the staging disk's {free / 1e9:.3f} GB free")
         path = os.path.join(stage, "reports.npy")
         truth_ooc, t_stage = stage_npy(torch, path, R, E_ooc,
@@ -2639,7 +2667,7 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
         os.unlink(path)
 
         # -- 3. k-means, and the hybrids against the in-memory Oracle ------
-        Ek = args.kmeans_events
+        Ek = KMEANS_OOC_E
         host_k, truth_k = host_reports(torch, R, Ek, args.seed + 13, dev)
         pk = ConsensusParams(algorithm="k-means", max_iterations=1)
         label = f"k-means {R}x{Ek}"
@@ -2653,13 +2681,13 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
             f" the resolve); peak {peak:.3f} GiB; outcomes == truth "
             f"{correct:.6f}")
         t0 = time.perf_counter()
-        worst = max(compare_outputs(torch, r, out_k, MID_ATOL,
-                                    f"two hosts {label} host {i}")
-                    for i, r in enumerate(two_hosts(torch, host_k, pk, P)))
+        worst, rel = hosts_equal_one(torch, two_hosts(torch, host_k, pk, P),
+                                     out_k, f"two hosts {label}")
         log(f"two hosts on one card {label}: "
             f"{time.perf_counter() - t0:.3f} s; each host equal to one "
             f"host (exact keys equal, continuous max |diff| {worst:.3e} <= "
-            f"{MID_ATOL})")
+            f"{MID_ATOL}, reputations within {rel:.3e} of their largest "
+            f"<= {STREAM_REP_RTOL})")
         del host_k
         Rh, Eh = args.hybrid_r, args.hybrid_e
         host_h, truth_h = host_reports(torch, Rh, Eh, args.seed + 14, dev)
@@ -3124,12 +3152,6 @@ def main(argv=None) -> int:
                     help="also profile one main-path resolution")
     ap.add_argument("--resolutions", type=int, default=5,
                     help="timed resolutions per main-path configuration")
-    ap.add_argument("--panel-events", type=int, default=STREAM_PANEL,
-                    help="the streaming phase's panel width")
-    ap.add_argument("--ooc-events", type=int, default=OOC_E,
-                    help="events of the out-of-core configuration")
-    ap.add_argument("--kmeans-events", type=int, default=KMEANS_OOC_E,
-                    help="events of the out-of-core k-means")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")

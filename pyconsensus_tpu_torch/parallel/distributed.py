@@ -7,13 +7,17 @@ launcher makes on each host, before the first resolution: it joins the
 process group at a TCP rendezvous (``tcp://<coordinator>``; nothing on
 the card's machine tells a program of a cluster, so the address, the
 world size and the rank are explicit). The backend is NCCL for the card
-and gloo for an explicit ``device="cpu"`` (the CPU tests).
+and gloo for an explicit ``device="cpu"`` (the CPU tests). Under NCCL
+each process takes its own local card: ``LOCAL_RANK`` where a launcher
+sets it, else ``process_id`` modulo the host's cards.
 
 :func:`allreduce_sum` is ``streaming_consensus``'s default reduction: it
 gathers every host's array and sums them in host order,
 ``x_0 + x_1 + ...``, so each host gets the same bits and the sum's order
 is the one the threaded rendezvous of the tests uses (a collective's own
-reduction order is the library's). The hybrid (batch, event) mesh of
+reduction order is the library's). It gathers in slices of at most
+``GATHER_BYTES`` for all hosts together, so its scratch does not grow
+with the number of hosts. The hybrid (batch, event) mesh of
 several slices (``make_hybrid_mesh``, ``num_slices``) is ``ROADMAP.md``
 §A.10.
 """
@@ -22,8 +26,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import os
+
 import numpy as np
 import torch
+
+#: the device scratch of one gathered slice of :func:`allreduce_sum`, all
+#: hosts' copies together
+GATHER_BYTES = 256 << 20
 
 __all__ = ["initialize", "is_distributed", "rank", "world_size",
            "allreduce_sum"]
@@ -36,7 +46,10 @@ def initialize(coordinator_address: str, num_processes: int,
     initialised, is a no-op). ``coordinator_address`` is the ``host:port``
     every host passes alike; ``device`` None means the card (NCCL, which
     raises without one), ``"cpu"`` gloo. A failure raises: a misconfigured
-    launch never goes on as isolated single-host runs."""
+    launch never goes on as isolated single-host runs. Under NCCL a
+    device with no index takes the local card ``LOCAL_RANK`` or, without
+    it, ``process_id`` modulo the host's cards: two processes never share
+    one, which NCCL refuses."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -49,12 +62,20 @@ def initialize(coordinator_address: str, num_processes: int,
     from .sharded import resolve_device
 
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is not None:
-        torch.cuda.set_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev if dev.index is not None
+                              else _local_card(process_id))
     dist.init_process_group(
         backend="nccl" if dev.type == "cuda" else "gloo",
         init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id))
+
+
+def _local_card(process_id: int) -> int:
+    """This process's card on its host: ``LOCAL_RANK`` where a launcher
+    sets it, else ``process_id`` modulo the host's cards."""
+    return int(os.environ.get("LOCAL_RANK", process_id)) \
+        % torch.cuda.device_count()
 
 
 def is_distributed() -> bool:
@@ -90,17 +111,25 @@ def allreduce_sum(x):
     """The sum of ``x`` over every process of the group, in rank order.
     ``x`` is a numpy array (the result is a float64 numpy array) or a
     tensor (the result is a tensor of its dtype on its device); it crosses
-    to the collective's device and back only where that differs."""
+    to the collective's device and back only where that differs. Slices
+    of ``x`` are gathered one after another, all hosts' copies of one
+    slice taking at most ``GATHER_BYTES``."""
     import torch.distributed as dist
 
     as_numpy = not isinstance(x, torch.Tensor)
     t = torch.from_numpy(np.asarray(x, dtype=np.float64)) if as_numpy else x
-    home = t.device
-    t = t.to(_collective_device()).contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
-    total: Optional[torch.Tensor] = None
-    for part in parts:                          # host order
-        total = part if total is None else total + part
-    total = total.to(home)
+    home, shape = t.device, t.shape
+    flat = t.to(_collective_device()).reshape(-1)
+    world = dist.get_world_size()
+    step = max(1, GATHER_BYTES // (world * flat.element_size()))
+    total = torch.empty_like(flat)
+    for a in range(0, flat.numel(), step):
+        piece = flat[a:a + step].contiguous()
+        parts = [torch.empty_like(piece) for _ in range(world)]
+        dist.all_gather(parts, piece)
+        acc: Optional[torch.Tensor] = None
+        for part in parts:                      # host order
+            acc = part if acc is None else acc + part
+        total[a:a + step] = acc
+    total = total.reshape(shape).to(home)
     return total.numpy() if as_numpy else total

@@ -555,6 +555,11 @@ def _streaming_consensus_impl(reports_src, reputation, event_bounds,
     old_rep = nk.normalize(np.asarray(reputation, dtype=float))
     fill_rep = torch.as_tensor(old_rep, dtype=dtype, device=dev)
     tol = float(p.catch_tolerance)
+    # the worker thread uploads on the caller's current stream, whichever
+    # it is: the compute that reads a panel, and the allocator's reuse of
+    # a freed panel's block, are then ordered behind its copy
+    upload_stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                     else None)
 
     def _prepare(start: int):
         stop = min(start + P, E)
@@ -574,12 +579,12 @@ def _streaming_consensus_impl(reports_src, reputation, event_bounds,
         mn = np.pad(mins_all[start:stop], (0, P - width))
         mx = np.pad(maxs_all[start:stop], (0, P - width),
                     constant_values=1.0)
-        # pageable uploads on this thread's current stream, the device's
-        # default stream: ordered with the compute that reads them
-        return (start, stop, torch.from_numpy(block).to(dev),
-                torch.from_numpy(sc).to(dev),
-                torch.as_tensor(mn, dtype=dtype).to(dev),
-                torch.as_tensor(mx, dtype=dtype).to(dev), valid.to(dev))
+        # pageable uploads on the caller's stream (None on the CPU)
+        with torch.cuda.stream(upload_stream):
+            return (start, stop, torch.from_numpy(block).to(dev),
+                    torch.from_numpy(sc).to(dev),
+                    torch.as_tensor(mn, dtype=dtype).to(dev),
+                    torch.as_tensor(mx, dtype=dtype).to(dev), valid.to(dev))
 
     starts = list(range(0, E, P))[host_id::n_hosts]
     panel_count = obs.counter(

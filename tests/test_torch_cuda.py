@@ -1500,3 +1500,86 @@ def test_streaming_two_hosts_on_card(dev, algorithm):
     assert not any(t.is_alive() for t in threads)
     for i in range(2):
         _stream_close(results[i], single, 1e-5, f"host {i}")
+
+
+@pytest.mark.cuda
+def test_streaming_on_a_side_stream(dev):
+    """Called inside ``torch.cuda.stream(s)``, the prefetch worker uploads
+    every panel on ``s``, the stream the products run on: equal to the
+    result on the default stream."""
+    from pyconsensus_tpu_torch import streaming_consensus
+
+    reports = _stream_reports(10, 256, 2048)
+    p = _stream_params("sztorc", 2048, max_iterations=2)
+    base = streaming_consensus(reports, panel_events=300, params=p)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        out = streaming_consensus(reports, panel_events=300, params=p)
+    _stream_close(out, base, 1e-6, "side stream")
+
+
+def _stream_printout(text):
+    """``(outcome-count line, {reporter: (smooth_rep, bonus)})`` of a
+    ``python -m pyconsensus_tpu_torch --stream`` run."""
+    import re
+
+    counts = re.search(r"outcomes 0/0\.5/1: (\d+/\d+/\d+)", text)
+    assert counts, text
+    rows = {int(m[0]): (float(m[1]), float(m[2])) for m in
+            re.findall(r"^\s+(\d+)\s+([\d.e+-]+)\s+([\d.e+-]+)\s*$", text,
+                       re.M)}
+    assert len(rows) == 8, text
+    return counts.group(1), rows
+
+
+@pytest.mark.cuda
+def test_stream_processes_over_nccl(dev, tmp_path):
+    """``--coordinator/--hosts/--host-id`` with one process a card: each
+    joins the NCCL group on its own card (``initialize`` pins it), the
+    default all-reduce gathers over NCCL, and every host prints what a
+    single-host ``--stream`` run prints: the outcome counts exactly, the
+    top reputations within 1e-5 (the hosts sum in another order)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "r.npy")
+    np.save(path, _stream_reports(11, 256, 2048).astype(np.float32))
+    cmd = [sys.executable, "-m", "pyconsensus_tpu_torch", "--file", path,
+           "--stream", "--panel-events", "300", "--iterations", "2"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        cmd + ["--coordinator", f"localhost:{port}", "--hosts", str(n),
+               "--host-id", str(i)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=repo) for i in range(n)]
+    runs = []
+    try:
+        for proc in procs:
+            runs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:          # never leave a peer blocked in a
+            if proc.poll() is None:  # collective
+                proc.kill()
+                proc.communicate()
+    for proc, (out, err) in zip(procs, runs):
+        assert proc.returncode == 0, out + err
+    single = subprocess.run(cmd, capture_output=True, text=True, cwd=repo,
+                            timeout=300)
+    assert single.returncode == 0, single.stdout + single.stderr
+    want_counts, want_rows = _stream_printout(single.stdout)
+    for i, (out, _) in enumerate(runs):
+        assert f"host {i}/{n}" in out
+        counts, rows = _stream_printout(out)
+        assert counts == want_counts
+        assert rows.keys() == want_rows.keys()
+        for rid, vals in rows.items():
+            np.testing.assert_allclose(vals, want_rows[rid], atol=1e-5,
+                                       rtol=0)

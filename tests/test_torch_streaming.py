@@ -439,3 +439,72 @@ def test_dbscan_jit_given_distances_equal_computed(float64):
     given = cl.dbscan_jit_conformity(torch.zeros((12, 0)), rep, 0.8, 2,
                                      sq_dists=cl.pairwise_sq_dists(Xt))
     np.testing.assert_array_equal(direct.numpy(), given.numpy())
+
+
+_GATHER_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from pyconsensus_tpu_torch.parallel import distributed as d
+
+d.GATHER_BYTES = 48            # slices of 3 float64 or 6 float32 values
+rank = int(sys.argv[2])
+d.initialize(sys.argv[1], 2, rank, device="cpu")
+x = np.random.default_rng(rank).random((3, 7))
+t = torch.as_tensor(np.random.default_rng(10 + rank).random((2, 9)),
+                    dtype=torch.float32)
+print(d.allreduce_sum(x).tobytes().hex())
+print(d.allreduce_sum(t).numpy().tobytes().hex())
+"""
+
+
+def test_allreduce_sum_slices_in_host_order():
+    """Two gloo processes; ``allreduce_sum`` gathers in slices of
+    ``GATHER_BYTES`` and each host gets ``x_0 + x_1`` bit for bit, for a
+    numpy array (float64) and a float32 tensor."""
+    import os
+    import subprocess
+    import sys
+
+    from conftest import free_port
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    address = f"localhost:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GATHER_SCRIPT, address, str(i)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=repo) for i in range(2)]
+    runs = []
+    try:
+        for proc in procs:
+            runs.append(proc.communicate(timeout=120))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for proc, (out, err) in zip(procs, runs):
+        assert proc.returncode == 0, out + err
+    xs = [np.random.default_rng(r).random((3, 7)) for r in range(2)]
+    ts = [np.random.default_rng(10 + r).random((2, 9)).astype(np.float32)
+          for r in range(2)]
+    want = [(xs[0] + xs[1]).tobytes().hex(),
+            (ts[0] + ts[1]).tobytes().hex()]
+    for out, _ in runs:
+        assert out.split() == want
+
+
+@pytest.mark.parametrize("local_rank,process_id,cards,card",
+                         [(None, 5, 4, 1), ("2", 7, 4, 2), (None, 3, 8, 3)])
+def test_initialize_takes_the_local_card(monkeypatch, local_rank,
+                                         process_id, cards, card):
+    """Under NCCL each process takes its own card: ``LOCAL_RANK`` where it
+    is set, else ``process_id`` modulo the host's cards."""
+    from pyconsensus_tpu_torch.parallel import distributed
+
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert distributed._local_card(process_id) == card
