@@ -256,14 +256,15 @@ OUT_DIR = "chiprun_out"
 #: out-of-core configuration (``docs/MEASUREMENTS_r05.json:257-325``,
 #: "beyond HBM": 10,000 x 500,000 float32, memory-mapped from .npy);
 #: k-means' width (each of its 32 Lloyd iterations is two passes over
-#: the source);
+#: the source; two panels, cut from four to keep the script near half
+#: its time limit);
 #: the staging directory beside the checkout (listed in .gitignore); the
 #: largest reputation gap of a streamed result against the in-memory one
 #: or two hosts against one, over the largest reputation (a reputation is
 #: about 1/R, so an absolute band would pass one wrong by all of itself)
 STREAM_PANEL = 8192
 OOC_E = 500_000
-KMEANS_OOC_E = 32_768
+KMEANS_OOC_E = 16_384
 STAGE_DIR = ".ooc_stage"
 STREAM_REP_RTOL = 1e-6
 
@@ -316,6 +317,8 @@ PATH_KERNELS = {
     "gram plain": (),
     # k-means and dbscan-jit: the plain core's clustering, no PCA
     "clustering": (),
+    # the plain mesh core and the hybrid path over shards: no kernel
+    "mesh plain": (),
 }
 #: the storage types each kernel takes (fill_stats_pass: int8 and float32,
 #: as the reference runs it on int8 alone)
@@ -332,6 +335,7 @@ PATH_FORBIDS = {
         "apply_weighted_cov", "scores_dirfix_pass")),
     "gram plain": tuple(KERNELS),
     "clustering": tuple(KERNELS),
+    "mesh plain": tuple(KERNELS),
 }
 
 
@@ -595,6 +599,9 @@ def run(args) -> int:
         del placed
         del x8
         torch.cuda.empty_cache()
+
+    with phase(f"every algorithm on an event mesh ({where})"):
+        mesh_algorithms_phase(torch, args, drive, mesh, where, card, dev)
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on: the plain core's products "
@@ -1048,6 +1055,199 @@ def mesh_paths(torch, args, drive, x8, truth, mesh, where, single, card,
         f"equal to the pre-encoded mesh run, continuous max |diff| "
         f"{worst:.3e}; launches {counts}")
     return placed
+
+
+def mesh_flips(out, one):
+    """Events whose final outcome on the mesh differs from one device."""
+    return int((out["outcomes_final"] != one["outcomes_final"]).sum())
+
+
+def shard_kernel_times(torch, args, ck, xs, card):
+    """B.5, B.6 (k = 1) and B.3 on one bfloat16 shard of the mesh (the
+    float32 shard ``xs`` cast as the fused mesh casts it), each held
+    against its plain version on the card and timed with CUDA events
+    beside its bound (the shard read once, at the memory rate)."""
+    R, W = xs.shape
+    xb = xs.to(torch.bfloat16)
+    g = torch.Generator(device=xs.device)
+    g.manual_seed(args.seed + 12)
+    fill = (torch.rand(W, generator=g, device=xs.device) < 0.5).float()
+    rep = torch.full((R,), 1.0 / R, device=xs.device)
+    v = torch.randn(W, generator=g, device=xs.device)
+    total = rep.sum()
+    bound, by = bound_ms(R * W * 2, 2 * R * W)
+    cells = (
+        ("storage_matvec", lambda: ck.storage_matvec(xb, v, fill),
+         lambda: ck.storage_matvec_plain(xb, v, fill)),
+        ("storage_rows_matmat", lambda: ck.storage_rows_matmat(
+            xb, rep[None], fill),
+         lambda: ck.storage_rows_matmat_plain(xb, rep[None], fill)),
+        ("resolve_certainty_fused", lambda: ck.resolve_certainty_fused(
+            xb, rep, fill, total, 0.1),
+         lambda: ck.resolve_certainty_fused_plain(xb, rep, fill, total,
+                                                  0.1)))
+    for name, kernel, plain in cells:
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        worst = 0.0
+        for a, b in zip(got, ref):
+            d, rel = max_rel_err(torch, a, b)
+            worst = max(worst, rel)
+            if rel > FULL_RTOL:
+                raise RuntimeError(f"{name} on a {R}x{W} bfloat16 shard: "
+                                   f"max |diff| {d:.3e} against its plain "
+                                   "version")
+        ms = time_ms(torch, kernel, args.reps)
+        log(f"{name} [bfloat16 shard {R}x{W}]: {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}) on {card}; agrees with its plain version "
+            f"to {worst:.3e} of its scale")
+    del xb
+
+
+def mesh_algorithms_phase(torch, args, drive, mesh, where, card, dev):
+    """Every algorithm on the event mesh at full size, each against the
+    same resolution on one device (0 outcome flips) and printed with its
+    rate and peak device memory:
+    - sztorc on the fused mesh, bfloat16 storage with the last
+      ``SCALED_FUSED[0]`` events scaled (each shard's gather-median
+      tail): B.5, B.6 and B.3 launch on every shard, never the one-device
+      sweeps; the binary outcomes recover the truth and the scaled ones
+      ``20 truth - 5``; then B.5, B.6 and B.3 timed on one bfloat16 shard;
+    - fixed-variance and ica on the plain mesh core, float32,
+      ``max_iterations`` 1 (``"auto"``: the orthogonal iteration over the
+      shards' products);
+    - k-means and dbscan-jit (the geometry radius) on bfloat16 storage;
+    - hierarchical and dbscan at ``--hybrid-r`` x ``--hybrid-e``, the
+      distances folded over the shards.
+    The plain mesh core and the hybrid path launch no kernel."""
+    from pyconsensus_tpu_torch import ConsensusParams, sharded_consensus
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+    from pyconsensus_tpu_torch.parallel.mesh import place_event_shards
+    from pyconsensus_tpu_torch.parallel.sharded import resolve_params
+
+    R, E = args.reporters, args.events
+    n_sh = len(mesh)
+    n = args.resolutions
+    x8, truth = gen_reports(torch, R, E, args.seed + 11, dev)
+    n_sc = min(SCALED_FUSED[0], E // 8)
+    xf = float_reports(torch, x8, n_sc)
+    bounds = scaled_bounds(E, n_sc)
+    binary = slice(0, E - n_sc)
+
+    def cell(x, p, label, path, one, **kw):
+        """Drive ``x`` on the mesh, print the rate, peak and flips against
+        the one-device result ``one``; returns ``(out, counts)``."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, rate, counts = drive(x, p, label, path, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        flips = mesh_flips(out, one)
+        check_result(torch, out, *x.shape, p.algorithm,
+                     lattice=binary if kw else None)
+        log(f"{label}: {rate:.4f} resolutions/s ({1e3 / rate:.3f} ms each) "
+            f"on {card}; peak {peak:.3f} GiB; iterations "
+            f"{int(out['iterations'])}; outcome flips against one device "
+            f"{flips}")
+        if flips:
+            raise RuntimeError(f"{label}: {flips} outcomes differ from one "
+                               "device")
+        return out, counts
+
+    p = ConsensusParams(storage_dtype="bfloat16", power_tol=1e-5,
+                        pca_method="auto" if R > 4096 else "power-fused")
+    resolved = resolve_params(p._replace(any_scaled=True, n_scaled=n_sc), R,
+                              E, mesh[0], n_sh)
+    if not resolved.fused_resolution:
+        raise RuntimeError("sztorc, scaled, bfloat16: the fused mesh did not "
+                           "open")
+    one = sharded_consensus(xf, params=p, event_bounds=bounds)
+    t0 = time.perf_counter()
+    placed = place_event_shards(xf, mesh)
+    torch.cuda.synchronize()
+    log(f"mesh placement of the float32 reports ({where}): "
+        f"{time.perf_counter() - t0:.4f} s")
+    label = (f"sztorc mesh ({where}), {n_sc} scaled, bfloat16 fused, "
+             "max_iterations=1")
+    out, counts = cell(placed, p, label, "sztorc mesh", one,
+                       event_bounds=bounds)
+    final = out["outcomes_final"]
+    ok_bin = float((final[binary] == truth[binary]).float().mean())
+    ok_sc = float((final[E - n_sc:] == 20.0 * truth[E - n_sc:] - 5.0)
+                  .float().mean())
+    per = {k: counts[k] / (n * n_sh) for k in (
+        "storage_matvec", "storage_rows_matmat", "resolve_certainty_fused")}
+    log(f"{label}: binary outcomes == truth {ok_bin:.6f}, scaled outcomes "
+        f"== 20 truth - 5 {ok_sc:.6f}; launches a shard a resolution: B.5 "
+        f"{per['storage_matvec']:g}, B.6 {per['storage_rows_matmat']:g}, "
+        f"B.3 {per['resolve_certainty_fused']:g}; launches {counts}")
+    if ok_bin < 0.99 or ok_sc < 0.99:
+        raise RuntimeError(f"{label}: the outcomes do not recover the truth")
+    if per["resolve_certainty_fused"] != 1:
+        raise RuntimeError(f"{label}: resolve did not launch once a shard")
+    shard_kernel_times(torch, args, ck, placed.shards[0], card)
+    del placed, one, out, xf
+    torch.cuda.empty_cache()
+
+    xf = float_reports(torch, x8, 0)
+    del x8
+    binary = slice(None)
+    placed = place_event_shards(xf, mesh)
+    geo = geometry_knobs(E)
+    for algo, knobs in (
+            ("fixed-variance", {}), ("ica", {}),
+            ("k-means", dict(storage_dtype="bfloat16")),
+            ("dbscan-jit", dict(storage_dtype="bfloat16",
+                                dbscan_eps=geo["dbscan_eps"],
+                                dbscan_min_samples=4))):
+        p = ConsensusParams(algorithm=algo, max_iterations=1,
+                            power_tol=1e-5, **knobs)
+        resolved = resolve_params(p._replace(any_scaled=False), R, E,
+                                  mesh[0], n_sh)
+        if resolved.fused_resolution:
+            raise RuntimeError(f"{algo} mesh: the fused gate opened")
+        one = sharded_consensus(xf, params=p)
+        pca = (f", pca_method {resolved.pca_method}"
+               if algo in ("fixed-variance", "ica") else "")
+        label = (f"{algo} mesh ({where}) {R}x{E} "
+                 f"{knobs.get('storage_dtype', 'float32')}{pca}, "
+                 "max_iterations=1")
+        out, _ = cell(placed, p, label, "mesh plain", one)
+        correct = float((out["outcomes_adjusted"] == truth).float().mean())
+        log(f"{label}: outcomes == truth {correct:.6f}")
+        if correct < 0.99:
+            raise RuntimeError(f"{label}: the outcomes do not recover the "
+                               "truth")
+        del one, out
+    del placed, xf
+    torch.cuda.empty_cache()
+
+    Rh, Eh = args.hybrid_r, args.hybrid_e
+    x8, truth = gen_reports(torch, Rh, Eh, args.seed + 13, dev)
+    xf = float_reports(torch, x8, 0)
+    del x8
+    placed = place_event_shards(xf, mesh)
+    geo = geometry_knobs(Eh)
+    for algo, knob in (
+            ("hierarchical",
+             dict(hierarchy_threshold=geo["hierarchy_threshold"])),
+            ("dbscan", dict(dbscan_eps=geo["dbscan_eps"],
+                            dbscan_min_samples=4))):
+        p = ConsensusParams(algorithm=algo, **knob)
+        one = sharded_consensus(xf, params=p)
+        label = f"{algo} mesh ({where}) {Rh}x{Eh} geometry"
+        out, _ = cell(placed, p, label, "mesh plain", one)
+        correct = float((out["outcomes_final"] == truth).float().mean())
+        same = bool(torch.equal(out["this_rep"] > out["this_rep"].median(),
+                                one["this_rep"] > one["this_rep"].median()))
+        log(f"{label}: outcomes == truth {correct:.6f}; the clusters' "
+            f"upper half as one device's {same}")
+        if correct < 0.99:
+            raise RuntimeError(f"{label}: the outcomes do not recover the "
+                               "truth")
+        del one, out
+    del placed, xf
+    torch.cuda.empty_cache()
 
 
 def separable_paths(torch, args, drive, x8, truth, card, resolve_params):
@@ -2557,7 +2757,7 @@ def streaming_phase(torch, args, ck, card, dev, launches, here):
        resolved memory-mapped under sztorc, fixed-variance and dbscan-jit:
        seconds, panels a pass, peak device memory (below the source's
        bytes; sztorc's within 10% of part 1's streaming peak), the truth;
-    3. k-means at R x ``KMEANS_OOC_E`` (32,768), and hierarchical and
+    3. k-means at R x ``KMEANS_OOC_E`` (16,384), and hierarchical and
        dbscan at ``--hybrid-r`` x ``--hybrid-e`` against the in-memory
        ``Oracle`` (outcomes equal, the host clustering native);
     4. two hosts on one card (threads) equal to one, the reputations

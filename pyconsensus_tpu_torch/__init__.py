@@ -8,10 +8,12 @@ and clustering on the host through the native runtime
 (``native/cluster.cpp``); ``backend="numpy"``: the numpy pipeline), and,
 through ``sharded_consensus``, the fused resolution on NaN-threaded
 storage (int8 sentinel, or float32 or bfloat16 with NaN): sztorc,
-fixed-variance and ica on one device, with scaled events up to E // 8
-of them, and sztorc on an event mesh driven by one process
-(``parallel.mesh``); the clustering variants take the plain core or the
-hybrid path there. ``ShardedOracle`` is the ``Oracle`` over that
+fixed-variance and ica on one device and sztorc on an event mesh
+driven by one process (``parallel.mesh``), with scaled events up to
+E // 8 of them; every other algorithm and configuration takes the plain
+core or the hybrid path, on one device or over the mesh's shards
+(``parallel.plain_sharded``; ``parallel.ring`` holds the explicit ring
+collectives). ``ShardedOracle`` is the ``Oracle`` over that
 dispatch, and ``compare_algorithms`` resolves one matrix under several
 algorithms. The collusion simulator (``sim``: ``CollusionSimulator``,
 ``RoundsSimulator``, ``CheckpointedSweep``) resolves a whole Monte-Carlo

@@ -37,7 +37,8 @@ __all__ = [
     "kmeans_conformity_np", "kmeans_conformity",
     "hierarchical_conformity", "dbscan_conformity",
     "dbscan_jit_conformity_np", "dbscan_jit_conformity",
-    "dbscan_jit_same_matrix", "pairwise_sq_dists",
+    "dbscan_jit_same_matrix", "pairwise_sq_dists", "sq_dists_from",
+    "kmeans_sq_dists", "kmeans_update", "kmeans_mass",
 ]
 
 KMEANS_ITERS = 32
@@ -252,26 +253,36 @@ def pairwise_sq_dists(reports_filled: torch.Tensor) -> torch.Tensor:
     """(R, R) squared distances between reporter rows by the Gram
     expansion ``|x|² + |y|² − 2 x·y``, clamped at 0: the O(R² E) part of
     the distance-based variants, one product on the device."""
-    sq = torch.sum(reports_filled ** 2, dim=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (reports_filled
-                                            @ reports_filled.T)
-    return torch.clamp(d2, min=0.0)
+    return sq_dists_from(torch.sum(reports_filled ** 2, dim=1),
+                         reports_filled @ reports_filled.T)
 
 
-def _kmeans_assign(X: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """The nearest centroid of each row by the direct form
-    ``sum_e (x_e - c_e)²``, the first on a tie; rows in chunks that bound
-    the (rows, k, E) difference."""
+def sq_dists_from(sq: torch.Tensor, gram: torch.Tensor) -> torch.Tensor:
+    """The clamped Gram expansion from the rows' squared norms (R,) and
+    the Gram matrix (R, R); an event mesh folds both over its shards."""
+    return torch.clamp(sq[:, None] + sq[None, :] - 2.0 * gram, min=0.0)
+
+
+def kmeans_sq_dists(X: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """(R, k) squared distances of each row to each centroid by the direct
+    form ``sum_e (x_e - c_e)²``; rows in chunks that bound the (rows, k,
+    E) difference. Over an event mesh each shard gives its columns'
+    part."""
     R, E = X.shape
     k = centroids.shape[0]
     step = max(1, _KMEANS_CHUNK_ELEMS // max(1, k * E))
-    labels = []
+    parts = []
     for r0 in range(0, R, step):
         diff = X[r0:r0 + step, None, :] - centroids[None, :, :]
-        labels.append(torch.argmin(torch.sum(diff.pow_(2), dim=2), dim=1))
+        parts.append(torch.sum(diff.pow_(2), dim=2))
         del diff
-    return torch.cat(labels) if labels else torch.zeros(
-        0, dtype=torch.int64, device=X.device)
+    return torch.cat(parts) if parts else torch.zeros(
+        (0, k), dtype=X.dtype, device=X.device)
+
+
+def _kmeans_assign(X: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """The nearest centroid of each row, the first on a tie."""
+    return torch.argmin(kmeans_sq_dists(X, centroids), dim=1)
 
 
 def kmeans_conformity(reports_filled: torch.Tensor,
@@ -286,26 +297,41 @@ def kmeans_conformity(reports_filled: torch.Tensor,
     X = reports_filled.to(acc)
     R = X.shape[0]
     k = int(min(num_clusters, R))
-    seeds = torch.as_tensor(_seed_indices(R, k), device=X.device)
-    centroids = X[seeds]
-    ks = torch.arange(k, device=X.device)
+    centroids = X[torch.as_tensor(_seed_indices(R, k), device=X.device)]
     for _ in range(n_iters):
-        labels = _kmeans_assign(X, centroids)
-        onehot = (labels[:, None] == ks[None, :]).to(acc)
-        w = onehot * reputation[:, None]                # (R, k)
-        wsum = torch.sum(w, dim=0)                      # (k,)
-        weighted = w.T @ X                              # (k, E)
-        counts = torch.sum(onehot, dim=0)
-        plain = onehot.T @ X / torch.clamp(counts, min=1.0)[:, None]
-        one = torch.ones_like(wsum)
-        centroids = torch.where(
-            wsum[:, None] > 0.0,
-            weighted / torch.where(wsum > 0.0, wsum, one)[:, None],
-            torch.where(counts[:, None] > 0.0, plain, centroids))
-    labels = _kmeans_assign(X, centroids)
+        centroids = kmeans_update(X, _kmeans_assign(X, centroids),
+                                  reputation, centroids)
+    return kmeans_mass(_kmeans_assign(X, centroids), reputation, k)
+
+
+def kmeans_update(X: torch.Tensor, labels: torch.Tensor,
+                  reputation: torch.Tensor,
+                  centroids: torch.Tensor) -> torch.Tensor:
+    """One Lloyd update of the (k, E) centroids from the labels: the
+    reputation-weighted mean, the plain mean where a cluster has no
+    reputation mass, the old centroid where it has no member.
+    Column-local: an event mesh updates each shard's columns."""
+    acc = reputation.dtype
+    ks = torch.arange(centroids.shape[0], device=X.device)
     onehot = (labels[:, None] == ks[None, :]).to(acc)
-    mass = torch.sum(onehot * reputation[:, None], dim=0)      # (k,)
-    return mass[labels]
+    w = onehot * reputation[:, None]                    # (R, k)
+    wsum = torch.sum(w, dim=0)                          # (k,)
+    weighted = w.T @ X                                  # (k, E)
+    counts = torch.sum(onehot, dim=0)
+    plain = onehot.T @ X / torch.clamp(counts, min=1.0)[:, None]
+    one = torch.ones_like(wsum)
+    return torch.where(
+        wsum[:, None] > 0.0,
+        weighted / torch.where(wsum > 0.0, wsum, one)[:, None],
+        torch.where(counts[:, None] > 0.0, plain, centroids))
+
+
+def kmeans_mass(labels: torch.Tensor, reputation: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Each row's conformity: the reputation mass of its cluster."""
+    ks = torch.arange(k, device=labels.device)
+    onehot = (labels[:, None] == ks[None, :]).to(reputation.dtype)
+    return torch.sum(onehot * reputation[:, None], dim=0)[labels]
 
 
 def dbscan_jit_same_matrix(d2: torch.Tensor, eps: float, min_samples: int,

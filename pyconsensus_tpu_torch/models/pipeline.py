@@ -69,17 +69,8 @@ __all__ = ["ConsensusParams", "consensus_np", "consensus_torch",
            "encode_reports", "encode_reports_host", "decode_reports",
            "lattice_exact", "looks_encoded", "resolve_encoded",
            "ALGORITHMS", "JIT_ALGORITHMS", "HYBRID_ALGORITHMS",
-           "ROADMAP_SCALED_FUSED", "ROADMAP_BF16", "ROADMAP_MESH_PLAIN"]
+           "iterate_scores", "cluster_on_host"]
 
-#: where the parts the port refuses are queued (ROADMAP.md section A)
-ROADMAP_SCALED_FUSED = ("ROADMAP.md §A.10 (scaled events on an event "
-                        "mesh: the shard-local gather-median tail)")
-ROADMAP_BF16 = ("ROADMAP.md §A.10 (bfloat16 storage and matvec_dtype on an "
-                "event mesh)")
-ROADMAP_MESH_PLAIN = ("ROADMAP.md §A.10 (the plain pipeline and the "
-                      "hybrid clustering on an event mesh: fixed-variance, "
-                      "ica, the clustering variants, and sztorc where the "
-                      "fused gate closes)")
 #: the algorithms the fused path scores
 FUSED_ALGORITHMS = ("sztorc", "fixed-variance", "ica")
 #: the algorithms the plain core scores on the device
@@ -662,25 +653,34 @@ def _scores(filled, rep, p: ConsensusParams, v_init=None, sq_dists=None):
 
 
 def _iterate(filled, old_rep, p: ConsensusParams):
-    """The redistribution loop (``pipeline._iterate_jax``). The
-    reference's scan freezes its state once converged; the loop stops
+    """The redistribution loop (``pipeline._iterate_jax``) over the dense
+    filled matrix: :func:`iterate_scores` with :func:`_scores`.
+    dbscan-jit's distances are the same every iteration: one Gram."""
+    R, E = filled.shape
+    sq = (cl.pairwise_sq_dists(filled.to(old_rep.dtype))
+          if p.algorithm == "dbscan-jit" else None)
+    return iterate_scores(
+        lambda rep, v_init: _scores(filled, rep, p, v_init=v_init,
+                                    sq_dists=sq),
+        _subspace_carry_shape(p, R, E), old_rep, p)
+
+
+def iterate_scores(scores, carry_shape, old_rep, p: ConsensusParams):
+    """The plain core's redistribution loop on any layout:
+    ``scores(rep, v_init)`` returns ``(adj, warm-start carry or None, ica
+    flag or None)``; ``carry_shape`` is :func:`_subspace_carry_shape`'s.
+    The reference's scan freezes its state once converged; the loop stops
     there instead, which leaves the same state. Returns ``(rep, this_rep,
     loading or None, converged, iterations, ica_converged)``."""
-    R, E = filled.shape
     dev = old_rep.device
     rep, this_rep = old_rep, old_rep
     # zeros on iteration 1: the cold start of both iterations; the
     # clustering variants carry nothing
-    shape = _subspace_carry_shape(p, R, E)
-    loading = (None if shape is None else
-               torch.zeros(shape, dtype=old_rep.dtype, device=dev))
-    # dbscan-jit's distances are the same every iteration: one Gram
-    sq = (cl.pairwise_sq_dists(filled.to(old_rep.dtype))
-          if p.algorithm == "dbscan-jit" else None)
+    loading = (None if carry_shape is None else
+               torch.zeros(carry_shape, dtype=old_rep.dtype, device=dev))
     ica_conv, conv, iters = True, False, 0
     for _ in range(max(p.max_iterations, 1)):
-        adj, carry, ica_c = _scores(filled, rep, p, v_init=loading,
-                                    sq_dists=sq)
+        adj, carry, ica_c = scores(rep, loading)
         if carry is not None:
             loading = carry
         if ica_c is not None:
@@ -812,10 +812,44 @@ def _consensus_hybrid(reports, reputation, scaled, mins, maxs,
             filled = filled.to(getattr(torch, p.storage_dtype))
     sq = sq_dev.to("cpu", torch.float64).numpy()
     del sq_dev
+    rep, this_rep, iterations, converged = cluster_on_host(sq, old_rep, p)
+    acc = old_rep.dtype
+    rep_dev = torch.as_tensor(rep, dtype=acc, device=dev)
+    outcomes_raw, outcomes_adjusted = tk.resolve_outcomes(
+        present, filled, rep_dev, scaled, p.catch_tolerance,
+        any_scaled=p.any_scaled, has_na=p.has_na,
+        median_block=p.median_block, n_scaled=p.n_scaled)
+    result = ({} if light else
+              {"original": reports, "rescaled": rescaled, "filled": filled})
+    result.update({
+        "old_rep": old_rep,
+        "this_rep": torch.as_tensor(this_rep, dtype=acc, device=dev),
+        "smooth_rep": rep_dev,
+        "na_row": (~present).any(dim=1),
+        "outcomes_raw": outcomes_raw,
+        "outcomes_adjusted": outcomes_adjusted,
+        "outcomes_final": tk.unscale_outcomes(outcomes_adjusted, scaled,
+                                              mins, maxs),
+        "iterations": torch.tensor(iterations, dtype=torch.int32,
+                                   device=dev),
+        "convergence": torch.tensor(converged, device=dev),
+    })
+    result.update(tk.certainty_and_bonuses(
+        present, filled, rep_dev, outcomes_adjusted, scaled,
+        p.catch_tolerance, any_scaled=p.any_scaled))
+    return result
+
+
+def cluster_on_host(sq: np.ndarray, old_rep: torch.Tensor,
+                    p: ConsensusParams):
+    """The hybrid path's host phase (``hybrid.cluster``): the clustering
+    iterations against the (R, R) float64 squared distances ``sq``, with
+    the O(R) reputation updates in float64. Returns ``(rep, this_rep,
+    iterations, converged)``, the reputations as numpy."""
     rep = old_rep.to("cpu", torch.float64).numpy()
     # a shape-only placeholder: with the distances supplied, the host
     # clustering never reads the matrix
-    filled_host = np.empty((filled.shape[0], 0))
+    filled_host = np.empty((sq.shape[0], 0))
     this_rep = rep
     converged = False
     iterations = 0
@@ -842,32 +876,7 @@ def _consensus_hybrid(reports, reputation, scaled, mins, maxs,
                 break
         sp.set_attr("iterations", iterations)
         sp.set_attr("converged", converged)
-
-    acc = old_rep.dtype
-    rep_dev = torch.as_tensor(rep, dtype=acc, device=dev)
-    outcomes_raw, outcomes_adjusted = tk.resolve_outcomes(
-        present, filled, rep_dev, scaled, p.catch_tolerance,
-        any_scaled=p.any_scaled, has_na=p.has_na,
-        median_block=p.median_block, n_scaled=p.n_scaled)
-    result = ({} if light else
-              {"original": reports, "rescaled": rescaled, "filled": filled})
-    result.update({
-        "old_rep": old_rep,
-        "this_rep": torch.as_tensor(this_rep, dtype=acc, device=dev),
-        "smooth_rep": rep_dev,
-        "na_row": (~present).any(dim=1),
-        "outcomes_raw": outcomes_raw,
-        "outcomes_adjusted": outcomes_adjusted,
-        "outcomes_final": tk.unscale_outcomes(outcomes_adjusted, scaled,
-                                              mins, maxs),
-        "iterations": torch.tensor(iterations, dtype=torch.int32,
-                                   device=dev),
-        "convergence": torch.tensor(converged, device=dev),
-    })
-    result.update(tk.certainty_and_bonuses(
-        present, filled, rep_dev, outcomes_adjusted, scaled,
-        p.catch_tolerance, any_scaled=p.any_scaled))
-    return result
+    return rep, this_rep, iterations, converged
 
 
 def consensus_torch(reports, reputation, scaled, mins, maxs,

@@ -28,8 +28,9 @@ __all__ = ["normalize", "canon_sign_factor", "canon_sign", "catch_tie_atol",
            "interpolate", "weighted_cov", "resolve_pca_method",
            "weighted_prin_comp", "weighted_prin_comps",
            "direction_fixed_scores", "gather_median_pays",
-           "weighted_median_cols", "resolve_outcomes",
-           "certainty_and_bonuses"]
+           "weighted_median_cols", "resolve_outcomes", "certainty_cols",
+           "bonuses", "dense_bonuses", "certainty_and_bonuses",
+           "orth_iter_block"]
 
 #: sweep budget of the multi-component orthogonal iteration
 _ORTH_ITERS = 96
@@ -314,6 +315,23 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
                  - mu[:, None] * torch.sum(rt, dim=0)[None, :])
             return y / denom, None
 
+    V, eig, scores = orth_iter_block(apply_cov_block, E, k, acc, dev,
+                                     v_init)
+    # matrix-free trace: sum_e (rep . x_e^2 - mu_e^2) / denom
+    vals = _decode_storage(x, fill, acc)
+    col_sq = reputation @ (vals * vals)
+    trace = torch.sum(col_sq - mu * mu) / denom
+    return V, eig, torch.clamp(trace, min=0.0), scores
+
+
+def orth_iter_block(apply_cov_block: Callable, E: int, k: int,
+                    acc: torch.dtype, dev, v_init=None):
+    """The loop and the Rayleigh-Ritz step of :func:`_top_pcs_orth_iter`
+    over any layout: ``apply_cov_block(V, emit_t)`` applies the weighted
+    covariance to the (E, k) block on ``dev`` and returns ``(Y (E, k),
+    centered projections (R, k) or None)``. The block, its QR and the
+    final ``eigh`` live on ``dev`` (the event mesh gathers the block
+    there). Returns ``(loadings (E, k), eigvals (k,), scores or None)``."""
     seed = orth_seed(E, k, str(acc).removeprefix("torch."))
     V0, _ = torch.linalg.qr(torch.from_numpy(seed.copy()).to(dev))
     if v_init is not None:
@@ -363,11 +381,7 @@ def _top_pcs_orth_iter(x: torch.Tensor, mu: torch.Tensor,
     V = torch.where(ok, (V @ W).flip(1), V[:, order])
     scores = (None if t_c is None
               else torch.where(ok, (t_c @ W).flip(1), t_c[:, order]))
-    # matrix-free trace: sum_e (rep . x_e^2 - mu_e^2) / denom
-    vals = _decode_storage(x, fill, acc)
-    col_sq = reputation @ (vals * vals)
-    trace = torch.sum(col_sq - mu * mu) / denom
-    return V, eig, torch.clamp(trace, min=0.0), scores
+    return V, eig, scores
 
 
 def weighted_prin_comps_storage(x: torch.Tensor, fill: torch.Tensor,
@@ -813,19 +827,15 @@ def resolve_outcomes(present, filled: torch.Tensor,
                                      catch(outcomes_raw, tolerance))
 
 
-def certainty_and_bonuses(present, filled: torch.Tensor,
-                          smooth_rep: torch.Tensor,
-                          outcomes_adjusted: torch.Tensor,
-                          scaled: torch.Tensor, tolerance: float,
-                          has_na: bool = True,
-                          any_scaled: bool = True) -> dict:
-    """Certainty, participation and bonuses
-    (``jax_kernels.certainty_and_bonuses``). A binary report agrees when
-    it equals the snapped outcome, a scaled one when it lies within
-    ``tolerance``; the tolerance test runs on the scaled columns alone,
-    and not at all when ``any_scaled`` is False. ``has_na`` False takes
-    the closed form of an all-present matrix."""
-    R, E = filled.shape
+def certainty_cols(present, filled: torch.Tensor, smooth_rep: torch.Tensor,
+                   outcomes_adjusted: torch.Tensor, scaled: torch.Tensor,
+                   tolerance: float, any_scaled: bool = True):
+    """The column half of :func:`certainty_and_bonuses`: each event's
+    certainty, the reputation of the reporters that agree with its
+    outcome (a binary report equal to the snapped outcome, a scaled one
+    within ``tolerance``; the tolerance test runs on the scaled columns
+    alone, and not at all when ``any_scaled`` is False). Column-local:
+    an event mesh runs it on each shard."""
     dtype = smooth_rep.dtype
     agree = filled == outcomes_adjusted[None, :]
     if any_scaled:
@@ -833,30 +843,19 @@ def certainty_and_bonuses(present, filled: torch.Tensor,
         agree[:, idx] = (torch.abs(filled.index_select(1, idx).to(dtype)
                                    - outcomes_adjusted[idx][None, :])
                          <= tolerance)
-    certainty = smooth_rep @ agree.to(dtype)
-    del agree
-    consensus_reward = normalize(certainty)
-    if has_na:
-        na = (~present).to(dtype)
-        participation_columns = 1.0 - smooth_rep @ na
-        participation_rows = 1.0 - na @ consensus_reward
-        del na
-        percent_na = 1.0 - torch.mean(participation_columns)
-        na_bonus_rows = normalize(participation_rows)
-        reporter_bonus = (na_bonus_rows * percent_na
-                          + smooth_rep * (1.0 - percent_na))
-        na_bonus_cols = normalize(participation_columns)
-        author_bonus = (na_bonus_cols * percent_na
-                        + consensus_reward * (1.0 - percent_na))
-    else:
-        dev = filled.device
-        participation_columns = torch.ones(E, dtype=dtype, device=dev)
-        participation_rows = torch.ones(R, dtype=dtype, device=dev)
-        percent_na = torch.zeros((), dtype=dtype, device=dev)
-        na_bonus_rows = torch.full((R,), 1.0 / R, dtype=dtype, device=dev)
-        reporter_bonus = smooth_rep
-        na_bonus_cols = torch.full((E,), 1.0 / E, dtype=dtype, device=dev)
-        author_bonus = consensus_reward
+    return smooth_rep @ agree.to(dtype)
+
+
+def bonuses(smooth_rep: torch.Tensor, certainty: torch.Tensor,
+            consensus_reward: torch.Tensor,
+            participation_columns: torch.Tensor,
+            participation_rows: torch.Tensor) -> dict:
+    """The O(R + E) rest of :func:`certainty_and_bonuses` from its
+    certainty (E,), ``normalize(certainty)`` and the participation of
+    each event and each reporter."""
+    percent_na = 1.0 - torch.mean(participation_columns)
+    na_bonus_rows = normalize(participation_rows)
+    na_bonus_cols = normalize(participation_columns)
     return {
         "certainty": certainty,
         "consensus_reward": consensus_reward,
@@ -865,7 +864,53 @@ def certainty_and_bonuses(present, filled: torch.Tensor,
         "participation_rows": participation_rows,
         "percent_na": percent_na,
         "na_bonus_rows": na_bonus_rows,
-        "reporter_bonus": reporter_bonus,
+        "reporter_bonus": (na_bonus_rows * percent_na
+                           + smooth_rep * (1.0 - percent_na)),
         "na_bonus_cols": na_bonus_cols,
-        "author_bonus": author_bonus,
+        "author_bonus": (na_bonus_cols * percent_na
+                         + consensus_reward * (1.0 - percent_na)),
     }
+
+
+def dense_bonuses(smooth_rep: torch.Tensor, certainty: torch.Tensor,
+                  consensus_reward: torch.Tensor) -> dict:
+    """:func:`bonuses` in the closed form of an all-present matrix."""
+    R, E = smooth_rep.shape[0], certainty.shape[0]
+    dtype, dev = smooth_rep.dtype, smooth_rep.device
+    return {
+        "certainty": certainty,
+        "consensus_reward": consensus_reward,
+        "avg_certainty": torch.mean(certainty),
+        "participation_columns": torch.ones(E, dtype=dtype, device=dev),
+        "participation_rows": torch.ones(R, dtype=dtype, device=dev),
+        "percent_na": torch.zeros((), dtype=dtype, device=dev),
+        "na_bonus_rows": torch.full((R,), 1.0 / R, dtype=dtype, device=dev),
+        "reporter_bonus": smooth_rep,
+        "na_bonus_cols": torch.full((E,), 1.0 / E, dtype=dtype, device=dev),
+        "author_bonus": consensus_reward,
+    }
+
+
+def certainty_and_bonuses(present, filled: torch.Tensor,
+                          smooth_rep: torch.Tensor,
+                          outcomes_adjusted: torch.Tensor,
+                          scaled: torch.Tensor, tolerance: float,
+                          has_na: bool = True,
+                          any_scaled: bool = True) -> dict:
+    """Certainty, participation and bonuses
+    (``jax_kernels.certainty_and_bonuses``): :func:`certainty_cols`, then
+    :func:`bonuses`. ``has_na`` False takes the closed form of an
+    all-present matrix."""
+    dtype = smooth_rep.dtype
+    certainty = certainty_cols(present, filled, smooth_rep,
+                               outcomes_adjusted, scaled, tolerance,
+                               any_scaled)
+    consensus_reward = normalize(certainty)
+    if not has_na:
+        return dense_bonuses(smooth_rep, certainty, consensus_reward)
+    na = (~present).to(dtype)
+    participation_columns = 1.0 - smooth_rep @ na
+    participation_rows = 1.0 - na @ consensus_reward
+    del na
+    return bonuses(smooth_rep, certainty, consensus_reward,
+                   participation_columns, participation_rows)

@@ -29,7 +29,7 @@ import torch
 
 __all__ = ["make_mesh", "as_mesh", "effective_median_block",
            "EventShards", "place_event_shards", "scatter", "gather",
-           "fold"]
+           "fold", "shard_counts", "scatter_bounds"]
 
 #: columns each shard's width is padded to a multiple of: one 16-byte
 #: load of int8 storage, whatever dtype the reports are placed in
@@ -90,9 +90,10 @@ def effective_median_block(median_block: int, mesh) -> int:
     shards the event axis, the caller's width otherwise
     (``mesh.py:32``: the blocked median's slices do not partition over
     the event axis, and each shard bounds its own sort temporaries).
-    The out-of-core driver's resolve pass calls it (with no mesh: its
-    ``mesh=`` is ``ROADMAP.md`` §A.10); the fused paths have no blocked
-    median."""
+    The front door sets it on the parameters of a mesh, the plain mesh
+    core's outcome resolution reads it, and the out-of-core driver's
+    resolve pass calls it (with no mesh: its ``mesh=`` is ``ROADMAP.md``
+    §A.10); the fused paths have no blocked median."""
     if mesh is not None and len(mesh) > 1:
         return 0
     return median_block
@@ -129,7 +130,9 @@ def _split(E: int, n: int) -> tuple:
     return tuple(E // n + (1 if i < E % n else 0) for i in range(n))
 
 
-def _padded(width: int) -> int:
+def padded_width(width: int) -> int:
+    """A shard width padded up to a multiple of 16 columns (module
+    docstring)."""
     return max(_ALIGN_COLUMNS, -(-width // _ALIGN_COLUMNS) * _ALIGN_COLUMNS)
 
 
@@ -160,7 +163,7 @@ def place_event_shards(reports, mesh, dtype=None) -> EventShards:
             block = torch.from_numpy(np.array(block, order="C"))
         block = block.to(device=dev, dtype=dtype)
         o += w
-        pad = (_padded(w) - w) if len(mesh) > 1 else 0
+        pad = (padded_width(w) - w) if len(mesh) > 1 else 0
         if pad:
             block = torch.nn.functional.pad(block, (0, pad))
         shards.append(block.contiguous())
@@ -168,12 +171,40 @@ def place_event_shards(reports, mesh, dtype=None) -> EventShards:
 
 
 def scatter(v: torch.Tensor, placed: EventShards) -> list:
-    """The (E,) vector ``v`` as per-shard (W_i,) slices on each shard's
-    device, zero on the pad columns."""
+    """The (E,) vector or (E, k) block ``v`` as per-shard (W_i,) or
+    (W_i, k) slices on each shard's device, zero on the pad columns. Each
+    slice is a fresh allocation, so the kernels' aligned loads hold."""
     out = []
     for shard, o, w in zip(placed.shards, placed.offsets, placed.widths):
-        piece = torch.nn.functional.pad(v[o:o + w], (0, shard.shape[1] - w))
+        piece = v.new_zeros((shard.shape[1],) + tuple(v.shape[1:]))
+        piece[:w] = v[o:o + w]
         out.append(piece.to(shard.device, non_blocking=True))
+    return out
+
+
+def shard_counts(mask, placed: EventShards) -> tuple:
+    """How many events of the (E,) host mask fall on each shard."""
+    m = np.asarray(mask, dtype=bool)
+    return tuple(int(m[o:o + w].sum())
+                 for o, w in zip(placed.offsets, placed.widths))
+
+
+def scatter_bounds(scaled, mins, maxs, placed: EventShards) -> list:
+    """The event bounds as per-shard ``(scaled, mins, maxs)`` slices on
+    each shard's device, the bounds in float32 as one device takes them.
+    A pad column is a binary event on [0, 1], which rescale leaves as it
+    is."""
+    fdt = torch.float32
+    out = []
+    for shard, o, w in zip(placed.shards, placed.offsets, placed.widths):
+        W, dev = shard.shape[1], shard.device
+        sc = torch.zeros(W, dtype=torch.bool)
+        lo = torch.zeros(W, dtype=fdt)
+        hi = torch.ones(W, dtype=fdt)
+        sc[:w] = torch.as_tensor(np.asarray(scaled[o:o + w], dtype=bool))
+        lo[:w] = torch.as_tensor(np.asarray(mins[o:o + w]), dtype=fdt)
+        hi[:w] = torch.as_tensor(np.asarray(maxs[o:o + w]), dtype=fdt)
+        out.append((sc.to(dev), lo.to(dev), hi.to(dev)))
     return out
 
 

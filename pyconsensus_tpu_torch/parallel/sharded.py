@@ -4,24 +4,24 @@ gate, placement, and the light pipeline on one device or on an event
 mesh.
 
 The gate opens on the CPU (where every kernel wrapper runs its plain
-version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels:
-on one device for sztorc and for the multi-component variants
-fixed-variance and ica, on an event mesh of more than one shard for
-sztorc (``parallel/fused_sharded.py``); scaled events may not exceed
-E // 8 of the events, and on one device they take the gather-median
-tail. Where it closes on one device (exact eigh PCA, which
-``pca_method="auto"`` picks at R <= 4096, and for the multi-component
-variants also at E <= 1024; scaled events beyond E // 8; float storage
-off the kernels' fit), the plain core over the whole filled matrix
-serves (``models/pipeline.py _consensus_core``), as it does for k-means
-and dbscan-jit; hierarchical and dbscan take the hybrid path
-(``_consensus_hybrid``: distances on the device, clustering on the host).
-Storage is the float reports as float32, int8 sentinel storage or
-bfloat16 (:func:`resolve_auto_storage` is the reference's rule between
-the last two). What the port does not cover yet raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it: on
-an event mesh scaled events, bfloat16, the plain core, the clustering
-variants and batch meshes.
+version) and on an sm_90 CUDA device whose shapes fit the Hopper kernels
+(on a mesh, at its widest padded shard): on one device for sztorc and for
+the multi-component variants fixed-variance and ica, on an event mesh of
+more than one shard for sztorc (``parallel/fused_sharded.py``); scaled
+events may not exceed E // 8 of the events, and take the gather-median
+tail. Where it closes (exact eigh PCA, which ``pca_method="auto"`` picks
+at R <= 4096, and for the multi-component variants also at E <= 1024;
+scaled events beyond E // 8; float storage off the kernels' fit; on a
+mesh every algorithm but sztorc), the plain core over the whole filled
+matrix serves (``models/pipeline.py _consensus_core``, on a mesh
+``parallel/plain_sharded.py``), as it does for k-means and dbscan-jit;
+hierarchical and dbscan take the hybrid path (``_consensus_hybrid``:
+distances on the device, clustering on the host; on a mesh the distances
+fold over the shards). A closed gate on a mesh turns ``"power-fused"``
+into ``"power"``, as the reference's does. Storage is the float reports
+as float32, int8 sentinel storage or bfloat16 (:func:`resolve_auto_storage`
+is the reference's rule between the last two). A batch x event mesh
+raises ``NotImplementedError`` naming ``ROADMAP.md`` §A.10.
 
 :class:`ShardedOracle` is the ``Oracle`` over the same dispatch: the
 class API with ``mesh=``, ``place()`` to keep the reports on the card
@@ -44,17 +44,18 @@ from ..faults import degrade as _degrade
 from ..faults import plan as _faults
 from ..faults.errors import InputError
 from ..models.pipeline import (ALGORITHMS, FUSED_ALGORITHMS,
-                               HYBRID_ALGORITHMS, ROADMAP_BF16,
-                               ROADMAP_MESH_PLAIN, ROADMAP_SCALED_FUSED,
-                               ConsensusParams, _consensus_core_light,
-                               check_matvec_dtype, encode_reports)
+                               HYBRID_ALGORITHMS, ConsensusParams,
+                               _consensus_core_light, check_matvec_dtype,
+                               encode_reports, lattice_exact)
 from ..ops.cuda_kernels import (fused_pca_fits, matmat_kernels_fit,
                                 require_hopper, resolve_kernel_fits)
 from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
                                  gather_median_pays)
 from ..oracle import Oracle, parse_event_bounds
 from .fused_sharded import fused_sharded_consensus
-from .mesh import EventShards, as_mesh, make_mesh, place_event_shards
+from .mesh import (EventShards, as_mesh, effective_median_block,
+                   make_mesh, padded_width, place_event_shards)
+from .plain_sharded import hybrid_sharded_consensus, plain_sharded_consensus
 
 __all__ = ["sharded_consensus", "ShardedOracle", "resolve_device",
            "resolve_params", "resolve_auto_storage"]
@@ -127,16 +128,22 @@ def _multi_fits(p: ConsensusParams, n_reporters: int, n_events: int) -> bool:
 
 def _use_fused_resolution(p: ConsensusParams, n_reporters: int,
                           n_events: int, n_event: int = 1) -> bool:
-    """The fused-path gate at the widest shard of ``n_event``. Scaled
-    events take it only as a small minority (``0 < n_scaled <= E // 8``,
-    the reference's ``scaled_ok``)."""
+    """The fused-path gate at the widest shard of ``n_event``, padded to
+    16 columns on a mesh; a mesh scores sztorc alone. Scaled events take
+    it only as a small minority (``0 < n_scaled <= E // 8``, the
+    reference's ``scaled_ok``)."""
     itemsize = _itemsize(p)
     e_local = -(-n_events // n_event)
+    if n_event > 1:
+        e_local = padded_width(e_local)
+        algo_ok = p.algorithm == "sztorc"
+    else:
+        algo_ok = p.algorithm in FUSED_ALGORITHMS
     multi_fit = (p.algorithm not in _MULTI_COMPONENT
                  or _multi_fits(p, n_reporters, e_local))
     scaled_ok = not p.any_scaled or 0 < p.n_scaled <= n_events // 8
     return (p.allow_fused
-            and p.algorithm in FUSED_ALGORITHMS
+            and algo_ok
             and p.pca_method in ("power", "power-fused")
             and scaled_ok
             and multi_fit
@@ -149,8 +156,9 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
     """The parameters ``sharded_consensus`` runs with (``any_scaled``,
     ``n_scaled`` and ``has_na`` already set) on ``device``, or on an event
     mesh of ``n_event`` shards whose first device is ``device``: the PCA
-    method, the fused gate, the plain core's scaled count, and the
-    refusals of what the port does not cover."""
+    method, the median's blocking, the fused gate and the plain core's
+    scaled count, in the reference's order (``_resolve_sharded_params``),
+    and its refusals."""
     if p.storage_dtype == "int8" and p.any_scaled:
         raise ValueError(
             "storage_dtype='int8' supports binary/categorical events "
@@ -160,42 +168,32 @@ def resolve_params(p: ConsensusParams, R: int, E: int,
         raise ValueError(f"storage_dtype={p.storage_dtype!r}: choose from "
                          f"{_STORAGE}")
     check_matvec_dtype(p.matvec_dtype)
-    if n_event > 1 and (p.storage_dtype == "bfloat16"
-                        or p.matvec_dtype == "bfloat16"):
-        raise NotImplementedError(
-            f"storage_dtype={p.storage_dtype!r}, matvec_dtype="
-            f"{p.matvec_dtype!r} on an event mesh of {n_event} shards: "
-            f"{ROADMAP_BF16}")
     if p.algorithm not in ALGORITHMS:
         raise InputError(f"unknown algorithm: {p.algorithm!r}")
-    if n_event > 1 and p.algorithm != "sztorc":
-        raise NotImplementedError(
-            f"algorithm={p.algorithm!r} on an event mesh of {n_event} "
-            f"shards takes the reference's XLA or hybrid path: "
-            f"{ROADMAP_MESH_PLAIN}")
     # the kernel wrappers serve the CPU through their plain versions and
     # an sm_90 card through the kernels; any other card is refused
     require_hopper(device)
-    p = p._replace(pca_method=_pick_pca_method(p, R, E))
+    p = p._replace(pca_method=_pick_pca_method(p, R, E),
+                   median_block=effective_median_block(
+                       p.median_block, [device] * n_event))
     p = p._replace(fused_resolution=_use_fused_resolution(p, R, E, n_event))
     if p.fused_resolution:
-        if p.any_scaled and n_event > 1:
-            raise NotImplementedError(
-                f"{p.n_scaled} scaled of {E} events (at most E // 8) on an "
-                f"event mesh of {n_event} shards: {ROADMAP_SCALED_FUSED}")
         return p
+    if p.pca_method == "power-fused" and n_event > 1:
+        # a closed gate on a mesh: the plain mesh core's power iteration
+        p = p._replace(pca_method="power")
     if p.storage_dtype == "int8":
         raise ValueError(
             "storage_dtype='int8' requires the fused kernel path (power-"
             "family pca_method, an sm_90 card or the CPU, a shape the "
-            f"kernels fit); resolved pca_method={p.pca_method!r}, "
-            f"device={device}, R={R}, E={E}")
-    if n_event > 1:
-        raise NotImplementedError(
-            f"pca_method={p.pca_method!r}, {p.n_scaled} scaled events: the "
-            f"fused gate closes on the mesh: {ROADMAP_MESH_PLAIN}")
-    # the plain core medians a gather of the scaled columns where that pays
-    return p._replace(n_scaled=p.n_scaled if p.median_block > 0
+            "kernels fit, sztorc on a mesh); resolved pca_method="
+            f"{p.pca_method!r}, algorithm={p.algorithm!r}, device={device}, "
+            f"event shards={n_event}, R={R}, E={E}; use "
+            "storage_dtype='bfloat16'")
+    # the plain core medians a gather of the scaled columns where that
+    # pays, on one device (a mesh's median is shard-local and unblocked)
+    return p._replace(n_scaled=p.n_scaled if n_event == 1
+                      and p.median_block > 0
                       and gather_median_pays(p.n_scaled, E) else 0)
 
 
@@ -229,9 +227,7 @@ def resolve_auto_storage(p: ConsensusParams, R: int, E: int, device=None,
     require_hopper(dev)
     trial = p._replace(storage_dtype="int8")
     trial = trial._replace(pca_method=_pick_pca_method(trial, R, E))
-    # the event mesh's fused path scores sztorc alone
-    if ((n_event == 1 or trial.algorithm == "sztorc")
-            and _use_fused_resolution(trial, R, E, n_event)):
+    if _use_fused_resolution(trial, R, E, n_event):
         return "int8", (f"all-binary workload on the fused path "
                         f"(pca_method={trial.pca_method!r}, "
                         f"n_event={n_event}, device={dev})")
@@ -290,16 +286,23 @@ def _record_sharded_dispatch(p: ConsensusParams, n_event: int) -> str:
 
 def _dispatch(reports, rep: torch.Tensor, scaled, mins, maxs,
               p: ConsensusParams, dev: torch.device, mesh) -> dict:
-    """Count, place and run one resolution with resolved ``p``: the fused
-    path over an event mesh of more than one shard, else the light
-    pipeline on ``dev`` (the fused path, the plain core or the hybrid
-    path)."""
+    """Count, place and run one resolution with resolved ``p``
+    (``pyconsensus_tpu/parallel/sharded.py:600-643``): on an event mesh of
+    more than one shard the hybrid path, the fused path or the plain core
+    over the shards; else the light pipeline on ``dev`` (the fused path,
+    the plain core or the hybrid path)."""
     n_event = len(mesh) if mesh is not None else 1
     path = _record_sharded_dispatch(p, n_event)
     if n_event > 1:
         if not isinstance(reports, EventShards):
             reports = place_event_shards(reports, mesh)
-        return fused_sharded_consensus(reports, rep, p)
+        if p.algorithm in HYBRID_ALGORITHMS:
+            return hybrid_sharded_consensus(reports, rep, scaled, mins,
+                                            maxs, p)
+        if p.fused_resolution:
+            return fused_sharded_consensus(reports, rep, p, scaled, mins,
+                                           maxs)
+        return plain_sharded_consensus(reports, rep, scaled, mins, maxs, p)
     x = (reports.shards[0] if isinstance(reports, EventShards)
          else _place_reports(reports, dev))
     # the bounds in the storage's float type, as the reference takes them
@@ -378,17 +381,17 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
 class ShardedOracle(Oracle):
     """The :class:`~pyconsensus_tpu_torch.oracle.Oracle` resolved through
     the front door's dispatch (``pyconsensus_tpu/parallel/sharded.py
-    ShardedOracle``): the fused path where the gate opens (on one device
-    or, for sztorc, over an event mesh), the plain core where it closes
-    on one device. The constructor adds ``mesh=`` (``make_mesh``; default
-    one shard on ``device``, which defaults to the card).
+    ShardedOracle``): every algorithm and storage, on one device or over
+    an event mesh (the fused path where the gate opens, the plain core
+    where it closes, the hybrid path for hierarchical and dbscan). The
+    constructor adds ``mesh=`` (``make_mesh``; default one shard on
+    ``device``, which defaults to the card).
     ``consensus()`` returns the reference-shaped dict without the (R, E)
     matrices. A non-finite result walks the inherited fallback chain on
     the mesh's first device: the re-resolve trades the fused path for the
     plain core on purpose, and drops the (R, E) outputs too.
 
-    Only ``backend="torch"``. What the port's mesh does not cover raises
-    naming ``ROADMAP.md`` §A.10, as ``sharded_consensus`` does."""
+    Only ``backend="torch"``."""
 
     _LIGHT_RECOVERY = True
     _SPAN_ATTRS = {"sharded": True}
@@ -416,14 +419,23 @@ class ShardedOracle(Oracle):
         """Place the reports on the mesh (and the reputation on its first
         device) once, so that each later ``consensus()`` uploads nothing.
         With ``storage_dtype="int8"`` the placed storage is the int8
-        encoding, made once on the device: the fused path would encode
-        the float reports on every call, to the same bits. ``reports``
-        stays the host matrix the recovery rungs read: change it and call
-        ``place()`` again."""
+        encoding, made once on each device: the fused path would encode
+        the float reports on every call, to the same bits. With
+        ``"bfloat16"`` and no scaled event, the shards are cast once on
+        each device when every value is on the {0, 0.5, 1} lattice (or
+        absent), where the fill statistics read the same values either
+        way; scaled events keep the raw float32 shards, which each call
+        rescales before its cast. ``reports`` stays the host matrix the
+        recovery rungs read: change it and call ``place()`` again."""
         placed = place_event_shards(self.reports, self.mesh)
-        if self.params.storage_dtype == "int8":
+        storage = self.params.storage_dtype
+        if storage == "int8":
             placed = placed._replace(shards=tuple(
                 encode_reports(x) for x in placed.shards))
+        elif (storage == "bfloat16" and not self.params.any_scaled
+              and lattice_exact(self.reports)):
+            placed = placed._replace(shards=tuple(
+                x.to(torch.bfloat16) for x in placed.shards))
         self._placed = (placed, self._device_reputation())
         return self
 

@@ -448,15 +448,46 @@ def test_sharded_front_door_on_one_cpu_device(float64, algo):
 
 
 @pytest.mark.parametrize("algo", CLUSTERING)
-def test_mesh_of_four_refuses_naming_a10(algo):
+def test_mesh_of_four_refuses_naming_a10(float64, algo):
+    """The clustering variants on a mesh of four CPU shards, which this
+    test once held to a refusal naming ``ROADMAP.md`` §A.10: k-means and
+    dbscan-jit on the plain mesh core, hierarchical and dbscan on the
+    hybrid path with the distances folded over the shards.
+    ``sharded_consensus`` and ``ShardedOracle`` against the reference's
+    on its mesh of four, within 1e-9 and the exact keys equal; only a
+    batch x event mesh still names the roadmap."""
+    from pyconsensus_tpu.models.pipeline import \
+        ConsensusParams as RefParams
+    from pyconsensus_tpu.parallel import ShardedOracle as RefShardedOracle
+    from pyconsensus_tpu.parallel import make_mesh as ref_make_mesh
+    from pyconsensus_tpu.parallel import \
+        sharded_consensus as ref_sharded_consensus
+
     reports, _ = majority_matrix(np.random.default_rng(3), R=24, E=40,
                                  liars=6)
-    mesh = make_mesh(devices=["cpu"] * 4)
+    reports[np.random.default_rng(4).random(reports.shape) < 0.1] = np.nan
+    rep = np.random.default_rng(5).random(24) + 0.5
+    knobs = dict(algorithm=algo, max_iterations=3, **CONFIG4[algo])
+    mesh, ref_mesh = make_mesh(devices=["cpu"] * 4), ref_make_mesh(batch=1,
+                                                                  event=4)
+    out = sharded_consensus(reports.astype(np.float32), reputation=rep,
+                            params=ConsensusParams(**knobs), mesh=mesh)
+    ref = ref_sharded_consensus(reports, reputation=rep, mesh=ref_mesh,
+                                params=RefParams(**knobs))
+    assert set(out) == set(ref)
+    for key, a in ref.items():
+        a, b = np.asarray(a), np.asarray(out[key])
+        if key in ("outcomes_adjusted", "outcomes_final", "na_row",
+                   "iterations", "convergence", "quarantined_rows"):
+            np.testing.assert_array_equal(b, a, err_msg=key)
+        else:
+            np.testing.assert_allclose(b, a, atol=1e-9, rtol=0, err_msg=key)
+    kw = dict(reports=reports, reputation=rep, **knobs)
+    got = ShardedOracle(mesh=mesh, **kw).place().consensus()
+    assert_oracles_match(got, RefShardedOracle(backend="jax", mesh=ref_mesh,
+                                               **kw).consensus(), atol=1e-9)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
-        sharded_consensus(reports, params=ConsensusParams(algorithm=algo),
-                          mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
-        ShardedOracle(reports=reports, algorithm=algo, mesh=mesh)
+        make_mesh(batch=2, devices=["cpu"] * 4)
 
 
 def test_compare_algorithms_matches_serial_oracles(float64):

@@ -1102,6 +1102,135 @@ def test_clustering_card_matches_cpu(dev, algorithm, sharded):
                                      kind="stable"))
 
 
+# -- every algorithm on an event mesh ----------------------------------------
+
+MESH_FUSED = ("storage_matvec", "storage_rows_matmat",
+              "resolve_certainty_fused")
+
+
+def _on_card(out, dev):
+    """Every tensor of a mesh result lives on the mesh's first card."""
+    for key, v in out.items():
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == dev.type, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,matvec", [("bfloat16", ""),
+                                            ("bfloat16", "bfloat16"),
+                                            ("", "bfloat16")])
+def test_mesh_fused_scaled_card_matches_cpu(dev, storage, matvec):
+    """sztorc on the fused mesh, four shards on one card, with 100 scaled
+    of 1037 events (each shard's gather-median tail) against four CPU
+    shards: B.5, B.6 and B.3 launch on every shard (at least one launch a
+    shard a sweep), never the one-device sweeps; binary outcomes equal,
+    scaled ones within 1e-5 of the span."""
+    from pyconsensus_tpu_torch.parallel.mesh import make_mesh
+
+    reports, bounds, rep = scaled_minority(53)
+    p = ConsensusParams(pca_method="power", storage_dtype=storage,
+                        matvec_dtype=matvec, power_iters=64, power_tol=-1.0,
+                        max_iterations=3)
+    x = reports.astype(np.float32)
+    ck.reset_launch_counts()
+    a = sharded_consensus(x, reputation=rep, event_bounds=bounds, params=p,
+                          mesh=make_mesh(devices=[dev] * 4))
+    counts = ck.launch_counts()
+    assert counts["resolve_certainty_fused"] == 4, counts    # one a shard
+    for name in MESH_FUSED:
+        assert counts[name] >= 4, counts
+    assert counts["apply_weighted_cov"] == 0, counts
+    assert counts["scores_dirfix_pass"] == 0, counts
+    _on_card(a, dev)
+    b = sharded_consensus(x, reputation=rep, event_bounds=bounds, params=p,
+                          mesh=make_mesh(devices=["cpu"] * 4))
+    _compare(a, b, 1e-5, reports.shape[1] - 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,pca,atol", [
+    ("sztorc", "auto", 1e-5), ("sztorc", "power", 1e-5),
+    ("fixed-variance", "auto", 2e-3), ("fixed-variance", "power", 2e-3),
+    ("ica", "auto", 2e-3), ("ica", "power", 2e-3), ("k-means", "auto", 1e-5),
+    ("dbscan-jit", "auto", 1e-5), ("hierarchical", "auto", 1e-5),
+    ("dbscan", "auto", 1e-5)])
+def test_mesh_plain_card_matches_cpu(dev, algorithm, pca, atol):
+    """The plain mesh core and the hybrid path, four shards on one card
+    against four CPU shards, float32, scaled events beyond E // 8 and
+    bfloat16 storage for the clustering variants; ``"auto"`` is the Gram
+    eigh here, ``"power"`` the power loop or the orthogonal iteration
+    over the shards' products: no storage kernel
+    launches (the reference's XLA products), exact keys equal, the rest
+    within the band (the clustering variants' partitions equal)."""
+    from pyconsensus_tpu_torch.parallel.mesh import make_mesh
+
+    reports, bounds, rep = plain_inputs(59, R=256, E=1037)
+    knobs = (_cluster_knobs(algorithm, 1037)
+             if algorithm in ("k-means", "dbscan-jit", "hierarchical",
+                              "dbscan") else {})
+    storage = "bfloat16" if knobs else ""
+    p = ConsensusParams(algorithm=algorithm, pca_method=pca,
+                        max_iterations=3, power_iters=64, power_tol=-1.0,
+                        storage_dtype=storage, **knobs)
+    x = reports.astype(np.float32)
+    ck.reset_launch_counts()
+    a = sharded_consensus(x, reputation=rep, event_bounds=bounds, params=p,
+                          mesh=make_mesh(devices=[dev] * 4))
+    assert not any(ck.launch_counts().values()), ck.launch_counts()
+    _on_card(a, dev)
+    b = sharded_consensus(x, reputation=rep, event_bounds=bounds, params=p,
+                          mesh=make_mesh(devices=["cpu"] * 4))
+    assert set(a) == set(b)
+    _compare(a, b, atol, reports.shape[1] - 150)
+    if knobs:
+        assert _same_partition(a["this_rep"].cpu(), b["this_rep"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["fixed-variance", "dbscan"])
+def test_sharded_oracle_mesh_card_matches_one_card(dev, algorithm):
+    """``ShardedOracle(mesh=)`` on four shards of one card, placed once,
+    against the one-card ``ShardedOracle``: the plain core and the hybrid
+    path over shards agree with one device."""
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.parallel import make_mesh
+
+    reports = _oracle_inputs(67, R=300, E=1500)
+    kw = dict(reports=reports, algorithm=algorithm, max_iterations=3,
+              **(_cluster_knobs(algorithm, 1500) if algorithm == "dbscan"
+                 else {}))
+    a = ShardedOracle(mesh=make_mesh(devices=[dev] * 4), **kw)
+    got = a.place().consensus()
+    one = ShardedOracle(**kw).consensus()
+    _nested_agree(got, one, 2e-3 if algorithm == "fixed-variance" else 1e-5,
+                  algorithm)
+
+
+@pytest.mark.cuda
+def test_ring_on_the_card(dev):
+    """The ring over four shards of one card: the all-reduce equals the
+    CPU ring bit for bit (elementwise adds in one order), the Gram and
+    the first component within float32 rounding of the CPU's."""
+    from pyconsensus_tpu_torch.parallel import (make_mesh, ring_allreduce,
+                                                ring_first_pc, ring_gram)
+
+    rng = np.random.default_rng(71)
+    parts = rng.standard_normal((4, 203, 17)).astype(np.float32)
+    card = ring_allreduce([_t(q).to(dev) for q in parts])
+    cpu = ring_allreduce([_t(q) for q in parts])
+    assert all(torch.equal(c.cpu(), cpu[0]) for c in card)
+    X = rng.random((96, 1037)).astype(np.float32)
+    rep = np.full(96, 1.0 / 96, np.float32)
+    mesh, cpu_mesh = make_mesh(devices=[dev] * 4), make_mesh(
+        devices=["cpu"] * 4)
+    _close(ring_gram(_t(X), mesh), ring_gram(_t(X), cpu_mesh), "ring gram")
+    la, sa = ring_first_pc(_t(X), _t(rep), mesh)
+    lb, sb = ring_first_pc(_t(X), _t(rep), cpu_mesh)
+    sign = 1.0 if float(la.cpu() @ lb) >= 0 else -1.0
+    _close(la.cpu() * sign, lb, "ring loading")
+    _close(sa.cpu() * sign, sb, "ring scores")
+
+
 # -- the collusion simulator (no storage kernel on this path) ---------------
 
 

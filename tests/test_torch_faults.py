@@ -821,10 +821,17 @@ def test_sharded_oracle_refusals():
     with pytest.raises(ValueError, match="either"):
         ShardedOracle(reports=CANONICAL, device="cpu",
                       mesh=make_mesh(devices=["cpu"]))
-    # the plain core on a mesh of more than one shard is not ported
+    # a batch x event mesh is not ported; the plain core on an event mesh
+    # of two shards resolves as one device does
     with pytest.raises(NotImplementedError, match="§A.10"):
-        ShardedOracle(reports=nan_matrix(),
-                      mesh=make_mesh(devices=["cpu"] * 2))
+        make_mesh(batch=2, devices=["cpu"] * 2)
+    two = ShardedOracle(reports=nan_matrix(),
+                        mesh=make_mesh(devices=["cpu"] * 2)).consensus()
+    one = ShardedOracle(reports=nan_matrix(), device="cpu").consensus()
+    np.testing.assert_array_equal(two["events"]["outcomes_final"],
+                                  one["events"]["outcomes_final"])
+    np.testing.assert_allclose(two["agents"]["smooth_rep"],
+                               one["agents"]["smooth_rep"], atol=1e-6)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ShardedOracle(reports=CANONICAL)

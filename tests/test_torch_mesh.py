@@ -20,13 +20,18 @@ its start vector and exit floor in float64 under the x64 test
 configuration, the port in float32 as on one device.
 """
 
+import contextlib
+
+import jax
 import numpy as np
 import pytest
 import torch
 
 from conftest import collusion_reports
 from pyconsensus_tpu.models.pipeline import ConsensusParams as RefParams
+from pyconsensus_tpu.oracle import parse_event_bounds as ref_parse_event_bounds
 from pyconsensus_tpu.parallel import make_mesh as ref_make_mesh
+from pyconsensus_tpu.parallel import sharded_consensus as ref_sharded_consensus
 from pyconsensus_tpu.parallel.fused_sharded import fused_sharded_consensus
 from pyconsensus_tpu.parallel.sharded import _place_inputs
 from pyconsensus_tpu_torch import (ConsensusParams, encode_reports_host,
@@ -56,21 +61,45 @@ def cpu_mesh(n):
     return make_mesh(devices=["cpu"] * n)
 
 
-def reference(reports, rep, n, storage, max_iterations):
+@contextlib.contextmanager
+def fresh_compiles():
+    """JAX's persistent compilation cache off for the block: the
+    reference's mesh programs, bfloat16 storage above all, crash the CPU
+    runtime now and then when their executables are loaded from that
+    cache (a segfault in 2 of 8 runs of one such call, none in 8 runs
+    that compiled afresh), so each compiles anew. The numbers are the
+    same either way."""
+    from jax._src import compilation_cache
+
+    prev = jax.config.jax_enable_compilation_cache
+    compilation_cache.reset_cache()
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", prev)
+        compilation_cache.reset_cache()
+
+
+def reference(reports, rep, n, storage, max_iterations, matvec="",
+              bounds=None):
     E = reports.shape[1]
+    scaled, mins, maxs = ref_parse_event_bounds(bounds, E)
     p = RefParams(**BASE, max_iterations=max_iterations,
-                  storage_dtype=storage, any_scaled=False, has_na=True,
-                  fused_resolution=True)
+                  storage_dtype=storage, matvec_dtype=matvec,
+                  any_scaled=bool(scaled.any()), n_scaled=int(scaled.sum()),
+                  has_na=True, fused_resolution=True)
     mesh = ref_make_mesh(batch=1, event=n)
-    placed = _place_inputs(mesh, reports, rep, np.zeros(E, bool),
-                           np.zeros(E), np.ones(E))
-    out = fused_sharded_consensus(placed[0], placed[1], mesh, p)
-    return {k: np.asarray(v) for k, v in out.items()}
+    with fresh_compiles():
+        placed = _place_inputs(mesh, reports, rep, scaled, mins, maxs)
+        out = fused_sharded_consensus(placed[0], placed[1], mesh, p,
+                                      *(placed[2:] if scaled.any() else ()))
+        return {k: np.asarray(v) for k, v in out.items()}
 
 
-def port(reports, rep, n, storage, max_iterations, **kw):
+def port(reports, rep, n, storage, max_iterations, matvec="", **kw):
     p = ConsensusParams(**BASE, max_iterations=max_iterations,
-                        storage_dtype=storage)
+                        storage_dtype=storage, matvec_dtype=matvec)
     return sharded_consensus(reports, reputation=rep, params=p,
                              mesh=cpu_mesh(n), **kw)
 
@@ -200,31 +229,54 @@ def test_effective_median_block():
                                   "auto_small_r", "k-means", "bfloat16",
                                   "matvec"])
 def test_mesh_refusals_name_the_roadmap(case):
+    """A batch x event mesh still raises naming ``ROADMAP.md`` §A.10.
+    What else this test once refused resolves on the mesh now, in parity
+    with the reference's mesh on the same inputs: the plain mesh core
+    (fixed-variance, ica, k-means, and the Gram eigh that "auto" picks at
+    R <= 4096) against ``sharded_consensus`` on its mesh within 1e-9 in
+    float64; a scaled minority (1 of 40 <= E // 8, the shard-local
+    gather-median tail), bfloat16 storage and ``matvec_dtype="bfloat16"``
+    on the fused mesh against ``fused_sharded_consensus`` (exact keys
+    equal, the rest within ``ATOL``)."""
     reports, rep = make_inputs(1, 24, 40)
-    p = ConsensusParams(**BASE)
-    kw = {}
     if case == "batch":
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
             make_mesh(batch=2, devices=["cpu"] * 4)
         return
-    # the plain pipeline on a mesh (fixed-variance, ica, k-means, and the
-    # Gram eigh that "auto" picks at R <= 4096), a scaled minority (1 of
-    # 40 <= E // 8: the shard-local gather-median tail) and bfloat16
-    # storage are §A.10
-    match = "ROADMAP.md §A.10"
-    if case in ("fixed-variance", "ica", "k-means"):
-        p = p._replace(algorithm=case)
-    elif case == "scaled":
-        kw["event_bounds"] = [{"scaled": True, "min": 0, "max": 2}] + \
-            [None] * 39
-    elif case == "bfloat16":
-        p = p._replace(storage_dtype="bfloat16")
-    elif case == "matvec":
-        p = p._replace(matvec_dtype="bfloat16")
-    else:
-        p = p._replace(pca_method="auto")
-    with pytest.raises(NotImplementedError, match=match):
-        sharded_consensus(reports, params=p, mesh=cpu_mesh(4), **kw)
+    if case in ("scaled", "bfloat16", "matvec"):
+        bounds = None
+        if case == "scaled":
+            bounds = [{"scaled": True, "min": 0, "max": 2}] + [None] * 39
+            reports[:, 0] *= 2.0
+        storage = "bfloat16" if case == "bfloat16" else ""
+        matvec = "bfloat16" if case == "matvec" else ""
+        ref = reference(reports.astype(np.float32), rep, 4, storage, 1,
+                        matvec, bounds)
+        out = port(reports.astype(np.float32), rep, 4, storage, 1,
+                   event_bounds=bounds, matvec=matvec)
+        assert_matches(out, ref)
+        return
+    algorithm = "sztorc" if case == "auto_small_r" else case
+    pca = "auto" if case == "auto_small_r" else "power"
+    p = ConsensusParams(**{**BASE, "algorithm": algorithm,
+                           "pca_method": pca})
+    resolved = resolve_params(p._replace(any_scaled=False), 24, 40,
+                              torch.device("cpu"), n_event=4)
+    assert not resolved.fused_resolution and resolved.median_block == 0
+    out = sharded_consensus(reports.astype(np.float32), reputation=rep,
+                            params=p, mesh=cpu_mesh(4))
+    ref = ref_sharded_consensus(reports.astype(np.float32), reputation=rep,
+                                mesh=ref_make_mesh(batch=1, event=4),
+                                params=RefParams(**p._asdict()))
+    assert set(out) == set(ref)
+    for key, a in ref.items():
+        a, b = np.asarray(a), np.asarray(out[key])
+        if key in EXACT_KEYS + ("quarantined_rows",):
+            np.testing.assert_array_equal(b, a, err_msg=key)
+        else:
+            if key == "first_loading":
+                a, b = np.abs(a), np.abs(b)
+            np.testing.assert_allclose(b, a, atol=1e-9, rtol=0, err_msg=key)
 
 
 def test_auto_on_a_mesh_beyond_gram_reach_is_fused_power():

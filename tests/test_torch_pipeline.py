@@ -161,18 +161,22 @@ def test_inputs_from_reference_places_storage():
 
 
 def assert_plain_parity(algorithm, pca_method, max_components=5, R=24,
-                        E=40):
-    """The front door's plain core (``device="cpu"``, float32 storage, a
-    float64 reputation) against the reference's light XLA core on the same
-    inputs (the reference's fixed-variance takes no float32 reputation
-    under x64): exact keys equal, the rest within 1e-7."""
+                        E=40, n_event=1):
+    """The front door's plain core (``device="cpu"``, or an event mesh of
+    ``n_event`` CPU shards; float32 storage, a float64 reputation)
+    against the reference's light XLA core on the same inputs (the
+    reference's fixed-variance takes no float32 reputation under x64):
+    exact keys equal, the rest within 1e-7."""
     from pyconsensus_tpu.models.pipeline import consensus_light_jit
+    from pyconsensus_tpu_torch.parallel.mesh import make_mesh
 
     reports = make_reports(R * 7 + E, R, E).astype(np.float32)
     rep = np.random.default_rng(R).random(R) + 0.5
     p = ConsensusParams(algorithm=algorithm, pca_method=pca_method,
                         max_components=max_components)
-    out = sharded_consensus(reports, reputation=rep, params=p, device="cpu")
+    where = ({"device": "cpu"} if n_event == 1 else
+             {"mesh": make_mesh(devices=["cpu"] * n_event)})
+    out = sharded_consensus(reports, reputation=rep, params=p, **where)
     ref_p = RefParams(algorithm=algorithm, pca_method=pca_method,
                       max_components=max_components, any_scaled=False,
                       has_na=True)
@@ -249,11 +253,9 @@ def test_refusals_name_the_roadmap(case):
         assert_plain_parity("sztorc", "auto")
         return
     else:                           # fixed-variance on an event mesh
-        from pyconsensus_tpu_torch.parallel.mesh import make_mesh
-
-        p = p._replace(algorithm="fixed-variance")
-        kw["mesh"] = make_mesh(devices=["cpu"] * 2)
-        match = "ROADMAP.md §A.10"
+        # the plain mesh core serves it, in parity with the reference
+        assert_plain_parity("fixed-variance", "power", n_event=2)
+        return
     if "mesh" not in kw:
         kw["device"] = "cpu"
     with pytest.raises(NotImplementedError, match=match):
@@ -312,9 +314,10 @@ def test_auto_eigh_refusals_name_the_roadmap(algorithm, R, E, method):
 def test_components_beyond_the_block_kernels_raise(algorithm):
     """Beyond k <= 8 the one-pass block kernel's gate refuses, so its
     wrapper would raise on the card and the orthogonal iteration takes
-    the separable arm instead. On an event mesh, which has no plain core
-    yet, the call raises naming the roadmap; an exact eigh method takes
-    the plain core at any component count."""
+    the separable arm instead. On an event mesh the fused path scores
+    sztorc alone, so int8 storage there raises the reference's
+    ``ValueError`` (the plain mesh core would store continuous fills);
+    an exact eigh method takes the plain core at any component count."""
     from pyconsensus_tpu_torch.ops.cuda_kernels import cov_block_kernel_fits
 
     for k in (9, 12, 41):
@@ -323,7 +326,7 @@ def test_components_beyond_the_block_kernels_raise(algorithm):
                         max_components=12, storage_dtype="int8",
                         any_scaled=False)
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.10"):
+    with pytest.raises(ValueError, match="requires the fused kernel path"):
         resolve_params(p, 10_000, 100_000, cpu, n_event=4)
     q = resolve_params(p._replace(pca_method="eigh-gram", storage_dtype=""),
                        10_000, 100_000, cpu)
