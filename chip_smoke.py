@@ -3,7 +3,10 @@
 NVIDIA card.
 
     python3 chip_smoke.py                      # 10000 x 100000, one card
-    python3 chip_smoke.py --mesh-devices 4     # the mesh over four cards
+    python3 chip_smoke.py --mesh-devices 4     # the meshes over four cards,
+                                               # four processes over NCCL
+    python3 chip_smoke.py --mesh-devices 4 --only process
+                                               # phases 1, 2 and 11 alone
 
 Phases, each printing its seconds:
 
@@ -144,7 +147,18 @@ Phases, each printing its seconds:
    sztorc streamed at full size over 4 event shards against phase 9's
    one-device result; and the CLI's ``--shard --simulate`` and ``--shard
    --stream`` as subprocesses;
-11. run the same paths at a middle size on the card and on the CPU
+11. the event mesh across processes (``process_mesh_phase``): the
+   generator's int8 matrix written once as ``.npy``, every rank a
+   ``--process-worker`` process under ``PROCESS_TIMEOUT`` that
+   memory-maps it and places its own columns. On one card one process,
+   an NCCL group of one over ``PROCESS_SHARDS`` shards of card 0: int8
+   sztorc at ``max_iterations`` 1 and 3, bit for bit the one-controller
+   mesh, B.5, B.6 and B.3 launched. With ``--mesh-devices N``, N
+   processes, one a card, each timed beside the one-controller N-card
+   mesh and one device: int8 sztorc (bit for bit), fixed-variance on
+   float32 and hierarchical at the hybrid shape (0 flips), and sztorc
+   streamed over N NCCL hosts against phase 9's single host;
+12. run the same paths at a middle size on the card and on the CPU
    (``device="cpu"``, or a mesh of as many CPU shards) and compare the
    two; then the ``Oracle`` (``backend="torch"``) on the card against
    its CPU run, with and without scaled events, under ``"auto"`` (the
@@ -156,9 +170,13 @@ Phases, each printing its seconds:
    clustering algorithms through the ``Oracle`` (exact keys, clusters and
    reputation order equal), then ``compare_algorithms`` over all seven,
    whose disagreement matrix must equal the CPU run's;
-12. print the ``kernels`` JSON line (each kernel with the storage types it
+13. print the ``kernels`` JSON line (each kernel with the storage types it
    takes and its bfloat16 time, plain time and bound beside the int8
    ones), then the result line.
+
+``--only process`` runs phases 1, 2 and 11 (with ``--mesh-devices``,
+after part 1 of phase 9's one-host stream, which phase 11 compares the
+NCCL hosts with) and prints the result line with ``"only": "process"``.
 
 It exits non-zero, and prints no result line, when there is no CUDA
 device, when the package is not beside it, or when any phase fails. It
@@ -288,6 +306,12 @@ GRID_REQUEST, GRID_NA = (1024, 4096), 0.02
 GRID_SERVE_DEVICES, GRID_SHARDS = 8, 4
 GRID_SIM_ALGORITHMS = ("sztorc", "fixed-variance")
 GRID_CLI = (1024, 8192)
+#: the process-mesh phase (``process_mesh_phase``): the virtual shards of
+#: card 0 under an NCCL group of one; the seconds every worker of one
+#: launch may take together (each is killed after it, and its peers when
+#: one fails)
+PROCESS_SHARDS = 4
+PROCESS_TIMEOUT = 600
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -445,6 +469,55 @@ def max_rel_err(torch, got, ref):
     return d, d / scale
 
 
+def make_drive(torch, args, launches):
+    """``drive(x, p, label, path=None, **kw)``, which times one main path
+    and adds its launch counts to ``launches``."""
+    from pyconsensus_tpu_torch import sharded_consensus
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+
+    def drive(x, p, label, path=None, **kw):
+        """One main path: a warm-up, then ``args.resolutions`` timed
+        resolutions with the launch counts set to 0 just before and read
+        just after; the kernels of ``path`` (default: the algorithm) must
+        have launched and those of another arm must not. ``kw`` goes to
+        ``sharded_consensus``. Returns ``(out, resolutions/s, counts)``."""
+        path = path or p.algorithm
+        out = sharded_consensus(x, params=p, **kw)           # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(args.resolutions):
+            out = sharded_consensus(x, params=p, **kw)
+        torch.cuda.synchronize()
+        rate = args.resolutions / (time.perf_counter() - t0)
+        counts = ck.launch_counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"{label}: kernels of the path never "
+                               f"launched: {missing} ({counts})")
+        stray = [k for k in PATH_FORBIDS.get(path, ()) if counts[k] != 0]
+        if stray:
+            raise RuntimeError(f"{label}: kernels of another arm launched: "
+                               f"{stray} ({counts})")
+        return out, rate, counts
+
+    return drive
+
+
+def card_line() -> str:
+    """The first card's line of ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader``."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        raise RuntimeError("nvidia-smi not found")
+    return subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+
+
 def run(args) -> int:
     import torch
 
@@ -478,13 +551,7 @@ def run(args) -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
             f"{name}, capability {torch.cuda.get_device_capability(0)}, "
             f"count {torch.cuda.device_count()}")
-        smi = shutil.which("nvidia-smi")
-        if smi is None:
-            raise RuntimeError("nvidia-smi not found")
-        card = subprocess.run(
-            [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True
-        ).stdout.strip().splitlines()[0]
+        card = card_line()
         log(card)
 
     with phase("build"):
@@ -519,36 +586,30 @@ def run(args) -> int:
     if args.mesh_devices > torch.cuda.device_count():
         raise RuntimeError(f"--mesh-devices {args.mesh_devices}: only "
                            f"{torch.cuda.device_count()} cards")
-    stats = kernel_phase(torch, args, ck, _fill_stats, dev, card)
     launches = {k: 0 for k in KERNELS}
+    drive = make_drive(torch, args, launches)
+    process_where = (f"{args.mesh_devices} processes, one a card, over NCCL"
+                     if args.mesh_devices else
+                     f"an NCCL group of one over {PROCESS_SHARDS} shards "
+                     "of one card")
+    if args.only == "process":
+        kept = {}
+        if args.mesh_devices > 1:
+            with phase("streaming, one host (what the process phase "
+                       "compares with)"):
+                host, truth, out, secs, peaks = one_host_stream(
+                    torch, ck, args, dev)
+                kept["stream"] = (host, truth, out, secs[1], max(peaks))
+        with phase(f"process mesh ({process_where})"):
+            process_mesh_phase(torch, args, card, dev, drive, kept, here)
+        log(f"chip_smoke --only process total "
+            f"{time.perf_counter() - t_start:.3f} s")
+        log(json.dumps({"ok": True, "only": "process", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
-    def drive(x, p, label, path=None, **kw):
-        """One main path: a warm-up, then ``args.resolutions`` timed
-        resolutions with the launch counts set to 0 just before and read
-        just after; the kernels of ``path`` (default: the algorithm) must
-        have launched and those of another arm must not. ``kw`` goes to
-        ``sharded_consensus``. Returns ``(out, resolutions/s, counts)``."""
-        path = path or p.algorithm
-        out = sharded_consensus(x, params=p, **kw)           # warm-up
-        torch.cuda.synchronize()
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(args.resolutions):
-            out = sharded_consensus(x, params=p, **kw)
-        torch.cuda.synchronize()
-        rate = args.resolutions / (time.perf_counter() - t0)
-        counts = ck.launch_counts()
-        for k in KERNELS:
-            launches[k] += counts[k]
-        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
-        if missing:
-            raise RuntimeError(f"{label}: kernels of the path never "
-                               f"launched: {missing} ({counts})")
-        stray = [k for k in PATH_FORBIDS.get(path, ()) if counts[k] != 0]
-        if stray:
-            raise RuntimeError(f"{label}: kernels of another arm launched: "
-                               f"{stray} ({counts})")
-        return out, rate, counts
+    stats = kernel_phase(torch, args, ck, _fill_stats, dev, card)
 
     if args.mesh_devices:
         mesh = make_mesh(event=args.mesh_devices)
@@ -654,6 +715,9 @@ def run(args) -> int:
                   else "virtual grids of one card")
     with phase(f"batch x event mesh ({grid_where})"):
         batch_mesh_phase(torch, args, ck, card, dev, drive, kept, here)
+
+    with phase(f"process mesh ({process_where})"):
+        process_mesh_phase(torch, args, card, dev, drive, kept, here)
         kept.clear()
 
     with phase(f"card vs cpu {args.mid_r}x{args.mid_e}"):
@@ -1343,6 +1407,9 @@ def profile_resolution(torch, sharded_consensus, x, p, card, tag, **kw):
               "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
+        f.write("\n\nby host time\n")
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                          row_limit=40))
 
 
 def fill_stats_ab(torch, pipeline, drive, x, card):
@@ -2663,6 +2730,27 @@ def streamed(torch, ck, src, p, panel, label, **kw):
     return out, secs, peak
 
 
+def one_host_stream(torch, ck, args, dev):
+    """Part 1 of the streaming phase's parity: the generator's float32
+    ``--reporters`` x ``--events`` reports with NaN on the host, sztorc at
+    ``max_iterations=1`` streamed in panels of ``STREAM_PANEL`` twice
+    (the first carries the warm-ups). Returns ``(host, truth, out,
+    [seconds of each call], [peak GiB of each call])``; ``out`` is the
+    second call's."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    R, E = args.reporters, args.events
+    host, truth = host_reports(torch, R, E, args.seed + 11, dev)
+    secs, peaks = [], []
+    for _ in range(2):
+        out, t, peak = streamed(torch, ck, host,
+                                ConsensusParams(max_iterations=1),
+                                STREAM_PANEL, f"sztorc {R}x{E} float32+NaN")
+        secs.append(t)
+        peaks.append(peak)
+    return host, truth, out, secs, peaks
+
+
 def two_hosts(torch, src, p, panel):
     """Two threads as hosts on the card, panels ``h::2`` each, summing
     through a rendezvous in host order (``contrib[0] + contrib[1]``, on
@@ -2818,14 +2906,10 @@ def streaming_phase(torch, args, ck, card, dev, launches, here,
         f"(shutil.disk_usage), file system {fstype} at {mount!r}")
     try:
         # -- 1. parity at the bench shape --------------------------------
-        host, truth = host_reports(torch, R, E, args.seed + 11, dev)
+        host, truth, out_s, secs_s, peaks = one_host_stream(torch, ck, args,
+                                                            dev)
         p1 = ConsensusParams(max_iterations=1)
         tag = f"sztorc {R}x{E} float32+NaN"
-        secs_s, peaks = [], []
-        for _ in range(2):             # the first carries the warm-ups
-            out_s, secs, peak = streamed(torch, ck, host, p1, P, tag)
-            secs_s.append(secs)
-            peaks.append(peak)
         # whether the prefetched panel is allocated at the peak is a race
         # of the two threads: one panel (0.31 GiB at 10k x 8192) either way
         peak_s = max(peaks)
@@ -3139,7 +3223,8 @@ def batch_mesh_phase(torch, args, ck, card, dev, drive, kept, here):
             f"bit the single-device sweep's")
 
     # -- 4. the streamed panels over event shards -----------------------------
-    host, truth, out_1, secs_1, peak_1 = kept.pop("stream")
+    # the process-mesh phase reads it too; run() clears it after that
+    host, truth, out_1, secs_1, peak_1 = kept["stream"]
     peaks_reset()
     ck.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3191,6 +3276,381 @@ def batch_mesh_phase(torch, args, ck, card, dev, drive, kept, here):
     finally:
         shutil.rmtree(stage, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+def process_params(R, mi, **kw):
+    """The int8 sztorc parameters of the process-mesh phase (the main
+    path's)."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    return ConsensusParams(storage_dtype="int8", max_iterations=mi,
+                           power_tol=1e-5, has_na=True,
+                           pca_method="auto" if R > 4096 else "power-fused",
+                           **kw)
+
+
+def hybrid_params(E):
+    """hierarchical at the geometry threshold, as the mesh phase runs
+    it."""
+    from pyconsensus_tpu_torch import ConsensusParams
+
+    return ConsensusParams(algorithm="hierarchical", has_na=True,
+                           hierarchy_threshold=geometry_knobs(E)[
+                               "hierarchy_threshold"])
+
+
+def decoded(placed):
+    """int8 shards as float32 with NaN absent (the pad columns stay
+    present zeros)."""
+    from pyconsensus_tpu_torch.models.pipeline import decode_reports
+
+    return placed._replace(shards=tuple(decode_reports(x)
+                                        for x in placed.shards))
+
+
+def run_workers(args, here, stage, world):
+    """``world`` ranks of ``chip_smoke.py --process-worker``, each writing
+    its log to ``stage``; when one exits non-zero, or the time is up,
+    every other is killed (a peer would wait in a collective) and this
+    raises with the logs. Returns each rank's log."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    base = [sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--process-world", str(world), "--process-port", str(port),
+            "--process-stage", stage, "--reporters", str(args.reporters),
+            "--events", str(args.events), "--hybrid-r", str(args.hybrid_r),
+            "--hybrid-e", str(args.hybrid_e), "--seed", str(args.seed),
+            "--resolutions", str(args.resolutions),
+            *(["--profile"] if args.profile else [])]
+    logs = [os.path.join(stage, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(base + ["--process-worker", str(r)],
+                                          stdout=f, stderr=subprocess.STDOUT,
+                                          cwd=here))
+    deadline = time.monotonic() + PROCESS_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(
+            f"process-mesh ranks {bad} exited "
+            f"{[procs[r].returncode for r in bad]} (each killed after "
+            f"{PROCESS_TIMEOUT} s or when a peer failed):\n" + "\n".join(
+                f"--- rank {r}\n{texts[r][-4000:]}" for r in bad))
+    return texts
+
+
+def process_worker(args) -> int:
+    """One rank of ``process_mesh_phase`` (``--process-worker RANK``): it
+    joins the NCCL group of ``--process-world`` ranks at
+    ``localhost:--process-port`` on its card (``initialize``), builds the
+    process mesh (its card; a group of one: ``PROCESS_SHARDS`` shards of
+    card 0), memory-maps the phase's int8 ``.npy`` and places its own
+    columns, then times int8 sztorc at ``max_iterations`` 1 and 3 with the
+    launch counts set to 0 just before and read just after; in a group of
+    several also fixed-variance (float32) and hierarchical (the hybrid
+    shape) on the mesh, and sztorc streamed over the group's hosts. It
+    writes ``rank<r>.pt`` (the results) and ``rank<r>.json`` (seconds,
+    rates, launches, peaks) to ``--process-stage``."""
+    import numpy as np
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from pyconsensus_tpu_torch import sharded_consensus, streaming_consensus
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+    from pyconsensus_tpu_torch.parallel import distributed
+    from pyconsensus_tpu_torch.parallel.mesh import place_event_shards
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world, rank, stage = args.process_world, args.process_worker, \
+        args.process_stage
+    t0 = time.perf_counter()
+    distributed.initialize(f"localhost:{args.process_port}", world, rank)
+    mesh = distributed.make_process_mesh(
+        None if world > 1 else ["cuda:0"] * PROCESS_SHARDS)
+    stats = {"rank": rank, "devices": [str(d) for d in mesh.local],
+             "join_s": time.perf_counter() - t0}
+    card = card_line()
+    log(f"[rank {rank}] {mesh} joined in {stats['join_s']:.3f} s")
+    outs = {}
+
+    def resolve(x, p, tag, n):
+        """A warm-up, then ``n`` resolutions with the counts and the peak
+        reset just before."""
+        sharded_consensus(x, params=p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        t = time.perf_counter()
+        for _ in range(n):
+            out = sharded_consensus(x, params=p)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t) / n
+        stats[tag] = {"s": secs, "rate": 1.0 / secs,
+                      "launches": ck.launch_counts(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        outs[tag] = {k: v.cpu() for k, v in out.items()
+                     if isinstance(v, torch.Tensor)}
+        log(f"[rank {rank}] {tag}: {stats[tag]['rate']:.4f} resolutions/s "
+            f"on {card}, launches {stats[tag]['launches']}")
+
+    R = args.reporters
+    t = time.perf_counter()
+    placed = place_event_shards(
+        np.load(os.path.join(stage, "x8.npy"), mmap_mode="r"), mesh)
+    torch.cuda.synchronize()
+    stats["place_s"] = time.perf_counter() - t
+    for mi in (1, 3):
+        resolve(placed, process_params(R, mi), f"sztorc_{mi}",
+                args.resolutions)
+    if args.profile:
+        # every rank resolves (the collectives need all); each writes its
+        # own table
+        os.makedirs(os.path.join(here, OUT_DIR), exist_ok=True)
+        profile_resolution(torch, sharded_consensus, placed,
+                           process_params(R, 1),
+                           f"{card} (rank {rank} of {world})",
+                           f"process_mesh_rank{rank}")
+    if world > 1:
+        from pyconsensus_tpu_torch import ConsensusParams
+
+        resolve(decoded(placed), ConsensusParams(
+            algorithm="fixed-variance", max_iterations=1, power_tol=1e-5,
+            has_na=True), "fixed_variance", args.resolutions)
+        del placed
+        hyb = decoded(place_event_shards(
+            np.load(os.path.join(stage, "xh8.npy"), mmap_mode="r"), mesh))
+        resolve(hyb, hybrid_params(args.hybrid_e), "hierarchical", 1)
+        del hyb
+        torch.cuda.empty_cache()
+        secs = []
+        for _ in range(2):             # the first carries the warm-ups
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = streaming_consensus(
+                os.path.join(stage, "stream.npy"), panel_events=STREAM_PANEL,
+                params=ConsensusParams(max_iterations=1), n_hosts=world,
+                host_id=rank)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        stats["stream"] = {"s": secs[-1], "first_s": secs[0],
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2 ** 30}
+        outs["stream"] = {k: torch.as_tensor(np.asarray(v))
+                          for k, v in out.items()}
+        log(f"[rank {rank}] stream: {secs[-1]:.3f} s on {card}")
+    torch.save(outs, os.path.join(stage, f"rank{rank}.pt"))
+    with open(os.path.join(stage, f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def process_mesh_phase(torch, args, card, dev, drive, kept, here):
+    """Phase "process mesh": the event mesh across processes
+    (``parallel/distributed.py make_process_mesh``), every rank a
+    ``chip_smoke.py --process-worker`` process under ``PROCESS_TIMEOUT``
+    (``run_workers``), the generator's int8 ``--reporters`` x
+    ``--events`` matrix written once as ``.npy`` to ``STAGE_DIR`` and
+    memory-mapped by every rank, which places its own columns.
+
+    - One card: one process, an NCCL group of one over ``PROCESS_SHARDS``
+      shards of card 0 (two processes cannot share a card under NCCL):
+      int8 sztorc at ``max_iterations`` 1 and 3, every key bit for bit
+      the one-controller mesh of as many shards (timed beside it), B.5,
+      B.6 and B.3 launched.
+    - ``--mesh-devices N``: N processes, one a card. Beside the
+      one-controller N-card mesh (in this process) and one device: int8
+      sztorc at ``max_iterations`` 1 and 3 (rates; every rank bit for bit
+      the one-controller mesh; B.5, B.6, B.3 launches a rank),
+      fixed-variance on the plain mesh core, float32 (rates, 0 outcome
+      flips against one device), hierarchical at ``--hybrid-r`` x
+      ``--hybrid-e`` (seconds, 0 flips), and sztorc streamed at full size
+      over N NCCL hosts against the streaming phase's single host
+      (``kept["stream"]``: seconds, 0 flips, ``smooth_rep`` within
+      ``STREAM_REP_RTOL`` of its largest value). Every rank's results
+      equal every other's bit for bit."""
+    import numpy as np
+
+    from pyconsensus_tpu_torch import ConsensusParams
+    from pyconsensus_tpu_torch.models.pipeline import decode_reports
+    from pyconsensus_tpu_torch.parallel.mesh import (make_mesh,
+                                                     place_event_shards)
+
+    R, E = args.reporters, args.events
+    world = args.mesh_devices or 1
+    if world > 1:
+        mesh, where = make_mesh(event=world), f"{world} cards"
+    else:
+        mesh = make_mesh(devices=[dev] * PROCESS_SHARDS)
+        where = f"{PROCESS_SHARDS} shards of one card"
+    stage = os.path.join(here, STAGE_DIR, "process_mesh")
+    shutil.rmtree(stage, ignore_errors=True)
+    os.makedirs(stage)
+    try:
+        x8, truth = gen_reports(torch, R, E, args.seed + 30, dev)
+        np.save(os.path.join(stage, "x8.npy"), x8.cpu().numpy())
+        placed = place_event_shards(
+            np.load(os.path.join(stage, "x8.npy"), mmap_mode="r"), mesh)
+        ref, rates = {}, {}
+        for mi in (1, 3):
+            p = process_params(R, mi)
+            out, rates["mesh", mi], _ = drive(
+                placed, p, f"sztorc one-controller mesh ({where}) "
+                f"max_iterations={mi}", "sztorc mesh")
+            ref[f"sztorc_{mi}"] = out
+            if world > 1:
+                _, rates["one", mi], _ = drive(
+                    x8, p, f"sztorc one device max_iterations={mi}")
+        one = {}
+        if world > 1:
+            p = ConsensusParams(algorithm="fixed-variance", max_iterations=1,
+                                power_tol=1e-5, has_na=True)
+            one["fixed_variance"], rates["one", "fv"] = timed(
+                torch, decode_reports(x8), p, args.resolutions)
+            ref["fixed_variance"], rates["mesh", "fv"], _ = drive(
+                decoded(placed), p, f"fixed-variance one-controller mesh "
+                f"({where}) float32", "mesh plain")
+            Rh, Eh = args.hybrid_r, args.hybrid_e
+            xh8, _ = gen_reports(torch, Rh, Eh, args.seed + 31, dev)
+            np.save(os.path.join(stage, "xh8.npy"), xh8.cpu().numpy())
+            ph = hybrid_params(Eh)
+            one["hierarchical"], rates["one", "hier"] = timed(
+                torch, decode_reports(xh8), ph, 1)
+            ref["hierarchical"], rates["mesh", "hier"] = timed(
+                torch, decoded(place_event_shards(xh8, mesh)), ph, 1)
+            del xh8
+            np.save(os.path.join(stage, "stream.npy"), kept["stream"][0])
+        del placed
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        texts = run_workers(args, here, stage, world)
+        log(f"{world} worker process(es) ran in "
+            f"{time.perf_counter() - t0:.3f} s")
+        for text in texts:
+            for line in text.strip().splitlines():
+                log(f"  {line}")
+        ranks = [torch.load(os.path.join(stage, f"rank{r}.pt"))
+                 for r in range(world)]
+        stats = []
+        for r in range(world):
+            with open(os.path.join(stage, f"rank{r}.json")) as f:
+                stats.append(json.load(f))
+        for r in range(1, world):
+            for tag, got in ranks[r].items():
+                differ = [k for k, v in ranks[0][tag].items()
+                          if not torch.equal(got[k], v)]
+                if differ:
+                    raise RuntimeError(f"process mesh {tag}: rank {r} "
+                                       f"differs from rank 0 in {differ}")
+        for mi in (1, 3):
+            tag = f"sztorc_{mi}"
+            want = ref[tag]
+            differ = [k for k, v in ranks[0][tag].items()
+                      if not torch.equal(v, want[k].cpu())]
+            if differ:
+                raise RuntimeError(f"process mesh {tag}: keys differ from "
+                                   f"the one-controller mesh's: {differ}")
+            per = [{k: st[tag]["launches"][k] / (args.resolutions
+                                                 * len(st["devices"]))
+                    for k in PATH_KERNELS["sztorc mesh"]} for st in stats]
+            if any(v == 0 for rank_ in per for v in rank_.values()):
+                raise RuntimeError(f"process mesh {tag}: a rank did not "
+                                   f"launch B.5, B.6 and B.3: {per}")
+            correct = float((ranks[0][tag]["outcomes_adjusted"]
+                             == truth.cpu()).float().mean())
+            beside = (f", one device {rates['one', mi]:.4f}"
+                      if world > 1 else "")
+            log(f"sztorc {R}x{E} int8 max_iterations={mi} on the process "
+                f"mesh ({world} rank(s)): "
+                f"{[round(st[tag]['rate'], 4) for st in stats]} "
+                f"resolutions/s a rank, the one-controller mesh ({where}) "
+                f"{rates['mesh', mi]:.4f}{beside} on {card}; every rank's "
+                f"keys bit for bit the one-controller mesh's; outcomes == "
+                f"truth {correct:.6f}; launches a shard a resolution "
+                f"(B.5, B.6, B.3) by rank "
+                f"{[[round(v, 3) for v in p_.values()] for p_ in per]}; "
+                f"peak {[round(st[tag]['peak_gib'], 3) for st in stats]} "
+                f"GiB; placement {[round(st['place_s'], 3) for st in stats]}"
+                f" s, joining {[round(st['join_s'], 3) for st in stats]} s")
+        if world > 1:
+            for tag, key, what in (("fixed_variance", "fv",
+                                    "fixed-variance float32"),
+                                   ("hierarchical", "hier",
+                                    f"hierarchical {args.hybrid_r}x"
+                                    f"{args.hybrid_e}")):
+                got = ranks[0][tag]
+                flips = int((got["outcomes_final"] != one[tag][
+                    "outcomes_final"].cpu()).sum())
+                same = all(torch.equal(v, ref[tag][k].cpu())
+                           for k, v in got.items())
+                log(f"{what} on the process mesh: "
+                    f"{[round(st[tag]['rate'], 4) for st in stats]} "
+                    f"resolutions/s a rank, the one-controller mesh "
+                    f"{rates['mesh', key]:.4f}, one device "
+                    f"{rates['one', key]:.4f} on {card}; outcome flips "
+                    f"against one device {flips}; bit for bit the "
+                    f"one-controller mesh {same}")
+                if flips:
+                    raise RuntimeError(f"process mesh {what}: {flips} "
+                                       "outcomes differ from one device")
+            _, _, single, secs1, _ = kept["stream"]
+            got = {k: v.numpy() for k, v in ranks[0]["stream"].items()}
+            flips = int((got["outcomes_final"]
+                         != single["outcomes_final"]).sum())
+            gap = rep_gap(got["smooth_rep"], single["smooth_rep"])
+            log(f"sztorc {R}x{E} float32 streamed over {world} NCCL hosts: "
+                f"{[round(st['stream']['s'], 3) for st in stats]} s a rank "
+                f"(first run "
+                f"{[round(st['stream']['first_s'], 3) for st in stats]}), "
+                f"one host {secs1:.3f} s (the streaming phase) on {card}; "
+                f"peak {[round(st['stream']['peak_gib'], 3) for st in stats]}"
+                f" GiB; outcome flips {flips}, smooth_rep gap {gap:.3e}")
+            if flips or gap > STREAM_REP_RTOL:
+                raise RuntimeError("process mesh stream: the hosts differ "
+                                   "from one host")
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def timed(torch, x, p, n):
+    """One warm-up and ``n`` timed resolutions of ``sharded_consensus``:
+    ``(out, resolutions/s)``."""
+    from pyconsensus_tpu_torch import sharded_consensus
+
+    sharded_consensus(x, params=p)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        out = sharded_consensus(x, params=p)
+    torch.cuda.synchronize()
+    return out, n / (time.perf_counter() - t)
 
 
 def _cli(args, here, timeout=900):
@@ -3626,7 +4086,21 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")
+    ap.add_argument("--only", choices=("process",),
+                    help="run only this phase after the build (the process "
+                    "mesh; with --mesh-devices, after the streaming "
+                    "phase's one-host stream that it compares with)")
+    ap.add_argument("--process-worker", type=int, default=None,
+                    metavar="RANK", help=argparse.SUPPRESS)
+    ap.add_argument("--process-world", type=int, default=1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--process-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--process-stage", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.process_worker is not None:
+        # one rank of the process-mesh phase, started by that phase
+        return process_worker(args)
     try:
         return run(args)
     except Exception:                 # noqa: BLE001 — report, exit non-zero

@@ -32,7 +32,10 @@ panel over an event mesh, and on one host or several
 command line (``cli``). ``parallel.make_mesh(batch=b, event=e)`` is the
 batch x event grid: its rows carry independent work (serve lanes, the
 simulator's trials with ``CollusionSimulator(mesh=...)``) and its
-columns split events. Every Pallas kernel of the JAX
+columns split events; ``parallel.distributed.make_process_mesh`` is an
+event mesh over the processes of a ``torch.distributed`` group, one a
+card, with the one-controller mesh's bits on every rank. Every Pallas
+kernel of the JAX
 package has a counterpart
 written by hand in CUDA for sm_90a (``csrc/``). A non-finite result
 walks the reference's fallback chain (``faults``: fault plans, the error

@@ -1,6 +1,8 @@
 """The event-sharded fused pipeline (``pyconsensus_tpu/parallel/
 fused_sharded.py``): sztorc with power iteration over an event mesh, one
-controller driving every shard.
+controller driving every shard, or every rank of a process mesh driving
+its own (``parallel/mesh.py``: there each rank runs the (R,)- and
+(E,)-sized work below on the same gathered and folded bits).
 
 Each shard runs only the storage contractions and the column-local
 arithmetic on its own device: rescale and the gather of its own scaled
@@ -97,7 +99,7 @@ def _shard_inputs(placed: EventShards, reps: list, p: ConsensusParams,
             sc, lo, hi = bounds[i]
             shard = tk.rescale(shard, sc, lo, hi)          # NaN stays NaN
             if counts[i]:
-                o, w = placed.offsets[i], placed.widths[i]
+                o, w = placed.local_offsets[i], placed.local_widths[i]
                 idx = torch.as_tensor(np.nonzero(host[o:o + w])[0],
                                       device=shard.device)
                 gathered = shard.index_select(1, idx)
@@ -113,7 +115,7 @@ def _shard_inputs(placed: EventShards, reps: list, p: ConsensusParams,
 def _resolve(placed: EventShards, reputation: torch.Tensor,
              p: ConsensusParams, scaled, mins, maxs) -> dict:
     """The body of :func:`fused_sharded_consensus`, under its span."""
-    dev0 = placed.mesh[0]
+    dev0 = placed.home
     E = placed.n_events
     old_rep = tk.normalize(reputation.to(dev0))
     acc = old_rep.dtype
@@ -134,7 +136,7 @@ def _resolve(placed: EventShards, reputation: torch.Tensor,
     def matvec(vs):
         """``filled(X) v`` (R,) from the per-shard slices ``vs``."""
         return fold([storage_matvec(x, v, fill=f).to(acc)
-                     for x, v, f in zip(xms, vs, fills)], dev0)
+                     for x, v, f in zip(xms, vs, fills)], dev0, placed.mesh)
 
     def rows_matmat(W):
         """``W filled(X)`` (k, E) for a (k, R) stack on the first
@@ -189,5 +191,7 @@ def _resolve(placed: EventShards, reputation: torch.Tensor,
         narows.append(narow)
     raw, adjusted, certainty, pcol, final = (gather(c, placed) for c in cols)
     return _assemble(p, old_rep, this_rep, rep, loading, converged, iters,
-                     True, raw, adjusted, certainty, pcol, fold(prows, dev0),
-                     fold(narows, dev0), final if p.any_scaled else None)
+                     True, raw, adjusted, certainty, pcol,
+                     fold(prows, dev0, placed.mesh),
+                     fold(narows, dev0, placed.mesh),
+                     final if p.any_scaled else None)

@@ -1,5 +1,8 @@
 """The plain core and the hybrid path over an event mesh, one controller
-driving every shard: the counterpart of the reference's
+driving every shard (or each rank of a process mesh its own, every rank
+computing the first device's work on the same bits; the hybrid path's
+ranks each cluster their own copy of the folded distances, as the
+reference's ``_consensus_hybrid`` does): the counterpart of the reference's
 ``consensus_light_jit`` under GSPMD (``pyconsensus_tpu/parallel/
 sharded.py:636-643`` over ``models/pipeline.py _consensus_core``) and of
 its hybrid path on a placed mesh (``sharded.py:600-614``).
@@ -64,7 +67,7 @@ class _Filled:
 
     def __init__(self, placed: EventShards, parts: list, acc: torch.dtype):
         self.placed, self.parts, self.acc = placed, parts, acc
-        self.dev0 = placed.mesh[0]
+        self.dev0 = placed.home
         self.R, self.E = placed.shape
 
     def rows(self, t: torch.Tensor) -> list:
@@ -79,7 +82,7 @@ class _Filled:
         return gather(pieces, self.placed, dim)
 
     def fold(self, pieces) -> torch.Tensor:
-        return fold(pieces, self.dev0)
+        return fold(pieces, self.dev0, self.placed.mesh)
 
     def times(self, V: torch.Tensor, parts=None) -> torch.Tensor:
         """``filled @ V`` for V (E,) or (E, k): (R,) or (R, k)."""
@@ -303,7 +306,7 @@ def _fill_shards(placed: EventShards, old_rep: torch.Tensor, bounds: list,
 
 def _bounds(placed: EventShards, scaled, mins, maxs):
     """The per-shard bounds and the (E,) ones on the first device."""
-    dev0 = placed.mesh[0]
+    dev0 = placed.home
     return (scatter_bounds(scaled, mins, maxs, placed),
             torch.as_tensor(np.asarray(scaled, dtype=bool), device=dev0),
             torch.as_tensor(np.asarray(mins), dtype=torch.float32,
@@ -370,7 +373,7 @@ def plain_sharded_consensus(placed: EventShards, reputation: torch.Tensor,
     Returns the light result dict on the mesh's first device, with every
     (E,) vector over the real events."""
     _check_plain_params(placed, p)
-    dev0 = placed.mesh[0]
+    dev0 = placed.home
     with obs.span("plain_sharded.dispatch", algorithm=p.algorithm,
                   event_shards=len(placed.mesh), reporters=placed.shape[0],
                   events=placed.n_events):
@@ -409,7 +412,7 @@ def hybrid_sharded_consensus(placed: EventShards, reputation: torch.Tensor,
             "storage_dtype='int8' is not supported by the hybrid "
             "clustering path: the interpolated fill values are continuous "
             "— use storage_dtype='bfloat16'")
-    dev0 = placed.mesh[0]
+    dev0 = placed.home
     with obs.span("hybrid.device_prep", algorithm=p.algorithm,
                   event_shards=len(placed.mesh)) as sp:
         old_rep = tk.normalize(reputation.to(dev0))

@@ -32,7 +32,8 @@ from typing import Sequence
 
 import torch
 
-from .mesh import EventShards, as_mesh, gather, place_event_shards, scatter
+from .mesh import (EventShards, as_mesh, gather, place_event_shards,
+                   refuse_process_mesh, scatter)
 
 __all__ = ["ring_allreduce", "ring_gram", "ring_matvec", "ring_first_pc"]
 
@@ -96,6 +97,8 @@ def ring_allreduce(parts: Sequence[torch.Tensor]) -> list:
 
 
 def _placed(A, mesh) -> EventShards:
+    refuse_process_mesh(A, "the explicit ring")
+    refuse_process_mesh(mesh, "the explicit ring")
     if isinstance(A, EventShards):
         return A
     if mesh is None:

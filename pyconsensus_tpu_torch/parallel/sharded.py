@@ -55,7 +55,8 @@ from ..ops.torch_kernels import (COV_EIGH_MAX_E, GRAM_EIGH_MAX_R,
 from ..oracle import Oracle, parse_event_bounds
 from .fused_sharded import fused_sharded_consensus
 from .mesh import (EventShards, as_mesh, effective_median_block,
-                   make_mesh, padded_width, place_event_shards)
+                   home_device, local_devices, make_mesh, padded_width,
+                   place_event_shards)
 from .plain_sharded import hybrid_sharded_consensus, plain_sharded_consensus
 
 __all__ = ["sharded_consensus", "ShardedOracle", "resolve_device",
@@ -330,7 +331,11 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
     placed once by ``place_event_shards`` (a plain matrix is placed on
     every call). ``device=None`` means the card. ``mesh``
     (``make_mesh``) shards the events over its devices; a one-device mesh
-    takes the single-device path, as in the reference."""
+    takes the single-device path, as in the reference. On a mesh that
+    spans processes (``distributed.make_process_mesh`` or
+    ``make_hybrid_mesh``) every rank calls with the same matrix, and each
+    gets the whole result on its first device, the same bits on every
+    rank."""
     if isinstance(reports, EventShards) and mesh is None:
         mesh = reports.mesh
     if mesh is not None:
@@ -340,7 +345,7 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
         if isinstance(reports, EventShards) and reports.mesh != mesh:
             raise ValueError(f"reports are placed on {reports.mesh}, not on "
                              f"the mesh {mesh}")
-        dev = mesh[0]
+        dev = home_device(mesh)
     else:
         dev = resolve_device(device)
     n_event = len(mesh) if mesh is not None else 1
@@ -368,7 +373,7 @@ def sharded_consensus(reports, reputation=None, event_bounds=None,
     else:
         has_na = p.has_na
     p = p._replace(any_scaled=bool(scaled.any()), has_na=has_na)
-    for d in mesh or ():
+    for d in local_devices(mesh) if mesh is not None else ():
         require_hopper(d)
     p = resolve_params(p, R, E, dev, n_event)
     rep = _place_reputation(reputation, R, dev)
@@ -385,7 +390,8 @@ class ShardedOracle(Oracle):
     ShardedOracle``): every algorithm and storage, on one device or over
     an event mesh (the fused path where the gate opens, the plain core
     where it closes, the hybrid path for hierarchical and dbscan). The
-    constructor adds ``mesh=`` (``make_mesh``; default one shard on
+    constructor adds ``mesh=`` (``make_mesh`` or a mesh that spans
+    processes, every rank constructing it alike; default one shard on
     ``device``, which defaults to the card).
     ``consensus()`` returns the reference-shaped dict without the (R, E)
     matrices. A non-finite result walks the inherited fallback chain on
@@ -402,13 +408,13 @@ class ShardedOracle(Oracle):
             if device is not None:
                 raise ValueError("pass either device= or mesh=, not both")
             mesh = as_mesh(mesh)
-            device = mesh[0]
+            device = home_device(mesh)
         super().__init__(*args, device=device, **kwargs)
         if self.backend != "torch":
             raise ValueError("ShardedOracle requires backend='torch'")
         self.mesh = mesh if mesh is not None else make_mesh(
             devices=[self.device])
-        for d in self.mesh:
+        for d in local_devices(self.mesh):
             require_hopper(d)
         R, E = self.reports.shape
         self.params = resolve_params(
@@ -419,6 +425,8 @@ class ShardedOracle(Oracle):
     def place(self) -> "ShardedOracle":
         """Place the reports on the mesh (and the reputation on its first
         device) once, so that each later ``consensus()`` uploads nothing.
+        On a mesh that spans processes each rank places and encodes its
+        own shards.
         With ``storage_dtype="int8"`` the placed storage is the int8
         encoding, made once on each device: the fused path would encode
         the float reports on every call, to the same bits. With

@@ -89,7 +89,7 @@ from ..ops import torch_kernels as tk
 from ..ops.constants import DIRFIX_TIE_ATOL
 from ..ops.prng import orth_seed
 from ..oracle import parse_event_bounds
-from .mesh import as_mesh, effective_median_block, fold
+from .mesh import as_mesh, effective_median_block, fold, refuse_process_mesh
 from .sharded import resolve_device
 
 __all__ = ["streaming_consensus", "gram_dirfix", "gram_top_components",
@@ -496,6 +496,11 @@ def streaming_consensus(reports_src, reputation=None, event_bounds=None,
     if mesh is not None:
         if device is not None:
             raise ValueError("pass either device= or mesh=, not both")
+        # each host shards its own panels over its own devices, as the
+        # reference's hosts do (pyconsensus_tpu/cli.py:202-209)
+        refuse_process_mesh(mesh, "streaming_consensus(mesh=)",
+                            "; pass this host's local mesh (make_mesh) "
+                            "and split the panels with n_hosts")
         # the prefetch thread uploads to these devices, whatever its own
         # current device is (make_mesh gives every card its index)
         devs = as_mesh(mesh)

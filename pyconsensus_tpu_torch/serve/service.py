@@ -51,7 +51,8 @@ from ..oracle import ALGORITHMS, BACKENDS, parse_event_bounds
 from ..parallel.sharded import resolve_device
 from .admission import AdmissionController
 from .batcher import Microbatcher
-from ..parallel.mesh import make_mesh, mesh_devices, mesh_shape
+from ..parallel.mesh import (make_mesh, mesh_devices, mesh_shape,
+                             refuse_process_mesh)
 from .cache import ROADMAP_AOT, BucketKey, ExecutableCache
 from .cuda import CUDA_KERNEL_PATH, cuda_bucket_eligible, cuda_bucket_params
 from .incremental import (INCREMENTAL_KERNEL_PATH,
@@ -233,6 +234,7 @@ class ConsensusService:
                  device=None, devices=None) -> None:
         self.config = config or ServeConfig()
         _validate(self.config)
+        refuse_process_mesh(devices, "the mesh-sharded serve buckets")
         if device is None and devices is not None:
             device = list(devices)[0]
         self.device = resolve_device(device)

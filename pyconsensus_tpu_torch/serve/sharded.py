@@ -55,7 +55,7 @@ from ..ops import torch_kernels as tk
 from ..ops.lanes import fsum, guard
 from ..parallel.mesh import (fold, gather, make_mesh, mesh_devices,
                              mesh_shape, place_batch_event_shards,
-                             scatter)
+                             refuse_process_mesh, scatter)
 from . import kernels as sk
 
 __all__ = ["SINGLE_TOPOLOGY", "serve_mesh", "mesh_fingerprint",
@@ -297,6 +297,7 @@ def make_sharded_bucket_executable(p: ConsensusParams, mesh,
     their results are joined on the grid's first device. The operands
     may lie on any device. Building compiles nothing."""
     sk._check_bucket_params(p)
+    refuse_process_mesh(mesh, "the mesh-sharded serve buckets")
     built_p = p
     dev0 = mesh_devices(mesh)[0]
 

@@ -39,7 +39,7 @@ import torch
 from .. import obs
 from ..models.pipeline import JIT_ALGORITHMS, ConsensusParams
 from ..ops import prng
-from ..parallel.mesh import mesh_devices
+from ..parallel.mesh import mesh_devices, refuse_process_mesh
 from ..parallel.sharded import resolve_device
 from . import _batched
 
@@ -182,9 +182,10 @@ class CollusionSimulator:
     mesh : a mesh (``parallel.mesh.make_mesh``: an event mesh or a batch
         x event grid) whose every device takes a contiguous group of the
         flat trials, as the reference shards its trial axis over every
-        mesh device (pure data parallelism); the groups run on their own
-        threads and join in order. ``make_mesh(batch=n, event=1)`` is the
-        reference's layout.
+        mesh device (pure data parallelism); the groups run in order on
+        the caller's thread and join in order. ``make_mesh(batch=n,
+        event=1)`` is the reference's layout. A mesh that spans processes
+        raises (``ROADMAP.md`` §A.10).
     device : where the sweep runs without a mesh (None: the card;
         ``"cpu"`` on request); with a mesh, None or the mesh's device
         type.
@@ -222,6 +223,7 @@ class CollusionSimulator:
         if mesh is None:
             self.devices = (resolve_device(device),)
         else:
+            refuse_process_mesh(mesh, "the simulator's trial axis")
             self.devices = mesh_devices(mesh)
             if (device is not None
                     and torch.device(device).type != self.devices[0].type):
@@ -243,9 +245,9 @@ class CollusionSimulator:
         point shared by :meth:`run` and the checkpointed chunk runner, so
         ``mesh=`` applies to both. With a mesh, each device takes a
         contiguous group of the trials, the groups run in order on the
-        caller's thread and join in order. Lanes at the same flat index carry the same key,
-        and a lane does not depend on the batch, so any chunking and any
-        mesh give the same bits."""
+        caller's thread and join in order. Lanes at the same flat index
+        carry the same key, and a lane does not depend on the batch, so
+        any chunking and any mesh give the same bits."""
         indices = np.asarray(indices)
         grid_lf, grid_var = np.asarray(grid_lf), np.asarray(grid_var)
         N = indices.shape[0]

@@ -1915,3 +1915,143 @@ def test_stream_mesh_on_side_streams(dev):
         out = streaming_consensus(reports, panel_events=300, params=p,
                                   mesh=mesh)
     _stream_close(out, base, 1e-6, "side streams")
+
+
+# -- the event mesh across processes (-k process_mesh): an NCCL group of one
+# over virtual shards of card 0, and one process a card ----------------------
+
+_PROCESS_MESH_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from pyconsensus_tpu_torch import ConsensusParams, sharded_consensus
+from pyconsensus_tpu_torch.models.pipeline import decode_reports
+from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+from pyconsensus_tpu_torch.parallel import distributed
+from pyconsensus_tpu_torch.parallel.mesh import place_event_shards
+
+address, world, rank, shards, path, out = sys.argv[1:]
+world, rank, shards = int(world), int(rank), int(shards)
+distributed.initialize(address, world, rank)
+devices = ["cuda:0"] * shards if world == 1 else None
+mesh = distributed.make_process_mesh(devices)
+x8 = np.load(path, mmap_mode="r")
+placed = place_event_shards(x8, mesh)
+res = {}
+for tag, x, p in (
+        ("sztorc", placed, ConsensusParams(storage_dtype="int8",
+                                           pca_method="power-fused",
+                                           max_iterations=2,
+                                           power_tol=1e-5)),
+        ("fixed-variance", placed._replace(shards=tuple(
+            decode_reports(s) for s in placed.shards)),
+         ConsensusParams(algorithm="fixed-variance", max_iterations=2,
+                         pca_method="power", power_tol=1e-5))):
+    ck.reset_launch_counts()
+    r = sharded_consensus(x, params=p)
+    torch.cuda.synchronize()
+    res[tag] = {k: v.cpu() for k, v in r.items()
+                if isinstance(v, torch.Tensor)}
+    res[tag + " launches"] = ck.launch_counts()
+torch.save(res, out)
+"""
+
+
+def _process_mesh_ranks(tmp_path, world, shards, x8):
+    """``world`` ranks of ``_PROCESS_MESH_SCRIPT`` over NCCL, each under a
+    timeout (and killed when a peer fails): every rank's results."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "x8.npy")
+    np.save(path, x8)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        address = f"localhost:{sock.getsockname()[1]}"
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PROCESS_MESH_SCRIPT, address, str(world),
+         str(r), str(shards), path, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=repo)
+        for r in range(world)]
+    deadline = time.monotonic() + 300
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p in procs:
+        text = p.communicate()[0]
+        assert p.returncode == 0, text[-4000:]
+    return [torch.load(o) for o in outs]
+
+
+def _one_controller_mesh(mesh, x8):
+    from pyconsensus_tpu_torch.models.pipeline import decode_reports
+    from pyconsensus_tpu_torch.parallel.mesh import place_event_shards
+
+    placed = place_event_shards(x8, mesh)
+    res = {}
+    for tag, x, p in (
+            ("sztorc", placed, ConsensusParams(
+                storage_dtype="int8", pca_method="power-fused",
+                max_iterations=2, power_tol=1e-5)),
+            ("fixed-variance", placed._replace(shards=tuple(
+                decode_reports(s) for s in placed.shards)),
+             ConsensusParams(algorithm="fixed-variance", max_iterations=2,
+                             pca_method="power", power_tol=1e-5))):
+        r = sharded_consensus(x, params=p)
+        res[tag] = {k: v.cpu() for k, v in r.items()
+                    if isinstance(v, torch.Tensor)}
+    return res
+
+
+def _assert_ranks_equal(ranks, want, what):
+    for r, got in enumerate(ranks):
+        for tag in ("sztorc", "fixed-variance"):
+            differ = [k for k, v in want[tag].items()
+                      if not torch.equal(got[tag][k], v)]
+            assert not differ, f"{what}, rank {r}, {tag}: {differ}"
+        launches = got["sztorc launches"]
+        for k in ("storage_matvec", "storage_rows_matmat",
+                  "resolve_certainty_fused"):
+            assert launches[k] > 0, (r, launches)
+
+
+@pytest.mark.cuda
+def test_process_mesh_nccl_group_of_one(dev, tmp_path):
+    """One process, an NCCL group of one over four virtual shards of card
+    0: the gathers and the folds go through NCCL, and every key is bit
+    for bit the one-controller 4-shard mesh's (int8 fused sztorc, B.5,
+    B.6 and B.3 launched; fixed-variance on the plain mesh core)."""
+    from pyconsensus_tpu_torch.parallel.mesh import make_mesh
+
+    _, x8, *_ = make_storage(41, 517, 4099)
+    ranks = _process_mesh_ranks(tmp_path, 1, 4, x8)
+    want = _one_controller_mesh(make_mesh(devices=["cuda:0"] * 4), x8)
+    _assert_ranks_equal(ranks, want, "a group of one")
+
+
+@pytest.mark.cuda
+def test_process_mesh_one_process_a_card(dev, tmp_path):
+    """One process a card over NCCL: every rank's keys bit for bit the
+    one-controller mesh over the same cards (int8 fused sztorc with B.5,
+    B.6 and B.3 launched on each rank; fixed-variance)."""
+    from pyconsensus_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("one process a card needs two cards or more")
+    _, x8, *_ = make_storage(42, 517, 4099)
+    ranks = _process_mesh_ranks(tmp_path, n, 1, x8)
+    want = _one_controller_mesh(make_mesh(event=n), x8)
+    _assert_ranks_equal(ranks, want, f"{n} processes")
