@@ -312,6 +312,20 @@ GRID_CLI = (1024, 8192)
 #: one fails)
 PROCESS_SHARDS = 4
 PROCESS_TIMEOUT = 600
+#: the fleet phase (``fleet_phase``): a 3-worker in-process fleet on the
+#: card under the default ``ServeConfig`` (all-binary requests at the
+#: ``bucket_cuda`` class bound, 2% absent, distinct matrices cycled),
+#: beside one service; the kill after the 16th completion and the
+#: clients' retry budget; a durable session (1024 reporters, blocks of
+#: 512 events, 3 rounds of two appends and a resolve, its owner killed
+#: after round 2's first append); the serve command line's run
+FLEET_WORKERS = 3
+FLEET_REQUEST, FLEET_NA = (1024, 4096), 0.02
+FLEET_REQUESTS, FLEET_CONCURRENCY, FLEET_DISTINCT = 48, 8, 12
+FLEET_KILL_AFTER, FLEET_RETRIES = 16, 6
+FLEET_SESSION_R, FLEET_SESSION_E, FLEET_SESSION_ROUNDS = 1024, 512, 3
+FLEET_CLI = ("--fleet-workers", "3", "--requests", "64", "--concurrency",
+             "8", "--shapes", "1024x4096")
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -592,6 +606,15 @@ def run(args) -> int:
                      if args.mesh_devices else
                      f"an NCCL group of one over {PROCESS_SHARDS} shards "
                      "of one card")
+    if args.only == "fleet":
+        with phase("fleet"):
+            fleet_phase(torch, ck, card, dev, launches, args.seed, here)
+        log(f"chip_smoke --only fleet total "
+            f"{time.perf_counter() - t_start:.3f} s")
+        log(json.dumps({"ok": True, "only": "fleet", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.only == "process":
         kept = {}
         if args.mesh_devices > 1:
@@ -706,6 +729,9 @@ def run(args) -> int:
 
     with phase("serve"):
         serve_phase(torch, ck, card, dev, launches, args.seed)
+
+    with phase("fleet"):
+        fleet_phase(torch, ck, card, dev, launches, args.seed, here)
 
     kept = {}
     with phase("streaming and the CLI"):
@@ -2666,6 +2692,343 @@ def serve_phase(torch, ck, card, dev, launches, seed,
             + f"; {launch_text(counts)} on {card}")
 
 
+def fleet_phase(torch, ck, card, dev, launches, seed, here,
+                request=FLEET_REQUEST, requests=FLEET_REQUESTS,
+                session_r=FLEET_SESSION_R, block_e=FLEET_SESSION_E,
+                cli_args=FLEET_CLI, cfg=None):
+    """The replicated serve fleet on the card (``serve/fleet.py``), each
+    number beside ``card``:
+
+    1. ``requests`` all-binary ``request`` matrices (``FLEET_NA``
+       absent) from ``FLEET_CONCURRENCY`` closed-loop clients through a
+       ``FLEET_WORKERS``-worker fleet under the default ``ServeConfig``,
+       then through one ``ConsensusService`` of the same config:
+       requests/s, p50 and p99 of each, B.1, B.2 and B.3 launches a
+       request (each must launch), every result bit for bit the direct
+       fused ``ShardedOracle``;
+    2. the same block through a fresh fleet with ``kill_worker("w1")``
+       after the ``FLEET_KILL_AFTER``-th completion, the clients retrying
+       the retryable sheds (PYC401/501/502, the load generator's waits,
+       ``FLEET_RETRIES`` a request): the sheds by code, the retries,
+       abandoned (must be 0), p50 and p99 of the requests in flight
+       during the takeover window against the others, the seconds from
+       the kill to the first result of a request the kill shed less its
+       retry waits, every result bit for bit;
+    3. a durable session of ``session_r`` reporters, blocks of
+       ``block_e`` events, ``FLEET_SESSION_ROUNDS`` rounds of two appends
+       and a resolve, its owner killed after round 2's first append: the
+       takeover's seconds, a standalone verify and replay of the log, and
+       every resolve bit for bit a never-killed session of the same
+       call;
+    4. ``python -m pyconsensus_tpu_torch.serve.cli`` with ``cli_args``
+       as a subprocess: exit 0, failed 0, abandoned 0, ``cuda`` in its
+       kernel-path block.
+
+    ``dev`` may be the CPU for a rehearsal (then nothing launches; pass
+    ``cfg=ServeConfig(pallas_buckets=True)`` so the requests ride the
+    class's plain versions). The replication logs live under
+    ``chiprun_out/`` while the phase runs and are removed after it."""
+    import tempfile
+
+    log_root = tempfile.mkdtemp(prefix="fleet-", dir=os.path.join(
+        here, OUT_DIR))
+    try:
+        _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
+                     requests, session_r, block_e, cli_args, cfg, log_root)
+    finally:
+        shutil.rmtree(log_root, ignore_errors=True)
+
+
+def _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
+                 requests, session_r, block_e, cli_args, cfg, log_root):
+    """The four parts of :func:`fleet_phase` over the log root
+    ``log_root``."""
+    import concurrent.futures
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.serve import (ConsensusFleet,
+                                             ConsensusService, FleetConfig,
+                                             LoadGenerator, MarketSession,
+                                             ReplicationLog, ServeConfig,
+                                             replay_session)
+    from pyconsensus_tpu_torch.serve.loadgen import RETRYABLE_CODES
+
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 20)
+    R, E = request
+    mats = [serve_reports(rng, R, E, na_frac=FLEET_NA)[0]
+            for _ in range(FLEET_DISTINCT)]
+    want = [ShardedOracle(m, pca_method="power", device=dev).consensus()
+            for m in mats]
+    cfg = cfg or ServeConfig()
+
+    def counted():
+        counts = ck.launch_counts()
+        for k in counts:
+            launches[k] += counts[k]
+        return counts
+
+    def exact(got, i, what):
+        served_close(got, want[i % FLEET_DISTINCT], 0.0,
+                     f"{what} request {i}", exact_all=True)
+
+    def closed_loop(front, kill=None):
+        """``requests`` requests from the clients; returns latencies (ms),
+        results, wall seconds and the retry tally (with each request's
+        start and end, and the first shed request's retry waits)."""
+        lat = [0.0] * requests
+        results = [None] * requests
+        tally = {"sheds": {}, "retried": 0, "abandoned": 0,
+                 "completed": 0, "t_kill": None, "after_kill": None,
+                 "after_kill_waits": None, "spans": [None] * requests}
+        lock = threading.Lock()
+        pacer = LoadGenerator(None, shapes=((1, 1),), seed=seed)
+
+        def one(i):
+            t0 = time.perf_counter()
+            shed, waits = False, 0.0
+            for attempt in range(FLEET_RETRIES + 1):
+                try:
+                    results[i] = front.submit(
+                        reports=mats[i % FLEET_DISTINCT]).result(
+                            timeout=300)
+                    break
+                except Exception as exc:  # noqa: BLE001 — tallied
+                    code = getattr(exc, "error_code", None)
+                    if code not in RETRYABLE_CODES:
+                        raise
+                    with lock:
+                        tally["sheds"][code] = tally["sheds"].get(code,
+                                                                  0) + 1
+                        if attempt == FLEET_RETRIES:
+                            tally["abandoned"] += 1
+                            return
+                        tally["retried"] += 1
+                    shed = True
+                    wait = pacer._retry_delay(exc, i, attempt)
+                    waits += wait
+                    time.sleep(wait)
+            now = time.perf_counter()
+            lat[i] = 1e3 * (now - t0)
+            tally["spans"][i] = (t0, now)
+            with lock:
+                tally["completed"] += 1
+                if (shed and tally["t_kill"] is not None
+                        and tally["after_kill"] is None):
+                    tally["after_kill"] = now - tally["t_kill"]
+                    tally["after_kill_waits"] = waits
+                fire = (kill is not None
+                        and tally["completed"] == FLEET_KILL_AFTER)
+                if fire:
+                    tally["t_kill"] = now
+            if fire:            # outside the lock: the other clients'
+                kill()          # completions go on during the takeover
+
+        def client(c):
+            for i in range(c, requests, FLEET_CONCURRENCY):
+                one(i)
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(
+                FLEET_CONCURRENCY) as pool:
+            list(pool.map(client, range(FLEET_CONCURRENCY)))
+        return lat, results, time.perf_counter() - t0, tally
+
+    def warm(services):
+        # the default config builds the class's key at a shape's first
+        # request: one untimed request through each worker's front door
+        for svc in services:
+            svc.resolve(reports=mats[0], timeout=300)
+
+    # 1. the fleet beside one service, same config, same requests
+    rates = {}
+    for label in ("fleet", "one service"):
+        if label == "fleet":
+            front = ConsensusFleet(FleetConfig(
+                n_workers=FLEET_WORKERS, log_dir=log_root, worker=cfg),
+                device=dev)
+            front.start()
+            warm([w.service for w in front.workers.values()])
+        else:
+            front = ConsensusService(cfg, device=dev).start()
+            warm([front])
+        if on_card:
+            torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        try:
+            lat, results, wall, _ = closed_loop(front)
+        finally:
+            front.close(drain=True)
+        counts = counted()
+        per = {k: counts[k] / requests for k in CUDA_TIER_KERNELS}
+        if on_card and not all(counts[k] >= requests
+                               for k in CUDA_TIER_KERNELS):
+            raise RuntimeError(f"{label}: a kernel of the class was not "
+                               f"launched by every request: {counts}")
+        for i, got in enumerate(results):
+            exact(got, i, label)
+        rates[label] = requests / wall
+        log(f"{label} ({FLEET_WORKERS if label == 'fleet' else 1} "
+            f"worker(s), default ServeConfig): {requests} {R}x{E} binary "
+            f"requests at concurrency {FLEET_CONCURRENCY}: "
+            f"{rates[label]:.4f} requests/s, p50 {percentile(lat, 0.5):.3f}"
+            f" ms, p99 {percentile(lat, 0.99):.3f} ms; launches a request "
+            f"B.1 {per['apply_weighted_cov']:.2f}, B.2 "
+            f"{per['scores_dirfix_pass']:.2f}, B.3 "
+            f"{per['resolve_certainty_fused']:.2f}; every result bit for "
+            f"bit the direct fused ShardedOracle on {card}")
+    log(f"fleet / one service: {rates['fleet'] / rates['one service']:.4f}"
+        f"x requests/s on {card}")
+
+    # 2. the same block with a worker killed mid-traffic
+    fleet = ConsensusFleet(FleetConfig(n_workers=FLEET_WORKERS,
+                                       log_dir=log_root, worker=cfg),
+                           device=dev)
+    fleet.start()
+    warm([w.service for w in fleet.workers.values()])
+    killed = {}
+    ck.reset_launch_counts()
+    try:
+        lat, results, wall, tally = closed_loop(
+            fleet, kill=lambda: killed.update(fleet.kill_worker("w1")))
+        status = fleet.status()
+    finally:
+        fleet.close(drain=True)
+    counts = counted()
+    if tally["abandoned"] or not killed or status["workers"]["w1"]["alive"]:
+        raise RuntimeError(f"kill mid-traffic: abandoned "
+                           f"{tally['abandoned']}, kill {killed}, status "
+                           f"{status}")
+    for i, got in enumerate(results):
+        exact(got, i, "kill mid-traffic")
+    after, waits = tally["after_kill"], tally["after_kill_waits"]
+    # the takeover window: the kill to the end of the retry hint it sets
+    w0 = tally["t_kill"]
+    w1 = w0 + fleet.config.takeover_window_s
+    inside = [lat[i] for i, (a, b) in enumerate(tally["spans"])
+              if a <= w1 and b >= w0]
+    outside = [lat[i] for i, (a, b) in enumerate(tally["spans"])
+               if not (a <= w1 and b >= w0)]
+
+    def tail(xs):
+        return (f"n {len(xs)}, p50 {percentile(xs, 0.5):.3f} ms, p99 "
+                f"{percentile(xs, 0.99):.3f} ms" if xs else "n 0")
+
+    log(f"fleet with kill_worker('w1') after completion "
+        f"{FLEET_KILL_AFTER}: {requests} requests in {wall:.3f} s "
+        f"({requests / wall:.4f} requests/s, p50 "
+        f"{percentile(lat, 0.5):.3f} ms, p99 {percentile(lat, 0.99):.3f} "
+        f"ms); queued shed at the kill {killed['shed_queued']}, sheds by "
+        f"code {tally['sheds'] or 'none'}, retries {tally['retried']}, "
+        f"abandoned 0; requests in flight during the takeover window "
+        f"({fleet.config.takeover_window_s} s from the kill): "
+        f"{tail(inside)}; the others: {tail(outside)}; kill to the first "
+        f"result of a shed request "
+        + (f"{after:.4f} s, of which its retry waits {waits:.4f} s, so "
+           f"{after - waits:.4f} s the fleet's own" if after is not None
+           else "n/a (none shed)")
+        + f"; every result bit for bit the direct fused ShardedOracle; "
+        f"{launch_text(counts)} on {card}")
+
+    # 3. a durable session killed mid-round, against a never-killed one
+    blocks = [[serve_reports(rng, session_r, block_e)[0] for _ in range(2)]
+              for _ in range(FLEET_SESSION_ROUNDS)]
+    whole = MarketSession("ref", session_r, device=dev)
+    want_rounds = []
+    for rnd in blocks:
+        for b in rnd:
+            whole.append(b)
+        want_rounds.append(whole.resolve())
+    fleet = ConsensusFleet(FleetConfig(n_workers=FLEET_WORKERS,
+                                       log_dir=log_root, worker=cfg),
+                           device=dev)
+    fleet.start()
+    ck.reset_launch_counts()
+    try:
+        fleet.create_session("market", n_reporters=session_r)
+        got, take = [], None
+        for k, rnd in enumerate(blocks):
+            for j, b in enumerate(rnd):
+                fleet.append("market", b)
+                if k == 1 and j == 0:
+                    victim = fleet.owner_of("market")
+                    t0 = time.perf_counter()
+                    info = fleet.kill_worker(victim)
+                    if on_card:
+                        torch.cuda.synchronize()
+                    take = time.perf_counter() - t0
+            got.append(fleet.submit(session="market").result(timeout=300))
+        owner = fleet.owner_of("market")
+    finally:
+        fleet.close(drain=True)
+    counts = counted()
+    if info["sessions_migrated"] != [("market", owner)]:
+        raise RuntimeError(f"session takeover: {info}, owner {owner}")
+    for k, (g, w) in enumerate(zip(got, want_rounds)):
+        for path, key in (("agents", "smooth_rep"), ("agents", "old_rep"),
+                          ("events", "outcomes_final"),
+                          ("events", "outcomes_adjusted")):
+            if not np.array_equal(np.asarray(g[path][key]),
+                                  np.asarray(w[key])):
+                raise RuntimeError(f"session round {k}: {key} is not the "
+                                   f"never-killed session's bits")
+        if int(g["iterations"]) != int(np.asarray(w["iterations"])):
+            raise RuntimeError(f"session round {k}: iterations differ")
+    # the log after the run holds the last committed round: verify and
+    # replay it standalone, timed
+    t0 = time.perf_counter()
+    summary = ReplicationLog(log_root, "market").verify()
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    standby = replay_session(log_root, "market", device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    if not np.array_equal(standby.reputation, whole.reputation):
+        raise RuntimeError("session: the replayed reputation is not the "
+                           "never-killed session's")
+    log(f"durable session {session_r} reporters x blocks of {block_e} "
+        f"events, {FLEET_SESSION_ROUNDS} rounds, owner {victim} killed "
+        f"after round 2's first append: takeover (fence, verify, replay "
+        f"of 1 block, adopt) {take:.4f} s; standalone verify "
+        f"{t_verify:.4f} s and replay {t_replay:.4f} s of the final log "
+        f"({summary['round']} rounds); every resolve bit for bit the "
+        f"never-killed session's; {launch_text(counts)} on {card}")
+
+    # 4. the serve command line
+    with tempfile.TemporaryDirectory(dir=os.path.join(here, OUT_DIR)) as d:
+        args = [*cli_args, "--log-dir", d]
+        if not on_card:
+            args += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "pyconsensus_tpu_torch.serve.cli",
+             *args], capture_output=True, text=True, cwd=here, timeout=600)
+        secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"serve cli exited {run.returncode}:\n"
+                           f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+    stats = json.loads(run.stdout[run.stdout.index("{"):])
+    paths = stats.get("kernel_paths") or {}
+    if stats["failed"] or stats["abandoned"] or (on_card
+                                                 and "cuda" not in paths):
+        raise RuntimeError(f"serve cli: failed {stats['failed']}, "
+                           f"abandoned {stats['abandoned']}, kernel paths "
+                           f"{paths}")
+    sweeps = stats["kernel_launches"].get("apply_weighted_cov", 0)
+    log(f"pyconsensus_tpu_torch.serve.cli {' '.join(cli_args)}: exit 0 in "
+        f"{secs:.3f} s, {stats['warmed_executables']} executables warmed "
+        f"before the timed run, {stats['succeeded']} succeeded, failed 0, "
+        f"abandoned 0, {stats['throughput_rps']} requests/s, p50 "
+        f"{stats['latency_p50_ms']} ms, p99 {stats['latency_p99_ms']} ms, "
+        f"kernel paths {paths}, B.1 {sweeps / max(1, stats['succeeded']):.2f}"
+        f" launches a request (warm-up included) on {card}")
+
+
 def stream_check(torch, out, R, E, algorithm, truth, label):
     """``check_result`` on a streamed (host numpy) result, and the truth
     recovered (>= 0.99 of the snapped outcomes). Returns that share."""
@@ -4086,10 +4449,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")
-    ap.add_argument("--only", choices=("process",),
+    ap.add_argument("--only", choices=("process", "fleet"),
                     help="run only this phase after the build (the process "
-                    "mesh; with --mesh-devices, after the streaming "
-                    "phase's one-host stream that it compares with)")
+                    "mesh, with --mesh-devices after the streaming "
+                    "phase's one-host stream that it compares with; or "
+                    "the fleet)")
     ap.add_argument("--process-worker", type=int, default=None,
                     metavar="RANK", help=argparse.SUPPRESS)
     ap.add_argument("--process-world", type=int, default=1,

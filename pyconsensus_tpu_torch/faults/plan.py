@@ -47,16 +47,18 @@ import numpy as np
 __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
            "arm", "disarm", "armed", "active_plan", "fire", "corrupt"]
 
-#: The 18 named injection sites of the port — every :func:`fire` /
+#: The 23 named injection sites of the port — every :func:`fire` /
 #: :func:`corrupt` hook call in the package names exactly one of these,
 #: and every entry here is reached by at least one hook call (the tests
 #: check both directions against the source). Each is a site of the JAX
 #: package's catalog, so a plan written for it arms the same sites here:
 #: persistence (``io.*``, ``ledger.*``, ``sweep.chunk.*``), the front
 #: doors (``sharded.reports``, ``oracle.*``), the out-of-core driver
-#: (``streaming.panel``: each host panel before its upload) and the serve
+#: (``streaming.panel``: each host panel before its upload), the serve
 #: tier (``serve.*``: submit, dispatch, the executable cache's store and
-#: a session's append).
+#: a session's append) and the fleet (``fleet.*``: routing, a worker's
+#: heartbeat, a takeover and the replay of a replication log;
+#: ``state.migrate``: every session relocation).
 FAULT_SITES = (
     "io.read", "io.decode", "io.write", "io.stage",
     "ledger.save", "ledger.load",
@@ -66,6 +68,8 @@ FAULT_SITES = (
     "streaming.panel",
     "serve.enqueue", "serve.dispatch", "serve.cache_store",
     "serve.session_append",
+    "fleet.route", "fleet.heartbeat", "fleet.takeover",
+    "fleet.ledger_replay", "state.migrate",
 )
 
 

@@ -212,6 +212,29 @@ class Histogram(_Metric):
             return None if st is None else {"sum": st["sum"],
                                             "count": st["count"]}
 
+    def absorb(self, counts: Sequence[int], sum: float, count: int,
+               **labels) -> None:
+        """Fold an already-bucketed series (another registry's snapshot)
+        into this one, the merge primitive of the fleet's metric view.
+        ``counts`` must match this histogram's bucket layout
+        (len(edges) + 1, the trailing +Inf bucket included)."""
+        counts = [int(c) for c in counts]
+        if len(counts) != len(self.buckets) + 1:
+            raise ValueError(
+                f"histogram {self.name} has {len(self.buckets) + 1} "
+                f"buckets (+Inf included); cannot absorb {len(counts)}")
+        key = self._key(labels)
+        with self._lock:
+            st = self._series.get(key)
+            if st is None:
+                st = {"counts": [0] * (len(self.buckets) + 1),
+                      "sum": 0.0, "count": 0}
+                self._series[key] = st
+            for i, c in enumerate(counts):
+                st["counts"][i] += c
+            st["sum"] += float(sum)
+            st["count"] += int(count)
+
     def render(self) -> List[str]:
         lines: List[str] = []
         with self._lock:
@@ -356,6 +379,49 @@ class MetricsRegistry:
                 entry["edges"] = list(m.buckets)
             out[m.name] = entry
         return out
+
+    def merge_snapshot(self, snap: dict, **extra_labels) -> None:
+        """Fold another registry's :meth:`snapshot` into this one, every
+        series widened by ``extra_labels`` (the fleet passes
+        ``worker=<name>``). Counters add, gauges take the snapshot value,
+        histograms absorb bucket counts (a snapshot without
+        ``counts``/``edges`` cannot be re-bucketed and is skipped). A
+        metric that already carries one of the extra labels keeps its own
+        value. Iteration is sorted throughout, so the merged registry does
+        not depend on dict order."""
+        extra_names = tuple(sorted(extra_labels))
+        extra_vals = {ln: str(extra_labels[ln]) for ln in extra_names}
+        for name in sorted(snap):
+            entry = snap[name]
+            kind = entry.get("kind")
+            own_names = tuple(entry.get("labels") or ())
+            add_names = tuple(ln for ln in extra_names
+                              if ln not in own_names)
+            label_names = own_names + add_names
+            if kind == "histogram":
+                edges = entry.get("edges")
+                if not edges:
+                    continue
+                m = self.histogram(name, labels=label_names, buckets=edges)
+            elif kind == "counter":
+                m = self.counter(name, labels=label_names)
+            elif kind == "gauge":
+                m = self.gauge(name, labels=label_names)
+            else:
+                continue
+            series = entry.get("series") or {}
+            for skey in sorted(series):
+                v = series[skey]
+                labels = dict(json.loads(skey)) if skey else {}
+                labels.update({ln: extra_vals[ln] for ln in add_names})
+                if kind == "histogram":
+                    if "counts" not in v:
+                        continue
+                    m.absorb(v["counts"], v["sum"], v["count"], **labels)
+                elif kind == "counter":
+                    m.inc(float(v), **labels)
+                else:
+                    m.set(float(v), **labels)
 
     def reset(self) -> None:
         with self._lock:

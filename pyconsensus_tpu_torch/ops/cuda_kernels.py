@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -113,15 +114,27 @@ _COUNTS = {"apply_weighted_cov": 0, "storage_matvec": 0,
            "fill_stats_pass": 0, "resolve_certainty_fused": 0}
 
 
+#: the counts are bumped from every thread that launches (a fleet's
+#: batcher threads among them): a read-modify-write under a lock
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[name] += 1
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset (plain-version
     calls on CPU tensors are not launches)."""
-    return dict(_COUNTS)
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def reset_launch_counts() -> None:
-    for k in _COUNTS:
-        _COUNTS[k] = 0
+    with _COUNTS_LOCK:
+        for k in _COUNTS:
+            _COUNTS[k] = 0
 
 
 # -- fit gates ---------------------------------------------------------------
@@ -419,7 +432,7 @@ def apply_weighted_cov(x, mu, rep, v, fill=None):
         t = _row_tile(lib, x, mu, a, v[:, None])[0]
         w = (rep * t).reshape(1, R).contiguous()
         y = _col_pass(lib, x, mu, a, w)[0]
-    _COUNTS["apply_weighted_cov"] += 1
+    _count("apply_weighted_cov")
     return y
 
 
@@ -462,7 +475,7 @@ def storage_matvec(x, v, fill=None):
     lib = _storage_lib()
     with torch.cuda.device(x.device):
         t = _row_tile(lib, x, None, fill, v[:, None])[0]
-    _COUNTS["storage_matvec"] += 1
+    _count("storage_matvec")
     return t
 
 
@@ -493,7 +506,7 @@ def scores_dirfix_pass(x, rep, loading, fill=None):
         t = _row_tile(lib, x, None, fill, loading[:, None])[0]
         w3 = torch.stack([t, rep, torch.ones_like(t)]).contiguous()
         acc = _col_pass(lib, x, None, fill, w3)                # q, o, c
-    _COUNTS["scores_dirfix_pass"] += 1
+    _count("scores_dirfix_pass")
     return t, acc[0], acc[2], acc[1]
 
 
@@ -540,7 +553,7 @@ def apply_weighted_cov_block(x, mu, rep, V, fill=None, emit_t=False):
         a = (fill - mu).contiguous() if fill is not None else None
         t = _row_tile(lib, x, mu, a, V)                         # (k, R)
         y = _col_pass(lib, x, mu, a, (rep[None, :] * t).contiguous())
-    _COUNTS["apply_weighted_cov_block"] += 1
+    _count("apply_weighted_cov_block")
     return y.T, (t.T if emit_t else None)
 
 
@@ -601,7 +614,7 @@ def storage_matmat(x, V, fill=None):
     fill = _lattice_fill(x, fill)
     out = _grouped(x, k, MAX_TILE_K,
                    lambda g: _row_tile(lib, x, None, fill, V[:, g]).T, 1)
-    _COUNTS["storage_matmat"] += 1
+    _count("storage_matmat")
     return out
 
 
@@ -647,7 +660,7 @@ def storage_rows_matmat(x, W, fill=None):
     fill = _lattice_fill(x, fill)
     out = _grouped(x, k, MAX_ROWS_K,
                    lambda g: _col_pass(lib, x, None, fill, W[g]), 0)
-    _COUNTS["storage_rows_matmat"] += 1
+    _count("storage_rows_matmat")
     return out
 
 
@@ -690,7 +703,7 @@ def fill_stats_pass(x, rep):
         _raise_on(lib.pyc_fill_stats(
             x.data_ptr(), storage, R, E, rep.data_ptr(), n_chunks,
             partial.data_ptr(), out.data_ptr(), stream), "pyc_fill_stats")
-    _COUNTS["fill_stats_pass"] += 1
+    _count("fill_stats_pass")
     return out[0], out[1]
 
 
@@ -757,7 +770,7 @@ def resolve_certainty_fused(x, rep, fill, full_total, tolerance: float):
                                                 tolerance, vt[0])
         vt[1].fill_(1.0)
         prow, narow = _absent_rows(x, vt)
-    _COUNTS["resolve_certainty_fused"] += 1
+    _count("resolve_certainty_fused")
     return raw, out, cert, pcol, prow, narow
 
 

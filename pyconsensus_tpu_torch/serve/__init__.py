@@ -38,14 +38,26 @@ Guarantees:
   warm-started power iteration, with continuous drift pinned to a band
   by an exact resolve every K rounds.
 
-The AOT store, tiered session state, the fleet, failover,
-autoscaling, placement, the load generator, the CLI and the transports
-§A.11.
+- the replicated fleet (``serve.fleet``) survives any worker's death
+  mid-traffic: consistent-hash placement (``serve.placement``) moves only
+  the dead worker's sessions, the replication log (``serve.failover``:
+  ledger checkpoints + staged journals, the reference's layout and
+  digests) resumes them bit for bit on the standby, and everything in
+  between sheds with PYC5xx errors carrying an honest ``retry_after_s``.
+  Its workers are in-process services on the fleet's one device
+  (``serve.transport``); ``serve.loadgen`` drives a service or a fleet,
+  and ``serve.cli`` (``pyconsensus-serve-torch``) is the front door.
+
+The socket transport (one worker process a card), the AOT store with
+tiered session state and journal compaction (``stateplane.py``), the
+autoscaler and the SLO, HTTP and flight-recorder telemetry are
+``ROADMAP.md`` §A.11.
 """
 
 from __future__ import annotations
 
-from ..faults import ServiceOverloadError
+from ..faults import (FailoverInProgressError, PlacementError,
+                      ServiceOverloadError, WorkerLostError)
 from .admission import AdmissionController, ClusterCapacity
 from .cache import SINGLE_TOPOLOGY, BucketKey, ExecutableCache, warm_inputs
 from .cuda import (CUDA_KERNEL_PATH, PLAIN_KERNEL_PATH, cuda_bucket_eligible,
@@ -54,9 +66,13 @@ from .incremental import (INCREMENTAL_KERNEL_PATH,
                           INCREMENTAL_REFRESH_DEFAULT,
                           incremental_consensus, incremental_drift_band,
                           make_incremental_executable)
+from .failover import DurableSession, ReplicationLog, replay_session
+from .fleet import ConsensusFleet, FleetConfig, FleetWorker
 from .kernels import (SERVE_ALGORITHMS, BucketTemplates, bucket_inputs,
                       bucket_path_eligible, make_bucket_executable,
                       padded_consensus, slice_result)
+from .loadgen import LoadGenerator, RateTrace
+from .placement import HashRing
 from .queue import RequestQueue, ResolveRequest
 from .service import ConsensusService, ServeConfig
 from .session import MarketSession, SessionStore, share_of
@@ -79,4 +95,8 @@ __all__ = [
     "make_incremental_executable",
     "serve_mesh", "mesh_fingerprint", "sharded_bucket_eligible",
     "make_sharded_bucket_executable",
+    "ConsensusFleet", "FleetConfig", "FleetWorker", "HashRing",
+    "DurableSession", "ReplicationLog", "replay_session",
+    "WorkerLostError", "FailoverInProgressError", "PlacementError",
+    "LoadGenerator", "RateTrace",
 ]

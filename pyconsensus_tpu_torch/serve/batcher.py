@@ -103,6 +103,11 @@ class Microbatcher:
         self._thread = None
         #: the exception that ended the batcher thread (None: running)
         self.fatal = None
+        #: ``req -> exception`` once a fleet worker is killed (``fence``):
+        #: every result that lands after it is dropped and its caller gets
+        #: the exception instead
+        self._fenced = None                     # guarded-by: _finish_lock
+        self._finish_lock = threading.Lock()
         self._requests = obs.counter(
             "pyconsensus_serve_requests_total",
             "serve requests by dispatch path and outcome",
@@ -143,6 +148,14 @@ class Microbatcher:
     def join(self, timeout=None) -> None:
         if self._thread is not None:
             self._thread.join(timeout)
+
+    def fence(self, make_exc) -> None:
+        """Deliver no result from now on: a dispatch in flight when its
+        worker is killed finishes on the device, but its waiters get
+        ``make_exc(req)`` (the fleet's retryable worker loss), never the
+        late result. A result delivered before the fence stands."""
+        with self._finish_lock:
+            self._fenced = make_exc
 
     # -- the loop -------------------------------------------------------
 
@@ -378,8 +391,14 @@ class Microbatcher:
         self._finish(req, result, path)
 
     def _finish(self, req, result, path: str) -> None:
-        if not req.future.done():
+        with self._finish_lock:
+            if req.future.done():
+                return
+            if self._fenced is not None:
+                req.future.set_exception(self._fenced(req))
+                self._requests.inc(path=path, outcome="shed")
+                return
             req.future.set_result(result)
-            self._requests.inc(path=path, outcome="ok")
-            self._latency.observe(
-                time.monotonic() - req.submitted_at, path=path)
+        self._requests.inc(path=path, outcome="ok")
+        self._latency.observe(time.monotonic() - req.submitted_at,
+                              path=path)

@@ -43,8 +43,9 @@ __all__ = ["ExecutableCache", "BucketKey", "warm_inputs",
            "SINGLE_TOPOLOGY", "ROADMAP_AOT"]
 
 #: where the parts the port's serve tier refuses are queued
-ROADMAP_AOT = ("ROADMAP.md §A.11 (the serve tier's AOT executable store, "
-               "tiered session state and the fleet)")
+ROADMAP_AOT = ("ROADMAP.md §A.11 (stateplane.py with the kernel-build "
+               "cache: the AOT executable store, tiered session state, "
+               "snapshots and journal compaction)")
 
 #: the build counter's entry label of each kernel path (the reference's
 #: retrace entries); a mesh key of the padded path is ``_SHARDED_ENTRY``

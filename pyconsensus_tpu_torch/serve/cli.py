@@ -1,0 +1,375 @@
+"""``pyconsensus-serve-torch`` — the serve tier's operational front door
+(``pyconsensus_tpu/serve/cli.py``; also ``python -m
+pyconsensus_tpu_torch.serve.cli``).
+
+The service is in-process, so the command line's job is the operational
+loop around it: load a config file, warm the configured buckets,
+optionally drive a load-generation run against one live service or an
+N-worker in-process :class:`~.fleet.ConsensusFleet`, and write the
+metrics exposition and the span trace.
+
+Usage::
+
+    pyconsensus-serve-torch --config serve.json --warmup-only
+    pyconsensus-serve-torch --requests 200 --concurrency 16 \\
+        --shapes 16x64,32x128 --metrics-out serve.prom
+    pyconsensus-serve-torch --fleet-workers 3 --log-dir /tmp/fleet \\
+        --requests 64 --shapes 1024x4096
+
+The flags are the reference's plus ``--device`` (the card by default;
+``cpu`` on request; without a card and without ``--device cpu`` it exits
+2). ``--aot-cache``, ``--transport socket``, ``--autoscale`` and
+``--metrics-port`` name parts of ``ROADMAP.md`` §A.11 the port does not
+have: each exits 2 naming its item, and so do the settings that only
+those parts read (``--autoscale-*``, ``--metrics-hold-s`` and the
+``--slo-*`` targets). Both paths warm what the requests of ``--shapes``
+ride before the timed run, on every fleet worker too, so the printed
+rate is the steady state's.
+
+Exit code 0 iff every generated request succeeded (under
+``--allow-shed`` PYC401 sheds do not count: shedding is the configured
+behavior of an overload probe).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Optional, Sequence
+
+__all__ = ["main"]
+
+_AUTOSCALE = "autoscale.py with obs/slo.py"
+_SLO = "the SLO monitor, obs/slo.py"
+
+#: the flags that name a part of ROADMAP.md §A.11 the port does not have,
+#: or set what only such a part reads
+_REFUSED = {
+    "aot_cache": ("--aot-cache", "the kernel-build cache with "
+                  "stateplane.py"),
+    "autoscale": ("--autoscale", _AUTOSCALE),
+    "autoscale_min": ("--autoscale-min", _AUTOSCALE),
+    "autoscale_max": ("--autoscale-max", _AUTOSCALE),
+    "autoscale_interval_s": ("--autoscale-interval-s", _AUTOSCALE),
+    "autoscale_cooldown_s": ("--autoscale-cooldown-s", _AUTOSCALE),
+    "metrics_port": ("--metrics-port", "obs/httpd.py"),
+    "metrics_hold_s": ("--metrics-hold-s", "obs/httpd.py"),
+    "slo_window_s": ("--slo-window-s", _SLO),
+    "slo_p50_ms": ("--slo-p50-ms", _SLO),
+    "slo_p99_ms": ("--slo-p99-ms", _SLO),
+    "slo_shed_ratio": ("--slo-shed-ratio", _SLO),
+    "slo_queue_depth": ("--slo-queue-depth", _SLO),
+}
+
+
+def _parse_shapes(spec: str):
+    shapes = []
+    for part in spec.split(","):
+        r, e = part.lower().split("x")
+        shapes.append((int(r), int(e)))
+    return shapes
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="pyconsensus-serve-torch",
+        description="micro-batching consensus service: warmup preflight "
+                    "+ in-process load generation, on one service or an "
+                    "in-process fleet")
+    ap.add_argument("--config", metavar="PATH",
+                    help="ServeConfig JSON (flags below override)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the service's (every fleet worker's) device; "
+                         "default: the card")
+    ap.add_argument("--warmup-only", action="store_true",
+                    help="build the configured buckets, print the "
+                         "cache summary, exit")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--concurrency", type=int, default=8,
+                    help="closed-loop workers (ignored with --rate)")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="open-loop arrival rate (req/s)")
+    ap.add_argument("--trace", default=None, metavar="JSON",
+                    help="trace-driven open loop: a JSON rate trace "
+                         "(path or literal; [[duration_s, rps], ...]) "
+                         "— overrides --rate/--requests")
+    ap.add_argument("--shapes", default="12x48,24x96",
+                    help="comma-separated RxE request shapes")
+    ap.add_argument("--na-frac", type=float, default=0.1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--retries", type=int, default=0,
+                    help="bounded client retries on PYC401/PYC5xx sheds "
+                         "(honoring retry_after_s; 0 disables — the "
+                         "summary reports retried/abandoned counts)")
+    ap.add_argument("--window-ms", type=float, default=None)
+    ap.add_argument("--max-batch", type=int, default=None)
+    ap.add_argument("--pipeline-depth", type=int, default=None,
+                    metavar="N",
+                    help="in-flight padded dispatches before the batcher "
+                         "blocks on a fetch: 1 = synchronous, 0 = the "
+                         "default (the same bits at any depth)")
+    ap.add_argument("--rate-limit", type=float, default=None,
+                    help="per-tenant admission rate (req/s)")
+    ap.add_argument("--pallas-buckets", choices=["auto", "on", "off"],
+                    default=None,
+                    help="the low-latency bucket_cuda class (the "
+                         "reference's Pallas class): auto = an sm_90 card "
+                         "only, on = any device (the plain versions off "
+                         "the card), off = padded buckets only")
+    ap.add_argument("--incremental", dest="incremental",
+                    action="store_true", default=None,
+                    help="sessions created through the service ride the "
+                         "bucket_incremental tier (warm-started eigenpair "
+                         "maintenance, an exact refresh every "
+                         "--refresh-every rounds)")
+    ap.add_argument("--no-incremental", dest="incremental",
+                    action="store_false",
+                    help="force the incremental session tier off "
+                         "(overrides --config)")
+    ap.add_argument("--refresh-every", type=int, default=None,
+                    metavar="K",
+                    help="incremental tier exact-refresh cadence (>= 1)")
+    ap.add_argument("--aot-cache", metavar="DIR", default=None,
+                    help="persisted executable store: not in the port "
+                         "(exits 2, ROADMAP.md §A.11)")
+    ap.add_argument("--fleet-workers", type=int, default=0, metavar="N",
+                    help="drive the loadgen through an N-worker "
+                         "in-process ConsensusFleet instead of a single "
+                         "service (0 = single service)")
+    ap.add_argument("--transport", choices=["inprocess", "socket"],
+                    default="inprocess",
+                    help="fleet worker transport (with --fleet-workers): "
+                         "inprocess; socket exits 2 (ROADMAP.md §A.11)")
+    ap.add_argument("--log-dir", default=None, metavar="DIR",
+                    help="fleet replication-log directory (required for "
+                         "fleet sessions)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="the SLO-driven autoscaler: not in the port "
+                         "(exits 2, ROADMAP.md §A.11)")
+    for flag, kind, metavar in (("--autoscale-min", int, "N"),
+                                ("--autoscale-max", int, "N"),
+                                ("--autoscale-interval-s", float, "S"),
+                                ("--autoscale-cooldown-s", float, "S")):
+        ap.add_argument(flag, type=kind, default=None, metavar=metavar,
+                        help="an autoscaler setting: not in the port "
+                             "(exits 2, ROADMAP.md §A.11)")
+    ap.add_argument("--allow-shed", action="store_true",
+                    help="shed requests (PYC401) do not fail the run — "
+                         "the expected outcome of an overload probe")
+    ap.add_argument("--metrics-out", metavar="PATH",
+                    help="write the Prometheus exposition on exit")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="a live /metrics endpoint: not in the port "
+                         "(exits 2, ROADMAP.md §A.11)")
+    ap.add_argument("--metrics-hold-s", type=float, default=None,
+                    metavar="S",
+                    help="how long the /metrics endpoint stays open: not "
+                         "in the port (exits 2, ROADMAP.md §A.11)")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write this process's span events as JSONL on "
+                         "exit")
+    for flag, metavar in (("--slo-window-s", "S"), ("--slo-p50-ms", "MS"),
+                          ("--slo-p99-ms", "MS"),
+                          ("--slo-shed-ratio", "RATIO"),
+                          ("--slo-queue-depth", "N")):
+        ap.add_argument(flag, type=float, default=None, metavar=metavar,
+                        help="an SLO monitor target: not in the port "
+                             "(exits 2, ROADMAP.md §A.11)")
+    return ap
+
+
+def _config(ap, args):
+    """The ServeConfig of ``--config`` with the flags' overrides."""
+    from .service import ServeConfig
+
+    if args.config:
+        try:
+            cfg = ServeConfig.load(args.config)
+        except (OSError, ValueError) as exc:
+            ap.error(f"--config: {exc}")
+    else:
+        cfg = ServeConfig()
+    overrides = {}
+    if args.window_ms is not None:
+        overrides["batch_window_ms"] = float(args.window_ms)
+    if args.max_batch is not None:
+        overrides["max_batch"] = int(args.max_batch)
+    if args.pipeline_depth is not None:
+        overrides["pipeline_depth"] = int(args.pipeline_depth)
+    if args.rate_limit is not None:
+        overrides["rate_limit_rps"] = float(args.rate_limit)
+    if args.pallas_buckets is not None:
+        overrides["pallas_buckets"] = {"auto": "auto", "on": True,
+                                       "off": False}[args.pallas_buckets]
+    if args.incremental is not None:
+        overrides["incremental_sessions"] = bool(args.incremental)
+    if args.refresh_every is not None:
+        overrides["incremental_refresh_every"] = int(args.refresh_every)
+    if overrides:
+        cfg = ServeConfig.from_dict({**cfg.__dict__, **overrides})
+    return cfg
+
+
+def _refuse(ap, args, cfg) -> None:
+    """Exit 2 on a flag naming a part of §A.11 the port does not have, on
+    a config the service would refuse (an invalid value, or a key naming
+    §A.11) and on ``--device cuda`` without a card."""
+    from ..faults import InputError
+    from .service import _validate
+    from .transport.base import ROADMAP_SOCKET
+
+    for dest, (flag, item) in _REFUSED.items():
+        value = getattr(args, dest)
+        if value is not None and value is not False:
+            ap.error(f"{flag}: ROADMAP.md §A.11 ({item}) is not in the "
+                     f"port")
+    try:
+        _validate(cfg)
+    except (InputError, NotImplementedError) as exc:
+        ap.error(f"config: {exc}")
+    if args.transport == "socket":
+        ap.error(f"--transport socket: {ROADMAP_SOCKET}")
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            ap.error("--device cuda: no CUDA device is available; pass "
+                     "--device cpu to run on the CPU")
+
+
+def _write_outputs(args, stats) -> int:
+    """Print the summary, write the exposition and the trace, and return
+    the exit code."""
+    from .. import obs
+    from ..ops.cuda_kernels import launch_counts
+
+    # the kernels' launches in this process, warm-up included (0 off
+    # the card)
+    stats["kernel_launches"] = launch_counts()
+
+    # sort_keys: two identical runs print identical key orders
+    print(json.dumps(stats, indent=2, sort_keys=True))
+    if args.metrics_out:
+        obs.write_prom(args.metrics_out, obs.REGISTRY)
+        print(f"metrics written to {args.metrics_out}", file=sys.stderr)
+    if args.trace_out:
+        obs.write_jsonl(args.trace_out, obs.events(),
+                        meta={"source": obs.TRACER.source})
+        print(f"trace written to {args.trace_out}", file=sys.stderr)
+    hard_failures = stats["failed"]
+    if args.allow_shed:
+        hard_failures -= stats["errors"].get("PYC401", 0)
+    return 0 if hard_failures == 0 else 1
+
+
+def _warm(svc, cfg, shapes, args) -> int:
+    """Warm what the requests of ``shapes`` ride on ``svc``: the
+    configured buckets (else the shapes' ladder buckets) and the
+    low-latency class's key at each shape it takes. Returns the count."""
+    warm = list(cfg.warmup) or svc.buckets_for(shapes)
+    n = svc.warm_buckets(warm) + svc.warm_cuda_class(
+        shapes, has_na=args.na_frac > 0)
+    print(f"warmed {n} executable(s) on {svc.device}: buckets "
+          f"{', '.join(f'{r}x{e}' for r, e in warm) or 'none'}",
+          file=sys.stderr)
+    return n
+
+
+def _run_load(gen, args) -> dict:
+    from .loadgen import RateTrace
+
+    if args.trace:
+        return gen.run_trace(RateTrace.from_json(args.trace))
+    if args.rate:
+        return gen.run_open(args.requests, args.rate)
+    return gen.run_closed(args.requests, args.concurrency)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    try:
+        cfg = _config(ap, args)
+    except (ValueError, NotImplementedError) as exc:
+        ap.error(str(exc))
+    _refuse(ap, args, cfg)
+    try:
+        shapes = _parse_shapes(args.shapes)
+    except ValueError:
+        ap.error(f"--shapes: cannot parse {args.shapes!r} (want RxE,...)")
+
+    if args.fleet_workers > 0:
+        return _fleet_main(args, cfg, shapes)
+
+    from .. import obs
+    from .loadgen import (LoadGenerator, device_block, kernel_path_block,
+                          mean_batch_occupancy)
+    from .service import ConsensusService
+
+    svc = ConsensusService(cfg, device=args.device)
+    n_warm = _warm(svc, cfg, shapes, args)
+    if args.warmup_only:
+        print(json.dumps({
+            "warmed_buckets": n_warm,
+            "cache_size": len(svc.cache),
+            "n_devices": svc.n_devices,
+            "builds": svc.cache.builds}))
+        if args.metrics_out:
+            obs.write_prom(args.metrics_out, obs.REGISTRY)
+        svc.close(drain=True)
+        return 0
+
+    svc.start(warmup=False)
+    gen = LoadGenerator(svc, shapes=shapes, na_frac=args.na_frac,
+                        seed=args.seed, max_retries=args.retries)
+    try:
+        stats = _run_load(gen, args)
+    finally:
+        svc.close(drain=True)
+    stats["warmed_executables"] = n_warm
+    stats["cache"] = {"size": len(svc.cache),
+                      "hit_ratio": svc.cache.hit_ratio(),
+                      "builds": svc.cache.builds}
+    stats["kernel_paths"] = kernel_path_block() or None
+    occ = mean_batch_occupancy()
+    if occ is not None:
+        stats["mean_batch_occupancy"] = round(occ, 3)
+    stats["pipeline_depth"] = svc.pipeline_depth
+    stats["device"] = str(svc.device)
+    stats.update(device_block(svc))
+    return _write_outputs(args, stats)
+
+
+def _fleet_main(args, cfg, shapes) -> int:
+    """``--fleet-workers N``: the same loadgen run against an in-process
+    ConsensusFleet on ``--device``, every worker warmed as one service
+    is."""
+    from .. import obs
+    from .fleet import ConsensusFleet, FleetConfig
+    from .loadgen import LoadGenerator, kernel_path_block
+
+    obs.TRACER.source = "router"
+    fleet = ConsensusFleet(FleetConfig(
+        n_workers=args.fleet_workers, transport=args.transport,
+        log_dir=args.log_dir, worker=cfg), device=args.device).start()
+    try:
+        n_warm = sum(_warm(w.service, cfg, shapes, args)
+                     for _, w in sorted(fleet.workers.items()))
+        gen = LoadGenerator(fleet, shapes=shapes, na_frac=args.na_frac,
+                            seed=args.seed, max_retries=args.retries)
+        stats = _run_load(gen, args)
+        status = fleet.status()     # before the drain marks workers down
+    finally:
+        fleet.close(drain=True)
+    stats["transport"] = args.transport
+    stats["warmed_executables"] = n_warm
+    stats["fleet"] = status
+    stats["kernel_paths"] = kernel_path_block() or None
+    stats["device"] = str(fleet.device)
+    return _write_outputs(args, stats)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,493 @@
+"""Ledger-backed session durability and hot-standby takeover
+(``pyconsensus_tpu/serve/failover.py``).
+
+The replication log of a fleet session is the
+:class:`~pyconsensus_tpu_torch.ledger.ReputationLedger` checkpoint plus a
+journal of the current round's staged event blocks, on a directory every
+worker can reach. Layout per session (the reference's, so a log written
+by either package verifies and replays in the other)::
+
+    <log_root>/<session>/
+        meta.json                       # roster size + session knobs
+        ledger.npz                      # state AFTER the last resolved
+                                        # round (atomic, fsynced)
+        staged/round_<k>_block_<i>.npz  # round k's journaled appends,
+                                        # SHA-256 content-digested
+
+Write ordering is what makes "zero lost resolutions" true:
+
+- ``append`` journals the block (atomic write + digest) BEFORE folding
+  it into the in-memory statistics: an append that returned to the
+  caller is durable; an append that raised never happened anywhere.
+- ``resolve`` records the round into the ledger and saves the
+  checkpoint BEFORE clearing the round's journal: a crash between the
+  two leaves stale staged files for an already-committed round, which
+  replay recognizes by round index and discards.
+- a crash BEFORE the ledger save leaves the previous checkpoint plus
+  the full journal: replay re-resolves the round from identical inputs
+  and, because every resolution path is deterministic on one device,
+  produces the same bits the dead worker would have returned.
+
+:func:`replay_session` is the hot-standby takeover path: VERIFY the
+whole log first (:meth:`ReplicationLog.verify`, a dry run built on
+``ReputationLedger._read_state``; a standby never adopts a corrupt log),
+then rebuild a :class:`DurableSession` whose reputation, round count and
+staged blocks are the dead worker's durable state, on the standby's
+device and dtype. The ledger's float64 reputation enters the session
+verbatim, so the resumed resolves equal the never-killed run's bit for
+bit on the same device.
+
+A ``snapshot.npz`` (the reference's journal compaction) and
+:meth:`DurableSession.compact` belong to ``stateplane.py``, which the
+port does not have: both refuse, naming ``ROADMAP.md`` §A.11.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+import re
+from typing import Optional
+
+import numpy as np
+
+from ..faults import CheckpointCorruptionError, InputError
+from ..faults import plan as _faults
+from ..io import atomic_write
+from ..ledger import ReputationLedger
+from ..oracle import parse_event_bounds
+from .cache import ROADMAP_AOT
+from .incremental import INCREMENTAL_REFRESH_DEFAULT
+from .session import MarketSession
+
+__all__ = ["ReplicationLog", "DurableSession", "replay_session"]
+
+_META_FIELDS = ("session", "n_reporters", "alpha", "catch_tolerance",
+                "convergence_tolerance")
+_BLOCK_RE = re.compile(r"^round_(\d+)_block_(\d+)\.npz$")
+
+
+def _digest(block: np.ndarray, bounds_json: bytes) -> str:
+    h = hashlib.sha256()
+    h.update(str(block.shape).encode())
+    h.update(np.ascontiguousarray(block, dtype=np.float64).tobytes())
+    h.update(bounds_json)
+    return h.hexdigest()
+
+
+class ReplicationLog:
+    """One session's durable directory (see module docstring). Every
+    mutation goes through ``io.atomic_write``, so a SIGKILL at any
+    instruction leaves either the old record or the new; a torn FILE
+    from a lost fsync is still detected (npz structure + content
+    digest)."""
+
+    def __init__(self, root, name: str) -> None:
+        self.name = str(name)
+        self.dir = pathlib.Path(root) / self.name
+        self.staged_dir = self.dir / "staged"
+        self.ledger_path = self.dir / "ledger.npz"
+        self.meta_path = self.dir / "meta.json"
+        self.snapshot_path = self.dir / "snapshot.npz"
+
+    # -- creation / opening ---------------------------------------------
+
+    @classmethod
+    def create(cls, root, name: str, n_reporters: int,
+               alpha: float = 0.1, catch_tolerance: float = 0.1,
+               convergence_tolerance: float = 1e-6,
+               incremental: bool = False,
+               refresh_every: Optional[int] = None) -> "ReplicationLog":
+        log = cls(root, name)
+        if log.meta_path.exists():
+            raise InputError(
+                f"replication log for session {name!r} already exists "
+                f"at {log.dir}", session=name)
+        log.staged_dir.mkdir(parents=True, exist_ok=True)
+        meta = {"session": log.name, "n_reporters": int(n_reporters),
+                "alpha": float(alpha),
+                "catch_tolerance": float(catch_tolerance),
+                "convergence_tolerance": float(convergence_tolerance),
+                # the incremental policy, so a standby resumes the same
+                # refresh cadence (optional fields: a log without them
+                # replays as a plain exact session)
+                "incremental": bool(incremental),
+                "refresh_every": int(
+                    INCREMENTAL_REFRESH_DEFAULT if refresh_every is None
+                    else refresh_every)}
+
+        def write(tmp):
+            pathlib.Path(tmp).write_text(json.dumps(meta, indent=2))
+        atomic_write(log.meta_path, write)
+        return log
+
+    def exists(self) -> bool:
+        return self.meta_path.exists()
+
+    def meta(self) -> dict:
+        try:
+            meta = json.loads(self.meta_path.read_text())
+        except FileNotFoundError:
+            raise
+        except Exception as exc:
+            raise CheckpointCorruptionError(
+                f"{self.meta_path}: session meta does not decode as JSON "
+                f"({type(exc).__name__}: {exc})",
+                source=str(self.meta_path)) from exc
+        for field in _META_FIELDS:
+            if field not in meta:
+                raise CheckpointCorruptionError(
+                    f"{self.meta_path}: session meta field {field!r} is "
+                    f"missing", field=field, source=str(self.meta_path))
+        return meta
+
+    # -- the journal ----------------------------------------------------
+
+    def _block_path(self, round_idx: int, block_idx: int) -> pathlib.Path:
+        return self.staged_dir / (f"round_{int(round_idx):06d}"
+                                  f"_block_{int(block_idx):06d}.npz")
+
+    def journal_block(self, round_idx: int, block_idx: int, block,
+                      event_bounds=None,
+                      append_id: Optional[str] = None) -> pathlib.Path:
+        """Durably journal one appended event block (atomic + digested)
+        and return its path. Runs BEFORE the in-memory fold.
+        ``append_id`` is the caller's idempotency token, kept with the
+        record so a standby knows which logical appends the journal
+        already carries: a client whose append landed but whose
+        acknowledgment died with the worker can retry it without the
+        block folding twice."""
+        block = np.ascontiguousarray(block, dtype=np.float64)
+        bounds_json = json.dumps(
+            None if event_bounds is None else list(event_bounds)).encode()
+        state = {
+            "round": np.int64(round_idx),
+            "index": np.int64(block_idx),
+            "block": block,
+            "bounds": np.frombuffer(bounds_json, dtype=np.uint8),
+            "digest": np.frombuffer(
+                _digest(block, bounds_json).encode(), dtype=np.uint8),
+        }
+        if append_id is not None:
+            # optional field: id-less records lack it (the digest covers
+            # content, the id covers retry identity)
+            state["append_id"] = np.frombuffer(
+                str(append_id).encode(), dtype=np.uint8)
+        path = self._block_path(round_idx, block_idx)
+
+        def write(tmp):
+            np.savez(tmp, **state)
+        return atomic_write(path, write, suffix=".tmp.npz")
+
+    def _read_block(self, path: pathlib.Path) -> tuple:
+        """Load + integrity-check one journaled block: ``(index, block,
+        bounds, append_id)`` (``append_id`` None on id-less records);
+        raises CheckpointCorruptionError naming the file on any
+        structural or digest failure."""
+        def bad(why, **ctx):
+            return CheckpointCorruptionError(
+                f"{path}: staged block {why}", source=str(path), **ctx)
+
+        try:
+            with np.load(path) as data:
+                fields = set(data.files)
+                for field in ("round", "index", "block", "bounds",
+                              "digest"):
+                    if field not in fields:
+                        raise bad(f"field {field!r} is missing",
+                                  field=field)
+                block = np.asarray(data["block"], dtype=np.float64)
+                bounds_json = bytes(np.asarray(data["bounds"],
+                                               dtype=np.uint8))
+                digest = bytes(np.asarray(data["digest"],
+                                          dtype=np.uint8)).decode()
+                index = int(np.asarray(data["index"]).item())
+                append_id = (bytes(np.asarray(data["append_id"],
+                                              dtype=np.uint8)).decode()
+                             if "append_id" in fields else None)
+        except CheckpointCorruptionError:
+            raise
+        except Exception as exc:
+            # a torn final record: the npz zip structure itself is cut
+            # short (BadZipFile / short read), the power-loss artifact
+            raise bad(f"is unreadable ({type(exc).__name__}: {exc})") \
+                from exc
+        if _digest(block, bounds_json) != digest:
+            raise bad("content digest mismatch (torn or tampered "
+                      "replication record)")
+        bounds = json.loads(bounds_json.decode())
+        return index, block, bounds, append_id
+
+    def staged(self, round_idx: int) -> list:
+        """The journaled blocks of round ``round_idx`` in append order:
+        ``[(block, bounds, append_id), ...]``. Validates digests and
+        index contiguity (a gap means a lost record: replication is
+        torn, refuse)."""
+        entries = []
+        if self.staged_dir.exists():
+            for p in sorted(self.staged_dir.iterdir()):
+                m = _BLOCK_RE.match(p.name)
+                if m and int(m.group(1)) == int(round_idx):
+                    entries.append((int(m.group(2)), p))
+        entries.sort()
+        out, indices = [], []
+        for _, p in entries:
+            index, block, bounds, append_id = self._read_block(p)
+            indices.append(index)
+            out.append((block, bounds, append_id))
+        if indices != list(range(len(indices))):
+            raise CheckpointCorruptionError(
+                f"{self.staged_dir}: staged blocks of round {round_idx} "
+                f"are not contiguous from 0 (got indices {indices}) — a "
+                f"journal record is missing", source=str(self.staged_dir),
+                round=int(round_idx), indices=indices)
+        return out
+
+    def commit_round(self, ledger: ReputationLedger) -> None:
+        """Persist the post-round ledger state, then clear every staged
+        record of now-closed rounds (anything below ``ledger.round``).
+        The ledger save is the commit point; the cleanup is garbage
+        collection a crash may skip and replay tolerates."""
+        ledger.save(self.ledger_path)
+        if self.staged_dir.exists():
+            for p in sorted(self.staged_dir.iterdir()):
+                m = _BLOCK_RE.match(p.name)
+                if m and int(m.group(1)) < ledger.round:
+                    p.unlink(missing_ok=True)
+
+    # -- verification + replay ------------------------------------------
+
+    def verify(self) -> dict:
+        """The takeover preflight: a DRY RUN over the whole log (meta,
+        the ledger checkpoint's full validation, every staged block of
+        the current round: digest + contiguity) with zero state
+        mutation. Returns a summary dict; raises
+        :class:`CheckpointCorruptionError` naming the offending field or
+        file."""
+        return self.verify_collect()[0]
+
+    def verify_collect(self) -> tuple:
+        """:meth:`verify` plus what the takeover replay needs:
+        ``(summary, [(block, bounds, append_id), ...],
+        ledger_state_or_None)``, so the journal and the checkpoint are
+        each read and validated once inside the takeover window."""
+        meta = self.meta()
+        summary = {"session": meta["session"],
+                   "n_reporters": int(meta["n_reporters"]),
+                   "round": 0, "staged_blocks": 0, "ledger": None,
+                   "snapshot": None}
+        if self.snapshot_path.exists():
+            raise NotImplementedError(
+                f"{self.snapshot_path}: a compacted replication log "
+                f"(snapshot + truncated journal): {ROADMAP_AOT}")
+        state = None
+        if self.ledger_path.exists():
+            state = ReputationLedger._read_state(self.ledger_path)
+            n_reporters = int(state["reputation"].shape[0])
+            if n_reporters != int(meta["n_reporters"]):
+                raise CheckpointCorruptionError(
+                    f"{self.ledger_path}: ledger carries "
+                    f"{n_reporters} reporters, session "
+                    f"meta declares {meta['n_reporters']}",
+                    field="reputation", source=str(self.ledger_path))
+            summary["ledger"] = {"n_reporters": n_reporters,
+                                 "round": int(state["round"]),
+                                 "rounds_recorded": len(state["history"])}
+            summary["round"] = int(state["round"])
+        staged = self.staged(summary["round"])
+        summary["staged_blocks"] = len(staged)
+        return summary, staged, state
+
+
+class DurableSession(MarketSession):
+    """A :class:`MarketSession` whose every accepted mutation is durable
+    in a :class:`ReplicationLog` before it is acknowledged: the unit of
+    state the fleet fails over with zero lost resolutions. Use
+    :meth:`create` for a fresh session (it commits the starting
+    reputation, so a non-uniform prior survives a round-0 crash) and
+    :func:`replay_session` to resume a dead worker's. ``device`` and
+    ``dtype`` are the session's (see :class:`MarketSession`)."""
+
+    def __init__(self, log: ReplicationLog, n_reporters: int,
+                 ledger: ReputationLedger, **kwargs) -> None:
+        super().__init__(log.name, n_reporters, ledger=ledger, **kwargs)
+        self._log = log
+        self._fenced = None
+        self.rounds_resolved = ledger.round
+        #: idempotency tokens of the appends this session applied: a
+        #: retried append whose original landed folds nothing the second
+        #: time. Seeded from the journal at replay.
+        self._applied_append_ids: set = set()   # guarded-by: _lock
+
+    @classmethod
+    def create(cls, log_root, name: str, n_reporters: int,
+               reputation=None, alpha: float = 0.1,
+               catch_tolerance: float = 0.1,
+               convergence_tolerance: float = 1e-6,
+               incremental: bool = False,
+               refresh_every: int = INCREMENTAL_REFRESH_DEFAULT,
+               executable_provider=None, device=None,
+               dtype=None) -> "DurableSession":
+        log = ReplicationLog.create(
+            log_root, name, n_reporters, alpha=alpha,
+            catch_tolerance=catch_tolerance,
+            convergence_tolerance=convergence_tolerance,
+            incremental=incremental, refresh_every=refresh_every)
+        ledger = ReputationLedger(n_reporters, reputation=reputation)
+        session = cls(log, n_reporters, ledger, alpha=alpha,
+                      catch_tolerance=catch_tolerance,
+                      convergence_tolerance=convergence_tolerance,
+                      incremental=incremental,
+                      refresh_every=refresh_every,
+                      executable_provider=executable_provider,
+                      device=device, dtype=dtype)
+        # commit round 0: the starting reputation is durable before the
+        # first append, so a standby replaying an empty journal starts
+        # from the prior the caller configured
+        log.commit_round(ledger)
+        return session
+
+    @property
+    def log(self) -> ReplicationLog:
+        return self._log
+
+    def _admit(self, block):
+        return block   # applied pre-journal in append()
+
+    def fence(self, exc: BaseException) -> None:
+        """Fence this object at takeover: every later ``append`` /
+        ``resolve`` raises ``exc``. Taking the session lock means an
+        in-flight mutation finishes its journal write FIRST (the replay
+        that follows reads it), and anything after the fence was never
+        acknowledged."""
+        with self._lock:
+            self._fenced = exc
+
+    def compact(self) -> dict:
+        """Snapshot-truncate the journal: ``stateplane.py``, which the
+        port does not have."""
+        raise NotImplementedError(
+            f"compacting session {self.name!r}: {ROADMAP_AOT}")
+
+    def append(self, reports_block, event_bounds=None,
+               append_id: Optional[str] = None) -> int:
+        # journal-then-fold under the session lock: the journal index is
+        # the in-memory block count, and no interleaved append may slip
+        # between the durable write and the fold (replay order must be
+        # the fold order)
+        with self._lock:
+            if self._fenced is not None:
+                raise self._fenced
+            if append_id is not None \
+                    and append_id in self._applied_append_ids:
+                # the retry of an append that already landed: acknowledge
+                # without journaling or folding a second copy
+                return self.n_events
+            block = np.asarray(reports_block, dtype=np.float64)
+            if block.ndim == 1:
+                block = block[:, None]
+            if block.ndim != 2 or block.shape[0] != self.n_reporters:
+                raise InputError(
+                    f"appended block must be ({self.n_reporters}, e), "
+                    f"got {block.shape}", shape=tuple(block.shape))
+            # validate BEFORE journaling: a refused append must leave no
+            # record for replay to fold
+            parse_event_bounds(event_bounds, block.shape[1])
+            # the injection seam fires before the journal write, so the
+            # log and the fold see the same (possibly corrupted) bytes
+            block = MarketSession._admit(self, block)
+            path = self._log.journal_block(self.ledger.round,
+                                           len(self._blocks), block,
+                                           event_bounds,
+                                           append_id=append_id)
+            try:
+                total = super().append(block, event_bounds)
+                if append_id is not None:
+                    self._applied_append_ids.add(append_id)
+                return total
+            except BaseException:
+                # the fold failed AFTER the journal write: the caller is
+                # told this append never happened, so the record must
+                # not survive for replay to fold. If even the unlink
+                # fails, fence: journal and memory disagree.
+                try:
+                    path.unlink(missing_ok=True)
+                except OSError as cleanup:
+                    self._fenced = CheckpointCorruptionError(
+                        f"session {self.name!r} is fenced: a failed "
+                        f"append left an orphan journal record that "
+                        f"could not be removed ({cleanup})",
+                        session=self.name, source=str(path))
+                raise
+
+    def resolve(self, algorithm: str = "sztorc", max_iterations: int = 1,
+                **oracle_kwargs) -> dict:
+        with self._lock:
+            if self._fenced is not None:
+                raise self._fenced
+            result = super().resolve(algorithm=algorithm,
+                                     max_iterations=max_iterations,
+                                     **oracle_kwargs)
+            # commit point, under the lock: an append released between
+            # resolve and commit would journal under a round index the
+            # commit then garbage-collects
+            try:
+                self._log.commit_round(self.ledger)
+            except BaseException as exc:
+                # resolved in memory, not on disk: this object is one
+                # round ahead of its log. Fence instead of serving on;
+                # the durable log (previous checkpoint + the round's
+                # journal) replays this round bit for bit on a standby.
+                self._fenced = CheckpointCorruptionError(
+                    f"session {self.name!r} is fenced: round "
+                    f"{self.ledger.round} resolved but its ledger "
+                    f"commit failed ({type(exc).__name__}: {exc}) — "
+                    f"replay the replication log to resume",
+                    session=self.name,
+                    source=str(self._log.ledger_path))
+                raise
+        return result
+
+
+def replay_session(log_root, name: str, executable_provider=None,
+                   device=None, dtype=None) -> DurableSession:
+    """Hot-standby takeover of one session: verify the dead worker's log
+    (no corrupt log is ever adopted), rebuild the ledger from its
+    validated state verbatim, and re-fold the journaled blocks in append
+    order on ``device`` (None: the card) in ``dtype`` (None: the default
+    dtype). The returned session is the dead worker's in-memory session
+    at its last acknowledged operation.
+
+    The ``fleet.ledger_replay`` fault site exposes the ledger file, so a
+    ``torn_write`` rule can tear the log between death and adoption; the
+    verify preflight then refuses with PYC301."""
+    log = ReplicationLog(log_root, name)
+    _faults.fire("fleet.ledger_replay",
+                 path=log.ledger_path if log.ledger_path.exists()
+                 else None)
+    summary, staged, state = log.verify_collect()
+    if state is not None:
+        ledger = ReputationLedger._from_state(state,
+                                              source=log.ledger_path)
+    else:                       # pre-commit round-0 crash: fresh uniform
+        ledger = ReputationLedger(summary["n_reporters"])
+    meta = log.meta()
+    session = DurableSession(
+        log, int(meta["n_reporters"]), ledger,
+        alpha=float(meta["alpha"]),
+        catch_tolerance=float(meta["catch_tolerance"]),
+        convergence_tolerance=float(meta["convergence_tolerance"]),
+        incremental=bool(meta.get("incremental", False)),
+        refresh_every=int(meta.get("refresh_every",
+                                   INCREMENTAL_REFRESH_DEFAULT)),
+        executable_provider=executable_provider, device=device,
+        dtype=dtype)
+    for block, bounds, append_id in staged:
+        # fold WITHOUT re-journaling (the records exist): the same
+        # arithmetic the dead worker ran against the same reputation;
+        # the journal's tokens seed the standby's dedupe set
+        MarketSession.append(session, block, bounds)
+        if append_id is not None:
+            session._applied_append_ids.add(append_id)
+    return session

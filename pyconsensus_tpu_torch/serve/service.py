@@ -331,6 +331,26 @@ class ConsensusService:
                 n += 1
         return n
 
+    def warm_cuda_class(self, shapes, has_na: bool = True) -> int:
+        """Build and run once the low-latency class's key at each (R, E)
+        of ``shapes`` where an all-binary request rides that class (with
+        absent entries when ``has_na``), so a load run's first requests
+        build nothing. Returns the number of executables warmed."""
+        n = 0
+        for rows, events in shapes:
+            if not cuda_bucket_eligible(
+                    rows, events, "sztorc", "power", False, "",
+                    self.config.pallas_buckets,
+                    self.config.pallas_max_events, self.device):
+                continue
+            key = self._cuda_key(rows, events, has_na=has_na,
+                                 oracle_kwargs={})
+            with obs.span("serve.warmup", bucket=f"{rows}x{events}",
+                          kernel_path=CUDA_KERNEL_PATH):
+                self.cache.warm(key)
+            n += 1
+        return n
+
     def drain(self, timeout: Optional[float] = 60.0) -> None:
         """Graceful shutdown: refuse new work, finish everything queued,
         stop the batcher."""

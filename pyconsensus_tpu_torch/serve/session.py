@@ -523,6 +523,20 @@ class SessionStore:
                       "live market sessions").inc(1)
             return session
 
+    def add(self, session: MarketSession) -> MarketSession:
+        """Register a session built elsewhere under its own name: the
+        fleet's durable sessions (``serve.failover``) are built against
+        a replication log and added to the owning worker's store, at
+        creation and at takeover."""
+        with self._lock:
+            if session.name in self._sessions:
+                raise InputError(
+                    f"session {session.name!r} already exists")
+            self._sessions[session.name] = session
+            obs.gauge("pyconsensus_serve_sessions",
+                      "live market sessions").inc(1)
+            return session
+
     def get(self, name: str) -> MarketSession:
         with self._lock:
             try:

@@ -2055,3 +2055,101 @@ def test_process_mesh_one_process_a_card(dev, tmp_path):
     ranks = _process_mesh_ranks(tmp_path, n, 1, x8)
     want = _one_controller_mesh(make_mesh(event=n), x8)
     _assert_ranks_equal(ranks, want, f"{n} processes")
+
+
+# -- the replicated serve fleet ---------------------------------------------
+
+
+def _fleet_block(k, j, R=96, e=64):
+    return _serve_reports(1000 * k + j, R, e)
+
+
+@pytest.mark.cuda
+def test_fleet_bucket_cuda_bitwise_direct_fused_oracle(dev, tmp_path):
+    """A 3-worker fleet on the card under the default config: every
+    binary request rides ``bucket_cuda`` on its worker (B.1, B.2 and B.3
+    launched by each) and is bit for bit the direct fused
+    ``ShardedOracle``."""
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.serve import (ConsensusFleet, FleetConfig,
+                                             ServeConfig)
+
+    mats = [_serve_reports(70 + i, 200, 2000) for i in range(6)]
+    cfg = FleetConfig(n_workers=3, log_dir=str(tmp_path / "log"),
+                      worker=ServeConfig(pallas_warmup=((200, 2000),)))
+    with ConsensusFleet(cfg) as fleet:
+        ck.reset_launch_counts()
+        futs = [fleet.submit(reports=m) for m in mats]
+        got = [f.result(timeout=300) for f in futs]
+        counts = ck.launch_counts()
+    for k in ("apply_weighted_cov", "scores_dirfix_pass",
+              "resolve_certainty_fused"):
+        assert counts[k] >= len(mats), counts
+    for m, g in zip(mats, got):
+        _serve_bitwise(g, ShardedOracle(m, pca_method="power").consensus())
+
+
+@pytest.mark.cuda
+def test_fleet_kill_mid_traffic_loses_nothing_on_card(dev, tmp_path):
+    """``kill_worker`` mid-traffic on the card: the load generator's
+    bounded retry absorbs every shed; nothing fails, nothing is
+    abandoned."""
+    from pyconsensus_tpu_torch.serve import (ConsensusFleet, FleetConfig,
+                                             LoadGenerator, ServeConfig)
+
+    cfg = FleetConfig(n_workers=3, log_dir=str(tmp_path / "log"),
+                      worker=ServeConfig(pallas_warmup=((200, 2000),)))
+    fleet = ConsensusFleet(cfg).start()
+
+    class KillAt:
+        n = 0
+
+        def submit(self, **kw):
+            KillAt.n += 1
+            if KillAt.n == 12:
+                fleet.kill_worker("w1")
+            return fleet.submit(**kw)
+    try:
+        gen = LoadGenerator(KillAt(), shapes=((200, 2000),), na_frac=0.05,
+                            max_retries=6, retry_cap_s=0.5)
+        stats = gen.run_closed(32, concurrency=4, timeout_s=300)
+    finally:
+        fleet.close(drain=True)
+    assert stats["succeeded"] == 32, stats
+    assert stats["failed"] == 0 and stats["abandoned"] == 0, stats
+    assert not fleet.workers["w1"].alive
+
+
+@pytest.mark.cuda
+def test_fleet_replayed_session_bitwise_on_card(dev, tmp_path):
+    """A durable session on the card killed mid-round and replayed from
+    its log: every later resolve and the carried reputation are bit for
+    bit the never-killed session's on the same card."""
+    from pyconsensus_tpu_torch.serve import (DurableSession, MarketSession,
+                                             replay_session)
+
+    R = 96
+    whole = MarketSession("ref", R)
+    want = []
+    for k in range(3):
+        for j in range(2):
+            whole.append(_fleet_block(k, j, R))
+        want.append(whole.resolve())
+    session = DurableSession.create(tmp_path, "s", R)
+    for j in range(2):
+        session.append(_fleet_block(0, j, R))
+    got = [session.resolve()]
+    session.append(_fleet_block(1, 0, R))
+    del session                                  # the worker dies here
+    standby = replay_session(tmp_path, "s")
+    standby.append(_fleet_block(1, 1, R))
+    got.append(standby.resolve())
+    for j in range(2):
+        standby.append(_fleet_block(2, j, R))
+    got.append(standby.resolve())
+    for g, w in zip(got, want):
+        for key in ("smooth_rep", "outcomes_final", "outcomes_adjusted",
+                    "certainty", "old_rep"):
+            np.testing.assert_array_equal(np.asarray(g[key]),
+                                          np.asarray(w[key]), err_msg=key)
+    np.testing.assert_array_equal(standby.reputation, whole.reputation)

@@ -1143,10 +1143,11 @@ def test_fault_sites_count_in_the_catalog_comment():
 
     src = open(plan.__file__).read()
     assert int(re.search(r"The (\d+) named injection sites", src)
-               .group(1)) == len(faults.FAULT_SITES) == 18
+               .group(1)) == len(faults.FAULT_SITES) == 23
     assert {"serve.enqueue", "serve.dispatch", "serve.cache_store",
-            "serve.session_append", "streaming.panel"} \
-        <= set(faults.FAULT_SITES)
+            "serve.session_append", "streaming.panel", "fleet.route",
+            "fleet.heartbeat", "fleet.takeover", "fleet.ledger_replay",
+            "state.migrate"} <= set(faults.FAULT_SITES)
 
 
 def test_package_exports_the_serve_tier():
