@@ -606,9 +606,12 @@ def run(args) -> int:
                      if args.mesh_devices else
                      f"an NCCL group of one over {PROCESS_SHARDS} shards "
                      "of one card")
+    socket_cards = (list(range(args.mesh_devices)) if args.mesh_devices
+                    else None)
     if args.only == "fleet":
         with phase("fleet"):
-            fleet_phase(torch, ck, card, dev, launches, args.seed, here)
+            fleet_phase(torch, ck, card, dev, launches, args.seed, here,
+                        cards=socket_cards)
         log(f"chip_smoke --only fleet total "
             f"{time.perf_counter() - t_start:.3f} s")
         log(json.dumps({"ok": True, "only": "fleet", "device": {
@@ -731,7 +734,8 @@ def run(args) -> int:
         serve_phase(torch, ck, card, dev, launches, args.seed)
 
     with phase("fleet"):
-        fleet_phase(torch, ck, card, dev, launches, args.seed, here)
+        fleet_phase(torch, ck, card, dev, launches, args.seed, here,
+                    cards=socket_cards)
 
     kept = {}
     with phase("streaming and the CLI"):
@@ -2695,7 +2699,7 @@ def serve_phase(torch, ck, card, dev, launches, seed,
 def fleet_phase(torch, ck, card, dev, launches, seed, here,
                 request=FLEET_REQUEST, requests=FLEET_REQUESTS,
                 session_r=FLEET_SESSION_R, block_e=FLEET_SESSION_E,
-                cli_args=FLEET_CLI, cfg=None):
+                cli_args=FLEET_CLI, cfg=None, cards=None):
     """The replicated serve fleet on the card (``serve/fleet.py``), each
     number beside ``card``:
 
@@ -2722,26 +2726,32 @@ def fleet_phase(torch, ck, card, dev, launches, seed, here,
        call;
     4. ``python -m pyconsensus_tpu_torch.serve.cli`` with ``cli_args``
        as a subprocess: exit 0, failed 0, abandoned 0, ``cuda`` in its
-       kernel-path block.
+       kernel-path block;
+    5. the socket fleet (``serve/transport``), one worker process a card
+       of ``cards`` (None: ``FLEET_WORKERS`` processes on card 0; at
+       least ``FLEET_WORKERS`` workers): :func:`_socket_fleet_part`.
 
     ``dev`` may be the CPU for a rehearsal (then nothing launches; pass
     ``cfg=ServeConfig(pallas_buckets=True)`` so the requests ride the
-    class's plain versions). The replication logs live under
-    ``chiprun_out/`` while the phase runs and are removed after it."""
+    class's plain versions; the socket workers run on the CPU). The
+    replication logs live under ``OUT_DIR`` while the phase runs and are
+    removed after it."""
     import tempfile
 
     log_root = tempfile.mkdtemp(prefix="fleet-", dir=os.path.join(
         here, OUT_DIR))
     try:
         _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
-                     requests, session_r, block_e, cli_args, cfg, log_root)
+                     requests, session_r, block_e, cli_args, cfg, log_root,
+                     cards)
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
 
 
 def _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
-                 requests, session_r, block_e, cli_args, cfg, log_root):
-    """The four parts of :func:`fleet_phase` over the log root
+                 requests, session_r, block_e, cli_args, cfg, log_root,
+                 cards):
+    """The five parts of :func:`fleet_phase` over the log root
     ``log_root``."""
     import concurrent.futures
     import tempfile
@@ -2845,7 +2855,7 @@ def _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
             svc.resolve(reports=mats[0], timeout=300)
 
     # 1. the fleet beside one service, same config, same requests
-    rates = {}
+    rates, tails = {}, {}
     for label in ("fleet", "one service"):
         if label == "fleet":
             front = ConsensusFleet(FleetConfig(
@@ -2872,6 +2882,7 @@ def _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
         for i, got in enumerate(results):
             exact(got, i, label)
         rates[label] = requests / wall
+        tails[label] = (percentile(lat, 0.5), percentile(lat, 0.99))
         log(f"{label} ({FLEET_WORKERS if label == 'fleet' else 1} "
             f"worker(s), default ServeConfig): {requests} {R}x{E} binary "
             f"requests at concurrency {FLEET_CONCURRENCY}: "
@@ -3027,6 +3038,331 @@ def _fleet_parts(torch, ck, card, dev, launches, seed, here, request,
         f"{stats['latency_p50_ms']} ms, p99 {stats['latency_p99_ms']} ms, "
         f"kernel paths {paths}, B.1 {sweeps / max(1, stats['succeeded']):.2f}"
         f" launches a request (warm-up included) on {card}")
+
+    # 5. the socket fleet: one worker process a card
+    _socket_fleet_part(torch, card, dev, launches, here, request, requests,
+                       cli_args, cfg, log_root, cards, mats, want, rates,
+                       tails, closed_loop, exact, blocks, want_rounds,
+                       session_r, block_e)
+
+
+def _hist_delta(after, before, name, **labels):
+    """``name``'s histogram series of ``labels`` in two registry
+    snapshots: (count, sum, median bucket's upper edge in seconds) of what
+    was observed between them."""
+    key = json.dumps(labels, sort_keys=True) if labels else ""
+    a = after.get(name, {}).get("series", {}).get(key)
+    if a is None:
+        return 0, 0.0, None
+    b = before.get(name, {}).get("series", {}).get(
+        key, {"count": 0, "sum": 0.0, "counts": [0] * len(a["counts"])})
+    counts = [x - y for x, y in zip(a["counts"], b["counts"])]
+    n = a["count"] - b["count"]
+    edges = list(after[name]["edges"]) + [float("inf")]
+    run, median = 0, None
+    for edge, c in zip(edges, counts):
+        run += c
+        if 2 * run >= n and n:
+            median = edge
+            break
+    return n, a["sum"] - b["sum"], median
+
+
+def _series_sum(snapshot, name, worker_prefix=""):
+    """The sum of ``name``'s counter series whose ``worker`` label starts
+    with ``worker_prefix`` ("" for every series)."""
+    total = 0.0
+    for key, v in snapshot.get(name, {}).get("series", {}).items():
+        labels = json.loads(key) if key else {}
+        if str(labels.get("worker", "")).startswith(worker_prefix):
+            total += float(v)
+    return total
+
+
+def _socket_fleet_part(torch, card, dev, launches, here, request, requests,
+                       cli_args, cfg, log_root, cards, mats, want, rates,
+                       tails, closed_loop, exact, blocks, want_rounds,
+                       session_r, block_e):
+    """Part 5 of :func:`fleet_phase`: the socket fleet
+    (``serve/transport``), each number beside ``card``.
+
+    a. ``max(len(cards), FLEET_WORKERS)`` worker processes, one a card of
+       ``cards`` in turn (None: all on card 0; every worker on the CPU off
+       the card), each warmed by one untimed request; the part-1 block
+       (``requests`` requests at ``FLEET_CONCURRENCY``) through it:
+       requests/s, p50, p99 beside part 1's in-process fleet and one
+       service; B.1, B.2 and B.3 launches a request read from the
+       workers' ``stats`` (each must launch); the wire codec, the router's
+       wire bytes a request sent and received
+       (``pyconsensus_transport_bytes_total``) and the median and mean
+       ``pyconsensus_transport_rpc_seconds{method="submit"}``; every
+       result bit for bit the direct fused ``ShardedOracle``; the merged
+       metric view's per-worker labels and request total against the sum
+       of the workers' own; after a graceful close, ``obs.merge_jsonl``
+       over the router's and each worker's span file: every traced
+       request's worker span under its router parent;
+    b. a fresh socket fleet with ``w1``'s process SIGKILLed
+       (``kill_worker``) after the ``FLEET_KILL_AFTER``-th completion:
+       sheds by code, retries, abandoned (must be 0), the seconds from the
+       kill to a shed request's result; then, on the survivors, part 3's
+       durable session with its owner's process SIGKILLed after round 2's
+       first append: the standby adopts the shipped log, every resolve
+       bit for bit the never-killed session's;
+    c. the serve command line with ``--transport socket`` as a
+       subprocess: exit 0, failed 0, abandoned 0, ``cuda`` in its kernel
+       paths (the workers')."""
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import obs
+    from pyconsensus_tpu_torch.serve import ConsensusFleet, FleetConfig
+    from pyconsensus_tpu_torch.serve.transport import SocketTransport, wire
+
+    on_card = dev.type == "cuda"
+    placement = list(cards) if cards else [0]
+    n = max(len(placement), FLEET_WORKERS)
+    where = (f"{n} worker processes on the CPU" if not on_card else
+             f"{n} worker processes on card 0" if len(placement) == 1 else
+             f"{n} worker processes over cards {placement}")
+    R, E = request
+
+    def socket_fleet(sub):
+        transport = SocketTransport(devices=placement) if on_card \
+            else "socket"
+        t0 = time.perf_counter()
+        fleet = ConsensusFleet(FleetConfig(
+            n_workers=n, transport=transport, worker=cfg,
+            log_dir=os.path.join(log_root, sub)), device=dev).start()
+        boot = time.perf_counter() - t0
+        # one untimed request through each worker, all at once (the
+        # class's key builds at a shape's first request)
+        t0 = time.perf_counter()
+        for fut in [w.submit_stateless(mats[0], tenant="warm")
+                    for w in fleet.workers.values()]:
+            fut.result(timeout=300)
+        return fleet, boot, time.perf_counter() - t0
+
+    def worker_launches(fleet):
+        """Each live worker's launch counts, by name."""
+        return {name: w.call("stats")["launches"]
+                for name, w in fleet.workers.items() if w.alive}
+
+    def add_launches(after, before):
+        """The launches of the workers alive at both reads, between
+        them (a SIGKILLed worker's are gone with it)."""
+        counts = {k: sum(int(after[w][k]) - int(before[w][k])
+                         for w in after if w in before) for k in KERNELS}
+        for k in counts:
+            launches[k] += counts[k]
+        return counts
+
+    # a. the block through the socket fleet, its wire, metrics and spans
+    old_source = obs.TRACER.source
+    obs.TRACER.source = "router"
+    try:
+        fleet, boot, warm_s = socket_fleet("a")
+        try:
+            stats = {name: w.call("stats")
+                     for name, w in sorted(fleet.workers.items())}
+            before = worker_launches(fleet)
+            snap0 = obs.REGISTRY.snapshot()
+            lat, results, wall, _ = closed_loop(fleet)
+            snap1 = obs.REGISTRY.snapshot()
+            # at FleetConfig's heartbeat bound, no live worker declared
+            # dead under this traffic
+            declared = sorted(name for name, w in fleet.workers.items()
+                              if not w.alive)
+            counts = add_launches(worker_launches(fleet), before)
+            merged = fleet.merged_snapshot()
+            own = sum(_series_sum(w.metrics_snapshot()["metrics"],
+                                  "pyconsensus_serve_requests_total")
+                      for w in fleet.workers.values())
+        finally:
+            fleet.close(drain=True)
+        router_events = [ev for ev in obs.events()
+                         if ev.get("source") == "router"]
+    finally:
+        obs.TRACER.source = old_source
+    if declared:
+        raise RuntimeError(f"socket fleet: live workers {declared} were "
+                           f"declared dead under load")
+    per = {k: counts[k] / requests for k in CUDA_TIER_KERNELS}
+    if on_card and not all(counts[k] >= requests for k in CUDA_TIER_KERNELS):
+        raise RuntimeError(f"socket fleet: a kernel of the class was not "
+                           f"launched by every request in the workers: "
+                           f"{counts}")
+    for i, got in enumerate(results):
+        exact(got, i, "socket fleet")
+    pinned = {name: (st["device"], st["visible_devices"])
+              for name, st in stats.items()}
+    by_dir = {d: (snap1["pyconsensus_transport_bytes_total"]["series"]
+                  .get(json.dumps({"direction": d}), 0)
+                  - snap0.get("pyconsensus_transport_bytes_total", {})
+                  .get("series", {}).get(json.dumps({"direction": d}), 0))
+              for d in ("sent", "received")}
+    n_rpc, sum_rpc, med_rpc = _hist_delta(
+        snap1, snap0, "pyconsensus_transport_rpc_seconds", method="submit")
+    if n_rpc < requests or by_dir["sent"] <= 0:
+        raise RuntimeError(f"socket fleet: {n_rpc} submit RPCs timed, "
+                           f"{by_dir} wire bytes for {requests} requests")
+    rate = requests / wall
+    log(f"socket fleet ({where}, each pinned: {pinned}; boot "
+        f"{boot:.3f} s, one warm request each {warm_s:.3f} s): {requests} "
+        f"{R}x{E} binary requests at concurrency {FLEET_CONCURRENCY}: "
+        f"{rate:.4f} requests/s, p50 {percentile(lat, 0.5):.3f} ms, p99 "
+        f"{percentile(lat, 0.99):.3f} ms; beside the in-process fleet "
+        f"{rates['fleet']:.4f} requests/s (p50 {tails['fleet'][0]:.3f}, "
+        f"p99 {tails['fleet'][1]:.3f} ms) and one service "
+        f"{rates['one service']:.4f} (p50 {tails['one service'][0]:.3f}, "
+        f"p99 {tails['one service'][1]:.3f} ms): socket / in-process "
+        f"{rate / rates['fleet']:.4f}x, socket / one service "
+        f"{rate / rates['one service']:.4f}x; launches a request in the "
+        f"workers B.1 {per['apply_weighted_cov']:.2f}, B.2 "
+        f"{per['scores_dirfix_pass']:.2f}, B.3 "
+        f"{per['resolve_certainty_fused']:.2f}; every result bit for bit "
+        f"the direct fused ShardedOracle on {card}")
+    log(f"socket fleet wire: codec {wire.codec_name()}; router wire bytes "
+        f"a request sent {by_dir['sent'] / requests:.0f}, received "
+        f"{by_dir['received'] / requests:.0f} (heartbeats included); "
+        f"pyconsensus_transport_rpc_seconds{{method=\"submit\"}} over "
+        f"{n_rpc} calls: median bucket <= {med_rpc} s, mean "
+        f"{sum_rpc / n_rpc:.4f} s")
+    series = merged["pyconsensus_serve_requests_total"]["series"]
+    labels = {json.loads(k).get("worker") for k in series}
+    merged_total = _series_sum(merged, "pyconsensus_serve_requests_total",
+                               "w")
+    # the timed requests and one warm-up request a worker
+    if not set(stats) <= labels or merged_total != own \
+            or merged_total != requests + n:
+        raise RuntimeError(f"merged view: worker labels {labels}, worker "
+                           f"total {merged_total} against their own {own} "
+                           f"and {requests} + {n} requests sent")
+    files = sorted(glob.glob(os.path.join(log_root, "a", "*",
+                                          "trace-*.jsonl")))
+    forest = obs.trace_forest(obs.merge_jsonl(files) + router_events)
+    roots = [r for rs in forest.values() for r in rs]
+
+    def walk(node):
+        yield node
+        for c in node["children"]:
+            yield from walk(c)
+    mine = [r for r in roots if r["source"] == "router"
+            and r["name"] == "fleet.submit"]
+    crossed = sum(any(s["name"] == "rpc.submit" and s["source"] in stats
+                      for s in walk(r)) for r in mine)
+    orphans = [r for r in roots if r["source"] in stats]
+    if len(files) != n or len(mine) != requests or crossed != requests \
+            or orphans:
+        raise RuntimeError(f"trace forest: {len(files)} worker files, "
+                           f"{len(mine)} router roots, {crossed} with a "
+                           f"worker span, {len(orphans)} worker roots")
+    log(f"socket fleet telemetry: the merged view labels workers "
+        f"{sorted(labels)}, its worker request total {merged_total:.0f} = "
+        f"the workers' own {own:.0f} = {requests} timed + {n} warm-up; obs.merge_jsonl over {len(files)} "
+        f"worker trace files and the router's spans: {crossed} of "
+        f"{requests} traced requests rebuild their worker's rpc.submit span "
+        f"under the router's fleet.submit, 0 worker spans without their "
+        f"router parent")
+
+    # b. a worker process SIGKILLed mid-traffic, then a session's owner
+    fleet, boot, _ = socket_fleet("b")
+    killed = {}
+    try:
+        before = worker_launches(fleet)
+        lat, results, wall, tally = closed_loop(
+            fleet, kill=lambda: killed.update(fleet.kill_worker("w1")))
+        counts = add_launches(worker_launches(fleet), before)
+        fleet.create_session("market", n_reporters=session_r)
+        got, take, info, victim = [], None, None, None
+        for k, rnd in enumerate(blocks):
+            for j, b in enumerate(rnd):
+                fleet.append("market", b)
+                if k == 1 and j == 0:
+                    victim = fleet.owner_of("market")
+                    t0 = time.perf_counter()
+                    info = fleet.kill_worker(victim)
+                    take = time.perf_counter() - t0
+            got.append(fleet.submit(session="market").result(timeout=300))
+        owner = fleet.owner_of("market")
+        status = fleet.status()
+    finally:
+        fleet.close(drain=True)
+    declared = sorted(name for name, st in status["workers"].items()
+                      if not st["alive"] and name not in ("w1", victim))
+    if tally["abandoned"] or not killed or status["workers"]["w1"]["alive"] \
+            or declared:
+        raise RuntimeError(f"socket kill mid-traffic: abandoned "
+                           f"{tally['abandoned']}, kill {killed}, live "
+                           f"workers declared dead {declared}, status "
+                           f"{status}")
+    for i, res in enumerate(results):
+        exact(res, i, "socket kill mid-traffic")
+    if info["sessions_migrated"] != [("market", owner)] or owner == victim:
+        raise RuntimeError(f"socket session takeover: {info}, owner "
+                           f"{owner}")
+    for k, (g, w) in enumerate(zip(got, want_rounds)):
+        for path, key in (("agents", "smooth_rep"), ("agents", "old_rep"),
+                          ("events", "outcomes_final"),
+                          ("events", "outcomes_adjusted")):
+            if not np.array_equal(np.asarray(g[path][key]),
+                                  np.asarray(w[key])):
+                raise RuntimeError(f"socket session round {k}: {key} is "
+                                   f"not the never-killed session's bits")
+    after, waits = tally["after_kill"], tally["after_kill_waits"]
+    log(f"socket fleet with w1's process SIGKILLed after completion "
+        f"{FLEET_KILL_AFTER} (boot {boot:.3f} s): {requests} requests in "
+        f"{wall:.3f} s ({requests / wall:.4f} requests/s, p50 "
+        f"{percentile(lat, 0.5):.3f} ms, p99 {percentile(lat, 0.99):.3f} "
+        f"ms); sheds by code {tally['sheds'] or 'none'}, retries "
+        f"{tally['retried']}, abandoned 0; kill to the first result of a "
+        f"shed request "
+        + (f"{after:.4f} s, of which its retry waits {waits:.4f} s"
+           if after is not None else "n/a (none shed)")
+        + f"; every result bit for bit the direct fused ShardedOracle; "
+        f"{launch_text(counts)} in the surviving workers on {card}")
+    log(f"socket durable session {session_r} reporters x blocks of "
+        f"{block_e} events, {len(blocks)} rounds, owner {victim}'s process "
+        f"SIGKILLed after round 2's first append: takeover (SIGKILL, "
+        f"verify and adopt of the shipped log, replay of 1 block in "
+        f"{owner}'s process) {take:.4f} s; every resolve bit for bit the "
+        f"never-killed session's on {card}")
+
+    # c. the serve command line over the socket transport
+    args = [*cli_args, "--transport", "socket"]
+    args[args.index("--fleet-workers") + 1] = str(n)
+    if not on_card:
+        args += ["--device", "cpu"]
+    with tempfile.TemporaryDirectory(dir=os.path.join(here, OUT_DIR)) as d:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "pyconsensus_tpu_torch.serve.cli",
+             *args, "--log-dir", d], capture_output=True, text=True,
+            cwd=here, timeout=900)
+        secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"socket serve cli exited {run.returncode}:\n"
+                           f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+    cli = json.loads(run.stdout[run.stdout.index("{"):])
+    paths = cli.get("kernel_paths") or {}
+    declared = sorted(name for name, st in cli["fleet"]["workers"].items()
+                      if not st["alive"])
+    if cli["failed"] or cli["abandoned"] or declared or (
+            on_card and "cuda" not in paths):
+        raise RuntimeError(f"socket serve cli: failed {cli['failed']}, "
+                           f"abandoned {cli['abandoned']}, live workers "
+                           f"declared dead {declared}, kernel paths "
+                           f"{paths}")
+    sweeps = cli["kernel_launches"].get("apply_weighted_cov", 0)
+    log(f"pyconsensus_tpu_torch.serve.cli {' '.join(args)}: exit 0 "
+        f"in {secs:.3f} s, {cli['warmed_executables']} executables warmed "
+        f"in the workers before the timed run, {cli['succeeded']} "
+        f"succeeded, failed 0, abandoned 0, {cli['throughput_rps']} "
+        f"requests/s, p50 {cli['latency_p50_ms']} ms, p99 "
+        f"{cli['latency_p99_ms']} ms, kernel paths {paths}, B.1 "
+        f"{sweeps / max(1, cli['succeeded']):.2f} launches a request in "
+        f"the workers (warm-up included) on {card}")
 
 
 def stream_check(torch, out, R, E, algorithm, truth, label):

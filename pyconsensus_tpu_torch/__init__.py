@@ -71,7 +71,10 @@ from .ledger import ReputationLedger
 from . import io, serve, sim
 from .serve import ConsensusService, ServeConfig
 
-__all__ = ["Oracle", "ShardedOracle", "ALGORITHMS", "BACKENDS",
+#: the package version (the handshake's runtime fingerprint names it)
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "Oracle", "ShardedOracle", "ALGORITHMS", "BACKENDS",
            "ConsensusParams", "sharded_consensus", "streaming_consensus",
            "resolve_device",
            "encode_reports", "encode_reports_host", "decode_reports",

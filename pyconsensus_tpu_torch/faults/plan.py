@@ -47,7 +47,7 @@ import numpy as np
 __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
            "arm", "disarm", "armed", "active_plan", "fire", "corrupt"]
 
-#: The 23 named injection sites of the port — every :func:`fire` /
+#: The 27 named injection sites of the port — every :func:`fire` /
 #: :func:`corrupt` hook call in the package names exactly one of these,
 #: and every entry here is reached by at least one hook call (the tests
 #: check both directions against the source). Each is a site of the JAX
@@ -58,7 +58,9 @@ __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
 #: tier (``serve.*``: submit, dispatch, the executable cache's store and
 #: a session's append) and the fleet (``fleet.*``: routing, a worker's
 #: heartbeat, a takeover and the replay of a replication log;
-#: ``state.migrate``: every session relocation).
+#: ``state.migrate``: every session relocation) and the socket transport
+#: (``transport.*``: a frame's send and receive and a connection's dial;
+#: ``shipping.append``: each replication record shipped to the standby).
 FAULT_SITES = (
     "io.read", "io.decode", "io.write", "io.stage",
     "ledger.save", "ledger.load",
@@ -70,6 +72,8 @@ FAULT_SITES = (
     "serve.session_append",
     "fleet.route", "fleet.heartbeat", "fleet.takeover",
     "fleet.ledger_replay", "state.migrate",
+    "transport.send", "transport.recv", "transport.connect",
+    "shipping.append",
 )
 
 

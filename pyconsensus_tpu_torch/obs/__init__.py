@@ -32,15 +32,16 @@ from __future__ import annotations
 
 from .metrics import (DURATION_BUCKETS, ITERATION_BUCKETS, MAGNITUDE_BUCKETS,
                       Counter, Gauge, Histogram, MetricsRegistry)
-from .sinks import read_jsonl, span_tree, trace_forest, write_jsonl, \
-    write_prom
+from .sinks import (merge_jsonl, read_jsonl, span_tree, trace_forest,
+                    write_jsonl, write_prom)
 from .tracer import Span, Tracer
 
 __all__ = [
     "REGISTRY", "TRACER",
-    "span", "trace_root", "observe", "current_span", "counter", "gauge",
+    "span", "trace_root", "span_under", "trace_context", "observe", "current_span", "counter", "gauge",
     "histogram", "events", "report", "render_prom", "value", "reset",
-    "write_jsonl", "read_jsonl", "span_tree", "trace_forest", "write_prom",
+    "write_jsonl", "read_jsonl", "merge_jsonl", "span_tree", "trace_forest",
+    "write_prom",
     "MetricsRegistry", "Tracer", "Span", "Counter", "Gauge", "Histogram",
     "DURATION_BUCKETS", "ITERATION_BUCKETS", "MAGNITUDE_BUCKETS",
 ]
@@ -61,6 +62,18 @@ def trace_root(name: str, trace_id: str, **attrs):
     """Open a span rooting a trace: ``trace_id`` from the request's
     deterministic identity, never ``uuid``/``time``."""
     return TRACER.trace_root(name, trace_id, **attrs)
+
+
+def span_under(name: str, ctx, **attrs):
+    """Open a span under an explicit wire-propagated trace context
+    (``None``: a plain span)."""
+    return TRACER.span_under(name, ctx, **attrs)
+
+
+def trace_context():
+    """The current span's propagation context (``None`` when untraced):
+    what the RPC client puts in the envelope."""
+    return TRACER.context()
 
 
 def observe(value):

@@ -13,8 +13,8 @@ import json
 import pathlib
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["write_jsonl", "read_jsonl", "span_tree", "write_prom",
-           "trace_forest"]
+__all__ = ["write_jsonl", "read_jsonl", "merge_jsonl", "span_tree",
+           "write_prom", "trace_forest"]
 
 
 def write_jsonl(path, events: Sequence[dict], meta: Optional[dict] = None
@@ -82,6 +82,27 @@ def span_tree(events: Sequence[dict]) -> List[dict]:
             _sort(n["children"])
     _sort(roots)
     return roots
+
+
+def merge_jsonl(paths: Sequence) -> List[dict]:
+    """Concatenate the span JSONL files of several processes (the router
+    and each fleet worker) into one flat event list. A span that carries
+    no ``source`` takes its file's meta ``source`` (else the path). Files
+    are read in the order given: sort a globbed directory first."""
+    merged: List[dict] = []
+    for path in paths:
+        events = read_jsonl(path)
+        file_src = None
+        for ev in events:
+            if ev.get("type") == "meta" and ev.get("source"):
+                file_src = str(ev["source"])
+                break
+        for ev in events:
+            ev = dict(ev)
+            if ev.get("type") == "span" and not ev.get("source"):
+                ev["source"] = file_src or str(path)
+            merged.append(ev)
+    return merged
 
 
 def trace_forest(events: Sequence[dict]) -> Dict[str, List[dict]]:

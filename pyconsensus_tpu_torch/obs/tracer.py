@@ -221,17 +221,54 @@ class Tracer:
         descendants inherit the id."""
         return self._open(name, attrs, trace_id=str(trace_id))
 
+    def span_under(self, name: str, ctx: Optional[dict], **attrs
+                   ) -> Iterator[Span]:
+        """Open a span whose parent is an explicit trace context
+        (``{"trace_id", "src", "span_id"}`` from :meth:`context`, the form
+        that crosses the wire) instead of this thread's stack: the
+        worker side of an RPC. ``ctx=None`` is a plain :meth:`span`."""
+        if not ctx:
+            return self._open(name, attrs)
+        src = str(ctx.get("src") or "")
+        parent_id = int(ctx.get("span_id") or 0)
+        trace_id = ctx.get("trace_id")
+        return self._open(
+            name, attrs,
+            trace_id=str(trace_id) if trace_id is not None else None,
+            parent_override=(src, parent_id))
+
+    def context(self) -> Optional[dict]:
+        """The current span's propagation context, or ``None`` when no
+        span is open or it is untraced (an untraced RPC envelope then
+        carries no trace key)."""
+        sp = self.current()
+        if sp is None or sp.trace_id is None:
+            return None
+        return {"trace_id": sp.trace_id, "src": self.source,
+                "span_id": sp.span_id}
+
     @contextlib.contextmanager
     def _open(self, name: str, attrs: dict,
-              trace_id: Optional[str] = None) -> Iterator[Span]:
+              trace_id: Optional[str] = None,
+              parent_override: Optional[tuple] = None) -> Iterator[Span]:
         stack = self._stack()
         parent = stack[-1] if stack else None
-        if trace_id is None and parent is not None:
-            trace_id = parent.trace_id
-        sp = Span(name, dict(attrs),
-                  parent.span_id if parent is not None else 0,
-                  parent.depth + 1 if parent is not None else 0,
-                  trace_id=trace_id, source=self.source)
+        if parent_override is not None:
+            # a parent in another source roots this source's local tree
+            # (``parent_src``); ``trace_forest`` joins the two over
+            # merged logs
+            src, pid = parent_override
+            remote = src != self.source
+            sp = Span(name, dict(attrs), pid, 0 if remote else 1,
+                      trace_id=trace_id, source=self.source,
+                      parent_src=src if remote else None)
+        else:
+            if trace_id is None and parent is not None:
+                trace_id = parent.trace_id
+            sp = Span(name, dict(attrs),
+                      parent.span_id if parent is not None else 0,
+                      parent.depth + 1 if parent is not None else 0,
+                      trace_id=trace_id, source=self.source)
         stack.append(sp)
         try:
             yield sp

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load",
-           "build_log", "build_seconds"]
+           "build_log", "build_seconds", "sources_digest"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -87,6 +87,17 @@ def _lib_path(src: str) -> Path:
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(src).stem}-{digest}.so"
+
+
+def sources_digest() -> str:
+    """One digest of every kernel library this checkout builds: the
+    sources, the headers and the compiler flags, as the library names of
+    :func:`_lib_path` carry them. Two processes with one digest load the
+    same kernels."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(_lib_path(src).name.encode())
+    return h.hexdigest()[:16]
 
 
 def build_all() -> dict:

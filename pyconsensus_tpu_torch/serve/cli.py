@@ -2,11 +2,12 @@
 (``pyconsensus_tpu/serve/cli.py``; also ``python -m
 pyconsensus_tpu_torch.serve.cli``).
 
-The service is in-process, so the command line's job is the operational
-loop around it: load a config file, warm the configured buckets,
-optionally drive a load-generation run against one live service or an
-N-worker in-process :class:`~.fleet.ConsensusFleet`, and write the
-metrics exposition and the span trace.
+The command line's job is the operational loop around the service: load
+a config file, warm the configured buckets, optionally drive a
+load-generation run against one live service or an N-worker
+:class:`~.fleet.ConsensusFleet` (in process, or ``--transport socket``:
+one worker process a card), and write the metrics exposition and the
+span trace.
 
 Usage::
 
@@ -15,16 +16,20 @@ Usage::
         --shapes 16x64,32x128 --metrics-out serve.prom
     pyconsensus-serve-torch --fleet-workers 3 --log-dir /tmp/fleet \\
         --requests 64 --shapes 1024x4096
+    pyconsensus-serve-torch --fleet-workers 4 --transport socket \\
+        --requests 64 --shapes 1024x4096
 
 The flags are the reference's plus ``--device`` (the card by default;
 ``cpu`` on request; without a card and without ``--device cpu`` it exits
-2). ``--aot-cache``, ``--transport socket``, ``--autoscale`` and
-``--metrics-port`` name parts of ``ROADMAP.md`` §A.11 the port does not
-have: each exits 2 naming its item, and so do the settings that only
-those parts read (``--autoscale-*``, ``--metrics-hold-s`` and the
-``--slo-*`` targets). Both paths warm what the requests of ``--shapes``
-ride before the timed run, on every fleet worker too, so the printed
-rate is the steady state's.
+2). ``--aot-cache``, ``--autoscale`` and ``--metrics-port`` name parts
+of ``ROADMAP.md`` §A.11 the port does not have: each exits 2 naming its
+item, and so do the settings that only those parts read
+(``--autoscale-*``, ``--metrics-hold-s`` and the ``--slo-*`` targets).
+Both paths warm what the requests of ``--shapes`` ride before the timed
+run, on every fleet worker too (a socket worker through its ``warm``
+RPC), so the printed rate is the steady state's. Over the socket
+transport the kernel paths and launches are the workers', read from the
+merged metric view and each worker's ``stats``.
 
 Exit code 0 iff every generated request succeeded (under
 ``--allow-shed`` PYC401 sheds do not count: shedding is the configured
@@ -135,12 +140,14 @@ def _parser() -> argparse.ArgumentParser:
                          "(exits 2, ROADMAP.md §A.11)")
     ap.add_argument("--fleet-workers", type=int, default=0, metavar="N",
                     help="drive the loadgen through an N-worker "
-                         "in-process ConsensusFleet instead of a single "
-                         "service (0 = single service)")
+                         "ConsensusFleet instead of a single service "
+                         "(0 = single service)")
     ap.add_argument("--transport", choices=["inprocess", "socket"],
                     default="inprocess",
                     help="fleet worker transport (with --fleet-workers): "
-                         "inprocess; socket exits 2 (ROADMAP.md §A.11)")
+                         "inprocess, or socket (one worker process a "
+                         "card; with --device cpu every worker on the "
+                         "CPU)")
     ap.add_argument("--log-dir", default=None, metavar="DIR",
                     help="fleet replication-log directory (required for "
                          "fleet sessions)")
@@ -218,7 +225,6 @@ def _refuse(ap, args, cfg) -> None:
     §A.11) and on ``--device cuda`` without a card."""
     from ..faults import InputError
     from .service import _validate
-    from .transport.base import ROADMAP_SOCKET
 
     for dest, (flag, item) in _REFUSED.items():
         value = getattr(args, dest)
@@ -229,8 +235,6 @@ def _refuse(ap, args, cfg) -> None:
         _validate(cfg)
     except (InputError, NotImplementedError) as exc:
         ap.error(f"config: {exc}")
-    if args.transport == "socket":
-        ap.error(f"--transport socket: {ROADMAP_SOCKET}")
     if args.device == "cuda":
         import torch
 
@@ -245,9 +249,9 @@ def _write_outputs(args, stats) -> int:
     from .. import obs
     from ..ops.cuda_kernels import launch_counts
 
-    # the kernels' launches in this process, warm-up included (0 off
-    # the card)
-    stats["kernel_launches"] = launch_counts()
+    # the kernels' launches in this process (a fleet's summary sets its
+    # workers' own), warm-up included (0 off the card)
+    stats.setdefault("kernel_launches", launch_counts())
 
     # sort_keys: two identical runs print identical key orders
     print(json.dumps(stats, indent=2, sort_keys=True))
@@ -264,13 +268,13 @@ def _write_outputs(args, stats) -> int:
     return 0 if hard_failures == 0 else 1
 
 
-def _warm(svc, cfg, shapes, args) -> int:
+def warm_for_shapes(svc, shapes, has_na: bool) -> int:
     """Warm what the requests of ``shapes`` ride on ``svc``: the
     configured buckets (else the shapes' ladder buckets) and the
     low-latency class's key at each shape it takes. Returns the count."""
-    warm = list(cfg.warmup) or svc.buckets_for(shapes)
-    n = svc.warm_buckets(warm) + svc.warm_cuda_class(
-        shapes, has_na=args.na_frac > 0)
+    warm = list(svc.config.warmup) or svc.buckets_for(shapes)
+    n = svc.warm_buckets(warm) + svc.warm_cuda_class(shapes,
+                                                     has_na=has_na)
     print(f"warmed {n} executable(s) on {svc.device}: buckets "
           f"{', '.join(f'{r}x{e}' for r, e in warm) or 'none'}",
           file=sys.stderr)
@@ -309,7 +313,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from .service import ConsensusService
 
     svc = ConsensusService(cfg, device=args.device)
-    n_warm = _warm(svc, cfg, shapes, args)
+    n_warm = warm_for_shapes(svc, shapes, args.na_frac > 0)
     if args.warmup_only:
         print(json.dumps({
             "warmed_buckets": n_warm,
@@ -343,9 +347,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def _fleet_main(args, cfg, shapes) -> int:
-    """``--fleet-workers N``: the same loadgen run against an in-process
-    ConsensusFleet on ``--device``, every worker warmed as one service
-    is."""
+    """``--fleet-workers N``: the same loadgen run against a
+    ConsensusFleet on ``--device`` over ``--transport``, every worker
+    warmed as one service is."""
     from .. import obs
     from .fleet import ConsensusFleet, FleetConfig
     from .loadgen import LoadGenerator, kernel_path_block
@@ -355,20 +359,37 @@ def _fleet_main(args, cfg, shapes) -> int:
         n_workers=args.fleet_workers, transport=args.transport,
         log_dir=args.log_dir, worker=cfg), device=args.device).start()
     try:
-        n_warm = sum(_warm(w.service, cfg, shapes, args)
+        n_warm = sum(w.warm(shapes, args.na_frac > 0)
                      for _, w in sorted(fleet.workers.items()))
         gen = LoadGenerator(fleet, shapes=shapes, na_frac=args.na_frac,
                             seed=args.seed, max_retries=args.retries)
         stats = _run_load(gen, args)
         status = fleet.status()     # before the drain marks workers down
+        # the merged view holds the dispatches wherever they happened
+        stats["kernel_paths"] = kernel_path_block(
+            fleet.merged_snapshot()) or None
+        stats["kernel_launches"] = _fleet_launches(fleet)
     finally:
         fleet.close(drain=True)
     stats["transport"] = args.transport
     stats["warmed_executables"] = n_warm
     stats["fleet"] = status
-    stats["kernel_paths"] = kernel_path_block() or None
     stats["device"] = str(fleet.device)
     return _write_outputs(args, stats)
+
+
+def _fleet_launches(fleet) -> dict:
+    """The kernels' launches of a fleet: this process's (an in-process
+    fleet's workers launch here) plus each live worker process's own."""
+    from ..ops.cuda_kernels import launch_counts
+
+    total = dict(launch_counts())
+    for _, w in sorted(fleet.workers.items()):
+        if not w.alive:
+            continue
+        for k, v in w.launch_counts().items():
+            total[k] = total.get(k, 0) + int(v)
+    return total
 
 
 if __name__ == "__main__":

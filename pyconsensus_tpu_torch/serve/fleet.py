@@ -25,16 +25,21 @@ The contract, the reference's:
   sheds quote retry hints scaled by the surviving capacity; per-worker
   queue depths export as gauges.
 
-Workers are in-process ``ConsensusService`` instances
-(``serve.transport.base.InProcessTransport``), every one on the fleet's
-``device`` (None: the card; ``"cpu"`` on request), as the reference's
-in-process workers share jax's default device. Their batcher threads, the
-caller's threads and the optional monitor share one interpreter. One
-worker process a card is the socket transport, ``ROADMAP.md`` §A.11; so
-are the AOT warm-up of an adopting worker (``_warm_standby`` adopts
-nothing until the kernel-build cache exists), the flight recorder
-(``ServeConfig.flightrec_dir`` is accepted and unused) and the
-autoscaler.
+The router speaks to its workers through ``serve.transport``. With
+``FleetConfig.transport="inprocess"`` (default) they are in-process
+``ConsensusService`` instances (``InProcessTransport``), every one on the
+fleet's ``device`` (None: the card; ``"cpu"`` on request), and their
+batcher threads share one interpreter. With ``transport="socket"`` (or a
+``SocketTransport(devices=...)``) they are OS processes behind the socket
+RPC protocol, one a card (every worker on the CPU when ``device`` is the
+CPU), each with its own interpreter and metric registry, their
+replication logs shipped to the standby's disk before each write is
+acknowledged (``serve.transport.supervisor`` / ``.shipping``). Routing,
+admission and failover are the same code over both. The AOT warm-up of
+an adopting worker (``_warm_standby`` adopts nothing until the
+kernel-build cache exists), the flight recorder
+(``ServeConfig.flightrec_dir`` is accepted and unused) and the autoscaler
+are ``ROADMAP.md`` §A.11.
 
 Fault sites ``fleet.route`` / ``fleet.heartbeat`` / ``fleet.takeover`` /
 ``fleet.ledger_replay`` inject worker loss, heartbeat flap and torn
@@ -99,9 +104,8 @@ class FleetConfig:
     #: stateless requests spill to the next ring arc when the owner's
     #: queue is full (sessions never spill: they are sticky)
     spillover: bool = True
-    #: worker transport: ``"inprocess"`` or a ready
-    #: ``serve.transport.base.Transport``; ``"socket"`` raises naming
-    #: ``ROADMAP.md`` §A.11
+    #: worker transport: ``"inprocess"``, ``"socket"`` (one worker process
+    #: a card) or a ready ``serve.transport.base.Transport``
     transport: object = "inprocess"
 
 
@@ -251,6 +255,16 @@ class FleetWorker(WorkerBase):
         kernel-build cache exists (``ROADMAP.md`` §A.11)."""
         return 0
 
+    def warm(self, shapes, has_na: bool) -> int:
+        from .cli import warm_for_shapes
+
+        return warm_for_shapes(self.service, shapes, has_na)
+
+    def launch_counts(self) -> dict:
+        """Its launches are the process's own
+        (``ops.cuda_kernels.launch_counts``)."""
+        return {}
+
     # -- telemetry ------------------------------------------------------
 
     def metrics_snapshot(self) -> dict:
@@ -276,7 +290,9 @@ class ConsensusFleet:
         fleet.close(drain=True)
 
     ``device`` (None: the card, raising without one; ``"cpu"`` on
-    request) is every worker's."""
+    request) is every in-process worker's; a socket fleet places one
+    worker process on each of its transport's cards, or every worker on
+    the CPU."""
 
     def __init__(self, config: Optional[FleetConfig] = None,
                  device=None) -> None:
@@ -894,11 +910,11 @@ class ConsensusFleet:
     def merged_registry(self) -> obs.MetricsRegistry:
         """The cluster's one metric view: the process registry under
         ``worker="router"`` plus, under a ``worker`` label, the snapshot
-        of every worker with a registry of its own. An in-process worker
-        shares the process registry, so it adds nothing (its series are
-        already the router's: merging them again would count each
-        request once more a worker). A worker that fails to answer
-        contributes nothing."""
+        of every worker with a registry of its own (a socket worker's
+        process registry, over the wire). An in-process worker shares the
+        process registry, so it adds nothing (its series are already the
+        router's: merging them again would count each request once more a
+        worker). A worker that fails to answer contributes nothing."""
         merged = obs.MetricsRegistry()
         merged.merge_snapshot(obs.REGISTRY.snapshot(), worker="router")
         with self._lock:        # snapshot: add_worker mutates the dict

@@ -133,17 +133,21 @@ class RateTrace:
                 "peak_rps": round(max(r for _, r in self.segments), 3)}
 
 
-def kernel_path_block():
+def kernel_path_block(snapshot=None):
     """Dispatch counts by kernel family, the
-    ``pyconsensus_kernel_path_total`` breakdown ({} before any counted
-    dispatch; ``cuda`` counts the ``bucket_cuda`` class and the fused
-    resolutions, ``plain`` the padded buckets). The one copy of the
-    registry extraction, shared by the command-line summaries."""
+    ``pyconsensus_kernel_path_total`` breakdown of ``snapshot`` (None:
+    this process's registry; a fleet's merged snapshot sums its
+    workers') ({} before any counted dispatch; ``cuda`` counts the
+    ``bucket_cuda`` class and the fused resolutions, ``plain`` the padded
+    buckets). The one copy of the registry extraction, shared by the
+    command-line summaries."""
     import json as _json
 
     from .. import obs
 
-    series = obs.REGISTRY.snapshot().get(
+    if snapshot is None:
+        snapshot = obs.REGISTRY.snapshot()
+    series = snapshot.get(
         "pyconsensus_kernel_path_total", {}).get("series", {})
     out = {}
     for skey, v in series.items():

@@ -7,9 +7,14 @@ with one surface: liveness (``heartbeat``/``stale``/``queue_depth``/
 ``submit_session``) and the session plane (``create_session`` /
 ``append`` / ``session_state`` / ``adopt_session`` and the takeover
 hooks ``fence_session`` / ``evict_session`` / ``warm_from_disk``), so the
-router's placement, admission and failover are written once against it.
-The port has :class:`InProcessTransport`; the socket transport is
-``ROADMAP.md`` §A.11.
+router's placement, admission and failover are written once against it
+and run unchanged over:
+
+- :class:`InProcessTransport` (default): in-process ``ConsensusService``
+  workers behind function calls, every one on the fleet's device;
+- :class:`~.supervisor.SocketTransport`: workers are OS processes behind
+  the socket RPC protocol (``wire.py``), one a card, supervised, beating
+  over the wire, their replication logs shipped to the standby's disk.
 """
 
 from __future__ import annotations
@@ -20,12 +25,7 @@ import time
 from ...faults import InputError
 
 __all__ = ["WorkerBase", "Transport", "InProcessTransport",
-           "resolve_transport", "ROADMAP_SOCKET"]
-
-#: where the out-of-process fleet is queued
-ROADMAP_SOCKET = ("ROADMAP.md §A.11 (the socket transport: one worker "
-                  "process a card, serve/transport/*, "
-                  "pyconsensus-fleet-worker)")
+           "resolve_transport"]
 
 
 class WorkerBase:
@@ -47,6 +47,16 @@ class WorkerBase:
 
     def stale(self, timeout_s: float) -> bool:
         return (time.monotonic() - self.last_heartbeat) > timeout_s
+
+    def warm(self, shapes, has_na: bool) -> int:
+        """Warm what requests of ``shapes`` ride on this worker, as the
+        serve command line warms one service. Returns the count."""
+        raise NotImplementedError
+
+    def launch_counts(self) -> dict:
+        """The kernels' launches this worker made outside the router's
+        process, by name (none for a worker that runs in it)."""
+        raise NotImplementedError
 
 
 class Transport:
@@ -97,14 +107,17 @@ class InProcessTransport(Transport):
 
 def resolve_transport(spec) -> Transport:
     """``FleetConfig.transport`` -> a :class:`Transport`: ``"inprocess"``
-    (default) or a ready-made instance; ``"socket"`` raises
-    ``NotImplementedError`` naming ``ROADMAP.md`` §A.11."""
+    (default), ``"socket"`` (imported only when asked for; nothing is
+    spawned before the fleet's ``make_workers``) or a ready-made
+    instance."""
     if isinstance(spec, Transport):
         return spec
     if spec == "inprocess" or spec is None:
         return InProcessTransport()
     if spec == "socket":
-        raise NotImplementedError(f"transport='socket': {ROADMAP_SOCKET}")
+        from .supervisor import SocketTransport
+
+        return SocketTransport()
     raise InputError(
         f"unknown fleet transport {spec!r} — choose 'inprocess', "
         f"'socket', or pass a Transport instance", transport=spec)

@@ -2153,3 +2153,81 @@ def test_fleet_replayed_session_bitwise_on_card(dev, tmp_path):
             np.testing.assert_array_equal(np.asarray(g[key]),
                                           np.asarray(w[key]), err_msg=key)
     np.testing.assert_array_equal(standby.reputation, whole.reputation)
+
+
+# -- the socket transport: one worker process a card ------------------------
+
+#: the router of ``test_socket_fleet_pinned_workers_bitwise``, in a fresh
+#: interpreter so no other test's card work is counted against it: two
+#: worker processes pinned to card 0, one ``bucket_cuda`` request each,
+#: then each worker's ``stats`` and the router's own primary-context state
+#: on every card (``cuDevicePrimaryCtxGetState``)
+_SOCKET_ROUTER = r"""
+import ctypes, pickle, sys
+import numpy as np
+from pyconsensus_tpu_torch.serve import ConsensusFleet, FleetConfig, ServeConfig
+from pyconsensus_tpu_torch.serve.transport import SocketTransport
+
+inp, out, log_dir = sys.argv[1:4]
+mats = list(np.load(inp).values())
+fleet = ConsensusFleet(FleetConfig(
+    n_workers=2, transport=SocketTransport(devices=[0]), log_dir=log_dir,
+    worker=ServeConfig(pallas_warmup=((200, 2000),)))).start()
+try:
+    before = {n: w.call("stats") for n, w in fleet.workers.items()}
+    got = [w.submit_stateless(m, tenant="card").result(300)
+           for m, (n, w) in zip(mats, sorted(fleet.workers.items()))]
+    after = {n: w.call("stats") for n, w in fleet.workers.items()}
+finally:
+    fleet.close(drain=True)
+cu = ctypes.CDLL("libcuda.so.1")
+assert cu.cuInit(0) == 0
+count = ctypes.c_int()
+cu.cuDeviceGetCount(ctypes.byref(count))
+active = []
+for k in range(count.value):
+    dev, flags, on = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+    cu.cuDeviceGet(ctypes.byref(dev), k)
+    cu.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(on))
+    active.append(on.value)
+with open(out, "wb") as f:
+    pickle.dump({"got": got, "before": before, "after": after,
+                 "active": active}, f)
+"""
+
+
+@pytest.mark.cuda
+def test_socket_fleet_pinned_workers_bitwise(dev, tmp_path):
+    """Two worker processes pinned to card 0 by ``CUDA_VISIBLE_DEVICES``:
+    one ``bucket_cuda`` request each is bit for bit the direct fused
+    ``ShardedOracle``, both workers' ``stats`` show B.1, B.2 and B.3
+    launched by it, and the router process holds no context on any
+    card."""
+    import pickle
+    import subprocess
+    import sys
+
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.serve.transport.supervisor import \
+        worker_subprocess_env
+
+    mats = [_serve_reports(90 + i, 200, 2000) for i in range(2)]
+    np.savez(tmp_path / "mats.npz", *mats)
+    run = subprocess.run(
+        [sys.executable, "-c", _SOCKET_ROUTER, str(tmp_path / "mats.npz"),
+         str(tmp_path / "out.pkl"), str(tmp_path / "log")],
+        capture_output=True, text=True, env=worker_subprocess_env(),
+        timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    with open(tmp_path / "out.pkl", "rb") as f:
+        out = pickle.load(f)
+    assert out["active"] and not any(out["active"]), out["active"]
+    for name, st in out["after"].items():
+        assert st["device"] == "cuda" and st["visible_devices"] == \
+            (worker_subprocess_env(card=0)["CUDA_VISIBLE_DEVICES"]), st
+        for k in ("apply_weighted_cov", "scores_dirfix_pass",
+                  "resolve_certainty_fused"):
+            assert st["launches"][k] > out["before"][name]["launches"][k], \
+                (name, k, st["launches"])
+    for m, g in zip(mats, out["got"]):
+        _serve_bitwise(g, ShardedOracle(m, pca_method="power").consensus())

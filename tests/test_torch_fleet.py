@@ -65,7 +65,8 @@ from pyconsensus_tpu_torch.serve import (ConsensusFleet, ConsensusService,
                                          MarketSession, ReplicationLog,
                                          ServeConfig, replay_session)
 from pyconsensus_tpu_torch.serve.queue import ResolveRequest
-from pyconsensus_tpu_torch.serve.transport import resolve_transport
+from pyconsensus_tpu_torch.serve.transport import (SocketTransport,
+                                                   resolve_transport)
 from test_oracle import CANONICAL, MISSING, SCALED_BOUNDS, SCALED_REPORTS
 from torch_fleet_worker import BLOCKS_PER_ROUND, N_REPORTERS, make_block
 
@@ -361,7 +362,9 @@ def test_fleet_sites_fire_as_the_references(tmp_path, site):
 
 
 def test_catalog_has_the_fleet_sites():
-    assert len(faults.FAULT_SITES) == 23
+    # the fleet's five, and since the socket transport its four
+    # (tests/test_torch_transport.py fires them)
+    assert len(faults.FAULT_SITES) == 27
     assert set(NEW_SITES) <= set(faults.FAULT_SITES)
     assert set(faults.FAULT_SITES) <= set(ref_faults.FAULT_SITES)
 
@@ -919,8 +922,12 @@ def test_routing_taxonomy(tmp_path):
 
 
 def test_transport_and_device_choices():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        resolve_transport("socket")
+    # the socket transport resolves without spawning anything: its
+    # processes start at the fleet's make_workers
+    socket_transport = resolve_transport("socket")
+    assert isinstance(socket_transport, SocketTransport)
+    assert socket_transport.supervisor is None
+    socket_transport.close()
     with pytest.raises(InputError):
         resolve_transport("carrier-pigeon")
     if not torch.cuda.is_available():

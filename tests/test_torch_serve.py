@@ -1143,11 +1143,13 @@ def test_fault_sites_count_in_the_catalog_comment():
 
     src = open(plan.__file__).read()
     assert int(re.search(r"The (\d+) named injection sites", src)
-               .group(1)) == len(faults.FAULT_SITES) == 23
+               .group(1)) == len(faults.FAULT_SITES) == 27
     assert {"serve.enqueue", "serve.dispatch", "serve.cache_store",
             "serve.session_append", "streaming.panel", "fleet.route",
             "fleet.heartbeat", "fleet.takeover", "fleet.ledger_replay",
-            "state.migrate"} <= set(faults.FAULT_SITES)
+            "state.migrate", "transport.send", "transport.recv",
+            "transport.connect", "shipping.append"} \
+        <= set(faults.FAULT_SITES)
 
 
 def test_package_exports_the_serve_tier():

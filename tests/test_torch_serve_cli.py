@@ -262,6 +262,15 @@ def test_cli_warmup_only_and_loadgen_main(capsys):
     (["--slo-shed-ratio", "0.01"], "obs/slo.py"),
     (["--slo-queue-depth", "4"], "obs/slo.py")])
 def test_refused_flags_exit_two_naming_the_item(flags, item, capsys):
+    if item == "socket transport":
+        # no longer refused: two CPU worker processes serve the run
+        assert cli.main(["--device", "cpu", *flags, "--requests", "6",
+                         "--shapes", "12x48"]) == 0
+        stats = json.loads(capsys.readouterr().out)
+        assert stats["transport"] == "socket"
+        assert stats["failed"] == 0 and stats["abandoned"] == 0
+        assert sorted(stats["fleet"]["workers"]) == ["w0", "w1"]
+        return
     with pytest.raises(SystemExit) as ei:
         cli.main(["--device", "cpu", *flags])
     assert ei.value.code == 2
