@@ -7,6 +7,8 @@ NVIDIA card.
                                                # four processes over NCCL
     python3 chip_smoke.py --mesh-devices 4 --only process
                                                # phases 1, 2 and 11 alone
+    python3 chip_smoke.py --only stateplane    # phases 1, 2 and the state
+                                               # plane and kernel store
 
 Phases, each printing its seconds:
 
@@ -118,6 +120,22 @@ Phases, each printing its seconds:
    and a 1024-reporter market session of 8 blocks of 512 events, exact
    and incremental (the seconds of an append and a resolve, outcomes
    equal to the direct ``Oracle``, the warm drift within its band);
+   Then the state plane and the kernel-build store
+   (``stateplane_phase``, about two minutes, most of it two cold workers'
+   ``nvcc`` builds running beside the rest): ``bucket_cuda`` keys and
+   this checkout's libraries persisted into a store; three worker
+   processes from copies of the package without ``csrc/build/``: one
+   adopting from the store (``nvcc`` 0, ``store_adopt`` 2, B.1, B.2 and
+   B.3 launched by every request), a cold one building with ``nvcc``, one
+   whose stored library has a flipped byte (refused as ``digest``,
+   rebuilt, never loaded), each with its boot and first-request seconds
+   and 48 structured 1024 x 4096 requests bit for bit between the two and
+   the direct fused ``ShardedOracle``; 1,024 durable sessions of 1,024
+   reporters compacted under a 64-session hot tier, 256 hydrated and
+   resolved (hydration p50 / p99, the tiers' gauges, peak memory), 32 of
+   them bit for bit their uncompacted twins; and a socket worker
+   SIGKILLed after it compacted and shipped a session, the standby
+   adopting the shipped compacted log;
 9. streaming and the CLI (``streaming_phase``), which launch none of the
    kernels but the CLI's in-memory ``--shard`` run: sztorc streamed from
    the host at full size (panels of ``STREAM_PANEL``) against the
@@ -176,7 +194,9 @@ Phases, each printing its seconds:
 
 ``--only process`` runs phases 1, 2 and 11 (with ``--mesh-devices``,
 after part 1 of phase 9's one-host stream, which phase 11 compares the
-NCCL hosts with) and prints the result line with ``"only": "process"``.
+NCCL hosts with) and prints the result line with ``"only": "process"``;
+``--only fleet`` and ``--only stateplane`` run phases 1, 2 and that
+phase.
 
 It exits non-zero, and prints no result line, when there is no CUDA
 device, when the package is not beside it, or when any phase fails. It
@@ -326,6 +346,18 @@ FLEET_KILL_AFTER, FLEET_RETRIES = 16, 6
 FLEET_SESSION_R, FLEET_SESSION_E, FLEET_SESSION_ROUNDS = 1024, 512, 3
 FLEET_CLI = ("--fleet-workers", "3", "--requests", "64", "--concurrency",
              "8", "--shapes", "1024x4096")
+#: the state plane and kernel store phase: ``AOT_REQUESTS`` structured
+#: requests (``AOT_DISTINCT`` distinct matrices) through the adopted and
+#: the cold worker; ``STATE_SESSIONS`` durable sessions of ``STATE_R``
+#: reporters (the reference's "100k+ owned" cut by the phase's time),
+#: ``STATE_HOT`` hot, blocks of ``STATE_BLOCK_E`` events with ``STATE_NA``
+#: absent, ``STATE_HYDRATE`` hydrated in a seeded order, ``STATE_TWINS``
+#: uncompacted twins, set up by ``STATE_PROCS`` processes; a worker's
+#: boot (an ``nvcc`` build included) is waited on ``WORKER_BOOT_TIMEOUT``
+AOT_REQUESTS, AOT_DISTINCT = 48, 12
+STATE_SESSIONS, STATE_HOT, STATE_R, STATE_BLOCK_E = 1024, 64, 1024, 128
+STATE_HYDRATE, STATE_TWINS, STATE_NA, STATE_PROCS = 256, 32, 0.02, 4
+WORKER_BOOT_TIMEOUT = 900
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -568,6 +600,11 @@ def run(args) -> int:
         card = card_line()
         log(card)
 
+    cold = None
+    if args.only in (None, "stateplane"):
+        # the state-plane phase's cold worker builds its own kernels from
+        # an empty copy of the package, beside this build
+        cold = start_cold_worker(torch, dev, here)
     with phase("build"):
         libs = build.build_all()
         for src, path in libs.items():
@@ -615,6 +652,16 @@ def run(args) -> int:
         log(f"chip_smoke --only fleet total "
             f"{time.perf_counter() - t_start:.3f} s")
         log(json.dumps({"ok": True, "only": "fleet", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.only == "stateplane":
+        with phase("state plane and kernel store"):
+            stateplane_phase(torch, ck, card, dev, launches, args.seed, here,
+                             cold=cold)
+        log(f"chip_smoke --only stateplane total "
+            f"{time.perf_counter() - t_start:.3f} s")
+        log(json.dumps({"ok": True, "only": "stateplane", "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
@@ -736,6 +783,10 @@ def run(args) -> int:
     with phase("fleet"):
         fleet_phase(torch, ck, card, dev, launches, args.seed, here,
                     cards=socket_cards)
+
+    with phase("state plane and kernel store"):
+        stateplane_phase(torch, ck, card, dev, launches, args.seed, here,
+                         cold=cold)
 
     kept = {}
     with phase("streaming and the CLI"):
@@ -3365,6 +3416,630 @@ def _socket_fleet_part(torch, card, dev, launches, here, request, requests,
         f"the workers (warm-up included) on {card}")
 
 
+def _package_copy(here, dest):
+    """A copy of the package with no built library and no bytecode (a
+    fresh checkout's state), at ``dest``; returns ``dest``."""
+    shutil.copytree(os.path.join(here, "pyconsensus_tpu_torch"),
+                    os.path.join(dest, "pyconsensus_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return dest
+
+
+#: every process the state-plane phase starts, stopped by :func:`main`
+#: on any way out
+_STARTED = []
+
+
+class _Child:
+    """One process the state-plane phase starts, with its standard
+    output read line by line into ``lines`` (a queue) and its standard
+    error kept; ``ready_s`` is the seconds from its start to its first
+    ``READY`` line."""
+
+    def __init__(self, name, cmd, cwd, env):
+        import queue
+        import threading
+
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=cwd, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+        _STARTED.append(self)
+        self.lines = queue.Queue()
+        self.port, self.ready_s, self.err = None, None, []
+        self._ready = threading.Event()
+        threading.Thread(target=self._out, daemon=True).start()
+        threading.Thread(target=self._errs, daemon=True).start()
+
+    def _out(self):
+        for line in self.proc.stdout:
+            if line.startswith("READY ") and self.port is None:
+                self.port = int(line.split()[1])
+                self.ready_s = time.perf_counter() - self.t0
+                self._ready.set()
+            self.lines.put(line)
+        self._ready.set()
+        self.lines.put(None)
+
+    def _errs(self):
+        for line in self.proc.stderr:
+            self.err.append(line)
+
+    def failure(self):
+        return (f"{self.name} exited {self.proc.poll()}: "
+                f"{''.join(self.err[-40:])}")
+
+    def client(self, torch, dev, timeout_s=WORKER_BOOT_TIMEOUT):
+        """Wait for ``READY <port>`` and connect to the worker (the
+        handshake compares this process's fingerprint field by field)."""
+        from pyconsensus_tpu_torch.serve.transport.rpc import RpcClient
+        from pyconsensus_tpu_torch.tune.fingerprint import \
+            runtime_fingerprint
+
+        if not self._ready.wait(timeout_s) or self.port is None:
+            raise RuntimeError(f"never ready: {self.failure()}")
+        return RpcClient("127.0.0.1", self.port, pool=2,
+                         timeout_s=WORKER_BOOT_TIMEOUT, label=self.name,
+                         expect_fingerprint=runtime_fingerprint(dev))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def _aot_worker(torch, name, copy, log_root, cfg, dev):
+    """A ``pyconsensus-fleet-worker-torch`` process run from the package
+    copy ``copy`` (its working directory and only package root, so
+    nothing of this checkout is imported), pinned to card 0 on the
+    card."""
+    from pyconsensus_tpu_torch.serve.transport.supervisor import \
+        worker_subprocess_env
+
+    env = worker_subprocess_env(0 if dev.type == "cuda" else None)
+    env["PYTHONPATH"] = copy
+    cmd = [sys.executable, "-m",
+           "pyconsensus_tpu_torch.serve.transport.worker",
+           "--name", name, "--log-root", log_root,
+           "--config-json", json.dumps(cfg), "--device", dev.type,
+           "--dtype", str(torch.get_default_dtype()).split(".")[-1]]
+    return _Child(name, cmd, copy, env)
+
+
+def _aot_config(aot_shapes, **extra):
+    """The workers' config: ``bucket_cuda`` warmed at ``aot_shapes``."""
+    return {"warmup": [], "batch_window_ms": 1.0, "pallas_buckets": True,
+            "pallas_warmup": [list(s) for s in aot_shapes], **extra}
+
+
+def start_cold_worker(torch, dev, here, aot_shapes=LATENCY_SHAPES):
+    """The state-plane phase's cold worker, started with the build: a
+    worker process from an empty copy of the package and no store, so it
+    runs ``nvcc`` on every source (beside the build of this checkout)
+    before ``READY``. Returns ``(worker, root)``; the phase stops it and
+    removes ``root``."""
+    import tempfile
+
+    stage, _, _, _ = staging_root(here)
+    root = tempfile.mkdtemp(prefix="stateplane-", dir=stage)
+    copy = _package_copy(here, os.path.join(root, "copy-cold"))
+    return (_aot_worker(torch, "aot-cold", copy,
+                        os.path.join(root, "log-cold"),
+                        _aot_config(aot_shapes), dev), root)
+
+
+def stateplane_phase(torch, ck, card, dev, launches, seed, here,
+                     cold=None, aot_shapes=LATENCY_SHAPES,
+                     request=(1024, 4096), requests=AOT_REQUESTS,
+                     sessions=STATE_SESSIONS, hot=STATE_HOT, R=STATE_R,
+                     block_e=STATE_BLOCK_E, hydrate=STATE_HYDRATE,
+                     twins=STATE_TWINS, setup_procs=STATE_PROCS):
+    """The state plane and the kernel-build store (``serve/stateplane.py``,
+    ``serve/aotcache.py``), each number beside ``card``:
+
+    a. the kernel store. This process warms ``bucket_cuda`` at
+       ``aot_shapes`` with a store in a temporary directory (the keys and
+       this checkout's libraries persisted). Three worker processes, each
+       from its own copy of the package without ``csrc/build/``: the cold
+       one (no store; ``cold``, started with the build by
+       :func:`start_cold_worker`, runs ``nvcc`` on every source), the
+       adopted one (the store) and the flipped one (a copy of the store
+       with one byte of ``resolve.cu``'s library flipped). Printed: each
+       one's compile-monitor events (the adopted worker: ``nvcc`` 0,
+       ``store_adopt`` 2; the flipped one: the entry refused as
+       ``digest``, that source built by ``nvcc``, the flipped bytes never
+       installed), boot seconds and ``build_seconds()``, the first
+       request's latency on the adopted and the cold worker, B.1, B.2 and
+       B.3 launches a request in the adopted worker, and whether
+       ``requests`` structured ``request`` matrices (2% absent) are bit
+       for bit equal between the two workers and to the direct fused
+       ``ShardedOracle``;
+    b. the state plane. ``setup_procs`` processes give each of
+       ``sessions`` durable sessions of ``R`` reporters one resolved round
+       over a ``block_e``-event lattice block, then two more in its
+       journal (about 2 GiB over all at full size), and compact it; a
+       service with ``hot_sessions=hot`` adopts each as it is done (the
+       takeover path: verify and replay), so it owns them all and holds
+       ``hot``. Printed: the journal bytes before and after; then
+       ``hydrate`` cold sessions in a seeded order hydrated (seconds, p50
+       and p99) and resolved through the service, with
+       ``pyconsensus_sessions_hot`` (at most ``hot``),
+       ``pyconsensus_serve_sessions``, the peak device memory and the
+       resolves' launch counts (the Gram eigh at ``R`` reporters: none);
+       ``twins`` of them keep an uncompacted twin, and each resolve must
+       equal its twin's replay bit for bit. Beside it, on a thread, a
+       socket fleet of two workers compacts a session
+       (``compact_journal_bytes=1``), ships the snapshot, and its owner's process
+       is SIGKILLed: the standby adopts the shipped compacted log and
+       resolves bit for bit the session's twin.
+
+    The reference's "100k+ owned" sessions are cut to ``sessions`` by the
+    phase's time. ``dev`` may be the CPU for a rehearsal (then nothing
+    builds or launches; the compile events and launches are printed, not
+    held). Everything the phase writes lives under the staging directory
+    and is removed after it."""
+    import concurrent.futures
+    import hashlib
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import ShardedOracle, obs
+    from pyconsensus_tpu_torch.ops import build
+    from pyconsensus_tpu_torch.serve import (AotCache, ConsensusService,
+                                             ServeConfig)
+
+    on_card = dev.type == "cuda"
+    stage, free, fstype, mount = staging_root(here)
+    if cold is None:
+        cold = start_cold_worker(torch, dev, here, aot_shapes)
+    cold, root = cold
+    log(f"state-plane root {root}: {free / 1e9:.3f} GB free ({fstype} at "
+        f"{mount}); the reference's 100k+ owned sessions cut to "
+        f"{sessions} by the phase's time")
+    attached = build.attached_store()   # a service with a store attaches
+    children = [cold]
+    t_phase = time.perf_counter()
+    try:
+        store_dir = os.path.join(root, "aot")
+        # a. 1: the keys and the libraries into the store
+        t0 = time.perf_counter()
+        svc = ConsensusService(ServeConfig(pallas_buckets=True,
+                                           aot_cache_dir=store_dir),
+                               device=dev)
+        warmed = svc.warm_cuda_class(aot_shapes)
+        svc.close(drain=False)
+        store = AotCache(store_dir, device=dev)
+        log(f"store primed with {warmed} bucket_cuda keys at "
+            f"{', '.join(f'{r}x{e}' for r, e in aot_shapes)} in "
+            f"{time.perf_counter() - t0:.3f} s: "
+            f"{sorted(os.listdir(store_dir))} "
+            f"({obs.value('pyconsensus_aot_cache_bytes')} bytes)")
+        if on_card and not store.has_libraries():
+            raise RuntimeError("the store holds no kernel libraries")
+        flipped_dir = os.path.join(root, "aot-flipped")
+        shutil.copytree(store_dir, flipped_dir)
+        bad_sha = None
+        if on_card:
+            libs = store.verify_libraries()
+            entry = os.path.join(flipped_dir,
+                                 os.path.basename(store.kernels_path()))
+            raw = bytearray(open(entry, "rb").read())
+            raw[-1000] ^= 0x10          # inside resolve.cu's library
+            with open(entry, "wb") as f:
+                f.write(bytes(raw))
+            bad = bytearray(libs[build.lib_name("resolve.cu")])
+            bad[-1000] ^= 0x10
+            bad_sha = hashlib.sha256(bytes(bad)).hexdigest()
+        # a. 2: the adopted and the flipped worker, from empty copies
+        adopted = _aot_worker(
+            torch, "aot-adopted",
+            _package_copy(here, os.path.join(root, "copy-adopted")),
+            os.path.join(root, "log-adopted"),
+            _aot_config(aot_shapes, aot_cache_dir=store_dir), dev)
+        flipped = _aot_worker(
+            torch, "aot-flipped",
+            _package_copy(here, os.path.join(root, "copy-flipped")),
+            os.path.join(root, "log-flipped"),
+            _aot_config((), aot_cache_dir=flipped_dir), dev)
+        children += [adopted, flipped]
+        # b. 5 on a thread, beside the sessions
+        killed = {}
+
+        def kill_part():
+            try:
+                killed["log"] = _killed_compacted_owner(
+                    torch, dev, card, root, store_dir, R, block_e, seed)
+            except BaseException as exc:    # noqa: BLE001 — re-raised
+                killed["error"] = exc
+        killer = threading.Thread(target=kill_part, name="kill-part")
+        killer.start()
+        # b. 1-4
+        _state_sessions(torch, ck, card, dev, here, root, sessions, hot, R,
+                        block_e, hydrate, twins, seed, setup_procs)
+        killer.join()
+        if "error" in killed:
+            raise killed["error"]
+        log(killed["log"])
+
+        # a. 3: the adopted and the cold worker, side by side
+        rng = np.random.default_rng(seed + 40)
+        Rq, Eq = request
+        mats = [serve_reports(rng, Rq, Eq, na_frac=FLEET_NA)[0]
+                for _ in range(AOT_DISTINCT)]
+        want = [ShardedOracle(m, pca_method="power",
+                              device=dev).consensus() for m in mats]
+
+        def serve(w):
+            c = w.client(torch, dev)
+            try:
+                before = c.call("stats")
+                t0 = time.perf_counter()
+                got0 = c.call("submit", {"reports": mats[0],
+                                         "tenant": "first"})
+                first_s = time.perf_counter() - t0
+                mid = c.call("stats")
+                with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                    got = list(pool.map(lambda i: c.call(
+                        "submit", {"reports": mats[i % AOT_DISTINCT],
+                                   "tenant": "aot"}), range(requests)))
+                after = c.call("stats")
+            finally:
+                c.close()
+            return before, got0, first_s, mid, got, after
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            served = dict(zip((adopted.name, cold.name),
+                              pool.map(serve, (adopted, cold))))
+        per = None
+        for w in (adopted, cold):
+            before, got0, first_s, mid, got, after = served[w.name]
+            served_close(got0, want[0], 0.0, f"{w.name} first request",
+                         exact_all=True)
+            for i, g in enumerate(got):
+                served_close(g, want[i % AOT_DISTINCT], 0.0,
+                             f"{w.name} request {i}", exact_all=True)
+            delta = {k: after["launches"][k] - mid["launches"][k]
+                     for k in KERNELS}
+            for k in KERNELS:
+                launches[k] += (after["launches"][k]
+                                - before["launches"][k])
+            rate = {k: delta[k] / requests for k in CUDA_TIER_KERNELS}
+            if w is adopted:
+                per = rate
+                if on_card and not all(delta[k] >= requests
+                                       for k in CUDA_TIER_KERNELS):
+                    raise RuntimeError(f"adopted worker: a kernel of the "
+                                       f"class did not launch at every "
+                                       f"request: {delta}")
+                if on_card and (after["compile_events"]["nvcc"] != 0
+                                or after["compile_events"]["store_adopt"]
+                                != len(build.SOURCES)
+                                or after["builds"] != 0):
+                    raise RuntimeError(f"the adopted worker built: {after}")
+            log(f"{w.name}: boot {w.ready_s:.3f} s; compile events "
+                f"{after['compile_events']}; build_seconds "
+                f"{after['build_seconds']}; keys built {after['builds']}, "
+                f"adopted {after['adopted']}; first {Rq}x{Eq} request "
+                f"{first_s:.4f} s; {requests} more bit for bit the direct "
+                f"fused ShardedOracle; launches a request {rate} on {card}")
+        for a, b in zip([served[adopted.name][1]] + served[adopted.name][4],
+                        [served[cold.name][1]] + served[cold.name][4]):
+            served_close(a, b, 0.0, "adopted vs cold worker",
+                         exact_all=True)
+        log(f"adopted and cold worker: {requests + 1} results bit for bit "
+            f"equal; boot {adopted.ready_s:.3f} s (adopted) vs "
+            f"{cold.ready_s:.3f} s (cold, nvcc beside the build); first "
+            f"request {served[adopted.name][2]:.4f} s vs "
+            f"{served[cold.name][2]:.4f} s; B.1/B.2/B.3 a request in the "
+            f"adopted worker {per}")
+        # a. 4: the flipped library
+        c = flipped.client(torch, dev)
+        try:
+            st = c.call("stats")
+            digest = c.call("metric", {"name": "pyconsensus_aot_reject_"
+                                               "total",
+                                       "labels": {"reason": "digest"}})
+        finally:
+            c.close()
+        built_dir = os.path.join(root, "copy-flipped",
+                                 "pyconsensus_tpu_torch", "csrc", "build")
+        loaded = {n: hashlib.sha256(open(os.path.join(built_dir, n),
+                                         "rb").read()).hexdigest()
+                  for n in (sorted(os.listdir(built_dir))
+                            if os.path.isdir(built_dir) else ())}
+        log(f"{flipped.name}: boot {flipped.ready_s:.3f} s; refusals "
+            f"reason=digest {digest['value']}; compile events "
+            f"{st['compile_events']}; build_seconds {st['build_seconds']}; "
+            f"libraries loaded {loaded}; the flipped bytes' sha256 "
+            f"{bad_sha} loaded: {bad_sha in loaded.values()}")
+        if on_card and (digest["value"] != 1.0
+                        or st["compile_events"]["nvcc"] != 1
+                        or st["compile_events"]["store_adopt"]
+                        != len(build.SOURCES) - 1
+                        or bad_sha in loaded.values()):
+            raise RuntimeError(f"the flipped library was not refused and "
+                               f"rebuilt: {st} {digest}")
+        log(f"state plane and kernel store: {time.perf_counter() - t_phase:.3f}"
+            f" s after the build (the cold worker's nvcc ran beside it)")
+    finally:
+        for child in children:
+            child.stop()
+        build.attach_store(attached)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _lattice_block(rng, R, e, na=STATE_NA):
+    """An all-binary ``R x e`` block with ``na`` absent (lattice exact:
+    its journal record and its snapshot member are int8-encodable)."""
+    import numpy as np
+
+    x = rng.choice([0.0, 1.0], size=(R, e))
+    x[: R // 5] = 1.0 - x[R // 4]
+    x[rng.random((R, e)) < na] = np.nan
+    return x
+
+
+def state_setup_worker(spec) -> int:
+    """``--state-setup SPEC``: one of the state-plane phase's setup
+    processes. ``SPEC`` is a JSON object with ``log_dir``, ``twin_dir``,
+    ``names``, ``twins``, ``R``, ``block_e``, ``seed``, ``device`` and
+    ``dtype``. Each session gets one resolved round and two journaled
+    blocks, a copy of its log in ``twin_dir`` when it is a twin, and a
+    compaction; a line ``SESSION <name> <journal bytes before> <after>
+    <blocks covered>`` follows each."""
+    import numpy as np
+    import torch
+
+    from pyconsensus_tpu_torch.serve import DurableSession
+
+    spec = json.loads(spec)
+    torch.set_default_dtype(getattr(torch, spec["dtype"]))
+    dev = torch.device(spec["device"])
+    R, e = int(spec["R"]), int(spec["block_e"])
+    twins = set(spec["twins"])
+    for name in spec["names"]:
+        rng = np.random.default_rng([spec["seed"], int(name[1:])])
+        s = DurableSession.create(spec["log_dir"], name, R, device=dev)
+        s.append(_lattice_block(rng, R, e))
+        s.resolve()
+        for _ in range(2):
+            s.append(_lattice_block(rng, R, e))
+        before = s.journal_bytes()
+        if name in twins:
+            shutil.copytree(os.path.join(spec["log_dir"], name),
+                            os.path.join(spec["twin_dir"], name))
+        report = s.compact()
+        print(f"SESSION {name} {before} {report['bytes_after']} "
+              f"{report['blocks']}", flush=True)
+    return 0
+
+
+def _state_sessions(torch, ck, card, dev, here, root, sessions, hot, R,
+                    block_e, hydrate, twins, seed, procs):
+    """Part b. 1-4 of :func:`stateplane_phase`."""
+    import numpy as np
+
+    from pyconsensus_tpu_torch import assemble_result, obs
+    from pyconsensus_tpu_torch.serve import (FleetWorker, ServeConfig,
+                                             replay_session)
+
+    log_dir = os.path.join(root, "sessions")
+    twin_dir = os.path.join(root, "twins")
+    os.makedirs(twin_dir, exist_ok=True)
+    worker = FleetWorker("sp", ServeConfig(hot_sessions=hot,
+                                           batch_window_ms=1.0),
+                         log_dir=log_dir, device=dev)
+    svc = worker.service
+    svc.start(warmup=False)
+    names = [f"m{i:05d}" for i in range(sessions)]
+    order = [names[i] for i in
+             np.random.default_rng(seed + 41).permutation(sessions)]
+    # twins for the first ``twins + hot`` of the order: at least ``twins``
+    # of them go cold, whichever stay hot
+    twin_set = set(order[:twins + hot])
+    sessions0 = obs.value("pyconsensus_serve_sessions") or 0.0
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    dtype = str(torch.get_default_dtype()).split(".")[-1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = here
+    t0 = time.perf_counter()
+    setups = []
+    for k in range(procs):
+        part = names[k::procs]
+        spec = json.dumps({"log_dir": log_dir, "twin_dir": twin_dir,
+                           "names": part,
+                           "twins": sorted(twin_set & set(part)), "R": R,
+                           "block_e": block_e, "seed": seed,
+                           "device": str(dev), "dtype": dtype})
+        setups.append(_Child(f"setup-{k}", [
+            sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--state-setup", spec], here, env))
+    # adopt each session as its setup reports it done: the takeover path
+    # (verify and replay), so the service owns every one
+    journal_before = journal_after = adopted = 0
+    done = set()
+    while len(done) < len(setups):
+        for child in setups:
+            if child.name in done:
+                continue
+            try:
+                line = child.lines.get(timeout=0.05)
+            except Exception:   # noqa: BLE001 — queue.Empty: next child
+                continue
+            if line is None:
+                child.proc.wait(timeout=60)
+                if child.proc.returncode != 0:
+                    raise RuntimeError(f"setup failed: {child.failure()}")
+                done.add(child.name)
+                continue
+            if not line.startswith("SESSION "):
+                continue
+            _, name, before, after, blocks = line.split()
+            if int(blocks) != 2:
+                raise RuntimeError(f"{name}: compacted {blocks} blocks")
+            journal_before += int(before)
+            journal_after += int(after)
+            worker.adopt_session(name)      # evicts the least recently used
+            adopted += 1
+    setup_s = time.perf_counter() - t0
+    if adopted != sessions:
+        raise RuntimeError(f"adopted {adopted} of {sessions} sessions")
+    snap_bytes = sum(os.path.getsize(os.path.join(log_dir, n,
+                                                  "snapshot.npz"))
+                     for n in names)
+    hot_now = set(svc.sessions.hot_names())
+    log(f"{sessions} durable sessions of {R} reporters (one resolved round, "
+        f"then two {R}x{block_e} lattice blocks, {STATE_NA:.0%} absent), "
+        f"set up and compacted by {procs} processes and adopted by the "
+        f"service in {setup_s:.3f} s; journal bytes {journal_before} before "
+        f"compaction, {journal_after} after (snapshots {snap_bytes} "
+        f"bytes); hot {len(hot_now)}, owned {len(svc.sessions.names())}")
+    if journal_after != 0 or len(hot_now) > hot:
+        raise RuntimeError("compaction left journal records, or the hot "
+                           "tier overflowed")
+
+    # 3-4: hydrate and resolve cold ones in a seeded order
+    picks = [n for n in order if n not in hot_now][:hydrate]
+    checked = set([n for n in picks if n in twin_set][:twins])
+    provider = {k: v for k, v in svc.session_defaults({}).items()
+                if k in ("executable_provider", "device", "dtype")}
+    hyd, res_s, hot_max, held = [], [], 0, 0
+    ck.reset_launch_counts()
+    t_all = time.perf_counter()
+    for name in picks:
+        t0 = time.perf_counter()
+        svc.sessions.get(name)              # the hydration
+        hyd.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = svc.submit(session=name).result(300)
+        res_s.append(time.perf_counter() - t0)
+        hot_max = max(hot_max, obs.value("pyconsensus_sessions_hot") or 0)
+        if name in checked:
+            want = replay_session(twin_dir, name, **provider).resolve()
+            served_close(got, assemble_result(want), 0.0,
+                         f"hydrated {name} vs its uncompacted twin",
+                         exact_all=True)
+            held += 1
+    counts = ck.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+            else float("nan"))
+    hot_gauge = obs.value("pyconsensus_sessions_hot")
+    owned = (obs.value("pyconsensus_serve_sessions") or 0.0) - sessions0
+    log(f"hydrated and resolved {len(picks)} cold sessions in a seeded "
+        f"order in {time.perf_counter() - t_all:.3f} s: "
+        f"hydration p50 {percentile(hyd, 0.5):.4f} s, p99 "
+        f"{percentile(hyd, 0.99):.4f} s; resolve p50 "
+        f"{percentile(res_s, 0.5):.4f} s; pyconsensus_sessions_hot "
+        f"{hot_gauge} (max {hot_max} <= {hot}); pyconsensus_serve_sessions "
+        f"{owned} owned; peak device memory {peak:.3f} GiB; launches "
+        f"{launch_text(counts)} on {card}; {held} resolves bit for bit "
+        f"their uncompacted twins' replays")
+    worker.close(drain=True)
+    if hot_max > hot or owned != sessions or held != twins \
+            or len(picks) != hydrate:
+        raise RuntimeError(f"the tiers miscounted or a twin was skipped: "
+                           f"hot {hot_max}, owned {owned}, twins {held}")
+
+
+def _killed_compacted_owner(torch, dev, card, root, store_dir, R, block_e,
+                            seed):
+    """Part b. 5 of :func:`stateplane_phase`: a socket fleet's worker
+    compacts a session and ships the snapshot; its process is SIGKILLed;
+    the standby adopts the shipped compacted log. Returns the line to
+    print."""
+    import numpy as np
+
+    from pyconsensus_tpu_torch import assemble_result
+    from pyconsensus_tpu_torch.faults import CheckpointCorruptionError
+    from pyconsensus_tpu_torch.serve import (ConsensusFleet, DurableSession,
+                                             FleetConfig, ServeConfig)
+    from pyconsensus_tpu_torch.serve.stateplane import load_snapshot
+    from pyconsensus_tpu_torch.serve.transport import SocketTransport
+
+    log_dir = os.path.join(root, "fleet")
+    # any journaled byte makes a session due: the compactor covers each
+    # append at its next sweep
+    cfg = ServeConfig(warmup=(), batch_window_ms=1.0,
+                      compact_journal_bytes=1, compact_interval_s=0.2)
+    transport = (SocketTransport(devices=[0], aot_cache_dir=store_dir)
+                 if dev.type == "cuda" else "socket")
+    rng = np.random.default_rng(seed + 42)
+    blocks = [_lattice_block(rng, R, block_e) for _ in range(5)]
+    twin = DurableSession.create(os.path.join(root, "fleet-twin"), "sk", R,
+                                 device=dev)
+    t0 = time.perf_counter()
+    fleet = ConsensusFleet(FleetConfig(
+        n_workers=2, transport=transport, log_dir=log_dir, worker=cfg,
+        heartbeat_timeout_s=120.0), device=dev).start(warmup=False)
+    boot = time.perf_counter() - t0
+    try:
+        fleet.create_session("sk", n_reporters=R)
+        for b in blocks[:2]:
+            fleet.append("sk", b)
+            twin.append(b)
+        fleet.submit(session="sk").result(300)
+        twin.resolve()
+        fleet.append("sk", blocks[2])
+        twin.append(blocks[2])
+        owner = fleet.owner_of("sk")
+        local = os.path.join(log_dir, owner, "sk", "snapshot.npz")
+        t1 = time.perf_counter()
+        while time.perf_counter() - t1 < 60:
+            # the owner's compactor covers the open round's block
+            try:
+                snap = load_snapshot(local)
+                if snap["round"] == 1 and snap["blocks"]:
+                    break
+            except (OSError, CheckpointCorruptionError):
+                pass
+            time.sleep(0.1)
+        else:
+            raise RuntimeError("the owner never compacted the open round")
+        # the next append ships the snapshot the compaction wrote
+        fleet.append("sk", blocks[3])
+        twin.append(blocks[3])
+        shipped = os.path.join(log_dir, "_shipped", "sk", "snapshot.npz")
+        snap = load_snapshot(shipped)
+        if snap["round"] != 1 or not snap["blocks"]:
+            raise RuntimeError(f"the shipped snapshot covers round "
+                               f"{snap['round']}, {len(snap['blocks'])} "
+                               "blocks, not the compacted open round")
+        snap_bytes = os.path.getsize(shipped)
+        t1 = time.perf_counter()
+        fleet.kill_worker(owner)
+        standby = fleet.owner_of("sk")
+        takeover = time.perf_counter() - t1
+        fleet.append("sk", blocks[4])
+        twin.append(blocks[4])
+        got = fleet.submit(session="sk").result(300)
+        served_close(got, assemble_result(twin.resolve()), 0.0,
+                     "the adopted compacted session vs its twin",
+                     exact_all=True)
+        status = fleet.status()
+    finally:
+        fleet.close(drain=False)
+    if status["failed_sessions"] or status["sessions"].get("sk") != standby:
+        raise RuntimeError(f"the takeover abandoned the session: {status}")
+    return (f"socket fleet (2 workers, boot {boot:.3f} s): a session of {R} "
+            f"reporters compacted by its owner {owner} "
+            f"(compact_journal_bytes=1), the snapshot shipped ({snap_bytes} "
+            f"bytes, {len(snap['blocks'])} block(s) of round 1); SIGKILL of "
+            f"{owner}: takeover onto {standby} in {takeover:.3f} s, the "
+            f"next resolve bit for bit the twin's on {card}; failed "
+            f"sessions {status['failed_sessions']}, every operation after "
+            f"the kill answered on its first try")
+
+
 def stream_check(torch, out, R, E, algorithm, truth, label):
     """``check_result`` on a streamed (host numpy) result, and the truth
     recovered (>= 0.99 of the snapped outcomes). Returns that share."""
@@ -4785,11 +5460,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")
-    ap.add_argument("--only", choices=("process", "fleet"),
+    ap.add_argument("--only", choices=("process", "fleet", "stateplane"),
                     help="run only this phase after the build (the process "
                     "mesh, with --mesh-devices after the streaming "
-                    "phase's one-host stream that it compares with; or "
-                    "the fleet)")
+                    "phase's one-host stream that it compares with; the "
+                    "fleet; or the state plane and kernel store)")
     ap.add_argument("--process-worker", type=int, default=None,
                     metavar="RANK", help=argparse.SUPPRESS)
     ap.add_argument("--process-world", type=int, default=1,
@@ -4797,15 +5472,24 @@ def main(argv=None) -> int:
     ap.add_argument("--process-port", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--process-stage", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--state-setup", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.process_worker is not None:
         # one rank of the process-mesh phase, started by that phase
         return process_worker(args)
+    if args.state_setup is not None:
+        # one setup process of the state-plane phase
+        return state_setup_worker(args.state_setup)
     try:
         return run(args)
     except Exception:                 # noqa: BLE001 — report, exit non-zero
         traceback.print_exc()
         return 1
+    finally:
+        # the state-plane phase's workers, whichever way the run ended
+        for child in _STARTED:
+            child.stop()
 
 
 if __name__ == "__main__":

@@ -448,6 +448,12 @@ def main(argv: Optional[Sequence[str]] = None,
     if args.iterations is None:
         # streaming pays one full pass over the file per iteration
         args.iterations = 1 if args.stream else 5
+    if args.metrics_out or args.trace_out or args.obs_report:
+        from . import obs
+
+        # before the first resolution, so the kernels' build or load is
+        # counted too (pyconsensus_jax_compile_events_total)
+        obs.install_compile_monitor()
     fault_plan = None
     if args.fault_plan:
         from . import faults

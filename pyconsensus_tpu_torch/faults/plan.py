@@ -47,7 +47,7 @@ import numpy as np
 __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
            "arm", "disarm", "armed", "active_plan", "fire", "corrupt"]
 
-#: The 27 named injection sites of the port — every :func:`fire` /
+#: The 32 named injection sites of the port — every :func:`fire` /
 #: :func:`corrupt` hook call in the package names exactly one of these,
 #: and every entry here is reached by at least one hook call (the tests
 #: check both directions against the source). Each is a site of the JAX
@@ -56,11 +56,16 @@ __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
 #: doors (``sharded.reports``, ``oracle.*``), the out-of-core driver
 #: (``streaming.panel``: each host panel before its upload), the serve
 #: tier (``serve.*``: submit, dispatch, the executable cache's store and
-#: a session's append) and the fleet (``fleet.*``: routing, a worker's
-#: heartbeat, a takeover and the replay of a replication log;
-#: ``state.migrate``: every session relocation) and the socket transport
-#: (``transport.*``: a frame's send and receive and a connection's dial;
-#: ``shipping.append``: each replication record shipped to the standby).
+#: a session's append), the kernel-build store (``aot.cache_write``
+#: after an entry's atomic write, ``aot.cache_load`` before its read),
+#: the fleet (``fleet.*``: routing, a worker's heartbeat, a takeover and
+#: the replay of a replication log), the state plane (``state.snapshot``
+#: inside a compaction snapshot's write, ``state.compact`` before each
+#: truncation unlink, ``state.hydrate`` at a cold session's hydration,
+#: ``state.migrate`` at every session relocation) and the socket
+#: transport (``transport.*``: a frame's send and receive and a
+#: connection's dial; ``shipping.append``: each replication record
+#: shipped to the standby).
 FAULT_SITES = (
     "io.read", "io.decode", "io.write", "io.stage",
     "ledger.save", "ledger.load",
@@ -70,8 +75,10 @@ FAULT_SITES = (
     "streaming.panel",
     "serve.enqueue", "serve.dispatch", "serve.cache_store",
     "serve.session_append",
+    "aot.cache_write", "aot.cache_load",
     "fleet.route", "fleet.heartbeat", "fleet.takeover",
-    "fleet.ledger_replay", "state.migrate",
+    "fleet.ledger_replay",
+    "state.snapshot", "state.compact", "state.hydrate", "state.migrate",
     "transport.send", "transport.recv", "transport.connect",
     "shipping.append",
 )

@@ -30,6 +30,7 @@ Rules of engagement:
 
 from __future__ import annotations
 
+from .compilemon import install_compile_monitor
 from .metrics import (DURATION_BUCKETS, ITERATION_BUCKETS, MAGNITUDE_BUCKETS,
                       Counter, Gauge, Histogram, MetricsRegistry)
 from .sinks import (merge_jsonl, read_jsonl, span_tree, trace_forest,
@@ -41,7 +42,7 @@ __all__ = [
     "span", "trace_root", "span_under", "trace_context", "observe", "current_span", "counter", "gauge",
     "histogram", "events", "report", "render_prom", "value", "reset",
     "write_jsonl", "read_jsonl", "merge_jsonl", "span_tree", "trace_forest",
-    "write_prom",
+    "write_prom", "install_compile_monitor",
     "MetricsRegistry", "Tracer", "Span", "Counter", "Gauge", "Histogram",
     "DURATION_BUCKETS", "ITERATION_BUCKETS", "MAGNITUDE_BUCKETS",
 ]

@@ -6,6 +6,15 @@ sources at once, one ``nvcc`` process each. The library name carries a
 digest of its source, so an edited source is rebuilt and an unchanged one
 is loaded from ``csrc/build/`` as it is. Nothing is built when a module is
 imported: the first wrapper that launches a kernel calls :func:`load`.
+
+A kernel store (``serve/aotcache.py``) may be attached with
+:func:`attach_store`. Where a library is missing, the store is asked for
+it before ``nvcc`` starts: it verifies the stored bytes and installs them
+under their own name. After a fresh build the libraries are persisted
+into it. Each build, adoption and load is reported to the listeners of
+:func:`add_listener` as ``(event, source, seconds)``, with the events
+``nvcc``, ``store_adopt`` and ``library_load``
+(``obs/compilemon.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +29,9 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build_all", "load",
-           "build_log", "build_seconds", "sources_digest"]
+           "build_log", "build_seconds", "sources_digest", "lib_name",
+           "attach_store", "attached_store", "add_listener",
+           "remove_listener"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -57,10 +68,46 @@ _SIGNATURES = {
     },
 }
 
-_LOCK = threading.Lock()
+#: one thread of a process builds, installs or loads at a time (other
+#: processes race only on atomic renames of identical bytes)
+_LOCK = threading.RLock()
 _LIBS: dict = {}
 _LOG: dict = {}
 _SECONDS: dict = {}
+#: the attached kernel store (``serve.aotcache.AotCache``) or None
+_STORE: list = [None]
+_LISTENERS: list = []
+
+
+def attach_store(store):
+    """Attach the kernel store that :func:`build_all` adopts missing
+    libraries from and persists fresh builds into (None detaches).
+    Returns the store that was attached before."""
+    with _LOCK:
+        previous, _STORE[0] = _STORE[0], store
+    return previous
+
+
+def attached_store():
+    """The attached kernel store, or None."""
+    return _STORE[0]
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(event, source, seconds)`` at every ``nvcc`` build,
+    store adoption and library load of this process."""
+    if fn not in _LISTENERS:
+        _LISTENERS.append(fn)
+
+
+def remove_listener(fn) -> None:
+    if fn in _LISTENERS:
+        _LISTENERS.remove(fn)
+
+
+def _emit(event: str, src: str, seconds: float) -> None:
+    for fn in list(_LISTENERS):
+        fn(event, src, float(seconds))
 
 
 def nvcc_path() -> str:
@@ -89,6 +136,11 @@ def _lib_path(src: str) -> Path:
     return BUILD_DIR / f"lib{Path(src).stem}-{digest}.so"
 
 
+def lib_name(src: str) -> str:
+    """The file name of ``src``'s library: ``lib<stem>-<digest>.so``."""
+    return _lib_path(src).name
+
+
 def sources_digest() -> str:
     """One digest of every kernel library this checkout builds: the
     sources, the headers and the compiler flags, as the library names of
@@ -102,13 +154,36 @@ def sources_digest() -> str:
 
 def build_all() -> dict:
     """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. Returns ``{source: library path}``;
-    raises ``RuntimeError`` with the compiler's output on a failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {src: _lib_path(src) for src in SOURCES}
-    todo = [s for s in SOURCES if not out[s].exists()]
-    if not todo:
+    source, all started together; with a kernel store attached, adopt
+    missing libraries from it first and persist a fresh build into it.
+    Returns ``{source: library path}``; raises ``RuntimeError`` with the
+    compiler's output on a failure, or when a library is missing and
+    there is no ``nvcc``."""
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = {src: _lib_path(src) for src in SOURCES}
+        todo = [s for s in SOURCES if not out[s].exists()]
+        store = _STORE[0]
+        if todo and store is not None:
+            t0 = time.perf_counter()
+            adopted = store.adopt_libraries(todo)
+            for src in adopted:     # the read and checks, shared evenly
+                _emit("store_adopt", src,
+                      (time.perf_counter() - t0) / len(adopted))
+            todo = [s for s in SOURCES if not out[s].exists()]
+        if not todo:
+            return out
+        _nvcc(todo, out)
+        for src in todo:
+            _emit("nvcc", src, _SECONDS[src])
+        if store is not None:
+            store.persist_libraries()
         return out
+
+
+def _nvcc(todo: list, out: dict) -> None:
+    """Run one ``nvcc`` per source of ``todo``, all at once, each into a
+    temporary renamed onto its library path when it succeeds."""
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
@@ -137,7 +212,6 @@ def build_all() -> dict:
             os.replace(tmp, out[src])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return out
 
 
 def build_log() -> dict:
@@ -158,10 +232,12 @@ def load(src: str) -> ctypes.CDLL:
         lib = _LIBS.get(src)
         if lib is None:
             path = build_all()[src]
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES[src].items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             _LIBS[src] = lib
+            _emit("library_load", src, time.perf_counter() - t0)
         return lib

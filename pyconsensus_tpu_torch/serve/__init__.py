@@ -48,17 +48,27 @@ Guarantees:
   (``serve.transport``); ``serve.loadgen`` drives a service or a fleet,
   and ``serve.cli`` (``pyconsensus-serve-torch``) is the front door.
 
-The socket transport (one worker process a card), the AOT store with
-tiered session state and journal compaction (``stateplane.py``), the
-autoscaler and the SLO, HTTP and flight-recorder telemetry are
+- the fleet's workers may also be OS processes, one a card, behind the
+  socket transport (``serve.transport``), their logs shipped to the
+  standby's disk;
+- the state plane (``serve.stateplane``) compacts a session's journal
+  behind a snapshot and keeps at most ``hot_sessions`` sessions in
+  memory, hydrating the rest from their logs, and the kernel-build store
+  (``serve.aotcache``, ``aot_cache_dir``) lets a restarted or standby
+  worker adopt the kernel libraries and its warmed keys with no
+  ``nvcc``.
+
+The autoscaler and the SLO, HTTP and flight-recorder telemetry are
 ``ROADMAP.md`` §A.11.
 """
 
 from __future__ import annotations
 
-from ..faults import (FailoverInProgressError, PlacementError,
-                      ServiceOverloadError, WorkerLostError)
+from ..faults import (AotCacheCorruptionError, FailoverInProgressError,
+                      PlacementError, ServiceOverloadError,
+                      SnapshotCorruptionError, WorkerLostError)
 from .admission import AdmissionController, ClusterCapacity
+from .aotcache import AOT_ENTRY, AotCache
 from .cache import SINGLE_TOPOLOGY, BucketKey, ExecutableCache, warm_inputs
 from .cuda import (CUDA_KERNEL_PATH, PLAIN_KERNEL_PATH, cuda_bucket_eligible,
                    cuda_bucket_params, make_cuda_bucket_executable)
@@ -78,6 +88,8 @@ from .service import ConsensusService, ServeConfig
 from .session import MarketSession, SessionStore, share_of
 from .sharded import (make_sharded_bucket_executable, mesh_fingerprint,
                       serve_mesh, sharded_bucket_eligible)
+from .stateplane import (CompactionPolicy, Compactor, TieredSessionStore,
+                         hydrate_session)
 
 __all__ = [
     "ConsensusService", "ServeConfig", "ServiceOverloadError",
@@ -99,4 +111,7 @@ __all__ = [
     "DurableSession", "ReplicationLog", "replay_session",
     "WorkerLostError", "FailoverInProgressError", "PlacementError",
     "LoadGenerator", "RateTrace",
+    "AotCache", "AOT_ENTRY", "AotCacheCorruptionError",
+    "TieredSessionStore", "CompactionPolicy", "Compactor",
+    "hydrate_session", "SnapshotCorruptionError",
 ]

@@ -16,8 +16,15 @@ A cache is bound to at most one mesh (``mesh=``): keys of the
 single-device topology build the single-device classes, keys carrying
 that mesh's fingerprint (``serve/sharded.py mesh_fingerprint``) build the
 mesh-sharded padded executable, and a key of any other topology is
-refused, never built for the wrong layout. The reference's AOT store
-(``aot=``) is ``ROADMAP.md`` §A.11.
+refused, never built for the wrong layout.
+
+With a kernel store attached (``aot=``, ``serve/aotcache.py``), ``get``
+consults it before it builds: a key whose verified entry is on disk is
+adopted (its kernel libraries come from the store, with no ``nvcc``) and
+counted under ``entry="serve_bucket_aot"``, so after a restart with a
+full store a warmed key's own ``serve_bucket*`` count stays at 0. The
+topology gate runs first. ``warm`` persists a key it built. A refused
+entry is deleted and the key is built as without a store.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from .. import obs
 from ..faults import plan as _faults
 from ..parallel.sharded import resolve_device
 from . import kernels as sk
+from .aotcache import AOT_ENTRY
 from .cuda import (CUDA_KERNEL_PATH, PLAIN_KERNEL_PATH,
                    make_cuda_bucket_executable)
 from .incremental import (INCREMENTAL_KERNEL_PATH,
@@ -40,12 +48,7 @@ from .sharded import (SINGLE_TOPOLOGY, make_sharded_bucket_executable,
                       mesh_fingerprint)
 
 __all__ = ["ExecutableCache", "BucketKey", "warm_inputs",
-           "SINGLE_TOPOLOGY", "ROADMAP_AOT"]
-
-#: where the parts the port's serve tier refuses are queued
-ROADMAP_AOT = ("ROADMAP.md §A.11 (stateplane.py with the kernel-build "
-               "cache: the AOT executable store, tiered session state, "
-               "snapshots and journal compaction)")
+           "SINGLE_TOPOLOGY"]
 
 #: the build counter's entry label of each kernel path (the reference's
 #: retrace entries); a mesh key of the padded path is ``_SHARDED_ENTRY``
@@ -142,21 +145,29 @@ class BucketKey(tuple):
 class ExecutableCache:
     """Bucket-keyed LRU of built executables with hit, miss, eviction and
     build metrics, for one ``device`` (None: the card, raising without
-    one; only ``device="cpu"`` runs the plain versions), ``dtype`` and at
-    most one ``mesh`` (``serve/sharded.py serve_mesh``; the module
-    docstring). Thread-safe; builds run under the cache's lock (the
-    batcher is the only caller after warm-up, and serialized builds keep
-    the build accounting exact)."""
+    one; only ``device="cpu"`` runs the plain versions), ``dtype``, at
+    most one ``mesh`` (``serve/sharded.py serve_mesh``) and an optional
+    kernel store ``aot`` (an ``aotcache.AotCache``; on the card it is
+    also attached to ``ops/build`` when none is, so a missing kernel
+    library is adopted from it before any ``nvcc``). Thread-safe; builds
+    run under the cache's lock (the batcher is the only caller after
+    warm-up, and serialized builds keep the build accounting exact)."""
 
     def __init__(self, capacity: int = 64, device=None,
                  dtype: torch.dtype = None, aot=None, mesh=None) -> None:
         if int(capacity) < 1:
             raise ValueError("capacity must be >= 1")
-        if aot is not None:
-            raise NotImplementedError(
-                f"an AOT executable store: {ROADMAP_AOT}")
         self.capacity = int(capacity)
         self.device = resolve_device(device)
+        #: the kernel store behind ``get`` and ``warm`` (None: none)
+        self.aot = aot
+        if aot is not None and self.device.type == "cuda":
+            from ..ops import build
+
+            if build.attached_store() is None:
+                build.attach_store(aot)
+        #: keys adopted from the store (``warm`` never persists them)
+        self._adopted: set = set()
         self.dtype = dtype or torch.get_default_dtype()
         self.mesh = mesh
         #: the mesh keys' topology (None without a mesh)
@@ -180,9 +191,9 @@ class ExecutableCache:
             "pyconsensus_serve_builds_total",
             "serve executables built, by entry (the port's counterpart of "
             "the reference's serve retraces)", labels=("entry",))
-        #: this cache's builds, hits and misses (the metrics are
-        #: process-wide)
-        self.builds = self.hits = self.misses = 0
+        #: this cache's builds, adoptions, hits and misses (the metrics
+        #: are process-wide)
+        self.builds = self.adopted = self.hits = self.misses = 0
 
     def __len__(self) -> int:
         with self._lock:
@@ -210,7 +221,7 @@ class ExecutableCache:
             self._misses.inc()
             self.misses += 1
             _faults.fire("serve.cache_store")
-            entry = self._build(key)
+            entry = self._build(key, adopt=self._adoptable(key))
             self._store(key, entry)
             return entry
 
@@ -222,10 +233,23 @@ class ExecutableCache:
             self._evictions.inc()
         self._size.set(len(self._entries))
 
-    def _build(self, key: BucketKey):
+    def _adoptable(self, key: BucketKey) -> bool:
+        """Whether ``key``'s verified entry is in the store (a miss or a
+        refused entry: False, and the key is built). The topology gate
+        runs first: a wrong-topology key gets ``_build``'s refusal, never
+        a quiet miss."""
+        if self.aot is None:
+            return False
+        if key.topology not in (SINGLE_TOPOLOGY, self.mesh_topology):
+            return False
+        return self.aot.adopt(key) is not None
+
+    def _build(self, key: BucketKey, adopt: bool = False):
         """Build the executable class of ``key``, or refuse a key of a
         topology this cache does not serve: only the padded path runs on
-        a mesh, and only on this cache's."""
+        a mesh, and only on this cache's. A key adopted from the store
+        (``adopt``) is counted under ``serve_bucket_aot``, not under its
+        own entry."""
         if key.topology not in (SINGLE_TOPOLOGY, self.mesh_topology):
             served = [t for t in (SINGLE_TOPOLOGY, self.mesh_topology) if t]
             raise ValueError(
@@ -240,8 +264,7 @@ class ExecutableCache:
             entry = make_sharded_bucket_executable(
                 key.params, self.mesh, batched=key.batch > 1,
                 capacity=key.batch)
-            self._builds.inc(entry=_SHARDED_ENTRY)
-            self.builds += 1
+            self._count(key, _SHARDED_ENTRY, adopt)
             return entry
         if key.kernel_path == CUDA_KERNEL_PATH:
             if self.device.type == "cuda":
@@ -261,15 +284,25 @@ class ExecutableCache:
                              f"{PLAIN_KERNEL_PATH!r}, "
                              f"{CUDA_KERNEL_PATH!r} or "
                              f"{INCREMENTAL_KERNEL_PATH!r})")
-        self._builds.inc(entry=_BUILD_ENTRY[key.kernel_path])
-        self.builds += 1
+        self._count(key, _BUILD_ENTRY[key.kernel_path], adopt)
         return entry
 
+    def _count(self, key: BucketKey, entry: str, adopt: bool) -> None:
+        if adopt:
+            self._adopted.add(key)
+            self._builds.inc(entry=AOT_ENTRY)
+            self.adopted += 1
+        else:
+            self._builds.inc(entry=entry)
+            self.builds += 1
+
     def warm(self, key: BucketKey) -> None:
-        """Build ``key``'s executable and run it once on
+        """Build (or adopt) ``key``'s executable and run it once on
         :func:`warm_inputs`, so the first real request builds nothing
         (on a card: the kernels' libraries loaded, the library
-        handles made)."""
+        handles made); with a store, persist a key this cache built."""
         entry = self.get(key)
         out = entry(*warm_inputs(key, self.device, self.dtype), key.params)
         out["smooth_rep"].cpu()
+        if self.aot is not None and key not in self._adopted:
+            self.aot.persist(key)

@@ -18,12 +18,18 @@ Usage::
         --requests 64 --shapes 1024x4096
     pyconsensus-serve-torch --fleet-workers 4 --transport socket \\
         --requests 64 --shapes 1024x4096
+    pyconsensus-serve-torch --aot-cache /var/cache/pyconsensus \\
+        --warmup-only --shapes 1024x4096
 
 The flags are the reference's plus ``--device`` (the card by default;
 ``cpu`` on request; without a card and without ``--device cpu`` it exits
-2). ``--aot-cache``, ``--autoscale`` and ``--metrics-port`` name parts
-of ``ROADMAP.md`` §A.11 the port does not have: each exits 2 naming its
-item, and so do the settings that only those parts read
+2). ``--aot-cache DIR`` is the kernel-build store (``serve/aotcache.py``:
+the kernel libraries and the warmed keys, so the next run adopts them
+with no ``nvcc``); the summary reports ``aot_loaded`` and
+``aot_persisted``, and the compile monitor counts every ``nvcc`` run,
+store adoption and library load. ``--autoscale`` and ``--metrics-port``
+name parts of ``ROADMAP.md`` §A.11 the port does not have: each exits 2
+naming its item, and so do the settings that only those parts read
 (``--autoscale-*``, ``--metrics-hold-s`` and the ``--slo-*`` targets).
 Both paths warm what the requests of ``--shapes`` ride before the timed
 run, on every fleet worker too (a socket worker through its ``warm``
@@ -51,8 +57,6 @@ _SLO = "the SLO monitor, obs/slo.py"
 #: the flags that name a part of ROADMAP.md §A.11 the port does not have,
 #: or set what only such a part reads
 _REFUSED = {
-    "aot_cache": ("--aot-cache", "the kernel-build cache with "
-                  "stateplane.py"),
     "autoscale": ("--autoscale", _AUTOSCALE),
     "autoscale_min": ("--autoscale-min", _AUTOSCALE),
     "autoscale_max": ("--autoscale-max", _AUTOSCALE),
@@ -136,8 +140,9 @@ def _parser() -> argparse.ArgumentParser:
                     metavar="K",
                     help="incremental tier exact-refresh cadence (>= 1)")
     ap.add_argument("--aot-cache", metavar="DIR", default=None,
-                    help="persisted executable store: not in the port "
-                         "(exits 2, ROADMAP.md §A.11)")
+                    help="the kernel-build store: the kernel libraries "
+                         "and the warmed keys, persisted and verified, so "
+                         "a restart adopts them with no nvcc")
     ap.add_argument("--fleet-workers", type=int, default=0, metavar="N",
                     help="drive the loadgen through an N-worker "
                          "ConsensusFleet instead of a single service "
@@ -210,6 +215,8 @@ def _config(ap, args):
     if args.pallas_buckets is not None:
         overrides["pallas_buckets"] = {"auto": "auto", "on": True,
                                        "off": False}[args.pallas_buckets]
+    if args.aot_cache is not None:
+        overrides["aot_cache_dir"] = args.aot_cache
     if args.incremental is not None:
         overrides["incremental_sessions"] = bool(args.incremental)
     if args.refresh_every is not None:
@@ -221,8 +228,8 @@ def _config(ap, args):
 
 def _refuse(ap, args, cfg) -> None:
     """Exit 2 on a flag naming a part of §A.11 the port does not have, on
-    a config the service would refuse (an invalid value, or a key naming
-    §A.11) and on ``--device cuda`` without a card."""
+    a config the service would refuse (an invalid value) and on
+    ``--device cuda`` without a card."""
     from ..faults import InputError
     from .service import _validate
 
@@ -233,7 +240,7 @@ def _refuse(ap, args, cfg) -> None:
                      f"port")
     try:
         _validate(cfg)
-    except (InputError, NotImplementedError) as exc:
+    except InputError as exc:
         ap.error(f"config: {exc}")
     if args.device == "cuda":
         import torch
@@ -252,6 +259,10 @@ def _write_outputs(args, stats) -> int:
     # the kernels' launches in this process (a fleet's summary sets its
     # workers' own), warm-up included (0 off the card)
     stats.setdefault("kernel_launches", launch_counts())
+    stats.setdefault("aot_loaded", obs.value("pyconsensus_aot_load_total",
+                                             outcome="loaded"))
+    stats.setdefault("aot_persisted", obs.value(
+        "pyconsensus_aot_persist_total", outcome="written"))
 
     # sort_keys: two identical runs print identical key orders
     print(json.dumps(stats, indent=2, sort_keys=True))
@@ -296,7 +307,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     try:
         cfg = _config(ap, args)
-    except (ValueError, NotImplementedError) as exc:
+    except ValueError as exc:
         ap.error(str(exc))
     _refuse(ap, args, cfg)
     try:
@@ -304,10 +315,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError:
         ap.error(f"--shapes: cannot parse {args.shapes!r} (want RxE,...)")
 
+    from .. import obs
+
+    # before the first build, so the warm-up's are counted too
+    obs.install_compile_monitor()
     if args.fleet_workers > 0:
         return _fleet_main(args, cfg, shapes)
 
-    from .. import obs
     from .loadgen import (LoadGenerator, device_block, kernel_path_block,
                           mean_batch_occupancy)
     from .service import ConsensusService
@@ -319,7 +333,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "warmed_buckets": n_warm,
             "cache_size": len(svc.cache),
             "n_devices": svc.n_devices,
-            "builds": svc.cache.builds}))
+            "builds": svc.cache.builds,
+            "aot_loaded": obs.value("pyconsensus_aot_load_total",
+                                    outcome="loaded"),
+            "aot_persisted": obs.value("pyconsensus_aot_persist_total",
+                                       outcome="written")}))
         if args.metrics_out:
             obs.write_prom(args.metrics_out, obs.REGISTRY)
         svc.close(drain=True)
@@ -366,8 +384,8 @@ def _fleet_main(args, cfg, shapes) -> int:
         stats = _run_load(gen, args)
         status = fleet.status()     # before the drain marks workers down
         # the merged view holds the dispatches wherever they happened
-        stats["kernel_paths"] = kernel_path_block(
-            fleet.merged_snapshot()) or None
+        snapshot = fleet.merged_snapshot()
+        stats["kernel_paths"] = kernel_path_block(snapshot) or None
         stats["kernel_launches"] = _fleet_launches(fleet)
     finally:
         fleet.close(drain=True)
@@ -375,7 +393,24 @@ def _fleet_main(args, cfg, shapes) -> int:
     stats["warmed_executables"] = n_warm
     stats["fleet"] = status
     stats["device"] = str(fleet.device)
+    # the store's counters wherever the workers ran
+    for key, name, outcome in (
+            ("aot_loaded", "pyconsensus_aot_load_total", "loaded"),
+            ("aot_persisted", "pyconsensus_aot_persist_total", "written")):
+        stats[key] = _merged_total(snapshot, name, outcome=outcome)
     return _write_outputs(args, stats)
+
+
+def _merged_total(snapshot: dict, name: str, **labels):
+    """The sum over every worker of counter ``name``'s series whose
+    labels include ``labels``, in a merged fleet snapshot (None when no
+    worker emitted it)."""
+    total = None
+    for skey, value in snapshot.get(name, {}).get("series", {}).items():
+        got = json.loads(skey) if skey else {}
+        if all(got.get(k) == v for k, v in labels.items()):
+            total = (total or 0.0) + float(value)
+    return total
 
 
 def _fleet_launches(fleet) -> dict:

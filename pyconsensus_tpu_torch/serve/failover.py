@@ -13,6 +13,11 @@ by either package verifies and replays in the other)::
                                         # round (atomic, fsynced)
         staged/round_<k>_block_<i>.npz  # round k's journaled appends,
                                         # SHA-256 content-digested
+        snapshot.npz                    # optional compaction record
+                                        # (serve.stateplane): the open
+                                        # round's journaled prefix, the
+                                        # dedupe set and the ledger tree,
+                                        # truncating the journal
 
 Write ordering is what makes "zero lost resolutions" true:
 
@@ -37,9 +42,11 @@ device and dtype. The ledger's float64 reputation enters the session
 verbatim, so the resumed resolves equal the never-killed run's bit for
 bit on the same device.
 
-A ``snapshot.npz`` (the reference's journal compaction) and
-:meth:`DurableSession.compact` belong to ``stateplane.py``, which the
-port does not have: both refuse, naming ``ROADMAP.md`` §A.11.
+A compacted log replays its snapshot's prefix plus the journal suffix
+behind it, bit for bit the full journal's replay (the snapshot is built
+from the verified journal bytes, never from memory): a torn snapshot
+over an intact journal is refused and ignored, and one over a truncated
+journal raises ``SnapshotCorruptionError`` (PYC303).
 """
 
 from __future__ import annotations
@@ -52,12 +59,12 @@ from typing import Optional
 
 import numpy as np
 
-from ..faults import CheckpointCorruptionError, InputError
+from ..faults import (CheckpointCorruptionError, InputError,
+                      SnapshotCorruptionError)
 from ..faults import plan as _faults
 from ..io import atomic_write
 from ..ledger import ReputationLedger
 from ..oracle import parse_event_bounds
-from .cache import ROADMAP_AOT
 from .incremental import INCREMENTAL_REFRESH_DEFAULT
 from .session import MarketSession
 
@@ -219,11 +226,10 @@ class ReplicationLog:
         bounds = json.loads(bounds_json.decode())
         return index, block, bounds, append_id
 
-    def staged(self, round_idx: int) -> list:
-        """The journaled blocks of round ``round_idx`` in append order:
-        ``[(block, bounds, append_id), ...]``. Validates digests and
-        index contiguity (a gap means a lost record: replication is
-        torn, refuse)."""
+    def _staged_entries(self, round_idx: int) -> list:
+        """Sorted ``[(index, path), ...]`` of round ``round_idx``'s
+        journal records on disk (the index read from the file name; no
+        content is read)."""
         entries = []
         if self.staged_dir.exists():
             for p in sorted(self.staged_dir.iterdir()):
@@ -231,18 +237,58 @@ class ReplicationLog:
                 if m and int(m.group(1)) == int(round_idx):
                     entries.append((int(m.group(2)), p))
         entries.sort()
+        return entries
+
+    def staged(self, round_idx: int, start: int = 0) -> list:
+        """The journaled blocks of round ``round_idx`` in append order:
+        ``[(block, bounds, append_id), ...]``. Validates digests and index
+        contiguity (a gap means a lost record: replication is torn,
+        refuse). ``start`` is the compaction suffix: records below it are
+        the snapshot's, and any still on disk (a crash between the
+        snapshot's write and the truncation) are skipped; contiguity is
+        then required from ``start``."""
         out, indices = [], []
-        for _, p in entries:
+        for name_idx, p in self._staged_entries(round_idx):
+            if name_idx < int(start):
+                continue            # covered by the snapshot
             index, block, bounds, append_id = self._read_block(p)
             indices.append(index)
             out.append((block, bounds, append_id))
-        if indices != list(range(len(indices))):
+        if indices != list(range(int(start), int(start) + len(indices))):
             raise CheckpointCorruptionError(
                 f"{self.staged_dir}: staged blocks of round {round_idx} "
-                f"are not contiguous from 0 (got indices {indices}) — a "
-                f"journal record is missing", source=str(self.staged_dir),
-                round=int(round_idx), indices=indices)
+                f"are not contiguous from {int(start)} (got indices "
+                f"{indices}) — a journal record is missing",
+                source=str(self.staged_dir), round=int(round_idx),
+                indices=indices)
         return out
+
+    def truncate_staged(self, round_idx: int, upto: int) -> int:
+        """Unlink round ``round_idx``'s records with index below
+        ``upto``, which the snapshot now carries. Called only after the
+        snapshot's write landed and read back whole; ``state.compact``
+        fires before each unlink, so a crash can stop the truncation at
+        any record and the replay still folds the snapshot's prefix plus
+        the surviving records. Returns the number of records removed."""
+        removed = 0
+        for name_idx, p in self._staged_entries(round_idx):
+            if name_idx < int(upto):
+                _faults.fire("state.compact")
+                p.unlink(missing_ok=True)
+                removed += 1
+        return removed
+
+    def journal_bytes(self) -> int:
+        """Bytes of the staged journal on disk: what compaction shrinks
+        and ``pyconsensus_session_journal_bytes`` reports."""
+        total = 0
+        if self.staged_dir.exists():
+            for p in self.staged_dir.iterdir():
+                try:
+                    total += p.stat().st_size
+                except OSError:
+                    pass            # unlinked by a racing truncation
+        return total
 
     def commit_round(self, ledger: ReputationLedger) -> None:
         """Persist the post-round ledger state, then clear every staged
@@ -260,9 +306,9 @@ class ReplicationLog:
 
     def verify(self) -> dict:
         """The takeover preflight: a DRY RUN over the whole log (meta,
-        the ledger checkpoint's full validation, every staged block of
-        the current round: digest + contiguity) with zero state
-        mutation. Returns a summary dict; raises
+        the ledger checkpoint's full validation, the snapshot, every
+        staged block of the current round: digest + contiguity) with zero
+        state mutation. Returns a summary dict; raises
         :class:`CheckpointCorruptionError` naming the offending field or
         file."""
         return self.verify_collect()[0]
@@ -270,17 +316,24 @@ class ReplicationLog:
     def verify_collect(self) -> tuple:
         """:meth:`verify` plus what the takeover replay needs:
         ``(summary, [(block, bounds, append_id), ...],
-        ledger_state_or_None)``, so the journal and the checkpoint are
-        each read and validated once inside the takeover window."""
+        ledger_state_or_None, dedupe_ids)``, so the journal, the snapshot
+        and the checkpoint are each read and validated once inside the
+        takeover window.
+
+        A valid ``snapshot.npz`` at the ledger's open round contributes
+        its journaled prefix (the staged list is the snapshot's prefix
+        plus the suffix on disk); a snapshot of an older round is stale:
+        its prefix is ignored, its dedupe set (the only durable record
+        of committed rounds' idempotency tokens) is kept. A torn snapshot
+        over an intact journal is refused and ignored
+        (``pyconsensus_compactions_total{outcome="refused"}``); over a
+        truncated journal it raises ``SnapshotCorruptionError``
+        (PYC303)."""
         meta = self.meta()
         summary = {"session": meta["session"],
                    "n_reporters": int(meta["n_reporters"]),
                    "round": 0, "staged_blocks": 0, "ledger": None,
                    "snapshot": None}
-        if self.snapshot_path.exists():
-            raise NotImplementedError(
-                f"{self.snapshot_path}: a compacted replication log "
-                f"(snapshot + truncated journal): {ROADMAP_AOT}")
         state = None
         if self.ledger_path.exists():
             state = ReputationLedger._read_state(self.ledger_path)
@@ -295,9 +348,69 @@ class ReplicationLog:
                                  "round": int(state["round"]),
                                  "rounds_recorded": len(state["history"])}
             summary["round"] = int(state["round"])
-        staged = self.staged(summary["round"])
+        open_round = summary["round"]
+        prefix, dedupe, start, hint = [], set(), 0, None
+        if self.snapshot_path.exists():
+            from .stateplane import (count_compaction, load_snapshot,
+                                     snapshot_hint)
+            try:
+                snap = load_snapshot(self.snapshot_path)
+            except CheckpointCorruptionError as exc:
+                snap = None
+                summary["snapshot"] = {"refused": str(exc)}
+                count_compaction("refused")
+                # what the refused bytes still declare they covered: the
+                # journal below must account for it (checked after the
+                # suffix is read)
+                hint = snapshot_hint(self.snapshot_path)
+            if snap is not None:
+                dedupe = set(snap["dedupe"])
+                stale = int(snap["round"]) != open_round
+                summary["snapshot"] = {"round": int(snap["round"]),
+                                       "blocks": len(snap["blocks"]),
+                                       "stale": stale}
+                if not stale:
+                    prefix = snap["blocks"]
+                    start = len(prefix)
+        try:
+            suffix = self.staged(open_round, start=start)
+        except CheckpointCorruptionError:
+            if start == 0:
+                # no usable snapshot covers the gap: with a snapshot file
+                # present the missing prefix was truncated behind it
+                entries = self._staged_entries(open_round)
+                if entries and entries[0][0] > 0 \
+                        and self.snapshot_path.exists():
+                    raise SnapshotCorruptionError(
+                        f"{self.snapshot_path}: the journal of round "
+                        f"{open_round} was truncated behind a snapshot "
+                        f"that cannot be used "
+                        f"({summary.get('snapshot')}) — "
+                        f"{entries[0][0]} prefix record(s) are gone; "
+                        f"recover from the shipped copy",
+                        path=str(self.snapshot_path),
+                        reason="truncated-journal",
+                        missing_prefix=int(entries[0][0]),
+                        round=int(open_round))
+            raise
+        if start == 0 and hint is not None:
+            hint_round, hint_blocks = hint
+            if hint_round == open_round and len(suffix) < hint_blocks:
+                # the journal reads clean but holds fewer records than
+                # the refused snapshot covered: the truncation landed
+                raise SnapshotCorruptionError(
+                    f"{self.snapshot_path}: the refused snapshot "
+                    f"declares {hint_blocks} covered block(s) of round "
+                    f"{open_round} but only {len(suffix)} journal "
+                    f"record(s) survive — the truncated prefix exists "
+                    f"nowhere readable; recover from the shipped copy",
+                    path=str(self.snapshot_path),
+                    reason="truncated-journal",
+                    missing_prefix=int(hint_blocks - len(suffix)),
+                    round=int(open_round))
+        staged = list(prefix) + suffix
         summary["staged_blocks"] = len(staged)
-        return summary, staged, state
+        return summary, staged, state, dedupe
 
 
 class DurableSession(MarketSession):
@@ -317,8 +430,12 @@ class DurableSession(MarketSession):
         self.rounds_resolved = ledger.round
         #: idempotency tokens of the appends this session applied: a
         #: retried append whose original landed folds nothing the second
-        #: time. Seeded from the journal at replay.
+        #: time. Seeded from the journal (and the snapshot) at replay.
         self._applied_append_ids: set = set()   # guarded-by: _lock
+        #: the last compaction snapshot's round (None: never) and the
+        #: blocks it covered: what the compaction policy counts from
+        self._snap_round: Optional[int] = None  # guarded-by: _lock
+        self._snap_blocks: int = 0              # guarded-by: _lock
 
     @classmethod
     def create(cls, log_root, name: str, n_reporters: int,
@@ -364,11 +481,55 @@ class DurableSession(MarketSession):
         with self._lock:
             self._fenced = exc
 
+    def journal_bytes(self) -> int:
+        """Bytes of this session's staged journal on disk: the
+        compaction policy's size signal."""
+        return self._log.journal_bytes()
+
     def compact(self) -> dict:
-        """Snapshot-truncate the journal: ``stateplane.py``, which the
-        port does not have."""
-        raise NotImplementedError(
-            f"compacting session {self.name!r}: {ROADMAP_AOT}")
+        """Snapshot-truncate this session's journal: write
+        ``snapshot.npz`` (the open round's journaled prefix, the
+        cumulative dedupe set and the ledger tree), read it back whole,
+        then unlink the records it covers. The snapshot is built from the
+        verified journal on disk (the takeover's read path), never from
+        memory, so snapshot plus suffix replays bit for bit the full
+        journal. Under the session lock: no append journals between the
+        read and the truncation. A crash anywhere loses nothing: before
+        the snapshot's rename the old state is whole, after it the
+        truncation is garbage collection the replay tolerates. Returns a
+        report dict."""
+        from .stateplane import (count_compaction, load_snapshot,
+                                 write_snapshot)
+
+        with self._lock:
+            if self._fenced is not None:
+                raise self._fenced
+            bytes_before = self._log.journal_bytes()
+            summary, staged, _, dedupe = self._log.verify_collect()
+            open_round = int(summary["round"])
+            # the cumulative dedupe set: the old snapshot's, every
+            # journaled token, and the tokens of committed rounds whose
+            # records the commit removed (this snapshot keeps them)
+            dedupe = set(dedupe)
+            dedupe.update(aid for _, _, aid in staged if aid is not None)
+            dedupe.update(self._applied_append_ids)
+            write_snapshot(self._log, open_round, staged, dedupe,
+                           self.ledger._state_tree())
+            # verify before truncating: a torn write is caught while the
+            # journal is still whole (PYC301; the next sweep retries)
+            try:
+                load_snapshot(self._log.snapshot_path)
+            except CheckpointCorruptionError:
+                count_compaction("refused")
+                raise
+            removed = self._log.truncate_staged(open_round, len(staged))
+            self._snap_round = open_round
+            self._snap_blocks = len(staged)
+            bytes_after = self._log.journal_bytes()
+        return {"session": self.name, "round": open_round,
+                "blocks": len(staged), "records_removed": removed,
+                "bytes_before": int(bytes_before),
+                "bytes_after": int(bytes_after)}
 
     def append(self, reports_block, event_bounds=None,
                append_id: Optional[str] = None) -> int:
@@ -466,7 +627,7 @@ def replay_session(log_root, name: str, executable_provider=None,
     _faults.fire("fleet.ledger_replay",
                  path=log.ledger_path if log.ledger_path.exists()
                  else None)
-    summary, staged, state = log.verify_collect()
+    summary, staged, state, dedupe = log.verify_collect()
     if state is not None:
         ledger = ReputationLedger._from_state(state,
                                               source=log.ledger_path)
@@ -483,6 +644,9 @@ def replay_session(log_root, name: str, executable_provider=None,
                                    INCREMENTAL_REFRESH_DEFAULT)),
         executable_provider=executable_provider, device=device,
         dtype=dtype)
+    # the snapshot's dedupe set first: the only durable record of the
+    # committed rounds' idempotency tokens
+    session._applied_append_ids.update(dedupe)
     for block, bounds, append_id in staged:
         # fold WITHOUT re-journaling (the records exist): the same
         # arithmetic the dead worker ran against the same reputation;
@@ -490,4 +654,9 @@ def replay_session(log_root, name: str, executable_provider=None,
         MarketSession.append(session, block, bounds)
         if append_id is not None:
             session._applied_append_ids.add(append_id)
+    snap = summary.get("snapshot") or {}
+    if snap.get("round") == summary["round"] and not snap.get("stale"):
+        # the compaction policy counts from the adopted snapshot
+        session._snap_round = int(snap["round"])
+        session._snap_blocks = int(snap["blocks"])
     return session

@@ -35,9 +35,11 @@ RPC protocol, one a card (every worker on the CPU when ``device`` is the
 CPU), each with its own interpreter and metric registry, their
 replication logs shipped to the standby's disk before each write is
 acknowledged (``serve.transport.supervisor`` / ``.shipping``). Routing,
-admission and failover are the same code over both. The AOT warm-up of
-an adopting worker (``_warm_standby`` adopts nothing until the
-kernel-build cache exists), the flight recorder
+admission and failover are the same code over both. An adopting worker
+warms from the kernel-build store (``ServeConfig.aot_cache_dir``,
+``serve/aotcache.py``) inside the takeover window (``_warm_standby``),
+and a worker with ``hot_sessions > 0`` hydrates its cold sessions from
+its view of the log (``serve/stateplane.py``). The flight recorder
 (``ServeConfig.flightrec_dir`` is accepted and unused) and the autoscaler
 are ``ROADMAP.md`` §A.11.
 
@@ -125,6 +127,20 @@ class FleetWorker(WorkerBase):
         super().__init__(name)
         self.service = ConsensusService(config, device=device)
         self._log_dir = log_dir
+        if log_dir is not None and hasattr(self.service.sessions,
+                                           "hydrator"):
+            # a tiered store: cold sessions hydrate from this worker's
+            # view of the log, through the executable provider, device
+            # and dtype a takeover would use
+            from .stateplane import hydrate_session
+
+            self.service.sessions.hydrator = (
+                lambda session_name: hydrate_session(
+                    log_dir, session_name,
+                    executable_provider=(
+                        self.service.incremental_executable_for),
+                    device=self.service.device,
+                    dtype=self.service.dtype))
 
     # -- lifecycle ------------------------------------------------------
 
@@ -251,9 +267,9 @@ class FleetWorker(WorkerBase):
         return self.service.sessions.get(name).state()
 
     def warm_from_disk(self) -> int:
-        """Executables adopted from a persisted store: none until the
-        kernel-build cache exists (``ROADMAP.md`` §A.11)."""
-        return 0
+        """Adopt the configured keys whose entries are in the kernel
+        store (``ConsensusService.warm_from_disk``)."""
+        return self.service.warm_from_disk()
 
     def warm(self, shapes, has_na: bool) -> int:
         from .cli import warm_for_shapes
@@ -495,17 +511,24 @@ class ConsensusFleet:
         return migrated
 
     def _warm_standby(self, owner: str) -> int:
-        """Warm the adopting worker's executables from a persisted store
-        inside the takeover window. Fail-soft: warming may shrink the
-        PYC502 window, it must never abort the takeover. Adopts nothing
-        until the kernel-build cache exists (``ROADMAP.md`` §A.11)."""
+        """Warm the adopting worker's keys from the kernel store inside
+        the takeover window, so its first request after the takeover
+        neither builds nor runs ``nvcc``. Fail-soft: warming may shrink
+        the PYC502 window, it must never abort the takeover. Returns the
+        keys adopted."""
         try:
-            return self.workers[owner].warm_from_disk()
+            adopted = self.workers[owner].warm_from_disk()
         except Exception as exc:   # noqa: BLE001 — the takeover wins
             print(f"WARNING: standby {owner!r} warm failed "
                   f"({type(exc).__name__}: {exc}); takeover continues",
                   file=sys.stderr)
             return 0
+        if adopted:
+            obs.counter(
+                "pyconsensus_aot_takeover_warms_total",
+                "bucket keys a standby adopted from the kernel store "
+                "inside a takeover window").inc(adopted)
+        return adopted
 
     def _relocate_session(self, src: str, name: str, target: str,
                           fence_exc: BaseException) -> None:

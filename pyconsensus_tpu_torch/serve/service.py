@@ -28,6 +28,15 @@ divide over it run on a batch x event grid (``serve/sharded.py``), and a
 device may repeat, so ``devices=["cuda:0"] * 8`` or ``["cpu"] * 8`` is a
 2 x 4 grid of one card or of the CPU. The service computes in the
 default dtype at construction.
+
+The state plane (``serve/stateplane.py``): ``hot_sessions > 0`` keeps at
+most that many sessions in memory and hydrates the rest from their logs
+(the owning fleet worker installs the hydrator), and either compaction
+threshold starts a background ``Compactor`` at ``start()``, stopped at
+``drain``/``close``. ``aot_cache_dir`` attaches the kernel-build store
+(``serve/aotcache.py``): ``warm_from_disk`` adopts every configured key
+whose verified entry is on disk, and a key the service builds is
+persisted for the next boot.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ from .admission import AdmissionController
 from .batcher import Microbatcher
 from ..parallel.mesh import (make_mesh, mesh_devices, mesh_shape,
                              refuse_process_mesh)
-from .cache import ROADMAP_AOT, BucketKey, ExecutableCache
+from .cache import BucketKey, ExecutableCache
 from .cuda import CUDA_KERNEL_PATH, cuda_bucket_eligible, cuda_bucket_params
 from .incremental import (INCREMENTAL_KERNEL_PATH,
                           INCREMENTAL_REFRESH_DEFAULT)
@@ -77,10 +86,7 @@ _BACKEND_ALIASES = {"jax": "torch"}
 @dataclass(frozen=True)
 class ServeConfig:
     """Service policy, JSON-loadable (``ServeConfig.load``). The keys are
-    the reference's, so one config file serves both packages; the ones
-    naming parts the port does not have yet are refused at
-    ``ConsensusService`` construction when set (``ROADMAP.md``
-    §A.11)."""
+    the reference's, so one config file serves both packages."""
 
     #: shape-bucket ladders; a request maps to the smallest (rows,
     #: events) bucket that fits, or to the direct path beyond both
@@ -128,7 +134,10 @@ class ServeConfig:
     incremental_sessions: bool = False
     #: the incremental tier's exact-refresh cadence K (>= 1)
     incremental_refresh_every: int = INCREMENTAL_REFRESH_DEFAULT
-    #: the AOT executable store: ROADMAP.md §A.11
+    #: the kernel-build store's directory (``serve/aotcache.py``): the
+    #: kernel libraries and the warmed keys, persisted and verified, so
+    #: a restarted worker adopts them with no ``nvcc``; None: no store.
+    #: Safe to share across a fleet
     aot_cache_dir: Optional[str] = None
     #: windowed SLO targets (validated; their monitor is the
     #: reference's fleet tooling)
@@ -138,10 +147,17 @@ class ServeConfig:
     slo_shed_ratio: float = 0.0
     slo_queue_depth: float = 0.0
     flightrec_dir: Optional[str] = None
-    #: tiered session residency and journal compaction: ROADMAP.md §A.11
+    #: tiered residency (``serve/stateplane.py``): at most this many
+    #: sessions in memory (LRU), the rest hydrated from their logs on
+    #: first touch; 0 keeps every session hot
     hot_sessions: int = 0
+    #: journal compaction: snapshot-truncate a session's journal after
+    #: this many resolved rounds since its last snapshot, or once it
+    #: holds this many bytes (0 disables a threshold; both 0: no
+    #: compactor)
     compact_rounds: int = 0
     compact_journal_bytes: int = 0
+    #: the compactor's sweep interval (seconds)
     compact_interval_s: float = 5.0
 
     @classmethod
@@ -175,8 +191,7 @@ class ServeConfig:
 
 
 def _validate(cfg: ServeConfig) -> None:
-    """The reference's construction checks (``InputError``, PYC101), and
-    the refusals of what the port does not have."""
+    """The reference's construction checks (``InputError``, PYC101)."""
     if (sorted(cfg.row_buckets) != list(cfg.row_buckets)
             or sorted(cfg.event_buckets) != list(cfg.event_buckets)):
         raise InputError("bucket ladders must be ascending")
@@ -208,15 +223,10 @@ def _validate(cfg: ServeConfig) -> None:
         if value < 0:
             raise InputError(f"{key} must be >= 0 (0 disables it), got "
                              f"{value}", **{key: value})
-        if value > 0:
-            raise NotImplementedError(f"{key}={value}: {ROADMAP_AOT}")
     if float(cfg.compact_interval_s) <= 0:
         raise InputError(f"compact_interval_s must be > 0, got "
                          f"{cfg.compact_interval_s}",
                          compact_interval_s=cfg.compact_interval_s)
-    if cfg.aot_cache_dir:
-        raise NotImplementedError(
-            f"aot_cache_dir={cfg.aot_cache_dir!r}: {ROADMAP_AOT}")
     if cfg.sharded_buckets not in ("auto", True, False):
         raise InputError(f"sharded_buckets must be 'auto', True or False, "
                          f"got {cfg.sharded_buckets!r}")
@@ -241,15 +251,28 @@ class ConsensusService:
         self.dtype = torch.get_default_dtype()
         self.mesh = self._build_mesh(devices)
         self.queue = RequestQueue(self.config.max_queue)
+        aot = None
+        if self.config.aot_cache_dir:
+            from .aotcache import AotCache
+
+            aot = AotCache(self.config.aot_cache_dir, device=self.device)
         self.cache = ExecutableCache(self.config.cache_capacity,
                                      device=self.device, dtype=self.dtype,
-                                     mesh=self.mesh)
+                                     aot=aot, mesh=self.mesh)
         self.admission = AdmissionController(self.config.rate_limit_rps,
                                              self.config.rate_burst)
-        self.sessions = SessionStore()
+        if int(self.config.hot_sessions) > 0:
+            from .stateplane import TieredSessionStore
+
+            self.sessions = TieredSessionStore(self.config.hot_sessions)
+        else:
+            self.sessions = SessionStore()
         self.batcher = Microbatcher(self.queue, self.cache, self.config,
                                     self.sessions, self.admission,
                                     device=self.device, dtype=self.dtype)
+        #: the background journal compactor: built at ``start()`` when
+        #: either compaction threshold is set, stopped at ``close()``
+        self.compactor = None
         self._started = False
         self._start_lock = threading.Lock()
 
@@ -298,6 +321,18 @@ class ConsensusService:
                 if warmup:
                     self.warm_buckets()
                 self.batcher.start()
+                if (self.config.compact_rounds
+                        or self.config.compact_journal_bytes):
+                    from .stateplane import CompactionPolicy, Compactor
+
+                    self.compactor = Compactor(
+                        self.sessions,
+                        CompactionPolicy(
+                            rounds=self.config.compact_rounds,
+                            journal_bytes=(
+                                self.config.compact_journal_bytes)),
+                        interval_s=self.config.compact_interval_s
+                    ).run_in_thread()
                 self._started = True
         return self
 
@@ -351,9 +386,50 @@ class ConsensusService:
             n += 1
         return n
 
+    def configured_keys(self, **oracle_kwargs) -> list:
+        """The keys of the configured warm-up ladders (the padded or
+        sharded buckets of ``warmup`` and the exact ``pallas_warmup``
+        shapes): what ``warm_buckets`` builds and what
+        :meth:`warm_from_disk` looks for in the store."""
+        keys = [self._bucket_key((r, e), has_na=True, any_scaled=False,
+                                 n_scaled=0, oracle_kwargs=oracle_kwargs)
+                for r, e in self.config.warmup]
+        keys += [self._cuda_key(r, e, has_na=True,
+                                oracle_kwargs=oracle_kwargs)
+                 for r, e in self.config.pallas_warmup]
+        return keys
+
+    def warm_from_disk(self, **oracle_kwargs) -> int:
+        """Adopt and warm every configured key whose entry is in the
+        kernel store (no ``nvcc``: the libraries come from the store).
+        Keys without an entry are skipped, not built: this is the cheap
+        step a fleet runs inside a takeover window. Returns the number of
+        keys adopted (0 without ``aot_cache_dir``)."""
+        if self.cache.aot is None:
+            return 0
+        n = 0
+        for key in self.configured_keys(**oracle_kwargs):
+            if key in self.cache.keys() or not self.cache.aot.has(key):
+                continue
+            with obs.span("serve.warm_from_disk",
+                          bucket=f"{key.rows}x{key.events}",
+                          kernel_path=key.kernel_path):
+                self.cache.warm(key)
+            n += 1
+        return n
+
+    def _stop_compactor(self) -> None:
+        with self._start_lock:
+            compactor, self.compactor = self.compactor, None
+        if compactor is not None:
+            # joined outside the lock: the sweep takes store and session
+            # locks and must not serialize against start()
+            compactor.stop()
+
     def drain(self, timeout: Optional[float] = 60.0) -> None:
         """Graceful shutdown: refuse new work, finish everything queued,
-        stop the batcher."""
+        stop the batcher and the compactor."""
+        self._stop_compactor()
         self.admission.start_drain()
         self.queue.close()
         self.batcher.join(timeout)
@@ -363,6 +439,7 @@ class ConsensusService:
         if drain:
             self.drain(timeout)
             return
+        self._stop_compactor()
         self.admission.start_drain()
         self.queue.close()
         for req in self.queue.drain_pending():

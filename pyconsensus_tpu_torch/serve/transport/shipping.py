@@ -20,9 +20,13 @@ Verify before adopt, at both ends:
   the session bit for bit, as an in-process takeover does from the
   shared directory.
 
-A ``snapshot.npz`` (journal compaction) is a name the layout allows, but
-nothing in the port writes one before ``stateplane.py`` (``ROADMAP.md``
-§A.11), and a log that holds one refuses at verify.
+A compacted log ships its ``snapshot.npz`` too. Compaction rewrites it
+in place, so the worker decides to ship it by its content's digest, not
+its name, and reads it once per ship: the rename that installs a snapshot
+is atomic, so the bytes shipped are one whole snapshot, whose digest the
+receiver checks (a mismatch is refused and shipped again later). The
+standby's copy keeps the journal records the compaction removed; the
+snapshot-aware replay skips them as the covered prefix.
 
 The ``shipping.append`` fault site fires at every ship; a transient
 ``OSError`` is retried, bounded; a taxonomy refusal is not.
@@ -135,7 +139,9 @@ class LogShipper:
                                  expect_fingerprint=expect_fingerprint)
         self.retries = int(retries)
 
-    def ship_file(self, session: str, relpath: str, path) -> None:
+    def ship_file(self, session: str, relpath: str, path) -> str:
+        """Ship the record ``relpath`` of ``session``, read once from
+        ``path``, with its SHA-256; returns that digest."""
         _faults.fire("shipping.append", path=path)
         data = pathlib.Path(path).read_bytes()
         digest = hashlib.sha256(data).hexdigest()
@@ -145,6 +151,7 @@ class LogShipper:
                    retries=self.retries, base_delay=0.05, max_delay=1.0,
                    retry_on=(OSError,),
                    label=f"shipping.append:{session}")
+        return digest
 
     def close(self) -> None:
         self._client.close()
@@ -153,11 +160,12 @@ class LogShipper:
 def adopt_shipped(shipped_root, local_root, name: str,
                   executable_provider=None, device=None, dtype=None):
     """Cross-process takeover: verify the shipped copy of session
-    ``name`` whole (a standby never adopts a corrupt log: PYC301 names
-    the record), seed the standby's own log root with the verified files
-    (atomic writes; the standby journals its next rounds there and keeps
-    shipping), and replay the session bit for bit on ``device`` (None:
-    the card) in ``dtype``. Returns the adopted
+    ``name`` whole, snapshot included (a standby never adopts a corrupt
+    log: PYC301 names the record, PYC303 a truncated journal behind an
+    unusable snapshot), seed the standby's own log root with the
+    verified files (atomic writes; the standby journals its next rounds
+    there and keeps shipping), and replay the session bit for bit on
+    ``device`` (None: the card) in ``dtype``. Returns the adopted
     :class:`~pyconsensus_tpu_torch.serve.failover.DurableSession`."""
     from ..failover import ReplicationLog, replay_session
 

@@ -2,7 +2,9 @@
 (``pyconsensus_tpu/serve/transport/supervisor.py``).
 
 :class:`WorkerSupervisor` owns the OS processes of a socket fleet: it
-builds the kernels once, spawns every worker (``worker.py``: a whole
+builds the kernels once (unless the kernel-build store of
+``aot_cache_dir`` holds them: each worker then adopts them from it, with
+no ``nvcc``), spawns every worker (``worker.py``: a whole
 ``ConsensusService`` and replication log behind the RPC protocol), waits
 for each ``READY <port>``, drains them at shutdown and SIGKILLs one for
 the chaos tests. **One worker process a card**: worker ``i`` runs on
@@ -420,7 +422,8 @@ class WorkerSupervisor:
 
     def __init__(self, n_workers: int, worker_config, base_dir,
                  placement, rpc_timeout_s: float = 120.0,
-                 ready_timeout_s: float = 180.0) -> None:
+                 ready_timeout_s: float = 180.0,
+                 aot_cache_dir=None) -> None:
         import torch
 
         from ...tune.fingerprint import runtime_fingerprint
@@ -440,21 +443,14 @@ class WorkerSupervisor:
             p: runtime_fingerprint("cpu" if p == "cpu"
                                    else torch.device("cuda", p))
             for p in set(self.placement)}
+        self._worker_cfg = dict(worker_config.__dict__)
+        if aot_cache_dir is not None:
+            self._worker_cfg["aot_cache_dir"] = str(aot_cache_dir)
         if any(p != "cpu" for p in self.placement):
-            # built once, here, before the first spawn: N workers starting
-            # cold would each run nvcc on every source
-            from ...ops import build
-
-            try:
-                build.build_all()
-            except RuntimeError as exc:
-                raise TransportError(
-                    f"the kernels did not build, so no card worker can "
-                    f"load them: {exc}", reason="spawn") from exc
+            self._prebuild(self._worker_cfg.get("aot_cache_dir"))
         self.receiver = ShippingReceiver(
             self.base / "_shipped",
             fingerprint=self.fingerprints[self.placement[0]]).start()
-        self._worker_cfg = dict(worker_config.__dict__)
         self._spawns = 0
         #: worker name -> its placement
         self._where: dict = {}
@@ -472,6 +468,34 @@ class WorkerSupervisor:
             self.close()
             raise
         self._spawned.inc(len(self.processes))
+
+    @staticmethod
+    def _prebuild(aot_cache_dir) -> None:
+        """Build the kernels once, here, before the first spawn: N
+        workers starting cold would each run ``nvcc`` on every source.
+        With a store that holds the libraries every worker adopts them
+        itself; with one that does not, the fresh build is persisted
+        into it."""
+        from ...ops import build
+
+        store = None
+        if aot_cache_dir:
+            from ..aotcache import AotCache
+
+            store = AotCache(aot_cache_dir, device="cpu")
+            if store.has_libraries():
+                return
+        previous = build.attach_store(store) if store is not None \
+            else None
+        try:
+            build.build_all()
+        except RuntimeError as exc:
+            raise TransportError(
+                f"the kernels did not build, so no card worker can "
+                f"load them: {exc}", reason="spawn") from exc
+        finally:
+            if store is not None:
+                build.attach_store(previous)
 
     def fingerprint_of(self, name: str) -> dict:
         """The fingerprint worker ``name`` must answer with (its
@@ -527,7 +551,8 @@ class SocketTransport(Transport):
     shipped replication logs. ``FleetConfig.log_dir`` is the transport's
     base directory (each worker's local log root and the ``_shipped``
     standby root live under it); without one a temporary base is made
-    and removed at close."""
+    and removed at close. ``aot_cache_dir`` is the kernel-build store
+    every worker boots from (it overrides the worker config's)."""
 
     name = "socket"
 
@@ -536,8 +561,9 @@ class SocketTransport(Transport):
     wants_monitor = True
 
     def __init__(self, devices=None, ready_timeout_s: float = 180.0,
-                 rpc_timeout_s: float = 120.0) -> None:
+                 rpc_timeout_s: float = 120.0, aot_cache_dir=None) -> None:
         self.devices = None if devices is None else list(devices)
+        self.aot_cache_dir = aot_cache_dir
         self.ready_timeout_s = float(ready_timeout_s)
         self.rpc_timeout_s = float(rpc_timeout_s)
         self.supervisor: Optional[WorkerSupervisor] = None
@@ -560,7 +586,8 @@ class SocketTransport(Transport):
         self.supervisor = WorkerSupervisor(
             config.n_workers, config.worker, base, placement,
             rpc_timeout_s=self.rpc_timeout_s,
-            ready_timeout_s=self.ready_timeout_s)
+            ready_timeout_s=self.ready_timeout_s,
+            aot_cache_dir=self.aot_cache_dir)
         return {name: self._handle(config, name, proc)
                 for name, proc in self.supervisor.processes.items()}
 

@@ -24,22 +24,30 @@ the fleet's write order, one hop further:
 Every result crosses as host arrays: :func:`host_arrays` fetches each
 tensor of a reply, bit for bit, before the wire sees it.
 
+A compacted session ships its ``snapshot.npz`` whenever its content
+changed (``shipping.py``), and a journal record that a compaction removed
+before it shipped is covered by that snapshot. With ``hot_sessions > 0``
+the worker's tiered store hydrates cold sessions from this worker's own
+log root (``serve/stateplane.py``).
+
 The worker prints ``READY <port>`` once its card answers, its kernel
 libraries are loaded and its service is warm, and exits on SIGTERM (or
 when the process that started it is gone) through a graceful drain,
-writing its spans to ``<log-root>/trace-<name>.jsonl``. A card worker
-without a card, or whose kernel libraries fail to load, raises before
-``READY``: no worker carries on on the CPU unless asked. SIGKILL needs
-no cooperation: the shipped log is what survives it.
-
-Not here yet (``ROADMAP.md`` §A.11): the stateplane hydrator, the AOT
-warm (``warm_from_disk`` answers ``{"adopted": 0}``, as
-``FleetWorker.warm_from_disk`` does) and the flight recorder.
+writing its spans to ``<log-root>/trace-<name>.jsonl``. With an
+``aot_cache_dir`` it loads the libraries from the kernel-build store
+(``serve/aotcache.py``: no ``nvcc`` when the store holds them) and warms
+the configured keys from it before ``READY``; its compile monitor counts
+each ``nvcc`` run, store adoption and library load. A card worker
+without a card, or whose kernel libraries neither load, adopt from the
+store nor build, raises before ``READY``: no worker carries on on the CPU
+unless asked. SIGKILL needs no cooperation: the shipped log is what
+survives it.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import pathlib
@@ -83,9 +91,20 @@ class FleetWorkerProcess:
         self.result_wait_s = float(result_wait_s)
         #: (session, relpath) records already shipped: a journal record
         #: never changes once written, so its name identifies it;
-        #: ledger.npz changes every round and is shipped again each time
+        #: ledger.npz changes every round and is shipped again each time;
+        #: the snapshot is rewritten in place, so its key carries the
+        #: digest of the content shipped
         self._shipped: set = set()          # guarded-by: _ship_lock
         self._ship_lock = threading.Lock()
+        if hasattr(self.service.sessions, "hydrator"):
+            # a tiered store hydrates cold sessions from this worker's
+            # own log root
+            from ..stateplane import hydrate_session
+
+            self.service.sessions.hydrator = lambda name: hydrate_session(
+                self.log_root, name,
+                executable_provider=self.service.incremental_executable_for,
+                device=self.service.device, dtype=self.service.dtype)
 
     # -- shipping -------------------------------------------------------
 
@@ -118,8 +137,19 @@ class FleetWorkerProcess:
                 for rel, path in todo:
                     # the ship completes inside the section: the shipped
                     # set records only what landed
-                    self.shipper.ship_file(name, rel, path)
+                    try:
+                        self.shipper.ship_file(name, rel, path)
+                    except FileNotFoundError:
+                        if rel.startswith("staged/"):
+                            # a compaction removed it after writing the
+                            # snapshot that covers it: the snapshot,
+                            # read below, ships instead
+                            continue
+                        raise
                     self._shipped.add((name, rel))
+                # the snapshot last: a record a compaction removed above
+                # is in the snapshot read now
+                self._ship_snapshot(name, log)
             except Exception as exc:    # noqa: BLE001 — any ship failure
                 # fences: serving on with the standby's disk behind an
                 # acknowledged write is what this class prevents
@@ -134,6 +164,20 @@ class FleetWorkerProcess:
                     pass            # effort; the raise below is not
                 raise fence from exc
 
+    def _ship_snapshot(self, name: str, log) -> None:
+        """Ship ``name``'s snapshot when its content is not the one
+        shipped last. The caller holds ``_ship_lock``."""
+        try:
+            digest = hashlib.sha256(
+                log.snapshot_path.read_bytes()).hexdigest()
+        except FileNotFoundError:
+            return
+        if (name, "snapshot.npz", digest) in self._shipped:
+            return
+        shipped = self.shipper.ship_file(name, "snapshot.npz",
+                                         log.snapshot_path)
+        self._shipped.add((name, "snapshot.npz", shipped))
+
     def _seed_shipped(self, name: str) -> None:
         """After adopting a shipped log, every record of the local copy
         is on the standby's disk by construction."""
@@ -142,6 +186,9 @@ class FleetWorkerProcess:
         log = ReplicationLog(self.log_root, name)
         with self._ship_lock:
             self._shipped.add((name, "meta.json"))
+            if log.snapshot_path.exists():
+                self._shipped.add((name, "snapshot.npz", hashlib.sha256(
+                    log.snapshot_path.read_bytes()).hexdigest()))
             if log.staged_dir.exists():
                 for path in sorted(log.staged_dir.iterdir()):
                     self._shipped.add((name, f"staged/{path.name}"))
@@ -257,9 +304,9 @@ class FleetWorkerProcess:
         return {"ok": True}
 
     def warm_from_disk(self, params: dict) -> dict:
-        """No persisted executables before the kernel-build cache
-        (``ROADMAP.md`` §A.11)."""
-        return {"adopted": 0}
+        """Adopt the configured keys whose entries are in the kernel
+        store (``ConsensusService.warm_from_disk``)."""
+        return {"adopted": int(self.service.warm_from_disk())}
 
     def warm(self, params: dict) -> dict:
         """Warm what requests of ``shapes`` ride, as the serve command
@@ -291,8 +338,12 @@ class FleetWorkerProcess:
 
     def stats(self, params: dict) -> dict:
         """The reference's operator view, plus this process's kernel
-        launches (``ops.cuda_kernels.launch_counts``), its device and its
-        ``CUDA_VISIBLE_DEVICES``."""
+        launches (``ops.cuda_kernels.launch_counts``), its device, its
+        ``CUDA_VISIBLE_DEVICES``, its compile monitor's events and the
+        seconds of each ``nvcc`` it ran (``ops.build.build_seconds``)."""
+        from ... import obs
+        from ...obs.compilemon import COMPILE_EVENTS
+        from ...ops import build
         from ...ops.cuda_kernels import launch_counts
 
         return {"worker": self.name, "pid": os.getpid(),
@@ -301,7 +352,14 @@ class FleetWorkerProcess:
                 "sessions": self.service.sessions.names(),
                 "launches": launch_counts(),
                 "device": str(self.service.device),
-                "visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+                "visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "compile_events": {
+                    e: int(obs.value("pyconsensus_jax_compile_events_total",
+                                     event=e) or 0)
+                    for e in COMPILE_EVENTS},
+                "build_seconds": build.build_seconds(),
+                "builds": self.service.cache.builds,
+                "adopted": self.service.cache.adopted}
 
     def drain(self, params: dict) -> dict:
         self.service.close(drain=True,
@@ -325,14 +383,19 @@ class FleetWorkerProcess:
                 "drain": self.drain}
 
 
-def _load_kernels(device) -> None:
+def _load_kernels(device, aot_cache_dir=None) -> None:
     """A card worker loads every kernel library before it announces
-    ``READY`` (the supervisor built them): one that fails raises here, and
-    the worker never serves."""
+    ``READY``: found in its build directory, adopted from the kernel
+    store of ``aot_cache_dir`` or built by ``nvcc``. One that fails raises
+    here, and the worker never serves."""
     if device.type != "cuda":
         return
     from ...ops import build
 
+    if aot_cache_dir:
+        from ..aotcache import AotCache
+
+        build.attach_store(AotCache(aot_cache_dir, device=device))
     for src in build.SOURCES:
         build.load(src)
 
@@ -377,16 +440,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from .shipping import LogShipper
 
     torch.set_default_dtype(getattr(torch, args.dtype))
+    obs.install_compile_monitor()
     device = resolve_device(args.device)    # raises without a card
-    _load_kernels(device)
+    cfg = (ServeConfig.from_dict(json.loads(args.config_json))
+           if args.config_json else ServeConfig())
+    _load_kernels(device, cfg.aot_cache_dir)
     # spans written here carry source=<worker name>, so the merged fleet
     # JSONL rebuilds the cross-process forest
     obs.TRACER.source = args.name
     fingerprint = runtime_fingerprint(device)
 
-    cfg = (ServeConfig.from_dict(json.loads(args.config_json))
-           if args.config_json else ServeConfig())
     service = ConsensusService(cfg, device=device)
+    if cfg.aot_cache_dir:
+        # the keys warmed by an earlier process, adopted before the
+        # warm-up builds anything
+        service.warm_from_disk()
     service.start(warmup=True)
     shipper = (LogShipper(args.ship_host, args.ship_port,
                           label=f"{args.name}-shipper",

@@ -2231,3 +2231,201 @@ def test_socket_fleet_pinned_workers_bitwise(dev, tmp_path):
                 (name, k, st["launches"])
     for m, g in zip(mats, out["got"]):
         _serve_bitwise(g, ShardedOracle(m, pca_method="power").consensus())
+
+
+# -- the kernel-build store and the state plane --------------------------------
+
+#: a fresh interpreter from a copy of the package without ``csrc/build/``:
+#: a service with the kernel store serves ``bucket_cuda`` requests; every
+#: library handed to ``ctypes.CDLL`` is recorded by the SHA-256 of its file
+#: at that moment, beside the compile monitor's events and the refusals
+_AOT_CHILD = r"""
+import ctypes, hashlib, pickle, sys
+import numpy as np
+from pyconsensus_tpu_torch import obs
+from pyconsensus_tpu_torch.ops import build
+from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+from pyconsensus_tpu_torch.serve.transport.worker import host_arrays
+
+store_dir, inp, out = sys.argv[1:4]
+loaded = []
+real_cdll = ctypes.CDLL
+
+
+def recording_cdll(path, *args, **kwargs):
+    loaded.append(hashlib.sha256(open(path, "rb").read()).hexdigest())
+    return real_cdll(path, *args, **kwargs)
+
+
+ctypes.CDLL = recording_cdll
+obs.install_compile_monitor()
+mats = list(np.load(inp).values())
+svc = ConsensusService(ServeConfig(pallas_buckets=True,
+                                   aot_cache_dir=store_dir))
+with svc:
+    got = [host_arrays(svc.submit(reports=m).result(600)) for m in mats]
+events = {e: obs.value("pyconsensus_jax_compile_events_total", event=e)
+          for e in ("nvcc", "store_adopt", "library_load")}
+with open(out, "wb") as f:
+    pickle.dump({"got": got, "events": events, "loaded": loaded,
+                 "digest": obs.value("pyconsensus_aot_reject_total",
+                                     reason="digest"),
+                 "builds": svc.cache.builds,
+                 "adopted": svc.cache.adopted}, f)
+"""
+
+
+def _fresh_copy(root):
+    """A copy of the package with no built library in it."""
+    import os
+    import shutil
+
+    import pyconsensus_tpu_torch
+
+    src = os.path.dirname(os.path.abspath(pyconsensus_tpu_torch.__file__))
+    shutil.copytree(src, root / "pyconsensus_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return root
+
+
+def _run_child(copy, store_dir, mats_path, out, timeout=900):
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = str(copy)
+    run = subprocess.run([sys.executable, "-c", _AOT_CHILD, str(store_dir),
+                          str(mats_path), str(out)], cwd=str(copy), env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    assert run.returncode == 0, run.stderr[-4000:]
+    with open(out, "rb") as f:
+        return pickle.load(f), run.stderr
+
+
+def _primed_store(tmp_path, mats):
+    """This process's freshly built kernels serving ``mats`` on
+    ``bucket_cuda``, with the keys and the libraries persisted into a
+    store: ``(store dir, results, {library name: sha256})``."""
+    import hashlib
+
+    from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+    from pyconsensus_tpu_torch.serve.transport.worker import host_arrays
+
+    store_dir = tmp_path / "aot"
+    svc = ConsensusService(ServeConfig(pallas_buckets=True,
+                                       aot_cache_dir=str(store_dir)))
+    svc.warm_cuda_class([m.shape for m in mats])
+    with svc:
+        want = [host_arrays(svc.submit(reports=m).result(600))
+                for m in mats]
+    shas = {build.lib_name(s): hashlib.sha256(
+        (build.BUILD_DIR / build.lib_name(s)).read_bytes()).hexdigest()
+        for s in build.SOURCES}
+    assert svc.cache.aot.has_libraries()
+    return store_dir, want, shas
+
+
+@pytest.mark.cuda
+def test_aot_adoption_into_an_empty_build_directory(dev, tmp_path):
+    """A fresh process from a copy of the package without ``csrc/build/``
+    adopts both libraries from the store (no ``nvcc``), loads exactly the
+    bytes this process built, and serves ``bucket_cuda`` results bit for
+    bit this process's freshly built kernels', with the warmed keys
+    adopted (``serve_bucket_aot``) and none built."""
+    mats = [_serve_reports(300 + i, 200, 2000) for i in range(2)]
+    store_dir, want, shas = _primed_store(tmp_path, mats)
+    np.savez(tmp_path / "mats.npz", *mats)
+    got, _ = _run_child(_fresh_copy(tmp_path / "copy"), store_dir,
+                        tmp_path / "mats.npz", tmp_path / "out.pkl")
+    assert got["events"] == {"nvcc": 0.0, "store_adopt": 2.0,
+                             "library_load": 2.0}, got["events"]
+    assert sorted(got["loaded"]) == sorted(shas.values())
+    assert (got["builds"], got["adopted"]) == (0, 1)
+    for g, w in zip(got["got"], want):
+        _serve_bitwise(g, w)
+
+
+@pytest.mark.cuda
+def test_aot_digest_refused_library_is_never_loaded(dev, tmp_path):
+    """A flipped byte in a stored library: the entry is refused with
+    ``reason="digest"`` and deleted, that library's source is built again
+    by ``nvcc`` (counted; the sound library is adopted), the flipped bytes
+    reach no ``ctypes.CDLL``, and the kernels serve the same bits."""
+    import hashlib
+
+    from pyconsensus_tpu_torch.serve import AotCache
+
+    mats = [_serve_reports(310, 200, 2000)]
+    store_dir, want, _ = _primed_store(tmp_path, mats)
+    entry = AotCache(store_dir).kernels_path()
+    libs = AotCache(store_dir).verify_libraries()
+    raw = bytearray(entry.read_bytes())
+    raw[-1000] ^= 0x10                  # inside the last library
+    entry.write_bytes(bytes(raw))
+    last = build.lib_name(build.SOURCES[-1])
+    flipped = bytearray(libs[last])
+    flipped[-1000] ^= 0x10
+    bad = hashlib.sha256(bytes(flipped)).hexdigest()
+    np.savez(tmp_path / "mats.npz", *mats)
+    got, stderr = _run_child(_fresh_copy(tmp_path / "copy"), store_dir,
+                             tmp_path / "mats.npz", tmp_path / "out.pkl")
+    assert got["digest"] == 1.0 and "refusing kernel-store entry" in stderr
+    assert got["events"]["nvcc"] == 1.0
+    assert got["events"]["store_adopt"] == float(len(build.SOURCES) - 1)
+    assert bad not in got["loaded"] and len(got["loaded"]) == 2
+    assert AotCache(store_dir).verify_libraries()      # persisted again
+    _serve_bitwise(got["got"][0], want[0])
+
+
+@pytest.mark.cuda
+def test_stateplane_hydrated_session_on_card_equals_cpu(dev, tmp_path):
+    """A compacted session evicted from a one-slot tiered store and
+    hydrated on the card resolves as the same log hydrated on the CPU:
+    outcomes exact, reputation within 1e-9 (float64 on both), and bit for
+    bit the never-compacted session on the card."""
+    import shutil
+
+    from pyconsensus_tpu_torch.serve import (DurableSession,
+                                             TieredSessionStore,
+                                             hydrate_session, replay_session)
+
+    R = 96
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        session = DurableSession.create(tmp_path / "log", "s", R)
+        for j in range(2):
+            session.append(_fleet_block(0, j, R))
+        session.resolve()
+        for j in range(2):
+            session.append(_fleet_block(1, j, R))
+        shutil.copytree(tmp_path / "log", tmp_path / "twin")
+        session.compact()
+        results = {}
+        for where in ("cuda", "cpu"):
+            # each device resolves (and commits) its own copy of the log
+            root = tmp_path / where
+            shutil.copytree(tmp_path / "log", root)
+            store = TieredSessionStore(hot_capacity=1)
+            store.hydrator = lambda name, root=root, where=where: \
+                hydrate_session(root, name, device=where)
+            store.add(replay_session(root, "s", device=where))
+            store.add(DurableSession.create(root, "o", R, device=where))
+            assert store.cold_names() == ["s"]
+            results[where] = store.get("s").resolve()
+        twin = replay_session(tmp_path / "twin", "s").resolve()
+    finally:
+        torch.set_default_dtype(prev)
+    card, cpu = results["cuda"], results["cpu"]
+    for key in ("outcomes_final", "outcomes_adjusted"):
+        np.testing.assert_array_equal(np.asarray(card[key]),
+                                      np.asarray(cpu[key]), err_msg=key)
+    np.testing.assert_allclose(np.asarray(card["smooth_rep"]),
+                               np.asarray(cpu["smooth_rep"]), rtol=0,
+                               atol=1e-9)
+    for key in ("smooth_rep", "outcomes_final", "certainty"):
+        np.testing.assert_array_equal(np.asarray(card[key]),
+                                      np.asarray(twin[key]), err_msg=key)

@@ -362,9 +362,11 @@ def test_fleet_sites_fire_as_the_references(tmp_path, site):
 
 
 def test_catalog_has_the_fleet_sites():
-    # the fleet's five, and since the socket transport its four
-    # (tests/test_torch_transport.py fires them)
-    assert len(faults.FAULT_SITES) == 27
+    # the fleet's five, since the socket transport its four
+    # (tests/test_torch_transport.py fires them), and since the state
+    # plane its five (tests/test_torch_stateplane.py,
+    # tests/test_torch_aotcache.py)
+    assert len(faults.FAULT_SITES) == 32
     assert set(NEW_SITES) <= set(faults.FAULT_SITES)
     assert set(faults.FAULT_SITES) <= set(ref_faults.FAULT_SITES)
 
@@ -514,13 +516,27 @@ def test_corrupt_log_refused_as_the_reference_refuses(tmp_path, how):
 
 
 def test_compacted_log_refused_naming_the_roadmap(tmp_path):
+    """Compaction is ported (``serve/stateplane.py``): a compacted log
+    replays bit for bit the full journal, and an empty snapshot file over
+    an intact journal is refused and ignored, not a refusal of the log
+    (``tests/test_torch_stateplane.py`` holds the crash matrix)."""
     session = DurableSession.create(tmp_path, "s", N_REPORTERS,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        session.compact()
-    session.log.snapshot_path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        replay_session(tmp_path, "s", device="cpu")
+    for j in range(BLOCKS_PER_ROUND):
+        session.append(make_block(0, j))
+    for copy in ("full", "torn"):
+        shutil.copytree(tmp_path / "s", tmp_path / copy / "s")
+    assert session.compact()["records_removed"] == BLOCKS_PER_ROUND
+    want = replay_session(tmp_path / "full", "s", device="cpu").resolve()
+    assert_same_bits(flat_bits(replay_session(tmp_path, "s",
+                                              device="cpu").resolve()),
+                     flat_bits(want))
+    torn = ReplicationLog(tmp_path / "torn", "s")
+    torn.snapshot_path.write_bytes(b"")
+    assert "refused" in torn.verify()["snapshot"]
+    assert_same_bits(flat_bits(replay_session(tmp_path / "torn", "s",
+                                              device="cpu").resolve()),
+                     flat_bits(want))
 
 
 # -- durability within the port -----------------------------------------------

@@ -809,17 +809,45 @@ class TestRoutingAndConfig:
             cpu_service(ServeConfig(row_buckets=(32, 8)))
 
     @pytest.mark.parametrize("kw,match", [
-        ({"aot_cache_dir": "/nonexistent"}, "A.11"),
-        ({"hot_sessions": 4}, "A.11"),
-        ({"compact_rounds": 3}, "A.11"),
-        ({"compact_journal_bytes": 1024}, "A.11")])
-    def test_unported_options_name_the_roadmap(self, kw, match):
-        with pytest.raises(NotImplementedError, match=match):
-            cpu_service(ServeConfig(**kw))
+        ({"aot_cache_dir": "aot"}, "aot"),
+        ({"hot_sessions": 4}, "hot"),
+        ({"compact_rounds": 3}, "compactor"),
+        ({"compact_journal_bytes": 1024}, "compactor")])
+    def test_unported_options_name_the_roadmap(self, kw, match, tmp_path):
+        """The options of ``ROADMAP.md`` §A.11 item 2 are ported: each
+        builds its part (``tests/test_torch_stateplane.py`` and
+        ``tests/test_torch_aotcache.py`` hold them to the reference)."""
+        from pyconsensus_tpu_torch.serve import AotCache, TieredSessionStore
 
-    def test_aot_store_refused_by_the_cache(self):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            ExecutableCache(4, aot=object())
+        if "aot_cache_dir" in kw:
+            kw = {"aot_cache_dir": str(tmp_path / "aot")}
+        svc = cpu_service(ServeConfig(**kw)).start(warmup=False)
+        try:
+            if match == "aot":
+                assert isinstance(svc.cache.aot, AotCache)
+            elif match == "hot":
+                assert isinstance(svc.sessions, TieredSessionStore)
+                assert svc.sessions.hot_capacity == 4
+            else:
+                assert svc.compactor is not None
+        finally:
+            svc.close(drain=False)
+        assert svc.compactor is None
+
+    def test_aot_store_refused_by_the_cache(self, tmp_path):
+        """``ExecutableCache(aot=)`` takes the kernel-build store: a key
+        one cache built, another adopts without a build."""
+        from pyconsensus_tpu_torch.serve import AotCache
+
+        key = BucketKey.make(8, 16, 2, ConsensusParams(
+            algorithm="sztorc", pca_method="power", has_na=True))
+        first = ExecutableCache(4, device="cpu",
+                                aot=AotCache(tmp_path, device="cpu"))
+        first.warm(key)
+        second = ExecutableCache(4, device="cpu",
+                                 aot=AotCache(tmp_path, device="cpu"))
+        second.warm(key)
+        assert (first.builds, second.builds, second.adopted) == (1, 0, 1)
 
     def test_invalid_values_refused(self):
         for kw in ({"pipeline_depth": -1}, {"max_batch": 0},
@@ -1143,7 +1171,7 @@ def test_fault_sites_count_in_the_catalog_comment():
 
     src = open(plan.__file__).read()
     assert int(re.search(r"The (\d+) named injection sites", src)
-               .group(1)) == len(faults.FAULT_SITES) == 27
+               .group(1)) == len(faults.FAULT_SITES) == 32
     assert {"serve.enqueue", "serve.dispatch", "serve.cache_store",
             "serve.session_append", "streaming.panel", "fleet.route",
             "fleet.heartbeat", "fleet.takeover", "fleet.ledger_replay",

@@ -261,7 +261,17 @@ def test_cli_warmup_only_and_loadgen_main(capsys):
     (["--slo-p99-ms", "50"], "obs/slo.py"),
     (["--slo-shed-ratio", "0.01"], "obs/slo.py"),
     (["--slo-queue-depth", "4"], "obs/slo.py")])
-def test_refused_flags_exit_two_naming_the_item(flags, item, capsys):
+def test_refused_flags_exit_two_naming_the_item(flags, item, capsys,
+                                               tmp_path):
+    if item == "kernel-build cache":
+        # no longer refused: the store is written, then adopted from
+        flags = ["--aot-cache", str(tmp_path / "aot")]
+        for run in range(2):
+            assert cli.main(["--device", "cpu", *flags, "--warmup-only",
+                             "--shapes", "12x48"]) == 0
+            out = json.loads(capsys.readouterr().out)
+            assert out["builds"] == (1 if run == 0 else 0)
+        return
     if item == "socket transport":
         # no longer refused: two CPU worker processes serve the run
         assert cli.main(["--device", "cpu", *flags, "--requests", "6",
@@ -280,7 +290,7 @@ def test_refused_flags_exit_two_naming_the_item(flags, item, capsys):
 
 def test_usage_errors_exit_two(tmp_path, capsys):
     cfg = tmp_path / "serve.json"
-    cfg.write_text(json.dumps({"aot_cache_dir": "/x"}))
+    cfg.write_text(json.dumps({"hot_sessions": -1}))
     bad = [["--device", "cpu", "--config", str(cfg)],
            ["--device", "cpu", "--shapes", "12by48"],
            ["--device", "cpu", "--refresh-every", "0"]]
@@ -290,7 +300,7 @@ def test_usage_errors_exit_two(tmp_path, capsys):
         with pytest.raises(SystemExit) as ei:
             cli.main(argv)
         assert ei.value.code == 2, argv
-    assert "A.11" in capsys.readouterr().err
+    assert "hot_sessions must be >= 0" in capsys.readouterr().err
 
 
 def test_console_script_is_declared():
