@@ -9,6 +9,8 @@ NVIDIA card.
                                                # phases 1, 2 and 11 alone
     python3 chip_smoke.py --only stateplane    # phases 1, 2 and the state
                                                # plane and kernel store
+    python3 chip_smoke.py --only elastic       # phases 1, 2 and the elastic
+                                               # fleet and economy
 
 Phases, each printing its seconds:
 
@@ -94,9 +96,9 @@ Phases, each printing its seconds:
    kernels (the reference's simulator reaches no Pallas kernel): the
    recorded Monte-Carlo sweep (``SIM_R`` x ``SIM_E``, 10,000 trials,
    ``CollusionSimulator.run``) at ``max_iterations`` 1 and 5, one warm-up
-   and 3 timed runs each, with trials/s, peak memory, the draw's seconds,
-   the power sweeps a lane takes and every launch count 0; 64 of its
-   lanes replayed through the ``Oracle`` (exact metrics equal); a
+   and ``SIM_TIMED`` (1) timed run each, with trials/s, peak memory, the
+   draw's seconds, the power sweeps a lane takes and every launch count 0;
+   ``SIM_REPLAY`` (8) of its lanes replayed through the ``Oracle`` (exact metrics equal); a
    1,000-trial sub-grid on the card against the CPU (float32 bit for
    bit, and the band to float64); ``RoundsSimulator(n_rounds=10)`` over
    1,000 trials; ``CheckpointedSweep`` in 1,024-trial chunks equal to the
@@ -130,19 +132,39 @@ Phases, each printing its seconds:
    whose stored library has a flipped byte (refused as ``digest``,
    rebuilt, never loaded), each with its boot and first-request seconds
    and 48 structured 1024 x 4096 requests bit for bit between the two and
-   the direct fused ``ShardedOracle``; 1,024 durable sessions of 1,024
-   reporters compacted under a 64-session hot tier, 256 hydrated and
+   the direct fused ``ShardedOracle``; 128 durable sessions of 1,024
+   reporters (cut from 1,024 for the script's time) compacted under a
+   64-session hot tier, 32 hydrated and
    resolved (hydration p50 / p99, the tiers' gauges, peak memory), 32 of
    them bit for bit their uncompacted twins; and a socket worker
    SIGKILLed after it compacted and shipped a session, the standby
    adopting the shipped compacted log;
+   Then the elastic fleet and the economy (``elastic_phase``): a socket
+   fleet of one worker on card 0 whose workers adopt their kernels from
+   a store warmed at 1024 x 4096, grown by ``AutoScaler`` on an
+   ``SloMonitor`` of the merged worker view under a closed-loop burst of
+   all-binary 1024 x 4096 requests (a p99 target one edge below the
+   unloaded p99) to ``ELASTIC_MAX`` workers, drained in the idle tail
+   (its sessions live-migrated bit for bit), a SIGKILLed worker replaced
+   under a fresh name: each worker's boot seconds and ``nvcc`` (0), B.1,
+   B.2 and B.3 a request in every worker, the seconds from the first
+   breached window to the new worker's ring entry, requests/s and p99
+   before and after the scale-up, the decisions, a ``/metrics`` scrape,
+   the flight dumps and ``pyconsensus-serve-torch --autoscale`` over a
+   socket fleet; then the reference's economy block (1,000 market
+   sessions, 3 rounds, camouflage, sybil_split and flash_crowd at
+   concurrency 32) through one service of the default config, twice (the
+   same digest; the binary mirrors on ``bucket_cuda``), and the economy's
+   command line over a two-worker fleet SIGKILLed mid-economy and run
+   again (the uninterrupted digest) and with ``--autoscale``;
 9. streaming and the CLI (``streaming_phase``), which launch none of the
    kernels but the CLI's in-memory ``--shard`` run: sztorc streamed from
    the host at full size (panels of ``STREAM_PANEL``) against the
    in-memory ``Oracle`` (seconds side by side, 0 outcome flips, the
    ``smooth_rep`` gap under ``STREAM_REP_RTOL`` of its largest value);
-   the recorded out-of-core configuration, 10,000 x 500,000 float32
-   (``OOC_E``, cut to fit the disk) staged to ``.npy`` in
+   the recorded out-of-core configuration, 10,000 x 500,000 float32,
+   cut to 10,000 x 160,000 (``OOC_E``, and further to fit the disk),
+   staged to ``.npy`` in
    ``STAGE_DIR`` and resolved memory-mapped under sztorc,
    fixed-variance and dbscan-jit (seconds, panels a pass, peak device
    memory below the source's bytes and, for sztorc, within 10% of the
@@ -195,8 +217,8 @@ Phases, each printing its seconds:
 ``--only process`` runs phases 1, 2 and 11 (with ``--mesh-devices``,
 after part 1 of phase 9's one-host stream, which phase 11 compares the
 NCCL hosts with) and prints the result line with ``"only": "process"``;
-``--only fleet`` and ``--only stateplane`` run phases 1, 2 and that
-phase.
+``--only fleet``, ``--only stateplane`` and ``--only elastic`` run
+phases 1, 2 and that phase.
 
 It exits non-zero, and prints no result line, when there is no CUDA
 device, when the package is not beside it, or when any phase fails. It
@@ -271,7 +293,9 @@ SIM_VAR = (0.05, 0.1)
 SIM_T = 1000
 SIM_ITERS = (1, 5)
 #: sweep lanes replayed through the Oracle, and the checkpointed chunk
-SIM_REPLAY = 64
+SIM_REPLAY = 8
+#: timed runs of each sweep (cut from 3 for the script's time)
+SIM_TIMED = 1
 SIM_CHUNK = 1024
 #: the simulator's other algorithms on the same sweep, at
 #: ``max_iterations`` 1 (and 5 for the first); dbscan-jit at the
@@ -304,17 +328,22 @@ CUDA_TIER_KERNELS = ("apply_weighted_cov", "scores_dirfix_pass",
 OUT_DIR = "chiprun_out"
 #: the streaming phase: the driver's default panel; the recorded
 #: out-of-core configuration (``docs/MEASUREMENTS_r05.json:257-325``,
-#: "beyond HBM": 10,000 x 500,000 float32, memory-mapped from .npy);
+#: "beyond HBM": 10,000 x 500,000 float32, memory-mapped from .npy, its
+#: events cut to 160,000 to keep the whole script inside its limit, a
+#: source still larger than the streaming peak);
 #: k-means' width (each of its 32 Lloyd iterations is two passes over
-#: the source; two panels, cut from four to keep the script near half
-#: its time limit);
+#: the source; two panels, 4,096 events in all, cut from four default
+#: panels to keep the whole script inside its limit);
 #: the staging directory beside the checkout (listed in .gitignore); the
 #: largest reputation gap of a streamed result against the in-memory one
 #: or two hosts against one, over the largest reputation (a reputation is
 #: about 1/R, so an absolute band would pass one wrong by all of itself)
 STREAM_PANEL = 8192
-OOC_E = 500_000
-KMEANS_OOC_E = 16_384
+OOC_E = 160_000
+#: the command line's ``.npy`` (part 5): the first ``CLI_E`` events of
+#: part 1's matrix (cut from all of its events for the script's time)
+CLI_E = 10_000
+KMEANS_OOC_E = 4_096
 STAGE_DIR = ".ooc_stage"
 STREAM_REP_RTOL = 1e-6
 #: the batch x event phase (``batch_mesh_phase``): the serve block's
@@ -325,7 +354,7 @@ STREAM_REP_RTOL = 1e-6
 GRID_REQUEST, GRID_NA = (1024, 4096), 0.02
 GRID_SERVE_DEVICES, GRID_SHARDS = 8, 4
 GRID_SIM_ALGORITHMS = ("sztorc", "fixed-variance")
-GRID_CLI = (1024, 8192)
+GRID_CLI = (1024, 4096)
 #: the process-mesh phase (``process_mesh_phase``): the virtual shards of
 #: card 0 under an NCCL group of one; the seconds every worker of one
 #: launch may take together (each is killed after it, and its peers when
@@ -341,10 +370,10 @@ PROCESS_TIMEOUT = 600
 #: after round 2's first append); the serve command line's run
 FLEET_WORKERS = 3
 FLEET_REQUEST, FLEET_NA = (1024, 4096), 0.02
-FLEET_REQUESTS, FLEET_CONCURRENCY, FLEET_DISTINCT = 48, 8, 12
-FLEET_KILL_AFTER, FLEET_RETRIES = 16, 6
+FLEET_REQUESTS, FLEET_CONCURRENCY, FLEET_DISTINCT = 16, 8, 12
+FLEET_KILL_AFTER, FLEET_RETRIES = 8, 6
 FLEET_SESSION_R, FLEET_SESSION_E, FLEET_SESSION_ROUNDS = 1024, 512, 3
-FLEET_CLI = ("--fleet-workers", "3", "--requests", "64", "--concurrency",
+FLEET_CLI = ("--fleet-workers", "3", "--requests", "12", "--concurrency",
              "8", "--shapes", "1024x4096")
 #: the state plane and kernel store phase: ``AOT_REQUESTS`` structured
 #: requests (``AOT_DISTINCT`` distinct matrices) through the adopted and
@@ -355,9 +384,29 @@ FLEET_CLI = ("--fleet-workers", "3", "--requests", "64", "--concurrency",
 #: uncompacted twins, set up by ``STATE_PROCS`` processes; a worker's
 #: boot (an ``nvcc`` build included) is waited on ``WORKER_BOOT_TIMEOUT``
 AOT_REQUESTS, AOT_DISTINCT = 48, 12
-STATE_SESSIONS, STATE_HOT, STATE_R, STATE_BLOCK_E = 1024, 64, 1024, 128
-STATE_HYDRATE, STATE_TWINS, STATE_NA, STATE_PROCS = 256, 32, 0.02, 4
+STATE_SESSIONS, STATE_HOT, STATE_R, STATE_BLOCK_E = 128, 64, 1024, 128
+STATE_HYDRATE, STATE_TWINS, STATE_NA, STATE_PROCS = 32, 16, 0.02, 4
 WORKER_BOOT_TIMEOUT = 900
+#: the elastic fleet and economy phase (``elastic_phase``): a socket fleet
+#: grown from one worker up to ``ELASTIC_MAX`` (all on card 0) by
+#: ``ELASTIC_CLIENTS`` closed-loop clients of all-binary ``FLEET_REQUEST``
+#: requests; the SLO monitor's window, the autoscaler's period, streaks
+#: and cool-down, and its queue-depth target; ``ELASTIC_SESSIONS`` durable
+#: sessions of ``ELASTIC_SESSION_R`` reporters (blocks of
+#: ``ELASTIC_SESSION_E`` events) for the rebalances, drains and takeover
+#: to move; the unloaded requests that set the latency target, the burst's
+#: bound and its tail after the ceiling. The reference's economy block
+#: (``bench.py:228-236``): ``ECON_SESSIONS`` markets of ``ECON_STRATEGIES``
+#: over ``ECON_ROUNDS`` rounds at concurrency ``ECON_CONCURRENCY``; its
+#: SIGKILL stage cut to ``ECON_KILL_MARKETS`` markets a strategy
+ELASTIC_MAX, ELASTIC_CLIENTS, ELASTIC_WINDOW_S = 3, 8, 3.0
+ELASTIC_INTERVAL_S, ELASTIC_UP, ELASTIC_DOWN = 0.25, 2, 4
+ELASTIC_COOLDOWN_S, ELASTIC_QUEUE_TARGET = 3.0, 64.0
+ELASTIC_SESSIONS, ELASTIC_SESSION_R, ELASTIC_SESSION_E = 4, 256, 256
+ELASTIC_CALIBRATE, ELASTIC_BURST_S, ELASTIC_AFTER_S = 8, 150.0, 3.0
+ECON_SESSIONS, ECON_ROUNDS, ECON_CONCURRENCY = 1000, 3, 32
+ECON_STRATEGIES = ("camouflage", "sybil_split", "flash_crowd")
+ECON_KILL_MARKETS = 8
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -665,6 +714,15 @@ def run(args) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.only == "elastic":
+        with phase("elastic fleet and economy"):
+            elastic_phase(torch, ck, card, dev, launches, args.seed, here)
+        log(f"chip_smoke --only elastic total "
+            f"{time.perf_counter() - t_start:.3f} s")
+        log(json.dumps({"ok": True, "only": "elastic", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.only == "process":
         kept = {}
         if args.mesh_devices > 1:
@@ -787,6 +845,9 @@ def run(args) -> int:
     with phase("state plane and kernel store"):
         stateplane_phase(torch, ck, card, dev, launches, args.seed, here,
                          cold=cold)
+
+    with phase("elastic fleet and economy"):
+        elastic_phase(torch, ck, card, dev, launches, args.seed, here)
 
     kept = {}
     with phase("streaming and the CLI"):
@@ -1934,9 +1995,9 @@ def sim_phase(torch, args, ck, card, dev):
     """Phase 7's simulator half: the recorded 10,000-trial sweep
     (``SIM_R`` x ``SIM_E``, ``SIM_LF`` x ``SIM_VAR`` x ``SIM_T``, seed
     ``args.seed``) through ``CollusionSimulator.run`` on the card at each
-    of ``SIM_ITERS``: one untimed warm-up, then 3 timed runs, each ending
-    in ``torch.cuda.synchronize()``, with the storage kernels' launch
-    counts set to 0 before and read after (every one must read 0: no TPU
+    of ``SIM_ITERS``: one untimed warm-up, then ``SIM_TIMED`` timed runs,
+    each ending in ``torch.cuda.synchronize()``, with the storage kernels'
+    launch counts set to 0 before and read after (every one must read 0: no TPU
     kernel is on this path). Prints trials/s, peak memory, the draw's
     time against the whole run's and the power sweeps a lane takes. Then
     ``SIM_REPLAY`` lanes through the ``Oracle`` on the card (exact metrics
@@ -1966,7 +2027,7 @@ def sim_phase(torch, args, ck, card, dev):
         torch.cuda.reset_peak_memory_stats()
         ck.reset_launch_counts()
         secs = []
-        for _ in range(3):
+        for _ in range(SIM_TIMED):
             t0 = time.perf_counter()
             res = sim.run(SIM_LF, SIM_VAR, SIM_T, seed=args.seed)
             torch.cuda.synchronize()
@@ -1997,7 +2058,7 @@ def sim_phase(torch, args, ck, card, dev):
         rep0 = torch.full((n, SIM_R), 1.0 / SIM_R, device=dev)
         _batched.iterate(x, rep0, sim.params, stats)
         log(f"sweep {shape} max_iterations={mi} power_iters=64: "
-            f"{n / min(secs):.1f} trials/s (best of 3; runs "
+            f"{n / min(secs):.1f} trials/s (best of {SIM_TIMED}; runs "
             f"{', '.join(f'{t:.4f}' for t in secs)} s) on {card}; peak "
             f"{peak:.3f} GiB; the draw alone {t_draw:.4f} s; power sweeps "
             f"{stats['sweeps']} over the iterations (the slowest lane's), "
@@ -2154,7 +2215,8 @@ def sim_algorithms_phase(torch, args, ck, card, dev):
     """Phase 7's other algorithms: fixed-variance, ica, k-means and
     dbscan-jit (``SIM_ALGORITHMS``) on the recorded 10,000-trial sweep,
     each at ``max_iterations`` 1 and the first also at 5: one untimed
-    warm-up, then 3 timed runs ending in ``torch.cuda.synchronize()``,
+    warm-up, then ``SIM_TIMED`` timed runs ending in
+    ``torch.cuda.synchronize()``,
     the storage kernels' launch counts set to 0 before and read after
     (each must read 0). Prints trials/s, peak memory and the inner loops'
     counts (the slowest lane's and the mean a lane). Then, for each,
@@ -2192,7 +2254,7 @@ def sim_algorithms_phase(torch, args, ck, card, dev):
             torch.cuda.reset_peak_memory_stats()
             ck.reset_launch_counts()
             secs = []
-            for _ in range(3):
+            for _ in range(SIM_TIMED):
                 t0 = time.perf_counter()
                 res = sim.run(SIM_LF, SIM_VAR, SIM_T, seed=args.seed)
                 torch.cuda.synchronize()
@@ -2210,7 +2272,7 @@ def sim_algorithms_phase(torch, args, ck, card, dev):
             _batched.iterate(x, rep0, sim.params, stats)
             mean = res["mean"]
             log(f"{algo} sweep {shape} max_iterations={mi}: "
-                f"{n / min(secs):.1f} trials/s (best of 3; runs "
+                f"{n / min(secs):.1f} trials/s (best of {SIM_TIMED}; runs "
                 f"{', '.join(f'{t:.4f}' for t in secs)} s) on {card}; peak "
                 f"{peak:.3f} GiB; {_loop_text(stats, n) or 'no inner loop'}"
                 f"; mean correct_rate by liar fraction "
@@ -4040,6 +4102,685 @@ def _killed_compacted_owner(torch, dev, card, root, store_dir, R, block_e,
             f"the kill answered on its first try")
 
 
+def elastic_phase(torch, ck, card, dev, launches, seed, here,
+                  request=FLEET_REQUEST, sessions=ELASTIC_SESSIONS,
+                  session_r=ELASTIC_SESSION_R, session_e=ELASTIC_SESSION_E,
+                  burst_s=ELASTIC_BURST_S, econ_sessions=ECON_SESSIONS,
+                  kill_markets=ECON_KILL_MARKETS, cli_requests=24, cfg=None):
+    """The elastic fleet and the adversarial economy
+    (``serve/autoscale.py``, ``obs/slo.py``, ``obs/httpd.py``,
+    ``obs/flightrec.py``, ``econ/``), each number beside ``card``:
+
+    a. a socket fleet of one worker process on card 0 (``max_workers``
+       ``ELASTIC_MAX``) whose workers adopt their kernels from a store
+       warmed at ``request``: an ``AutoScaler`` on an ``SloMonitor`` of
+       the merged worker view through a closed-loop burst of all-binary
+       ``request`` matrices (2% absent) until the fleet reaches its
+       ceiling, an idle tail and a SIGKILLed worker
+       (:func:`_elastic_fleet`);
+    b. the reference's economy block at its own scale through one
+       ``ConsensusService`` of the default config, twice, then the
+       economy's command line over a two-worker fleet SIGKILLed
+       mid-economy and run again over its log, and once with
+       ``--autoscale`` (:func:`_economy`); the economy's two runs (the
+       second through the command line's one service, a process of its
+       own) and the command lines of a and b run side by side.
+
+    ``dev`` may be the CPU for a rehearsal (nothing launches; pass
+    ``cfg=ServeConfig(pallas_buckets=True)`` so the requests ride the
+    class's plain versions; the workers run on the CPU). Everything the
+    phase writes lives in a temporary directory under ``OUT_DIR`` and is
+    removed after it."""
+    import concurrent.futures
+    import tempfile
+
+    from pyconsensus_tpu_torch.ops import build
+    from pyconsensus_tpu_torch.serve import ServeConfig
+
+    cfg = cfg or ServeConfig()
+    root = tempfile.mkdtemp(prefix="elastic-", dir=os.path.join(here,
+                                                                OUT_DIR))
+    attached = build.attached_store()   # a service with a store attaches
+    try:
+        t0 = time.perf_counter()
+        serve_cli = _elastic_fleet(torch, ck, card, dev, launches, seed,
+                                   here, root, request, sessions, session_r,
+                                   session_e, burst_s, cli_requests, cfg)
+        build.attach_store(attached)
+        t1 = time.perf_counter()
+        first_run, second_run, stages = _economy(
+            torch, ck, card, dev, launches, seed, here, root, econ_sessions,
+            kill_markets, cfg)
+        # the economy's two runs side by side, the second and the command
+        # lines each a process of its own (their exit codes, summaries and
+        # digests are what they check)
+        t2 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            futs = [pool.submit(f)
+                    for f in (second_run, serve_cli, *stages)]
+            first, text = first_run(
+                1, beside=" (beside run 2 and the command lines)")
+            second, second_text = futs[0].result()
+            texts = [text, second_text] + [f.result() for f in futs[1:]]
+        for text in texts:
+            log(text)
+        if first != second:
+            raise RuntimeError(f"economy digests differ: {first}, {second}")
+        log(f"elastic fleet {t1 - t0:.3f} s, the economy's set-up "
+            f"{t2 - t1:.3f} s, its two runs beside the command lines "
+            f"{time.perf_counter() - t2:.3f} s")
+    finally:
+        build.attach_store(attached)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _wait_for(pred, timeout_s, poll_s=0.02):
+    """Poll ``pred`` until it holds or ``timeout_s`` passes; its last
+    value."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = pred()
+        if got or time.monotonic() > deadline:
+            return got
+        time.sleep(poll_s)
+
+
+def _elastic_fleet(torch, ck, card, dev, launches, seed, here, root, request,
+                   sessions, session_r, session_e, burst_s, cli_requests,
+                   cfg):
+    """Part a of :func:`elastic_phase`:
+
+    1. ``bucket_cuda`` at ``request`` warmed into a kernel store; one
+       socket worker (``aot_cache_dir`` the store, ``flightrec_dir`` set)
+       started; ``sessions`` durable sessions created and resolved once;
+       a ``/metrics`` endpoint on the fleet's merged view;
+    2. ``ELASTIC_CALIBRATE`` requests from one client: the unloaded
+       windowed p99 (a bucket edge of the workers' latency histogram);
+       the SLO target is the edge below it, so a loaded fleet breaks it
+       at any size and the burst drives the fleet to its ceiling;
+    3. the autoscaler (``ELASTIC_*``) on a monitor with that p99 target
+       and the queue-depth target; ``ELASTIC_CLIENTS`` clients, retrying
+       the retryable sheds, until the ceiling has served
+       ``ELASTIC_AFTER_S`` seconds (at most ``burst_s``); a scrape of the
+       endpoint at the ceiling must label every live worker and carry the
+       target gauge;
+    4. the idle tail until a scale-down, a SIGKILL of a ring worker
+       (``kill_worker``) while two are left, its replacement under a fresh
+       name (the order is the other way round when the burst ended below
+       the ceiling);
+    5. every session resolved again, bit for bit a never-moved
+       ``MarketSession``; four direct requests on each live worker
+       (B.1 3.00, B.2 1.00, B.3 1.00 a request); every worker's
+       ``nvcc`` 0; the flight recorder's dumps. Returned: a stage that
+       runs ``pyconsensus-serve-torch --fleet-workers 1 --transport
+       socket --autoscale`` as a subprocess and returns its line.
+
+    Printed: each worker's boot seconds, the seconds from the first
+    breached window to the new worker's ring entry, requests/s and p99
+    before the first scale-up and after the last, the decision counts,
+    sheds, retries and abandoned (0), every result bit for bit the
+    direct fused ``ShardedOracle``."""
+    import itertools
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import ShardedOracle, obs
+    from pyconsensus_tpu_torch.obs import read_flight_dir
+    from pyconsensus_tpu_torch.obs.metrics import DURATION_BUCKETS
+    from pyconsensus_tpu_torch.serve import (AutoScaler, AutoscaleConfig,
+                                             ConsensusFleet, ConsensusService,
+                                             FleetConfig, LoadGenerator,
+                                             MarketSession, ServeConfig)
+    from pyconsensus_tpu_torch.serve.loadgen import RETRYABLE_CODES
+    from pyconsensus_tpu_torch.serve.transport import SocketTransport
+
+    on_card = dev.type == "cuda"
+    R, E = request
+    store_dir = os.path.join(root, "aot")
+    frd = os.path.join(root, "flightrec")
+    # 1. the store, the fleet, its sessions and the endpoint
+    t0 = time.perf_counter()
+    svc = ConsensusService(ServeConfig(pallas_buckets=True,
+                                       aot_cache_dir=store_dir), device=dev)
+    svc.warm_cuda_class([request])
+    svc.close(drain=False)
+    warm_s = time.perf_counter() - t0
+    wcfg = ServeConfig.from_dict({**cfg.__dict__,
+                                  "aot_cache_dir": store_dir,
+                                  "flightrec_dir": frd})
+    rng = np.random.default_rng(seed + 60)
+    mats = [serve_reports(rng, R, E, na_frac=FLEET_NA)[0]
+            for _ in range(FLEET_DISTINCT)]
+    want = [ShardedOracle(m, pca_method="power", device=dev).consensus()
+            for m in mats]
+    blocks = {f"s{j:02d}": [serve_reports(rng, session_r, session_e)[0]
+                            for _ in range(2)] for j in range(sessions)}
+    fleet = ConsensusFleet(FleetConfig(
+        n_workers=1, log_dir=os.path.join(root, "log"), worker=wcfg,
+        transport=(SocketTransport(devices=[0]) if on_card else "socket")),
+        device=dev).start()
+    srv = obs.start_metrics_server(0, fleet.render_metrics)
+    if srv is None:
+        raise RuntimeError("the /metrics endpoint did not bind")
+    seen, scaler, monitors, per = {}, None, [], {}
+    lock = threading.Lock()
+    direct = 4
+
+    def read_stats():
+        """Each live worker's boot seconds and stats, at first sight, and
+        four direct requests on it (bit for bit; B.1, B.2 and B.3 a
+        request)."""
+        for name, w in sorted(fleet.workers.items()):
+            if not w.alive or name in seen:
+                continue
+            before = w.call("stats")
+            for j in range(direct):
+                served_close(w.submit_stateless(
+                    mats[j], tenant="direct").result(timeout=300),
+                    want[j], 0.0, f"{name} direct request {j}",
+                    exact_all=True)
+            after = w.call("stats")
+            seen[name] = (w.process.ready_s, after)
+            delta = {k: after["launches"][k] - before["launches"][k]
+                     for k in KERNELS}
+            for k in KERNELS:
+                launches[k] += delta[k]
+            per[name] = {k: delta[k] / direct for k in CUDA_TIER_KERNELS}
+            if on_card and any(delta[k] < direct
+                               for k in CUDA_TIER_KERNELS):
+                raise RuntimeError(f"{name}: a kernel of the class did not "
+                                   f"launch at every request: {delta}")
+
+    try:
+        read_stats()
+        for name, (b0, _) in blocks.items():
+            fleet.create_session(name, n_reporters=session_r)
+            fleet.append(name, b0)
+            fleet.submit(session=name).result(timeout=300)
+
+        done, errors = [], []
+        tally = {"sheds": {}, "retried": 0, "abandoned": 0}
+        pacer = LoadGenerator(None, shapes=((1, 1),), seed=seed)
+        counter = itertools.count()
+        stop = threading.Event()
+
+        def one(i):
+            t_start = time.time()
+            for attempt in range(FLEET_RETRIES + 1):
+                try:
+                    res = fleet.submit(
+                        reports=mats[i % FLEET_DISTINCT]).result(timeout=300)
+                    break
+                except Exception as exc:  # noqa: BLE001 — tallied
+                    code = getattr(exc, "error_code", None)
+                    if code not in RETRYABLE_CODES:
+                        raise
+                    with lock:
+                        tally["sheds"][code] = tally["sheds"].get(code,
+                                                                  0) + 1
+                        if attempt == FLEET_RETRIES:
+                            tally["abandoned"] += 1
+                            return
+                        tally["retried"] += 1
+                    time.sleep(pacer._retry_delay(exc, i, attempt))
+            with lock:
+                done.append((i, t_start, time.time(), res))
+
+        def client():
+            try:
+                while not stop.is_set():
+                    one(next(counter))
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                errors.append(exc)
+
+        # 2. the unloaded latency sets the target
+        calib = obs.SloMonitor(window_s=600.0,
+                               snapshot_fn=fleet.merged_snapshot)
+        calib.sample()
+        for _ in range(ELASTIC_CALIBRATE):
+            one(next(counter))
+        unloaded = calib.sample()["p99_ms"]
+        edges = [1e3 * e for e in DURATION_BUCKETS]
+        below = [e for e in edges if e < (unloaded or 0.0)]
+        if not below:
+            raise RuntimeError(f"unloaded p99 {unloaded} ms has no bucket "
+                               f"edge below it")
+        target = below[-1]
+        log(f"elastic fleet: store warmed at {R}x{E} in {warm_s:.3f} s; "
+            f"{ELASTIC_CALIBRATE} unloaded requests through 1 worker: "
+            f"windowed p99 <= {unloaded} ms (the workers' latency "
+            f"histogram), so the p99 target is the edge below, {target} "
+            f"ms, with queue depth <= {ELASTIC_QUEUE_TARGET} on {card}")
+
+        # 3. the burst under the autoscaler
+        slo = obs.SloMonitor(targets={"p99_ms": target,
+                                      "queue_depth": ELASTIC_QUEUE_TARGET},
+                             window_s=ELASTIC_WINDOW_S,
+                             snapshot_fn=fleet.merged_snapshot)
+        monitors.append(slo)
+        scaler = AutoScaler(fleet, slo, AutoscaleConfig(
+            min_workers=1, max_workers=ELASTIC_MAX,
+            interval_s=ELASTIC_INTERVAL_S, up_signals=ELASTIC_UP,
+            down_signals=ELASTIC_DOWN, cooldown_s=ELASTIC_COOLDOWN_S))
+        decisions = []
+        evaluate = scaler.evaluate
+
+        def logged(now=None):
+            t_call = time.time()
+            d = evaluate(now)
+            with lock:
+                decisions.append((t_call, d))
+            return d
+        scaler.evaluate = logged
+
+        def count(action):
+            with lock:
+                return sum(d["action"] == action for _, d in decisions)
+
+        slo.run_in_thread(interval_s=ELASTIC_INTERVAL_S)
+        scaler.run_in_thread()
+        t_burst = time.time()
+        threads = [threading.Thread(target=client, daemon=True)
+                   for _ in range(ELASTIC_CLIENTS)]
+        for t in threads:
+            t.start()
+        top = _wait_for(lambda: len(fleet.ring.workers()) >= ELASTIC_MAX
+                        or errors, burst_s)
+        if errors:
+            raise errors[0]
+        if top:
+            time.sleep(ELASTIC_AFTER_S)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics",
+                    timeout=60) as r:
+                scrape = r.read().decode()
+            labels = {name for name, w in fleet.workers.items() if w.alive}
+            missing = [n for n in labels | {"router"}
+                       if f'worker="{n}"' not in scrape]
+            if missing or "pyconsensus_autoscale_target_workers{" \
+                    not in scrape:
+                raise RuntimeError(f"/metrics scrape: labels {missing} or "
+                                   f"the target gauge missing")
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+        if errors:
+            raise errors[0]
+        t_idle = time.time()
+        read_stats()
+        ring_at_end = len(fleet.ring.workers())
+
+        # 4. the idle tail, the SIGKILL and its replacement
+        def kill():
+            victim = sorted(fleet.ring.workers())[-1]
+            t_kill = time.perf_counter()
+            info = fleet.kill_worker(victim)
+            return victim, time.perf_counter() - t_kill, info
+
+        with lock:
+            changes = [(round(t - t_burst, 3), d["action"], d.get("worker"),
+                        d.get("sessions_rebalanced"))
+                       for t, d in decisions if d["action"] != "hold"]
+        spans = [(ev["name"], ev["attrs"].get("worker"),
+                  round(ev["duration_s"], 3)) for ev in obs.events()
+                 if ev.get("name", "").startswith("autoscale.")
+                 and ev.get("start_s", 0) >= t_burst]
+        log(f"elastic burst: {len(done)} requests in "
+            f"{t_idle - t_burst:.3f} s, ring {list(fleet.ring.workers())}; "
+            f"changes (s from the burst's start, action, worker, sessions "
+            f"rebalanced) {changes}; spans (name, worker, s) {spans}")
+        idle_wait = ELASTIC_WINDOW_S + ELASTIC_COOLDOWN_S + 60.0
+        if ring_at_end >= 3:
+            _wait_for(lambda: count("scale_down") >= 1, idle_wait)
+        killed = kill()
+        if not _wait_for(lambda: count("replace") >= 1, 300.0):
+            raise RuntimeError(f"no replacement of {killed[0]} "
+                               f"({scaler.status()})")
+        # the idle fleet drains the replacement at once (its spawn
+        # outlasts the cool-down, which runs from the decision's start):
+        # read it with the loop stopped, then let the tail go on
+        scaler.stop()
+        read_stats()
+        log(f"elastic tail: {killed[0]} SIGKILLed, replaced; ring "
+            f"{list(fleet.ring.workers())}")
+        if not count("scale_down"):
+            scaler.run_in_thread()
+            _wait_for(lambda: count("scale_down") >= 1, idle_wait)
+            scaler.stop()
+        slo.stop()
+
+        # 5. the sessions, direct requests, compile events, dumps
+        moved = {}
+        for _, d in decisions:
+            if d["action"] == "scale_down":
+                moved[d["worker"]] = d.get("sessions_migrated", 0)
+        for name, (b0, b1) in blocks.items():
+            ref = MarketSession(name, session_r, device=dev)
+            ref.append(b0)
+            ref.resolve()
+            ref.append(b1)
+            w1 = ref.resolve()
+            fleet.append(name, b1)
+            g = fleet.submit(session=name).result(timeout=300)
+            for path, key in (("agents", "smooth_rep"),
+                              ("agents", "old_rep"),
+                              ("events", "outcomes_final"),
+                              ("events", "outcomes_adjusted")):
+                if not np.array_equal(np.asarray(g[path][key]),
+                                      np.asarray(w1[key])):
+                    raise RuntimeError(f"session {name}: {key} is not the "
+                                       f"never-moved session's bits")
+        final_ring = list(fleet.ring.workers())
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        for m in monitors:
+            m.stop()
+        fleet.close(drain=True)
+        srv.close()
+    for i, _, _, res in done:
+        served_close(res, want[i % FLEET_DISTINCT], 0.0,
+                     f"elastic request {i}", exact_all=True)
+    acts = {a: count(a) for a in ("hold", "scale_up", "scale_down",
+                                  "replace", "error")}
+    if not (acts["scale_up"] and acts["scale_down"] and acts["replace"]) \
+            or acts["error"] or tally["abandoned"]:
+        raise RuntimeError(f"elastic fleet: decisions {acts}, abandoned "
+                           f"{tally['abandoned']}")
+    if not any(moved.values()):
+        raise RuntimeError(f"no drain migrated a session: {moved}")
+    nvcc = {n: st["compile_events"]["nvcc"] for n, (_, st) in seen.items()}
+    if on_card and any(nvcc.values()):
+        raise RuntimeError(f"a spawned worker ran nvcc: {nvcc}")
+    replaced = [d["worker"] for _, d in decisions
+                if d["action"] == "replace"]
+    if killed[0] in replaced:
+        raise RuntimeError(f"the replacement reused {killed[0]}")
+    auto = read_flight_dir(os.path.join(frd, "autoscaler"))
+    router = {r["reason"] for r in read_flight_dir(os.path.join(frd,
+                                                                "router"))}
+    changes = acts["scale_up"] + acts["scale_down"] + acts["replace"]
+    if len(auto) != changes or not {"takeover", "drain"} <= router:
+        raise RuntimeError(f"flight dumps: {len(auto)} autoscaler for "
+                           f"{changes} changes, router {router}")
+    # the windows before the first scale-up and after the last
+    spawns = sorted((ev["start_s"] + ev["duration_s"], ev["attrs"])
+                    for ev in obs.events()
+                    if ev.get("name") == "autoscale.spawn"
+                    and ev.get("start_s", 0) >= t_burst)
+    ups = [t for t, a in spawns if a.get("action") == "scale_up"]
+    breach = min(t for t, d in decisions if d.get("breached"))
+    early = [(a, b) for _, a, b, _ in done if t_burst <= a and b <= ups[0]]
+    late = [(a, b) for _, a, b, _ in done if a >= ups[-1] and b <= t_idle]
+
+    def window(xs, t0, t1):
+        if not xs or t1 <= t0:
+            return "n 0"
+        lat = [1e3 * (b - a) for a, b in xs]
+        return (f"{len(xs)} requests, {len(xs) / (t1 - t0):.4f} requests/s,"
+                f" p50 {percentile(lat, 0.5):.3f} ms, p99 "
+                f"{percentile(lat, 0.99):.3f} ms")
+
+    boots = {n: (round(b, 3) if b is not None else None)
+             for n, (b, _) in sorted(seen.items())}
+    log(f"elastic fleet ({ELASTIC_CLIENTS} clients of {R}x{E} binary "
+        f"requests, 1 worker to at most {ELASTIC_MAX} on card 0): "
+        f"{len(done)} requests, every one bit for bit the direct fused "
+        f"ShardedOracle; sheds {tally['sheds'] or 'none'}, retries "
+        f"{tally['retried']}, abandoned 0; decisions {acts}; first "
+        f"breached window to the new worker's ring entry "
+        f"{ups[0] - breach:.3f} s; before the first scale-up "
+        f"{window(early, t_burst, ups[0])}; after the last "
+        f"{window(late, ups[-1], t_idle)}; on {card}")
+    log(f"elastic fleet workers: boot s {boots}; nvcc {nvcc}; B.1/B.2/B.3 "
+        f"a direct request {per}; SIGKILL of {killed[0]} (takeover "
+        f"{killed[1]:.4f} s, sessions {len(killed[2]['sessions_migrated'])})"
+        f" replaced by {replaced}; sessions a drain migrated {moved}; "
+        f"{sessions} sessions bit for bit never-moved ones after the "
+        f"rebalances, drains and takeover; /metrics at the ceiling "
+        f"labelled every live worker and the target gauge; flight dumps: "
+        f"{len(auto)} autoscaler for {changes} membership changes, router "
+        f"{sorted(router)}; final ring {final_ring} on {card}")
+
+    # the serve command line with the autoscaler over a socket fleet, a
+    # stage the phase runs beside the economy's command-line runs
+    args = ["--fleet-workers", "1", "--transport", "socket", "--autoscale",
+            "--autoscale-max", str(ELASTIC_MAX), "--autoscale-interval-s",
+            str(ELASTIC_INTERVAL_S), "--autoscale-cooldown-s",
+            str(ELASTIC_COOLDOWN_S), "--slo-p99-ms", str(target),
+            "--slo-queue-depth", str(ELASTIC_QUEUE_TARGET),
+            "--slo-window-s", str(ELASTIC_WINDOW_S), "--requests",
+            str(cli_requests), "--concurrency", str(ELASTIC_CLIENTS),
+            "--shapes", f"{R}x{E}", "--na-frac", str(FLEET_NA),
+            "--retries", str(FLEET_RETRIES), "--metrics-port", "0",
+            "--aot-cache", store_dir, "--log-dir",
+            os.path.join(root, "cli-log")]
+    if not on_card:
+        args += ["--device", "cpu", "--pallas-buckets", "on"]
+
+    def serve_cli():
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m",
+                              "pyconsensus_tpu_torch.serve.cli", *args],
+                             capture_output=True, text=True, cwd=here,
+                             timeout=900)
+        secs = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise RuntimeError(f"autoscaled serve cli exited "
+                               f"{run.returncode}:\n{run.stdout[-4000:]}\n"
+                               f"{run.stderr[-4000:]}")
+        out = json.loads(run.stdout[run.stdout.index("{"):])
+        if out["failed"] or out["abandoned"] or "autoscale" not in out:
+            raise RuntimeError(f"autoscaled serve cli: {out}")
+        return (f"pyconsensus_tpu_torch.serve.cli {' '.join(args[:6])} ...: "
+                f"exit 0 in {secs:.3f} s, {out['succeeded']} succeeded, "
+                f"abandoned 0, {out['throughput_rps']} requests/s, p99 "
+                f"{out['latency_p99_ms']} ms, decisions "
+                f"{out['autoscale']['decisions']}, slo "
+                f"{out['slo']['violation_s']} violation s, workers "
+                f"{sorted(out['fleet']['workers'])} on {card}")
+    return serve_cli
+
+
+def _economy(torch, ck, card, dev, launches, seed, here, root,
+             econ_sessions, kill_markets, cfg):
+    """Part b of :func:`elastic_phase`: ``econ_sessions`` markets of
+    ``ECON_STRATEGIES`` (the reference's ``bench.py`` economy block),
+    ``ECON_ROUNDS`` rounds at concurrency ``ECON_CONCURRENCY``, through
+    one ``ConsensusService`` of ``cfg`` in this process and through the
+    command line's one service in another (both returned as stages, the
+    phase runs them side by side): wall seconds,
+    resolutions/s, p50 / p99, sheds, each strategy's ROI and
+    time-to-catch, the digest (equal across the runs), the mirrors on
+    ``bucket_cuda`` with B.1, B.2 and B.3 launched, 0 abandoned. Then
+    ``python -m pyconsensus_tpu_torch.econ --fleet-workers 2`` at
+    ``kill_markets`` markets a strategy, SIGKILLed once round 1 has a
+    journaled block and run again over its log: the digest must be that
+    of the same economy run uninterrupted here, through a fleet of the
+    command line's config; then with ``--autoscale --autoscale-max 3``
+    (exit 0). The command lines' runs are returned as two stages, each
+    returning its line."""
+    import glob
+    import signal
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import obs
+    from pyconsensus_tpu_torch.econ import MarketEconomy, build_scenario
+    from pyconsensus_tpu_torch.serve import (ConsensusFleet,
+                                             ConsensusService, FleetConfig,
+                                             ServeConfig)
+
+    on_card = dev.type == "cuda"
+    per = -(-max(len(ECON_STRATEGIES), econ_sessions)
+            // len(ECON_STRATEGIES))
+    scenario = build_scenario(seed=seed, rounds=ECON_ROUNDS,
+                              strategies=ECON_STRATEGIES,
+                              markets_per_strategy=per,
+                              concurrency=ECON_CONCURRENCY)
+    def one_run(run, beside=""):
+        """One economy through a fresh service of ``cfg``: its digest and
+        its line."""
+        cuda0 = obs.value("pyconsensus_serve_requests_total",
+                          path="bucket_cuda", outcome="ok") or 0.0
+        ck.reset_launch_counts()
+        svc = ConsensusService(cfg, device=dev).start(warmup=False)
+        try:
+            res = MarketEconomy(svc, scenario).run()
+        finally:
+            svc.close(drain=True)
+        counts = ck.launch_counts()
+        for k in counts:
+            launches[k] += counts[k]
+        cuda = (obs.value("pyconsensus_serve_requests_total",
+                          path="bucket_cuda", outcome="ok") or 0.0) - cuda0
+        service = res["service"]
+        # every market resolved every round (an exhausted retry raises in
+        # run()); the stateless mirrors are recorded, not retried, when the
+        # queue sheds them, as the reference's: their count is the storm's
+        # shed rate, printed
+        played = np.asarray(res["trajectories"]["cartel_share"])
+        if not np.isfinite(played).all() or (on_card and (
+                cuda <= 0 or not all(counts[k] > 0
+                                     for k in CUDA_TIER_KERNELS))):
+            raise RuntimeError(f"economy run {run}: rounds played "
+                               f"{played.tolist()}, bucket_cuda requests "
+                               f"{cuda}, launches {counts}, errors "
+                               f"{service['errors']}")
+        n = res["n_sessions"] * res["rounds"]
+        strat = {s: (v["cartel_roi"], v["time_to_catch_rounds"],
+                     v["caught_fraction"])
+                 for s, v in res["per_strategy"].items()}
+        return res["mechanism_digest"], (
+            f"economy run {run}{beside}: {res['n_sessions']} market "
+            f"sessions x {res['rounds']} rounds "
+            f"({', '.join(ECON_STRATEGIES)}, concurrency "
+            f"{ECON_CONCURRENCY}, one service, default config): "
+            f"{res['wall_s']} s, {n / res['wall_s']:.4f} resolutions/s; "
+            f"requests {service['requests']}, p50 "
+            f"{service['latency_p50_ms']} ms, p99 "
+            f"{service['latency_p99_ms']} ms, sheds "
+            f"{service['sheds_observed']} {service['errors'] or ''} "
+            f"(shed rate {service['shed_rate']}), resolutions retried "
+            f"{service['retried']} and abandoned 0, mirrors shed and not "
+            f"retried {service['mirrors_abandoned']}; mirrors on "
+            f"bucket_cuda {cuda:.0f}, {launch_text(counts)}; (ROI, "
+            f"time-to-catch rounds, caught fraction) {strat}; digest "
+            f"{res['mechanism_digest']} on {card}")
+
+    def second_run():
+        """The same scenario again, through the command line's single
+        service (the default config) in a process of its own: its digest
+        and its line. The phase runs it beside the first run."""
+        out = os.path.join(root, "econ-second.json")
+        cmd = [sys.executable, "-m", "pyconsensus_tpu_torch.econ",
+               "--strategies", ",".join(ECON_STRATEGIES),
+               "--markets-per-strategy", str(per), "--rounds",
+               str(ECON_ROUNDS), "--concurrency", str(ECON_CONCURRENCY),
+               "--seed", str(seed), "--json-out", out]
+        if not on_card:
+            cmd += ["--device", "cpu", "--dtype",
+                    str(torch.get_default_dtype()).split(".")[-1]]
+        res, secs = finished(cmd, "the economy's second run")
+        service = res["service"]
+        n = res["n_sessions"] * res["rounds"]
+        return res["mechanism_digest"], (
+            f"economy run 2 (the command line's one service, beside run 1 "
+            f"and the other command lines): {res['n_sessions']} market "
+            f"sessions x {res['rounds']} rounds, {res['wall_s']} s "
+            f"({secs:.3f} s with the process), "
+            f"{n / res['wall_s']:.4f} resolutions/s; p50 "
+            f"{service['latency_p50_ms']} ms, p99 "
+            f"{service['latency_p99_ms']} ms, sheds "
+            f"{service['sheds_observed']}, resolutions abandoned 0, mirrors "
+            f"shed and not retried {service['mirrors_abandoned']}; digest "
+            f"{res['mechanism_digest']} on {card}")
+
+    def econ_cmd(log_dir, *extra):
+        cmd = [sys.executable, "-m", "pyconsensus_tpu_torch.econ",
+               "--strategies", ",".join(ECON_STRATEGIES),
+               "--markets-per-strategy", str(kill_markets), "--rounds",
+               str(ECON_ROUNDS), "--concurrency", str(ECON_CONCURRENCY),
+               "--seed", str(seed), "--fleet-workers", "2", "--log-dir",
+               os.path.join(root, log_dir), *extra]
+        if not on_card:
+            cmd += ["--device", "cpu"]
+        return cmd
+
+    def finished(cmd, what):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, cwd=here,
+                             timeout=900)
+        if run.returncode != 0:
+            raise RuntimeError(f"{what} exited {run.returncode}:\n"
+                               f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        return (json.loads(run.stdout.strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    # the uninterrupted digest, in process, over the command line's fleet
+    # and config (the digest is the mechanism's: neither the front door
+    # nor the process changes it)
+    t0 = time.perf_counter()
+    fleet = ConsensusFleet(FleetConfig(
+        n_workers=2, log_dir=os.path.join(root, "econ-whole"),
+        worker=ServeConfig(batch_window_ms=2.0, max_batch=8,
+                           max_queue=256)), device=dev).start(warmup=False)
+    try:
+        whole = MarketEconomy(fleet, build_scenario(
+            seed=seed, rounds=ECON_ROUNDS, strategies=ECON_STRATEGIES,
+            markets_per_strategy=kill_markets,
+            concurrency=ECON_CONCURRENCY)).run()
+    finally:
+        fleet.close(drain=True)
+    whole_s = time.perf_counter() - t0
+
+    def killed_and_resumed():
+        cmd = econ_cmd("econ-killed")
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            staged = os.path.join(root, "econ-killed", "*", "staged",
+                                  "round_000001_*")
+            _wait_for(lambda: glob.glob(staged) or proc.poll() is not None,
+                      600.0, poll_s=0.005)
+            if proc.poll() is not None:
+                raise RuntimeError("the economy ended before its SIGKILL")
+            at_kill = len(glob.glob(staged))
+            os.kill(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        resumed, resumed_s = finished(cmd, "resumed economy cli")
+        if resumed["mechanism_digest"] != whole["mechanism_digest"] \
+                or not resumed["resumed_markets"]:
+            raise RuntimeError(f"the resumed economy's digest "
+                               f"{resumed['mechanism_digest']} is not the "
+                               f"uninterrupted {whole['mechanism_digest']}")
+        return (f"economy cli, {kill_markets} markets a strategy (cut from "
+                f"{per} for the phase's time), {ECON_ROUNDS} rounds, a "
+                f"2-worker fleet: uninterrupted (in this process) "
+                f"{whole_s:.3f} s, digest {whole['mechanism_digest']}; "
+                f"SIGKILLed with {at_kill} round-1 block(s) journaled, run "
+                f"again over its log in {resumed_s:.3f} s: "
+                f"{resumed['resumed_markets']} markets resumed, the same "
+                f"digest on {card}")
+
+    def autoscaled():
+        scaled, scaled_s = finished(
+            econ_cmd("econ-autoscale", "--autoscale", "--autoscale-max",
+                     "3"), "autoscaled economy cli")
+        return (f"economy cli --autoscale --autoscale-max 3: exit 0 in "
+                f"{scaled_s:.3f} s, workers "
+                f"{scaled['autoscale']['workers_start']} -> "
+                f"{scaled['autoscale']['workers_end']}, decisions "
+                f"{scaled['autoscale']['decisions']} on {card}")
+    return one_run, second_run, (killed_and_resumed, autoscaled)
+
+
 def stream_check(torch, out, R, E, algorithm, truth, label):
     """``check_result`` on a streamed (host numpy) result, and the truth
     recovered (>= 0.99 of the snapped outcomes). Returns that share."""
@@ -4247,13 +4988,14 @@ def streaming_phase(torch, args, ck, card, dev, launches, here,
        against the in-memory ``Oracle(backend="torch")``: seconds side by
        side, 0 outcome flips, the largest ``smooth_rep`` gap under
        ``STREAM_REP_RTOL`` of its largest value, the peak device memory;
-    2. the recorded out-of-core configuration: ``OOC_E`` (500,000)
-       columns of float32 staged column-chunk by column-chunk to an
-       ``.npy`` in ``STAGE_DIR`` (E cut to fit the free disk, never R),
-       resolved memory-mapped under sztorc, fixed-variance and dbscan-jit:
-       seconds, panels a pass, peak device memory (below the source's
-       bytes; sztorc's within 10% of part 1's streaming peak), the truth;
-    3. k-means at R x ``KMEANS_OOC_E`` (16,384), and hierarchical and
+    2. the recorded out-of-core configuration, cut to ``OOC_E``
+       (160,000 of its 500,000) columns of float32 staged column-chunk
+       by column-chunk to an ``.npy`` in ``STAGE_DIR`` (E cut to fit the
+       free disk, never R), resolved memory-mapped under sztorc,
+       fixed-variance and dbscan-jit: seconds, panels a pass, peak device
+       memory (below the source's bytes; sztorc's within 10% of part 1's
+       streaming peak), the truth;
+    3. k-means at R x ``KMEANS_OOC_E`` (4,096), and hierarchical and
        dbscan at ``--hybrid-r`` x ``--hybrid-e`` against the in-memory
        ``Oracle`` (outcomes equal, the host clustering native);
     4. two hosts on one card (threads) equal to one, the reputations
@@ -4326,7 +5068,7 @@ def streaming_phase(torch, args, ck, card, dev, launches, here,
             f"{rel:.3e} of their largest <= {STREAM_REP_RTOL})")
 
         # -- 5. the command line ------------------------------------------
-        cli_phase(torch, host, stage, launches, card)
+        cli_phase(torch, host[:, :CLI_E], stage, launches, card)
         del host, res
 
         # -- 2. the recorded out-of-core configuration -------------------
@@ -4369,17 +5111,19 @@ def streaming_phase(torch, args, ck, card, dev, launches, here,
         host_k, truth_k = host_reports(torch, R, Ek, args.seed + 13, dev)
         pk = ConsensusParams(algorithm="k-means", max_iterations=1)
         label = f"k-means {R}x{Ek}"
-        out_k, secs, peak = streamed(torch, ck, host_k, pk, P, label)
+        Pk = Ek // 2            # two panels of k-means' width
+        out_k, secs, peak = streamed(torch, ck, host_k, pk, Pk, label)
         correct = stream_check(torch, out_k, R, Ek, "k-means", truth_k,
                                label)
         passes = 3 + 2 * KMEANS_ITERS
         log(f"out of core {label}: {secs:.3f} s on {card}; "
-            f"{-(-Ek // P)} panels a pass, {passes} passes (the seeds, "
+            f"{-(-Ek // Pk)} panels a pass, {passes} passes (the seeds, "
             f"{KMEANS_ITERS} Lloyd iterations of two, the final assignment,"
             f" the resolve); peak {peak:.3f} GiB; outcomes == truth "
             f"{correct:.6f}")
         t0 = time.perf_counter()
-        worst, rel = hosts_equal_one(torch, two_hosts(torch, host_k, pk, P),
+        worst, rel = hosts_equal_one(torch,
+                                     two_hosts(torch, host_k, pk, Pk),
                                      out_k, f"two hosts {label}")
         log(f"two hosts on one card {label}: "
             f"{time.perf_counter() - t0:.3f} s; each host equal to one "
@@ -5043,7 +5787,8 @@ def _cli(args, here, timeout=900):
 def cli_phase(torch, host, stage, launches, card):
     """Part 5: the command line as subprocesses on the card: the default
     demo under ``--profile`` (a ``torch.profiler`` trace holding device
-    kernels), then part 1's matrix as an ``.npy`` through ``--shard``
+    kernels), then the first ``CLI_E`` events of part 1's matrix as an
+    ``.npy`` through ``--shard``
     (``ShardedOracle`` in memory; the module runs under a wrapper that
     prints its launch counts at exit) and through ``--stream``, one
     iteration each. Each exits 0, and the streamed outcome counts equal
@@ -5446,8 +6191,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reporters", type=int, default=10_000)
     ap.add_argument("--events", type=int, default=100_000)
-    ap.add_argument("--mid-r", type=int, default=1024)
-    ap.add_argument("--mid-e", type=int, default=8192)
+    ap.add_argument("--mid-r", type=int, default=512)
+    ap.add_argument("--mid-e", type=int, default=4096)
     ap.add_argument("--hybrid-r", type=int, default=HYBRID_R)
     ap.add_argument("--hybrid-e", type=int, default=HYBRID_E)
     ap.add_argument("--seed", type=int, default=0)
@@ -5460,11 +6205,13 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")
-    ap.add_argument("--only", choices=("process", "fleet", "stateplane"),
+    ap.add_argument("--only", choices=("process", "fleet", "stateplane",
+                                       "elastic"),
                     help="run only this phase after the build (the process "
                     "mesh, with --mesh-devices after the streaming "
                     "phase's one-host stream that it compares with; the "
-                    "fleet; or the state plane and kernel store)")
+                    "fleet; the state plane and kernel store; or the "
+                    "elastic fleet and economy)")
     ap.add_argument("--process-worker", type=int, default=None,
                     metavar="RANK", help=argparse.SUPPRESS)
     ap.add_argument("--process-world", type=int, default=1,

@@ -24,7 +24,10 @@ native loader ``native/loader.cpp``). ``serve`` runs the oracle as a
 service: ``ConsensusService`` with padded shape buckets (on one device,
 or split over a batch x event grid of devices, ``serve.sharded``), the
 ``bucket_cuda`` low-latency class on the kernels, and named market
-sessions with incremental resolves. ``streaming_consensus`` resolves a
+sessions with incremental resolves, behind a replicated fleet that an
+SLO autoscaler resizes (``serve.autoscale``); ``econ`` drives cartel
+strategies through that front door as an adversarial market economy
+(``pyconsensus-econ-torch``). ``streaming_consensus`` resolves a
 matrix out of core, panel by panel from an array, a memory-mapped
 ``.npy`` or a ``.csv``, for every algorithm, on one device or with each
 panel over an event mesh, and on one host or several

@@ -47,7 +47,7 @@ import numpy as np
 __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
            "arm", "disarm", "armed", "active_plan", "fire", "corrupt"]
 
-#: The 32 named injection sites of the port — every :func:`fire` /
+#: The 38 named injection sites of the port — every :func:`fire` /
 #: :func:`corrupt` hook call in the package names exactly one of these,
 #: and every entry here is reached by at least one hook call (the tests
 #: check both directions against the source). Each is a site of the JAX
@@ -59,10 +59,14 @@ __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
 #: a session's append), the kernel-build store (``aot.cache_write``
 #: after an entry's atomic write, ``aot.cache_load`` before its read),
 #: the fleet (``fleet.*``: routing, a worker's heartbeat, a takeover and
-#: the replay of a replication log), the state plane (``state.snapshot``
-#: inside a compaction snapshot's write, ``state.compact`` before each
-#: truncation unlink, ``state.hydrate`` at a cold session's hydration,
-#: ``state.migrate`` at every session relocation) and the socket
+#: the replay of a replication log), the autoscaler (``autoscale.*``: a
+#: control decision, a scale-up's spawn, a scale-down's drain), the
+#: economy (``econ.round`` at each round, ``econ.panel`` on each round
+#: panel, ``econ.submit`` before each session resolve), the state
+#: plane (``state.snapshot`` inside a compaction snapshot's write,
+#: ``state.compact`` before each truncation unlink, ``state.hydrate``
+#: at a cold session's hydration, ``state.migrate`` at every session
+#: relocation) and the socket
 #: transport (``transport.*``: a frame's send and receive and a
 #: connection's dial; ``shipping.append``: each replication record
 #: shipped to the standby).
@@ -78,6 +82,8 @@ FAULT_SITES = (
     "aot.cache_write", "aot.cache_load",
     "fleet.route", "fleet.heartbeat", "fleet.takeover",
     "fleet.ledger_replay",
+    "autoscale.decide", "autoscale.spawn", "autoscale.drain",
+    "econ.round", "econ.panel", "econ.submit",
     "state.snapshot", "state.compact", "state.hydrate", "state.migrate",
     "transport.send", "transport.recv", "transport.connect",
     "shipping.append",

@@ -26,15 +26,24 @@ Rules of engagement:
   are the JAX package's; a label value that names an implementation
   takes the port's name (``cuda`` for the kernel family, ``plain`` for
   the plain path, ``torch`` for the backend).
+- **over the registry.** ``SloMonitor`` (``obs/slo.py``) windows
+  snapshots into rates, quantiles and violation seconds;
+  ``FlightRecorder`` (``obs/flightrec.py``) dumps recent spans and metric
+  deltas to a bounded on-disk ring; ``start_metrics_server``
+  (``obs/httpd.py``) serves ``render_prom`` (or a fleet's merged view) on
+  ``GET /metrics``.
 """
 
 from __future__ import annotations
 
 from .compilemon import install_compile_monitor
+from .flightrec import FlightRecorder, read_flight_dir
+from .httpd import MetricsServer, start_metrics_server
 from .metrics import (DURATION_BUCKETS, ITERATION_BUCKETS, MAGNITUDE_BUCKETS,
                       Counter, Gauge, Histogram, MetricsRegistry)
 from .sinks import (merge_jsonl, read_jsonl, span_tree, trace_forest,
                     write_jsonl, write_prom)
+from .slo import SloMonitor, quantile_from_counts, targets_from_config
 from .tracer import Span, Tracer
 
 __all__ = [
@@ -43,6 +52,9 @@ __all__ = [
     "histogram", "events", "report", "render_prom", "value", "reset",
     "write_jsonl", "read_jsonl", "merge_jsonl", "span_tree", "trace_forest",
     "write_prom", "install_compile_monitor",
+    "SloMonitor", "quantile_from_counts", "targets_from_config",
+    "FlightRecorder", "read_flight_dir",
+    "MetricsServer", "start_metrics_server",
     "MetricsRegistry", "Tracer", "Span", "Counter", "Gauge", "Histogram",
     "DURATION_BUCKETS", "ITERATION_BUCKETS", "MAGNITUDE_BUCKETS",
 ]

@@ -58,8 +58,12 @@ Guarantees:
   worker adopt the kernel libraries and its warmed keys with no
   ``nvcc``.
 
-The autoscaler and the SLO, HTTP and flight-recorder telemetry are
-``ROADMAP.md`` §A.11.
+- the elastic fleet (``serve.autoscale``): ``AutoScaler`` reads an
+  ``obs.SloMonitor``'s window and grows the fleet on a sustained breach
+  (a new worker, or a process on the socket transport that adopts its
+  kernels from the store), drains it on sustained idleness (every
+  session live-migrated) and replaces a declared-dead worker; the
+  ``/metrics`` endpoint and the flight recorder live in ``obs``.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from ..faults import (AotCacheCorruptionError, FailoverInProgressError,
                       SnapshotCorruptionError, WorkerLostError)
 from .admission import AdmissionController, ClusterCapacity
 from .aotcache import AOT_ENTRY, AotCache
+from .autoscale import AutoScaler, AutoscaleConfig
 from .cache import SINGLE_TOPOLOGY, BucketKey, ExecutableCache, warm_inputs
 from .cuda import (CUDA_KERNEL_PATH, PLAIN_KERNEL_PATH, cuda_bucket_eligible,
                    cuda_bucket_params, make_cuda_bucket_executable)
@@ -114,4 +119,5 @@ __all__ = [
     "AotCache", "AOT_ENTRY", "AotCacheCorruptionError",
     "TieredSessionStore", "CompactionPolicy", "Compactor",
     "hydrate_session", "SnapshotCorruptionError",
+    "AutoScaler", "AutoscaleConfig",
 ]

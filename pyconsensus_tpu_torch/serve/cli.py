@@ -20,6 +20,8 @@ Usage::
         --requests 64 --shapes 1024x4096
     pyconsensus-serve-torch --aot-cache /var/cache/pyconsensus \\
         --warmup-only --shapes 1024x4096
+    pyconsensus-serve-torch --fleet-workers 1 --transport socket \\
+        --autoscale --autoscale-max 3 --slo-p99-ms 50 --metrics-port 9100
 
 The flags are the reference's plus ``--device`` (the card by default;
 ``cpu`` on request; without a card and without ``--device cpu`` it exits
@@ -27,15 +29,20 @@ The flags are the reference's plus ``--device`` (the card by default;
 the kernel libraries and the warmed keys, so the next run adopts them
 with no ``nvcc``); the summary reports ``aot_loaded`` and
 ``aot_persisted``, and the compile monitor counts every ``nvcc`` run,
-store adoption and library load. ``--autoscale`` and ``--metrics-port``
-name parts of ``ROADMAP.md`` §A.11 the port does not have: each exits 2
-naming its item, and so do the settings that only those parts read
-(``--autoscale-*``, ``--metrics-hold-s`` and the ``--slo-*`` targets).
-Both paths warm what the requests of ``--shapes`` ride before the timed
-run, on every fleet worker too (a socket worker through its ``warm``
-RPC), so the printed rate is the steady state's. Over the socket
-transport the kernel paths and launches are the workers', read from the
-merged metric view and each worker's ``stats``.
+store adoption and library load. The ``--slo-*`` flags set the
+declarative SLO targets (``ServeConfig.slo_*``): an ``obs.SloMonitor``
+windows every run (a socket fleet's over the merged worker view) and its
+summary lands under ``"slo"``. ``--metrics-port`` serves ``GET /metrics``
+while the run lasts (a fleet's merged view, every worker labeled), and
+``--metrics-hold-s`` keeps it open that long after the run.
+``--autoscale`` (with ``--fleet-workers``) runs ``serve/autoscale.py``'s
+control loop between ``--autoscale-min`` and ``--autoscale-max`` workers
+on the monitor's window; its status and decision counts land under
+``"autoscale"``. Both paths warm what the requests of ``--shapes`` ride
+before the timed run, on every fleet worker too (a socket worker
+through its ``warm`` RPC), so the printed rate is the steady state's.
+Over the socket transport the kernel paths and launches are the
+workers', read from the merged metric view and each worker's ``stats``.
 
 Exit code 0 iff every generated request succeeded (under
 ``--allow-shed`` PYC401 sheds do not count: shedding is the configured
@@ -47,30 +54,10 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import Optional, Sequence
 
 __all__ = ["main"]
-
-_AUTOSCALE = "autoscale.py with obs/slo.py"
-_SLO = "the SLO monitor, obs/slo.py"
-
-#: the flags that name a part of ROADMAP.md §A.11 the port does not have,
-#: or set what only such a part reads
-_REFUSED = {
-    "autoscale": ("--autoscale", _AUTOSCALE),
-    "autoscale_min": ("--autoscale-min", _AUTOSCALE),
-    "autoscale_max": ("--autoscale-max", _AUTOSCALE),
-    "autoscale_interval_s": ("--autoscale-interval-s", _AUTOSCALE),
-    "autoscale_cooldown_s": ("--autoscale-cooldown-s", _AUTOSCALE),
-    "metrics_port": ("--metrics-port", "obs/httpd.py"),
-    "metrics_hold_s": ("--metrics-hold-s", "obs/httpd.py"),
-    "slo_window_s": ("--slo-window-s", _SLO),
-    "slo_p50_ms": ("--slo-p50-ms", _SLO),
-    "slo_p99_ms": ("--slo-p99-ms", _SLO),
-    "slo_shed_ratio": ("--slo-shed-ratio", _SLO),
-    "slo_queue_depth": ("--slo-queue-depth", _SLO),
-}
-
 
 def _parse_shapes(spec: str):
     shapes = []
@@ -157,15 +144,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="fleet replication-log directory (required for "
                          "fleet sessions)")
     ap.add_argument("--autoscale", action="store_true",
-                    help="the SLO-driven autoscaler: not in the port "
-                         "(exits 2, ROADMAP.md §A.11)")
-    for flag, kind, metavar in (("--autoscale-min", int, "N"),
-                                ("--autoscale-max", int, "N"),
-                                ("--autoscale-interval-s", float, "S"),
-                                ("--autoscale-cooldown-s", float, "S")):
-        ap.add_argument(flag, type=kind, default=None, metavar=metavar,
-                        help="an autoscaler setting: not in the port "
-                             "(exits 2, ROADMAP.md §A.11)")
+                    help="run the SLO-driven autoscaler control loop over "
+                         "the fleet (needs --fleet-workers): sustained SLO "
+                         "violation grows it, sustained idleness drains it")
+    ap.add_argument("--autoscale-min", type=int, default=1, metavar="N",
+                    help="autoscaler fleet-size floor")
+    ap.add_argument("--autoscale-max", type=int, default=4, metavar="N",
+                    help="autoscaler fleet-size ceiling")
+    ap.add_argument("--autoscale-interval-s", type=float, default=0.5,
+                    metavar="S", help="autoscaler control period")
+    ap.add_argument("--autoscale-cooldown-s", type=float, default=3.0,
+                    metavar="S",
+                    help="quiet period after a membership change")
     ap.add_argument("--allow-shed", action="store_true",
                     help="shed requests (PYC401) do not fail the run — "
                          "the expected outcome of an overload probe")
@@ -173,22 +163,25 @@ def _parser() -> argparse.ArgumentParser:
                     help="write the Prometheus exposition on exit")
     ap.add_argument("--metrics-port", type=int, default=None,
                     metavar="PORT",
-                    help="a live /metrics endpoint: not in the port "
-                         "(exits 2, ROADMAP.md §A.11)")
-    ap.add_argument("--metrics-hold-s", type=float, default=None,
+                    help="serve a live /metrics endpoint on this port "
+                         "(0: the OS picks; a fleet serves its merged "
+                         "view, every worker labeled)")
+    ap.add_argument("--metrics-hold-s", type=float, default=0.0,
                     metavar="S",
-                    help="how long the /metrics endpoint stays open: not "
-                         "in the port (exits 2, ROADMAP.md §A.11)")
+                    help="hold the /metrics endpoint (and a fleet's "
+                         "workers) open this long after the run")
     ap.add_argument("--trace-out", metavar="PATH",
                     help="write this process's span events as JSONL on "
                          "exit")
-    for flag, metavar in (("--slo-window-s", "S"), ("--slo-p50-ms", "MS"),
-                          ("--slo-p99-ms", "MS"),
-                          ("--slo-shed-ratio", "RATIO"),
-                          ("--slo-queue-depth", "N")):
+    for flag, metavar, what in (
+            ("--slo-window-s", "S", "the SLO monitor's window"),
+            ("--slo-p50-ms", "MS", "windowed p50 latency target"),
+            ("--slo-p99-ms", "MS", "windowed p99 latency target"),
+            ("--slo-shed-ratio", "RATIO", "windowed shed-fraction target"),
+            ("--slo-queue-depth", "N", "sampled queue-depth target")):
         ap.add_argument(flag, type=float, default=None, metavar=metavar,
-                        help="an SLO monitor target: not in the port "
-                             "(exits 2, ROADMAP.md §A.11)")
+                        help=f"{what} (overrides --config; 0 disables "
+                             f"a target)")
     return ap
 
 
@@ -221,23 +214,25 @@ def _config(ap, args):
         overrides["incremental_sessions"] = bool(args.incremental)
     if args.refresh_every is not None:
         overrides["incremental_refresh_every"] = int(args.refresh_every)
+    for key in ("slo_window_s", "slo_p50_ms", "slo_p99_ms",
+                "slo_shed_ratio", "slo_queue_depth"):
+        value = getattr(args, key)
+        if value is not None:
+            overrides[key] = float(value)
     if overrides:
         cfg = ServeConfig.from_dict({**cfg.__dict__, **overrides})
     return cfg
 
 
 def _refuse(ap, args, cfg) -> None:
-    """Exit 2 on a flag naming a part of §A.11 the port does not have, on
-    a config the service would refuse (an invalid value) and on
-    ``--device cuda`` without a card."""
+    """Exit 2 on a config the service would refuse (an invalid value), on
+    ``--autoscale`` without a fleet and on ``--device cuda`` without a
+    card."""
     from ..faults import InputError
     from .service import _validate
 
-    for dest, (flag, item) in _REFUSED.items():
-        value = getattr(args, dest)
-        if value is not None and value is not False:
-            ap.error(f"{flag}: ROADMAP.md §A.11 ({item}) is not in the "
-                     f"port")
+    if args.autoscale and args.fleet_workers <= 0:
+        ap.error("--autoscale resizes a fleet: pass --fleet-workers")
     try:
         _validate(cfg)
     except InputError as exc:
@@ -292,6 +287,29 @@ def warm_for_shapes(svc, shapes, has_na: bool) -> int:
     return n
 
 
+def _metrics_server(args, render_fn):
+    """The ``--metrics-port`` endpoint serving ``render_fn`` (None
+    without the flag, or when the port cannot be bound)."""
+    from .. import obs
+
+    if args.metrics_port is None:
+        return None
+    srv = obs.start_metrics_server(args.metrics_port, render_fn)
+    if srv is not None:
+        print(f"metrics endpoint: http://127.0.0.1:{srv.port}/metrics",
+              file=sys.stderr)
+    return srv
+
+
+def _hold(args, metrics_srv) -> None:
+    """Keep the endpoint (and a fleet's workers) up ``--metrics-hold-s``
+    after the run, for a scrape."""
+    if metrics_srv is not None and args.metrics_hold_s > 0:
+        print(f"holding /metrics open {args.metrics_hold_s:.1f}s",
+              file=sys.stderr)
+        time.sleep(args.metrics_hold_s)
+
+
 def _run_load(gen, args) -> dict:
     from .loadgen import RateTrace
 
@@ -344,12 +362,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
 
     svc.start(warmup=False)
+    # the windowed SLO view of every run (all-zero targets still give
+    # the windowed block)
+    slo = obs.SloMonitor(targets=obs.targets_from_config(cfg),
+                         window_s=cfg.slo_window_s)
+    metrics_srv = _metrics_server(args, obs.render_prom)
     gen = LoadGenerator(svc, shapes=shapes, na_frac=args.na_frac,
-                        seed=args.seed, max_retries=args.retries)
+                        seed=args.seed, max_retries=args.retries, slo=slo)
     try:
         stats = _run_load(gen, args)
+        _hold(args, metrics_srv)
     finally:
         svc.close(drain=True)
+        if metrics_srv is not None:
+            metrics_srv.close()
     stats["warmed_executables"] = n_warm
     stats["cache"] = {"size": len(svc.cache),
                       "hit_ratio": svc.cache.hit_ratio(),
@@ -367,7 +393,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 def _fleet_main(args, cfg, shapes) -> int:
     """``--fleet-workers N``: the same loadgen run against a
     ConsensusFleet on ``--device`` over ``--transport``, every worker
-    warmed as one service is."""
+    warmed as one service is, with the SLO monitor on the fleet's view,
+    the ``/metrics`` endpoint on its merged view and, with
+    ``--autoscale``, the control loop over it."""
     from .. import obs
     from .fleet import ConsensusFleet, FleetConfig
     from .loadgen import LoadGenerator, kernel_path_block
@@ -376,19 +404,58 @@ def _fleet_main(args, cfg, shapes) -> int:
     fleet = ConsensusFleet(FleetConfig(
         n_workers=args.fleet_workers, transport=args.transport,
         log_dir=args.log_dir, worker=cfg), device=args.device).start()
+    metrics_srv = scaler = slo = None
     try:
         n_warm = sum(w.warm(shapes, args.na_frac > 0)
                      for _, w in sorted(fleet.workers.items()))
+        # over the socket transport the request counters live in the
+        # worker processes: the monitor samples the merged view. In-process
+        # workers share this process's registry (the merged view would
+        # count it twice)
+        slo = obs.SloMonitor(
+            targets=obs.targets_from_config(cfg),
+            window_s=cfg.slo_window_s,
+            snapshot_fn=(fleet.merged_snapshot
+                         if args.transport == "socket" else None))
+        metrics_srv = _metrics_server(args, fleet.render_metrics)
         gen = LoadGenerator(fleet, shapes=shapes, na_frac=args.na_frac,
-                            seed=args.seed, max_retries=args.retries)
+                            seed=args.seed, max_retries=args.retries,
+                            slo=slo)
+        if args.autoscale:
+            from .autoscale import AutoScaler, AutoscaleConfig
+
+            scaler = AutoScaler(fleet, slo, AutoscaleConfig(
+                min_workers=args.autoscale_min,
+                max_workers=args.autoscale_max,
+                interval_s=args.autoscale_interval_s,
+                cooldown_s=args.autoscale_cooldown_s)).run_in_thread()
+            # the loop reads the monitor's window: it samples for the
+            # whole run, whatever the load generator's mode
+            slo.run_in_thread()
         stats = _run_load(gen, args)
+        if scaler is not None:
+            scaler.stop()
+        _hold(args, metrics_srv)
         status = fleet.status()     # before the drain marks workers down
         # the merged view holds the dispatches wherever they happened
         snapshot = fleet.merged_snapshot()
         stats["kernel_paths"] = kernel_path_block(snapshot) or None
         stats["kernel_launches"] = _fleet_launches(fleet)
+        if scaler is not None:
+            stats["autoscale"] = dict(scaler.status(), decisions={
+                action: int(obs.value(
+                    "pyconsensus_autoscale_decisions_total",
+                    action=action) or 0)
+                for action in ("hold", "scale_up", "scale_down",
+                               "replace", "error")})
     finally:
+        if scaler is not None:
+            scaler.stop()
+        if slo is not None:
+            slo.stop()
         fleet.close(drain=True)
+        if metrics_srv is not None:
+            metrics_srv.close()
     stats["transport"] = args.transport
     stats["warmed_executables"] = n_warm
     stats["fleet"] = status

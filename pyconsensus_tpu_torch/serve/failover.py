@@ -481,6 +481,11 @@ class DurableSession(MarketSession):
         with self._lock:
             self._fenced = exc
 
+    @property
+    def fenced(self) -> Optional[BaseException]:
+        """The error :meth:`fence` set (None while unfenced)."""
+        return self._fenced
+
     def journal_bytes(self) -> int:
         """Bytes of this session's staged journal on disk: the
         compaction policy's size signal."""

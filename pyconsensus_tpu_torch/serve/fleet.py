@@ -39,9 +39,13 @@ admission and failover are the same code over both. An adopting worker
 warms from the kernel-build store (``ServeConfig.aot_cache_dir``,
 ``serve/aotcache.py``) inside the takeover window (``_warm_standby``),
 and a worker with ``hot_sessions > 0`` hydrates its cold sessions from
-its view of the log (``serve/stateplane.py``). The flight recorder
-(``ServeConfig.flightrec_dir`` is accepted and unused) and the autoscaler
-are ``ROADMAP.md`` §A.11.
+its view of the log (``serve/stateplane.py``). With
+``ServeConfig.flightrec_dir`` the router keeps a flight recorder
+(``<flightrec_dir>/router``, ``obs/flightrec.py``) and dumps it at every
+takeover and every completed drain; each socket worker keeps its own.
+``serve/autoscale.py``'s ``AutoScaler`` grows and shrinks the fleet
+through :meth:`ConsensusFleet.add_worker`, :meth:`drain_worker` and
+:meth:`rebalance_to`.
 
 Fault sites ``fleet.route`` / ``fleet.heartbeat`` / ``fleet.takeover`` /
 ``fleet.ledger_replay`` inject worker loss, heartbeat flap and torn
@@ -49,14 +53,16 @@ ledger replication deterministically; ``state.migrate`` fires at the top
 of every session relocation (takeover, drain and rebalancing all pass
 through :meth:`ConsensusFleet._relocate_session`).
 
-Lock order (outermost first): a worker's ``declare_lock``, then
-``ConsensusFleet._lock``, then ``HashRing._lock`` or
-``ClusterCapacity._lock``. The fleet lock is never held across a call
-into a worker, so no router lock waits on the card.
+Lock order (outermost first): ``AutoScaler._lock`` (one membership
+change in flight, held across ``add_worker`` and ``drain_worker``), a
+worker's ``declare_lock``, then ``ConsensusFleet._lock``, then
+``HashRing._lock`` or ``ClusterCapacity._lock``. The fleet lock is never
+held across a call into a worker, so no router lock waits on the card.
 """
 
 from __future__ import annotations
 
+import pathlib
 import sys
 import threading
 import time
@@ -239,8 +245,15 @@ class FleetWorker(WorkerBase):
 
     def evict_session(self, name: str) -> None:
         """Drop the fenced in-memory object after its log replayed
-        elsewhere: a session lives in exactly one store."""
-        self.service.sessions.remove(name)
+        elsewhere: a session lives in exactly one store. A request for it
+        still queued here answers its fence (retryable), not "unknown
+        session"."""
+        try:
+            stale = self.service.sessions.get(name)
+        except Exception:   # noqa: BLE001 — gone already, or its fence
+            return
+        self.service.sessions.remove(
+            name, moved=getattr(stale, "fenced", None))
 
     def fence_session(self, name: str, exc: BaseException) -> None:
         """Fence this worker's in-memory session object BEFORE a standby
@@ -350,6 +363,22 @@ class ConsensusFleet:
             "pyconsensus_sessions_rebalanced_total",
             "sessions live-migrated between two healthy workers "
             "(voluntary placement rebalancing, e.g. after a scale-up)")
+        #: the router's flight recorder, dumped at every takeover and
+        #: drain, so a kill -9 run leaves the router's last moments
+        #: beside the victim's boot artifact
+        self._recorder = None
+        if self.config.worker.flightrec_dir:
+            self._recorder = obs.FlightRecorder(
+                pathlib.Path(self.config.worker.flightrec_dir) / "router",
+                source="router")
+
+    def _dump(self, reason: str) -> None:
+        if self._recorder is None:
+            return
+        try:
+            self._recorder.dump(reason)
+        except Exception:   # noqa: BLE001 — forensics never block the
+            pass            # takeover or drain they record
 
     # -- lifecycle ------------------------------------------------------
 
@@ -447,6 +476,7 @@ class ConsensusFleet:
             migrated = (self._failover(name)
                         if (in_ring or (stranded and len(self.ring)))
                         else [])
+        self._dump("takeover")
         return {"worker": name, "shed_queued": shed,
                 "sessions_migrated": migrated}
 
@@ -639,6 +669,7 @@ class ConsensusFleet:
             # tombstone does not inflate retry hints as a death's does
             self.capacity.forget(name)
             self.capacity.observe_queue_depth(name, 0)
+        self._dump("drain")
         return {"worker": name, "drained": True,
                 "sessions_migrated": migrated}
 

@@ -10,8 +10,9 @@ loop: requests arrive on a fixed schedule regardless of completions, the
 overload probe (offered load is the independent variable, so shed rates
 mean something); a :class:`RateTrace` varies the rate by segment.
 
-The reference's ``slo=`` monitor belongs to ``obs/slo.py``, which the
-port does not have (``ROADMAP.md`` §A.11).
+With ``slo=`` an ``obs.SloMonitor`` samples on a background thread for
+the run, and its ``summary()`` (the windowed rates, quantiles, targets
+and violation seconds) lands in the stats under ``"slo"``.
 """
 
 from __future__ import annotations
@@ -267,13 +268,19 @@ class LoadGenerator:
     retry_cap_s : float
         Upper bound of any single retry wait — the budget stays bounded
         even against a pathological hint.
+    slo : obs.SloMonitor, optional
+        A windowed SLO monitor sampled on a background thread for the
+        duration of the run; its ``summary()`` lands in the stats dict
+        under ``"slo"``.
     """
 
     def __init__(self, service, shapes=((12, 48), (24, 96)),
                  na_frac: float = 0.1, seed: int = 0,
                  tenant: str = "loadgen", oracle_kwargs=None,
-                 max_retries: int = 0, retry_cap_s: float = 2.0) -> None:
+                 max_retries: int = 0, retry_cap_s: float = 2.0,
+                 slo=None) -> None:
         self.service = service
+        self.slo = slo
         self.shapes = [tuple(s) for s in shapes]
         self.tenant = tenant
         self.oracle_kwargs = dict(oracle_kwargs or {})
@@ -371,13 +378,33 @@ class LoadGenerator:
 
         threads = [threading.Thread(target=worker, daemon=True)
                    for _ in range(max(1, concurrency))]
+        self._slo_start()
         t0 = time.monotonic()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        return summarize(latencies, errors, time.monotonic() - t0,
-                         n_requests, **tallies)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            self._slo_stop()
+        stats = summarize(latencies, errors, time.monotonic() - t0,
+                          n_requests, **tallies)
+        return self._with_slo(stats)
+
+    # -- the SLO monitor ------------------------------------------------
+
+    def _slo_start(self) -> None:
+        if self.slo is not None:
+            self.slo.run_in_thread()
+
+    def _slo_stop(self) -> None:
+        if self.slo is not None:
+            self.slo.stop()
+
+    def _with_slo(self, stats: dict) -> dict:
+        if self.slo is not None:
+            stats["slo"] = self.slo.summary()
+        return stats
 
     # -- open loop ------------------------------------------------------
 
@@ -407,6 +434,7 @@ class LoadGenerator:
                 latencies.append(lat)
 
         interval = 1.0 / rate_rps
+        self._slo_start()
         t0 = time.monotonic()
         for i in range(n_requests):
             target = t0 + i * interval
@@ -439,8 +467,10 @@ class LoadGenerator:
             lat, err, retried, abandoned = self._one_request(
                 i, timeout_s, first_error=exc)
             tally(err, lat, retried, abandoned)
-        return summarize(latencies, errors, time.monotonic() - t0,
-                         n_requests, **tallies)
+        self._slo_stop()
+        stats = summarize(latencies, errors, time.monotonic() - t0,
+                          n_requests, **tallies)
+        return self._with_slo(stats)
 
     # -- trace-driven open loop -----------------------------------------
 
@@ -468,6 +498,7 @@ class LoadGenerator:
             else:
                 latencies.append(lat)
 
+        self._slo_start()
         t0 = time.monotonic()
         for i, offset in enumerate(offsets):
             delay = (t0 + offset) - time.monotonic()
@@ -499,10 +530,11 @@ class LoadGenerator:
             lat, err, retried, abandoned = self._one_request(
                 i, timeout_s, first_error=exc)
             tally(err, lat, retried, abandoned)
+        self._slo_stop()
         stats = summarize(latencies, errors, time.monotonic() - t0,
                           len(offsets), **tallies)
         stats["trace"] = trace.describe()
-        return stats
+        return self._with_slo(stats)
 
 
 def main(argv=None) -> int:

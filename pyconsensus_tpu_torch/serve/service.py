@@ -74,6 +74,24 @@ from .sharded import (SINGLE_TOPOLOGY, mesh_fingerprint, serve_mesh,
 
 __all__ = ["ServeConfig", "ConsensusService"]
 
+#: torch loads its CUDA linear-algebra library at the first linalg call
+#: on a card, and two threads making that first call at once fail ("lazy
+#: wrapper should be called at most once"). Every service's batcher is a
+#: thread (an in-process fleet runs several), so the first call is made
+#: once, under this lock, before a batcher starts.
+_LINALG_LOCK = threading.Lock()
+_LINALG_LOADED = False  # guarded-by: _LINALG_LOCK
+
+
+def _load_cuda_linalg(device) -> None:
+    global _LINALG_LOADED
+    if getattr(device, "type", None) != "cuda":
+        return
+    with _LINALG_LOCK:
+        if not _LINALG_LOADED:
+            torch.linalg.eigh(torch.eye(2, device=device))
+            _LINALG_LOADED = True
+
 #: oracle_kwargs that enter the static ConsensusParams of a bucketed
 #: dispatch (anything else forces the direct path)
 _BUCKET_KWARGS = ("alpha", "catch_tolerance", "max_iterations",
@@ -139,13 +157,22 @@ class ServeConfig:
     #: a restarted worker adopts them with no ``nvcc``; None: no store.
     #: Safe to share across a fleet
     aot_cache_dir: Optional[str] = None
-    #: windowed SLO targets (validated; their monitor is the
-    #: reference's fleet tooling)
+    #: declarative SLO targets, windowed by ``obs.SloMonitor`` over
+    #: ``slo_window_s``-second windows (0 disables a target): p50 / p99
+    #: latency (ms), the shed fraction and the sampled queue depth.
+    #: Violated seconds accumulate into
+    #: ``pyconsensus_slo_violation_seconds{slo=<target>}``, the
+    #: autoscaler's signal
     slo_window_s: float = 10.0
     slo_p50_ms: float = 0.0
     slo_p99_ms: float = 0.0
     slo_shed_ratio: float = 0.0
     slo_queue_depth: float = 0.0
+    #: flight-recorder directory: the fleet's router, each socket worker
+    #: and the autoscaler keep a bounded ring of recent spans and metric
+    #: deltas under ``<flightrec_dir>/<source>/`` (``obs/flightrec.py``),
+    #: dumped on boot, fence, SIGTERM, takeover, drain and membership
+    #: change. None disables recording
     flightrec_dir: Optional[str] = None
     #: tiered residency (``serve/stateplane.py``): at most this many
     #: sessions in memory (LRU), the rest hydrated from their logs on
@@ -318,6 +345,7 @@ class ConsensusService:
         # not each start a batcher thread
         with self._start_lock:
             if not self._started:
+                _load_cuda_linalg(self.device)
                 if warmup:
                     self.warm_buckets()
                 self.batcher.start()

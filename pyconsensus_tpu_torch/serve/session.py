@@ -217,7 +217,10 @@ class MarketSession:
     def append(self, reports_block, event_bounds=None) -> int:
         """Stage one event block (R x e, NaN = non-report) and fold it
         into the round's statistics. Returns the staged event count."""
-        block = np.asarray(reports_block, dtype=np.float64)
+        # C order always: the fold's products round by the operand's
+        # layout, and a replay reads the journaled block back in C order,
+        # so a column slice (Fortran order) must fold as its replay will
+        block = np.ascontiguousarray(reports_block, dtype=np.float64)
         if block.ndim == 1:
             block = block[:, None]
         if block.ndim != 2 or block.shape[0] != self.n_reporters:
@@ -509,6 +512,10 @@ class SessionStore:
 
     def __init__(self) -> None:
         self._sessions: dict = {}
+        #: sessions moved to another worker -> the fence error a request
+        #: still queued here answers (retryable: the client retries onto
+        #: the new owner) instead of "unknown session"
+        self._moved: dict = {}          # guarded-by: _lock
         self._lock = threading.Lock()
 
     def create(self, name: str, n_reporters: int, **kwargs
@@ -518,6 +525,7 @@ class SessionStore:
                 raise InputError(f"session {name!r} already exists")
             session = MarketSession(name, n_reporters, **kwargs)
             self._sessions[name] = session
+            self._moved.pop(name, None)
             # delta-counted: the gauge is the live total across stores
             obs.gauge("pyconsensus_serve_sessions",
                       "live market sessions").inc(1)
@@ -533,6 +541,7 @@ class SessionStore:
                 raise InputError(
                     f"session {session.name!r} already exists")
             self._sessions[session.name] = session
+            self._moved.pop(session.name, None)
             obs.gauge("pyconsensus_serve_sessions",
                       "live market sessions").inc(1)
             return session
@@ -542,13 +551,21 @@ class SessionStore:
             try:
                 return self._sessions[name]
             except KeyError:
-                raise InputError(f"unknown session {name!r}") from None
+                moved = self._moved.get(name)
+        if moved is not None:
+            raise moved
+        raise InputError(f"unknown session {name!r}")
 
-    def remove(self, name: str) -> None:
+    def remove(self, name: str, moved: Optional[BaseException] = None
+               ) -> None:
+        """Drop ``name``; with ``moved`` (the session relocated to another
+        worker), a later ``get`` raises ``moved``."""
         with self._lock:
             if self._sessions.pop(name, None) is not None:
                 obs.gauge("pyconsensus_serve_sessions",
                           "live market sessions").inc(-1)
+            if moved is not None:
+                self._moved[name] = moved
 
     def names(self) -> list:
         with self._lock:

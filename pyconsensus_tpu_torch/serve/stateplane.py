@@ -312,6 +312,7 @@ class TieredSessionStore(SessionStore):
                 raise InputError(f"session {name!r} already exists")
             session = MarketSession(name, n_reporters, **kwargs)
             self._sessions[name] = session
+            self._moved.pop(name, None)
             obs.gauge("pyconsensus_serve_sessions",
                       "live market sessions").inc(1)
             _hot_gauge().inc(1)
@@ -324,6 +325,7 @@ class TieredSessionStore(SessionStore):
                 raise InputError(
                     f"session {session.name!r} already exists")
             self._sessions[session.name] = session
+            self._moved.pop(session.name, None)
             obs.gauge("pyconsensus_serve_sessions",
                       "live market sessions").inc(1)
             _hot_gauge().inc(1)
@@ -338,6 +340,8 @@ class TieredSessionStore(SessionStore):
                     self._sessions.move_to_end(name)
                     return session
                 if name not in self._cold:
+                    if name in self._moved:
+                        raise self._moved[name]
                     raise InputError(f"unknown session {name!r}")
                 event = self._hydrating.get(name)
                 if event is None:
@@ -375,7 +379,8 @@ class TieredSessionStore(SessionStore):
             event.set()
             return session
 
-    def remove(self, name: str) -> None:
+    def remove(self, name: str, moved: Optional[BaseException] = None
+               ) -> None:
         with self._lock:
             if self._sessions.pop(name, None) is not None:
                 obs.gauge("pyconsensus_serve_sessions",
@@ -385,6 +390,8 @@ class TieredSessionStore(SessionStore):
                 self._cold.discard(name)
                 obs.gauge("pyconsensus_serve_sessions",
                           "live market sessions").inc(-1)
+            if moved is not None:
+                self._moved[name] = moved
 
     def names(self) -> list:
         with self._lock:

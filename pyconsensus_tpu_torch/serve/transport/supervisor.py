@@ -27,7 +27,10 @@ the ``transport.base`` worker surface:
   on a dead worker surfaces as the retryable ``WorkerLostError``
   (PYC501), as in the in-process fleet;
 - ``heartbeat`` pings with a short deadline and caches the worker's queue
-  depth;
+  depth, on a control connection of its own; the metric scrapes
+  (``metrics_snapshot``, the SLO monitor's and ``/metrics``' source) have
+  a telemetry connection of their own, so neither waits behind queued
+  submits;
 - ``hard_kill`` IS ``SIGKILL``: the dead process's memory is gone, and
   the shipped replication log is what the standby adopts.
 
@@ -114,6 +117,10 @@ class WorkerProcess:
     def __init__(self, name: str, cmd: list, env: dict) -> None:
         self.name = str(name)
         self.port: Optional[int] = None
+        #: seconds from the spawn to ``READY`` (None until then): the
+        #: boot, kernel load or adoption and warm-up included
+        self.ready_s: Optional[float] = None
+        self._t0 = time.monotonic()
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      text=True, env=env)
         self._port: list = []
@@ -127,6 +134,7 @@ class WorkerProcess:
     def _read(self) -> None:
         for line in self.proc.stdout:
             if line.startswith("READY ") and not self._port:
+                self.ready_s = time.monotonic() - self._t0
                 self._port.append(int(line.split()[1]))
                 self._done.set()
         self._done.set()        # EOF: the worker died before READY
@@ -189,6 +197,13 @@ class SocketWorkerHandle(WorkerBase):
                                timeout_s=rpc_timeout_s,
                                label=f"{name}-data",
                                expect_fingerprint=expect_fingerprint)
+        # the telemetry plane: a scrape or an SLO sample neither waits
+        # behind the data plane's queued submits (under load it would
+        # see the fleet only after the load) nor delays a heartbeat
+        self._obs = RpcClient("127.0.0.1", process.port, pool=1,
+                              timeout_s=rpc_timeout_s,
+                              label=f"{name}-obs",
+                              expect_fingerprint=expect_fingerprint)
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=pool,
             thread_name_prefix=f"pyconsensus-rpc-{name}")
@@ -266,6 +281,7 @@ class SocketWorkerHandle(WorkerBase):
         self._pool.shutdown(wait=False)
         self._ctl.close()
         self._data.close()
+        self._obs.close()
 
     # -- the request plane ----------------------------------------------
 
@@ -398,13 +414,13 @@ class SocketWorkerHandle(WorkerBase):
 
     def metrics_snapshot(self) -> dict:
         """The worker process's registry snapshot (``{"worker",
-        "metrics"}``), over the data plane: a scrape never delays a
-        heartbeat."""
-        return self._data.call("metrics.snapshot", {})
+        "metrics"}``), over the telemetry connection: a scrape never
+        delays a heartbeat nor waits behind queued submits."""
+        return self._obs.call("metrics.snapshot", {})
 
     def metrics_render(self) -> dict:
         """The worker process's own Prometheus text."""
-        return self._data.call("metrics.render", {})
+        return self._obs.call("metrics.render", {})
 
     # -- introspection ---------------------------------------------------
 

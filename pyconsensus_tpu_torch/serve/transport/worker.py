@@ -41,7 +41,10 @@ each ``nvcc`` run, store adoption and library load. A card worker
 without a card, or whose kernel libraries neither load, adopt from the
 store nor build, raises before ``READY``: no worker carries on on the CPU
 unless asked. SIGKILL needs no cooperation: the shipped log is what
-survives it.
+survives it. With ``flightrec_dir`` the worker keeps a flight recorder
+under ``<flightrec_dir>/<name>/`` and dumps it at boot (what a later
+SIGKILL leaves behind), on SIGTERM before the drain, at shutdown and
+when a shipping failure fences a session.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ class FleetWorkerProcess:
 
     def __init__(self, name: str, service, log_root,
                  shipped_root=None, shipper=None,
-                 result_wait_s: float = 300.0) -> None:
+                 result_wait_s: float = 300.0, recorder=None) -> None:
         self.name = str(name)
         self.service = service
         self.log_root = pathlib.Path(log_root)
@@ -89,6 +92,9 @@ class FleetWorkerProcess:
                              else pathlib.Path(shipped_root))
         self.shipper = shipper
         self.result_wait_s = float(result_wait_s)
+        #: optional ``obs.FlightRecorder``, dumped when a shipping failure
+        #: fences a session (and by :func:`main` on boot and SIGTERM)
+        self.recorder = recorder
         #: (session, relpath) records already shipped: a journal record
         #: never changes once written, so its name identifies it;
         #: ledger.npz changes every round and is shipped again each time;
@@ -162,6 +168,11 @@ class FleetWorkerProcess:
                     self.service.sessions.get(name).fence(fence)
                 except Exception:   # noqa: BLE001 — the fence is best
                     pass            # effort; the raise below is not
+                if self.recorder is not None:
+                    try:
+                        self.recorder.dump("fence")
+                    except Exception:   # noqa: BLE001 — the fence's
+                        pass            # raise below is what matters
                 raise fence from exc
 
     def _ship_snapshot(self, name: str, log) -> None:
@@ -295,7 +306,14 @@ class FleetWorkerProcess:
 
     def release_session(self, params: dict) -> dict:
         name = str(params["name"])
-        self.service.sessions.remove(name)
+        try:
+            stale = self.service.sessions.get(name)
+        except Exception:   # noqa: BLE001 — gone already, or its fence
+            stale = None
+        # a request for it still queued here answers its fence
+        # (retryable), not "unknown session"
+        self.service.sessions.remove(
+            name, moved=getattr(stale, "fenced", None))
         # a later session of the same name writes new bytes under the
         # same file names: its records must ship again
         with self._ship_lock:
@@ -460,14 +478,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           label=f"{args.name}-shipper",
                           expect_fingerprint=fingerprint)
                if args.ship_port else None)
+    recorder = None
+    if cfg.flightrec_dir:
+        recorder = obs.FlightRecorder(
+            pathlib.Path(cfg.flightrec_dir) / args.name, source=args.name)
     worker = FleetWorkerProcess(args.name, service, args.log_root,
                                 shipped_root=args.shipped_root,
                                 shipper=shipper,
-                                result_wait_s=args.result_wait_s)
+                                result_wait_s=args.result_wait_s,
+                                recorder=recorder)
     server = RpcServer(worker.handlers(), name=args.name, port=args.port,
                        fingerprint=fingerprint).start()
     stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+
+    def _sigterm(*_):
+        if recorder is not None:
+            try:    # the last-gasp artifact BEFORE the drain, which may
+                recorder.dump("sigterm")    # never return
+            except Exception:   # noqa: BLE001
+                pass
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    if recorder is not None:
+        # a later kill -9 flushes nothing: something recent must be on
+        # disk the moment traffic starts
+        recorder.dump("boot")
     parent = os.getppid()
     print(f"READY {server.port}", flush=True)
     # a worker whose router is gone (its parent changed) drains and exits
@@ -480,6 +516,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         server.close()
         if shipper is not None:
             shipper.close()
+        if recorder is not None:
+            try:
+                recorder.dump("shutdown")
+            except Exception:   # noqa: BLE001 — a clean drain stays one
+                pass
         try:
             obs.write_jsonl(
                 pathlib.Path(args.log_root) / f"trace-{args.name}.jsonl",

@@ -2429,3 +2429,112 @@ def test_stateplane_hydrated_session_on_card_equals_cpu(dev, tmp_path):
     for key in ("smooth_rep", "outcomes_final", "certainty"):
         np.testing.assert_array_equal(np.asarray(card[key]),
                                       np.asarray(twin[key]), err_msg=key)
+
+
+# -- the elastic fleet and the economy ---------------------------------------
+
+
+class _Window:
+    """A monitor stub: the autoscaler reads ``targets`` and ``window()``."""
+
+    targets = {"p99_ms": 50.0}
+
+    def __init__(self, win):
+        self.win = win
+
+    def window(self):
+        return dict(self.win)
+
+
+@pytest.mark.cuda
+def test_autoscaled_worker_launches_the_class(dev, tmp_path):
+    """A sustained breach grows a one-worker fleet on the card; the new
+    worker serves a 1024 x 4096 request on ``bucket_cuda`` (B.1, B.2 and
+    B.3 launched) bit for bit the direct fused ``ShardedOracle``."""
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.serve import (AutoScaler, AutoscaleConfig,
+                                             ConsensusFleet, FleetConfig,
+                                             ServeConfig)
+
+    m = _serve_reports(91, 1024, 4096, na_frac=0.02)
+    fleet = ConsensusFleet(FleetConfig(
+        n_workers=1, log_dir=str(tmp_path / "log"),
+        worker=ServeConfig(pallas_warmup=((1024, 4096),)))).start()
+    try:
+        scaler = AutoScaler(fleet, _Window({"p99_ms": 500.0}),
+                            AutoscaleConfig(max_workers=2, up_signals=2,
+                                            cooldown_s=0.0))
+        assert scaler.evaluate(now=0.0)["action"] == "hold"
+        up = scaler.evaluate(now=1.0)
+        assert up["action"] == "scale_up" and up["worker"] == "w1"
+        ck.reset_launch_counts()
+        got = fleet.workers["w1"].submit_stateless(
+            m, tenant="t").result(timeout=300)
+        counts = ck.launch_counts()
+    finally:
+        fleet.close(drain=True)
+    for k in ("apply_weighted_cov", "scores_dirfix_pass",
+              "resolve_certainty_fused"):
+        assert counts[k] >= 1, counts
+    _serve_bitwise(got, ShardedOracle(m, pca_method="power").consensus())
+
+
+@pytest.mark.cuda
+def test_economy_mirrors_ride_bucket_cuda_and_repeat(dev):
+    """A small economy through one service on the card under the default
+    config: its binary mirrors ride ``bucket_cuda`` (B.1, B.2 and B.3
+    launched), and a second run gives the same mechanism digest."""
+    from pyconsensus_tpu_torch import obs
+    from pyconsensus_tpu_torch.econ import MarketEconomy, build_scenario
+    from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+
+    scenario = build_scenario(seed=3, rounds=2, markets_per_strategy=4,
+                              concurrency=8)
+    digests = []
+    for _ in range(2):
+        obs.reset()
+        ck.reset_launch_counts()
+        with ConsensusService(ServeConfig()) as svc:
+            res = MarketEconomy(svc, scenario).run()
+        digests.append(res["mechanism_digest"])
+        counts = ck.launch_counts()
+        assert obs.value("pyconsensus_serve_requests_total",
+                         path="bucket_cuda", outcome="ok") > 0
+        for k in ("apply_weighted_cov", "scores_dirfix_pass",
+                  "resolve_certainty_fused"):
+            assert counts[k] > 0, counts
+        assert res["service"]["mirrors_abandoned"] == 0
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.cuda
+def test_two_batchers_first_linalg_calls_at_once(dev, tmp_path):
+    """In a fresh process, a two-worker in-process fleet's first session
+    resolves reach ``torch.linalg`` from both batcher threads at once;
+    torch loads its CUDA linear-algebra library at the first call, and
+    two concurrent first calls fail unless the services loaded it first."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent(f"""
+        import numpy as np
+        from pyconsensus_tpu_torch.serve import (ConsensusFleet,
+                                                 FleetConfig, ServeConfig)
+        fleet = ConsensusFleet(FleetConfig(
+            n_workers=2, log_dir={str(tmp_path / "log")!r},
+            worker=ServeConfig(warmup=()))).start(warmup=False)
+        rng = np.random.default_rng(0)
+        names = [f"s{{j}}" for j in range(8)]
+        for n in names:
+            fleet.create_session(n, n_reporters=24)
+            fleet.append(n, rng.choice([0.0, 1.0], size=(24, 48)))
+        futs = [fleet.submit(session=n) for n in names]
+        for f in futs:
+            f.result(timeout=300)
+        fleet.close(drain=True)
+        print("ok")
+    """)
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0 and "ok" in run.stdout, run.stderr[-3000:]

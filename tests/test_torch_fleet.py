@@ -363,10 +363,12 @@ def test_fleet_sites_fire_as_the_references(tmp_path, site):
 
 def test_catalog_has_the_fleet_sites():
     # the fleet's five, since the socket transport its four
-    # (tests/test_torch_transport.py fires them), and since the state
-    # plane its five (tests/test_torch_stateplane.py,
-    # tests/test_torch_aotcache.py)
-    assert len(faults.FAULT_SITES) == 32
+    # (tests/test_torch_transport.py fires them), since the state plane
+    # its five (tests/test_torch_stateplane.py,
+    # tests/test_torch_aotcache.py), and since the autoscaler and the
+    # economy their six (tests/test_torch_autoscale.py,
+    # tests/test_torch_econ.py)
+    assert len(faults.FAULT_SITES) == 38
     assert set(NEW_SITES) <= set(faults.FAULT_SITES)
     assert set(faults.FAULT_SITES) <= set(ref_faults.FAULT_SITES)
 

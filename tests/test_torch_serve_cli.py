@@ -10,14 +10,19 @@ package's, on the CPU.
 - the command line: ``python -m pyconsensus_tpu_torch.serve.cli --device
   cpu`` exits 0 on one service and on a 3-worker fleet with a log
   directory (failed 0, abandoned 0), writes its exposition and span
-  trace, and each flag naming a part the port does not have exits 2
-  naming its ``ROADMAP.md`` §A.11 item.
+  trace; the flags that once exited 2 (``--aot-cache``, ``--transport
+  socket``, ``--autoscale*``, ``--metrics-port``, ``--metrics-hold-s``,
+  ``--slo-*``) each do their work: the store is written then adopted,
+  two socket workers serve, the autoscaler's block lands in the summary,
+  a scrape during the hold equals ``render_prom``, and each SLO target
+  reaches the monitor's summary.
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 from concurrent.futures import Future
 
 import pytest
@@ -262,7 +267,7 @@ def test_cli_warmup_only_and_loadgen_main(capsys):
     (["--slo-shed-ratio", "0.01"], "obs/slo.py"),
     (["--slo-queue-depth", "4"], "obs/slo.py")])
 def test_refused_flags_exit_two_naming_the_item(flags, item, capsys,
-                                               tmp_path):
+                                               tmp_path, monkeypatch):
     if item == "kernel-build cache":
         # no longer refused: the store is written, then adopted from
         flags = ["--aot-cache", str(tmp_path / "aot")]
@@ -281,11 +286,58 @@ def test_refused_flags_exit_two_naming_the_item(flags, item, capsys,
         assert stats["failed"] == 0 and stats["abandoned"] == 0
         assert sorted(stats["fleet"]["workers"]) == ["w0", "w1"]
         return
-    with pytest.raises(SystemExit) as ei:
-        cli.main(["--device", "cpu", *flags])
-    assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert "A.11" in err and item in err
+    # no longer refused: each flag does its work
+    base = ["--device", "cpu", "--requests", "8", "--shapes", "12x48"]
+    if item == "autoscale.py":
+        if "--autoscale" not in flags:
+            flags = [*flags, "--autoscale"]
+        assert cli.main([*base, *flags, "--autoscale-interval-s", "0.05",
+                         "--log-dir", str(tmp_path / "log")]) == 0
+        stats = json.loads(capsys.readouterr().out)
+        block = stats["autoscale"]
+        assert stats["failed"] == 0
+        assert set(block["decisions"]) == {"hold", "scale_up",
+                                           "scale_down", "replace", "error"}
+        assert block["target"] in (None, 1, 2, 3, 4, 5, 6, 7, 8)
+        assert len(stats["fleet"]["workers"]) >= 2
+        return
+    if item == "obs/httpd.py":
+        import urllib.request
+
+        from pyconsensus_tpu_torch import obs as obs_mod
+
+        scraped = []
+        hold = cli._hold
+
+        def scrape_then_hold(args, srv):
+            # the endpoint is up between the run and the close
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics",
+                    timeout=30) as r:
+                scraped.append((r.read().decode(), obs_mod.render_prom()))
+            t0 = time.monotonic()
+            hold(args, srv)
+            scraped.append(time.monotonic() - t0)
+
+        extra = ["--metrics-port", "0"] if "--metrics-port" not in flags \
+            else ["--metrics-hold-s", "0.2"]
+        monkeypatch.setattr(cli, "_hold", scrape_then_hold)
+        assert cli.main([*base, *flags, *extra]) == 0
+        body, want = scraped[0]
+        assert body == want and "pyconsensus_serve_requests_total" in body
+        assert scraped[1] >= (1.0 if "1" in flags else 0.2)
+        assert "metrics endpoint: http://127.0.0.1:" in \
+            capsys.readouterr().err
+        return
+    assert item == "obs/slo.py"
+    assert cli.main([*base, *flags]) == 0
+    slo = json.loads(capsys.readouterr().out)["slo"]
+    key, value = flags[0][len("--slo-"):].replace("-", "_"), float(flags[1])
+    if key == "window_s":
+        assert slo["targets"] == {} and slo["window_s"] <= value
+    else:
+        assert slo["targets"] == {key: value}
+        assert slo["samples"] >= 1
 
 
 def test_usage_errors_exit_two(tmp_path, capsys):
