@@ -11,6 +11,8 @@ NVIDIA card.
                                                # plane and kernel store
     python3 chip_smoke.py --only elastic       # phases 1, 2 and the elastic
                                                # fleet and economy
+    python3 chip_smoke.py --only tune          # phases 1, 2 and the
+                                               # launch-shape autotuner
 
 Phases, each printing its seconds:
 
@@ -69,6 +71,24 @@ Phases, each printing its seconds:
    peak memory and launches of B.1, B.2 and resolve, and its binary
    outcomes must recover the truth and its scaled ones ``20 truth - 5``
    exactly;
+   Then the launch-shape autotuner (``tune_phase``, about a minute): on
+   the generator's 10,000 x 100,000 int8 matrix, every legal split count
+   of the two tile passes (through the covariance sweep B.1) and every
+   legal resolve panel width swept into a cache under a temporary
+   directory (never the default file, so every other phase keeps the
+   built-in shapes), each candidate timed with CUDA events in
+   interleaved rounds and held to the built-in (snapped outcomes and
+   absent counts bit for bit, the rest within ``FULL_RTOL``) and to the
+   plain versions (within ``FULL_RTOL``), a candidate persisted only
+   when its interquartile range lies below the built-in's;
+   ``python -m pyconsensus_tpu_torch.tune`` in a fresh process on that
+   cache (a hit of every kind, 0 sweeps, the file untouched); the fused
+   int8 sztorc resolution under the installed winners against the
+   built-in shapes, in turn (identical outcomes, continuous keys within
+   ``MID_ATOL``, the same B.1/B.2/B.3 launches; both rates, no claim);
+   the serve pipeline depth swept at ``TUNE_DEPTH_SHAPE`` through a
+   service at each depth, on the padded ring route it paces; and the
+   measured stream bandwidth beside the nominal 3.35 TB/s;
 5. ``ShardedOracle`` at full size on the generator's matrix (host int8
    storage, ``storage_dtype="int8"``): its rate as passed and after
    ``place()``, beside ``sharded_consensus``'s in the same phase, with
@@ -151,10 +171,11 @@ Phases, each printing its seconds:
    breached window to the new worker's ring entry, requests/s and p99
    before and after the scale-up, the decisions, a ``/metrics`` scrape,
    the flight dumps and ``pyconsensus-serve-torch --autoscale`` over a
-   socket fleet; then the reference's economy block (1,000 market
-   sessions, 3 rounds, camouflage, sybil_split and flash_crowd at
-   concurrency 32) through one service of the default config, twice (the
-   same digest; the binary mirrors on ``bucket_cuda``), and the economy's
+   socket fleet; then the reference's economy block (cut from 1,002 to
+   501 market sessions for the script's time, 3 rounds, camouflage,
+   sybil_split and flash_crowd at concurrency 32) through one service of
+   the default config, twice (the same digest; the binary mirrors on
+   ``bucket_cuda``), and the economy's
    command line over a two-worker fleet SIGKILLed mid-economy and run
    again (the uninterrupted digest) and with ``--autoscale``;
 9. streaming and the CLI (``streaming_phase``), which launch none of the
@@ -172,7 +193,8 @@ Phases, each printing its seconds:
    hierarchical and dbscan at the hybrid shape against the in-memory
    ``Oracle``; two hosts on one card (threads) equal to one (the
    reputations within ``STREAM_REP_RTOL`` of their largest value); and
-   ``python -m pyconsensus_tpu_torch`` as subprocesses: ``--example``,
+   ``python -m pyconsensus_tpu_torch`` as three subprocesses side by
+   side: ``--example``,
    ``--file <.npy> --shard`` (B.1, B.2 and B.3 launched on one card;
    B.5, B.6 and B.3 over several) and ``--file <.npy> --stream`` with
    equal outcome counts;
@@ -217,8 +239,8 @@ Phases, each printing its seconds:
 ``--only process`` runs phases 1, 2 and 11 (with ``--mesh-devices``,
 after part 1 of phase 9's one-host stream, which phase 11 compares the
 NCCL hosts with) and prints the result line with ``"only": "process"``;
-``--only fleet``, ``--only stateplane`` and ``--only elastic`` run
-phases 1, 2 and that phase.
+``--only fleet``, ``--only stateplane``, ``--only elastic`` and ``--only
+tune`` run phases 1, 2 and that phase.
 
 It exits non-zero, and prints no result line, when there is no CUDA
 device, when the package is not beside it, or when any phase fails. It
@@ -397,6 +419,7 @@ WORKER_BOOT_TIMEOUT = 900
 #: to move; the unloaded requests that set the latency target, the burst's
 #: bound and its tail after the ceiling. The reference's economy block
 #: (``bench.py:228-236``): ``ECON_SESSIONS`` markets of ``ECON_STRATEGIES``
+#: (the reference's 1,002, cut to 501 for the script's time)
 #: over ``ECON_ROUNDS`` rounds at concurrency ``ECON_CONCURRENCY``; its
 #: SIGKILL stage cut to ``ECON_KILL_MARKETS`` markets a strategy
 ELASTIC_MAX, ELASTIC_CLIENTS, ELASTIC_WINDOW_S = 3, 8, 3.0
@@ -404,9 +427,17 @@ ELASTIC_INTERVAL_S, ELASTIC_UP, ELASTIC_DOWN = 0.25, 2, 4
 ELASTIC_COOLDOWN_S, ELASTIC_QUEUE_TARGET = 3.0, 64.0
 ELASTIC_SESSIONS, ELASTIC_SESSION_R, ELASTIC_SESSION_E = 4, 256, 256
 ELASTIC_CALIBRATE, ELASTIC_BURST_S, ELASTIC_AFTER_S = 8, 150.0, 3.0
-ECON_SESSIONS, ECON_ROUNDS, ECON_CONCURRENCY = 1000, 3, 32
+ECON_SESSIONS, ECON_ROUNDS, ECON_CONCURRENCY = 500, 3, 32
 ECON_STRATEGIES = ("camouflage", "sybil_split", "flash_crowd")
 ECON_KILL_MARKETS = 8
+#: the autotuner phase (``tune_phase``): interleaved timing rounds of each
+#: candidate, the serve shape of the pipeline-depth sweep (in the event
+#: ladder's top class, which ``pipeline_depth=0`` reads), its full
+#: batches a candidate and its rounds, the stream-bandwidth buffer
+TUNE_REPEATS = 7
+TUNE_DEPTH_SHAPE, TUNE_DEPTH_DISPATCHES, TUNE_DEPTH_REPEATS = \
+    (256, 4096), 4, 5
+TUNE_STREAM_MBYTES = 1024
 
 KERNELS = {
     "apply_weighted_cov": (
@@ -723,6 +754,15 @@ def run(args) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.only == "tune":
+        with phase(f"launch-shape autotuner {R}x{E} int8"):
+            tune_phase(torch, args, ck, card, dev, drive, here)
+        log(f"chip_smoke --only tune total "
+            f"{time.perf_counter() - t_start:.3f} s")
+        log(json.dumps({"ok": True, "only": "tune", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.only == "process":
         kept = {}
         if args.mesh_devices > 1:
@@ -812,6 +852,9 @@ def run(args) -> int:
         del placed
         del x8
         torch.cuda.empty_cache()
+
+    with phase(f"launch-shape autotuner {R}x{E} int8"):
+        tune_phase(torch, args, ck, card, dev, drive, here)
 
     with phase(f"every algorithm on an event mesh ({where})"):
         mesh_algorithms_phase(torch, args, drive, mesh, where, card, dev)
@@ -5001,7 +5044,8 @@ def streaming_phase(torch, args, ck, card, dev, launches, here,
     4. two hosts on one card (threads) equal to one, the reputations
        within ``STREAM_REP_RTOL`` of their largest value: sztorc at part
        1's shape, k-means at part 3's;
-    5. the command line as subprocesses: ``--example`` (under
+    5. the command line as three subprocesses side by side:
+       ``--example`` (under
        ``--profile``), ``--file <part 1's matrix as .npy> --shard``
        (B.1-B.3 launches printed; B.5, B.6, B.3 over several cards)
        and ``--file ... --stream``, each
@@ -5785,33 +5829,21 @@ def _cli(args, here, timeout=900):
 
 
 def cli_phase(torch, host, stage, launches, card):
-    """Part 5: the command line as subprocesses on the card: the default
-    demo under ``--profile`` (a ``torch.profiler`` trace holding device
-    kernels), then the first ``CLI_E`` events of part 1's matrix as an
-    ``.npy`` through ``--shard``
-    (``ShardedOracle`` in memory; the module runs under a wrapper that
-    prints its launch counts at exit) and through ``--stream``, one
-    iteration each. Each exits 0, and the streamed outcome counts equal
-    the in-memory run's."""
+    """Part 5: the command line as subprocesses on the card, the three
+    side by side (each is mostly its own process's start; no longer in
+    turn, for the script's time): the default demo under
+    ``--profile`` (a ``torch.profiler`` trace holding device kernels), and
+    the first ``CLI_E`` events of part 1's matrix as an ``.npy`` through
+    ``--shard`` (``ShardedOracle`` in memory; the module runs under a
+    wrapper that prints its launch counts at exit) and through
+    ``--stream``, one iteration each. Each exits 0, and the streamed
+    outcome counts equal the in-memory run's."""
     import re
 
     import numpy as np
 
     here = os.path.dirname(stage)
     prof = os.path.join(stage, "profile")
-    t0 = time.perf_counter()
-    out = _cli(["--example", "--profile", prof], here)
-    if "Example (dense binary)" not in out:
-        raise RuntimeError("--example printed no demo table")
-    traces = [f for f in os.listdir(prof) if f.startswith("trace-")]
-    with open(os.path.join(prof, traces[0])) as f:
-        events = json.load(f)["traceEvents"]
-    on_card = sum(1 for e in events if e.get("cat") == "kernel")
-    log(f"cli --example --profile: exit 0 in {time.perf_counter() - t0:.3f}"
-        f" s; {len(traces)} torch.profiler trace(s), {len(events)} events, "
-        f"{on_card} of them device kernels")
-    if not on_card:
-        raise RuntimeError("--profile recorded no device kernel")
     path = os.path.join(stage, "bench.npy")
     np.save(path, host)
     wrapper = ("import atexit, json, runpy, sys; "
@@ -5821,16 +5853,40 @@ def cli_phase(torch, host, stage, launches, card):
                "sys.argv = ['pyconsensus_tpu_torch'] + sys.argv[1:]; "
                "runpy.run_module('pyconsensus_tpu_torch', "
                "run_name='__main__', alter_sys=True)")
+    module = [sys.executable, "-m", "pyconsensus_tpu_torch"]
+    cmds = {"--example --profile": module + ["--example", "--profile", prof],
+            "--shard": [sys.executable, "-c", wrapper, "--file", path,
+                        "--shard", "--iterations", "1"],
+            "--stream": module + ["--file", path, "--stream",
+                                  "--iterations", "1"]}
     t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-c", wrapper, "--file", path,
-                          "--shard", "--iterations", "1"],
-                         capture_output=True, text=True, cwd=here,
-                         timeout=900)
-    t_shard = time.perf_counter() - t0
-    if run.returncode != 0:
-        raise RuntimeError(f"cli --file --shard exited {run.returncode}:\n"
-                           f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
-    counts = json.loads(run.stdout.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, cwd=here)
+             for k, c in cmds.items()}
+    outs, secs = {}, {}
+    try:
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            secs[k] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"cli {k} exited {proc.returncode}:\n"
+                                   f"{out[-4000:]}\n{err[-4000:]}")
+            outs[k] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if "Example (dense binary)" not in outs["--example --profile"]:
+        raise RuntimeError("--example printed no demo table")
+    traces = [f for f in os.listdir(prof) if f.startswith("trace-")]
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(1 for e in events if e.get("cat") == "kernel")
+    if not on_card:
+        raise RuntimeError("--profile recorded no device kernel")
+    out = outs["--shard"]
+    counts = json.loads(out.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
     # --shard puts the events over every local card: one card runs the
     # single-device fused path, several the fused mesh
     path_kernels = (CUDA_TIER_KERNELS if torch.cuda.device_count() == 1
@@ -5840,7 +5896,7 @@ def cli_phase(torch, host, stage, launches, card):
             raise RuntimeError(f"cli --shard: {k} never launched: {counts}")
         launches[k] += counts[k]
     finals, in_events = [], False
-    for line in run.stdout.splitlines():
+    for line in out.splitlines():
         s = line.strip()
         if s == "Events":
             in_events = True
@@ -5851,20 +5907,20 @@ def cli_phase(torch, host, stage, launches, card):
     finals = np.asarray(finals)
     mem_counts = "/".join(str(int((finals == v).sum()))
                           for v in (0.0, 0.5, 1.0))
-    t0 = time.perf_counter()
-    out = _cli(["--file", path, "--stream", "--iterations", "1"], here)
-    t_stream = time.perf_counter() - t0
-    m = re.search(r"outcomes 0/0\.5/1: (\d+/\d+/\d+)", out)
+    m = re.search(r"outcomes 0/0\.5/1: (\d+/\d+/\d+)", outs["--stream"])
     if m is None or m.group(1) != mem_counts or len(finals) != host.shape[1]:
         raise RuntimeError(f"cli --stream outcome counts "
                            f"{m and m.group(1)} != --shard's {mem_counts} "
                            f"({len(finals)} events parsed)")
     os.unlink(path)
-    log(f"cli --file {host.shape[0]}x{host.shape[1]} .npy --shard: exit 0 "
-        f"in {t_shard:.3f} s, launches "
-        f"{ {k: counts[k] for k in path_kernels} }; --stream: exit 0 "
-        f"in {t_stream:.3f} s; outcomes 0/0.5/1 {m.group(1)} in both, on "
-        f"{card}")
+    log(f"cli side by side, seconds from the common start: --example "
+        f"--profile exit 0 after {secs['--example --profile']:.3f} s, "
+        f"{len(traces)} torch.profiler trace(s), {len(events)} events, "
+        f"{on_card} of them device kernels; --file {host.shape[0]}x"
+        f"{host.shape[1]} .npy --shard exit 0 after {secs['--shard']:.3f} "
+        f"s, launches { {k: counts[k] for k in path_kernels}}; --stream "
+        f"exit 0 after {secs['--stream']:.3f} s; outcomes 0/0.5/1 "
+        f"{m.group(1)} in both, on {card}")
 
 
 def geometry_knobs(E):
@@ -6123,6 +6179,175 @@ def oracle_card_vs_cpu(torch, ck, xm_cpu, n_scaled):
             f"max |diff| {worst:.3e} <= {atol})")
 
 
+def tune_phase(torch, args, ck, card, dev, drive, here):
+    """The launch-shape autotuner at full size (``--only tune``, or after
+    the main paths): the sweeps into a cache under a temporary directory,
+    a fresh process's cache hit, the main path under the installed
+    winners against the built-in shapes, the pipeline-depth sweep and the
+    stream bandwidth (the module docstring). Every provider it installs is
+    taken out again, so the other phases keep the built-in shapes."""
+    import tempfile
+
+    from pyconsensus_tpu_torch import ConsensusParams, obs
+    from pyconsensus_tpu_torch.tune import (autotune_cov,
+                                            autotune_pipeline_depth,
+                                            autotune_resolve,
+                                            default_provider,
+                                            device_generation,
+                                            stream_bandwidth_bytes_per_s)
+
+    R, E = args.reporters, args.events
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    path = os.path.join(tmp, "autotune.json")
+    kinds = ("row_tile_splits", "col_tile_splits", "resolve_block_cols")
+    try:
+        x8, truth = gen_reports(torch, R, E, args.seed + 2, dev)
+        torch.cuda.synchronize()
+        log(f"generation {device_generation(dev)}; cache {path} (never "
+            "the default file)")
+        t0 = time.perf_counter()
+        entries = dict(autotune_cov(E, n_reporters=R, storage_dtype="int8",
+                                    x=x8, path=path, force=True,
+                                    repeats=TUNE_REPEATS))
+        entries["resolve_block_cols"] = autotune_resolve(
+            R, n_events=E, storage_dtype="int8", x=x8, path=path,
+            force=True, repeats=TUNE_REPEATS)
+        log(f"sweeps of {R}x{E} int8 took "
+            f"{time.perf_counter() - t0:.3f} s")
+        what = {"row_tile_splits": "row-tile pass split count (through "
+                "B.1)", "col_tile_splits": "column-tile pass split count "
+                "(through B.1)", "resolve_block_cols": "resolve panel width "
+                "(B.3)"}
+        for kind in kinds:
+            e = entries[kind]
+            times = ", ".join(
+                f"{c}: {e['timings_ms'][str(c)]:.4f} "
+                f"[{e['iqr_ms'][str(c)][0]:.4f}, {e['iqr_ms'][str(c)][1]:.4f}]"
+                for c in e["candidates"])
+            log(f"{what[kind]}: every candidate agrees with the built-in "
+                f"{e['builtin']} (snapped outcomes and absent counts bit "
+                f"for bit, the rest within {FULL_RTOL} of max(max |ref|, "
+                f"1)) and with the plain version (every output within that "
+                f"band); fastest median {e['fastest']}, persisted "
+                f"{e['value']} (a candidate replaces the built-in only when "
+                f"its interquartile range lies below the built-in's); median "
+                f"[first, third quartile] ms a call by candidate "
+                f"({TUNE_REPEATS} interleaved rounds, CUDA events) "
+                f"{{{times}}} on {card}")
+
+        # a fresh process on that cache: a hit of every kind, no sweep,
+        # the file as it was
+        st = os.stat(path)
+        before = (st.st_ino, st.st_mtime_ns, open(path, "rb").read())
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "pyconsensus_tpu_torch.tune",
+             "--reporters", str(R), "--events", str(E), "--storage-dtype",
+             "int8", "--cache", path], capture_output=True, text=True,
+            cwd=here, timeout=600)
+        secs = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise RuntimeError(f"python -m pyconsensus_tpu_torch.tune "
+                               f"exited {run.returncode}:\n"
+                               f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        lines = run.stdout.strip().splitlines()
+        if len(lines) != 1:
+            raise RuntimeError(f"the tune command printed {len(lines)} "
+                               "lines, not one")
+        line = json.loads(lines[0])
+        for kind in kinds:
+            if line[kind] != entries[kind]:
+                raise RuntimeError(f"the fresh process's {kind} is not the "
+                                   "persisted entry")
+        if "sweeps 0, cache hits 3" not in run.stderr:
+            raise RuntimeError(f"the fresh process swept: {run.stderr}")
+        st = os.stat(path)
+        if (st.st_ino, st.st_mtime_ns, open(path, "rb").read()) != before:
+            raise RuntimeError("the fresh process rewrote the cache")
+        log(f"python -m pyconsensus_tpu_torch.tune in a fresh process: "
+            f"cache hits 3, sweeps 0, the file untouched ({secs:.3f} s)")
+
+        # the main path under the winners against the built-in shapes, in
+        # turn (built-in, tuned, tuned, built-in)
+        p = ConsensusParams(algorithm="sztorc", storage_dtype="int8",
+                            max_iterations=1, power_tol=1e-5,
+                            pca_method="auto" if R > 4096 else "power-fused")
+        provider = default_provider(path, device=dev)
+        hits0 = {k: obs.value("pyconsensus_autotune_cache_hits_total",
+                              kind=k) or 0 for k in kinds}
+        runs = {"built-in": [], "tuned": []}
+        for label in ("built-in", "tuned", "tuned", "built-in"):
+            with ck.tuned_shapes(provider if label == "tuned" else None):
+                runs[label].append(drive(x8, p, f"sztorc under the {label} "
+                                         "launch shapes"))
+        hits = {k: (obs.value("pyconsensus_autotune_cache_hits_total",
+                              kind=k) or 0) - hits0[k] for k in kinds}
+        if min(hits.values()) < 1:
+            raise RuntimeError(f"the tuned run did not look every kind up "
+                               f"in the cache: {hits}")
+        counts = [c for label in runs for _, _, c in runs[label]]
+        if any(c != counts[0] for c in counts):
+            raise RuntimeError(f"the launches differ between the shapes: "
+                               f"{counts}")
+        n = args.resolutions
+        per = {k: counts[0][k] / n for k in CUDA_TIER_KERNELS}
+        if per["scores_dirfix_pass"] != 1 or \
+                per["resolve_certainty_fused"] != 1:
+            raise RuntimeError(f"B.2/B.3 launched {per} a resolution")
+        base = runs["built-in"][0][0]
+        worst = max(compare_outputs(torch, out, base, MID_ATOL,
+                                    "tuned vs built-in launch shapes")
+                    for out, _, _ in runs["tuned"])
+        compare_outputs(torch, runs["built-in"][1][0], base, 0.0,
+                        "the built-in launch shapes twice")
+        correct = float((base["outcomes_adjusted"] == truth).float().mean())
+        if correct < 0.99:
+            raise RuntimeError("the outcomes do not recover the truth")
+        rate = {k: sum(r for _, r, _ in v) / len(v) for k, v in runs.items()}
+        log(f"sztorc max_iterations=1 under the tuned shapes (row splits "
+            f"{entries['row_tile_splits']['value']}, column splits "
+            f"{entries['col_tile_splits']['value']}, resolve width "
+            f"{entries['resolve_block_cols']['value']}) against the "
+            f"built-in ({entries['row_tile_splits']['builtin']}, "
+            f"{entries['col_tile_splits']['builtin']}, "
+            f"{entries['resolve_block_cols']['builtin']}): outcomes "
+            f"identical, continuous max |diff| {worst:.3e} <= {MID_ATOL}, "
+            f"outcomes == truth {correct:.6f}; B.1/B.2/B.3 "
+            f"{per['apply_weighted_cov']:g}/{per['scores_dirfix_pass']:g}/"
+            f"{per['resolve_certainty_fused']:g} a resolution under both; "
+            f"cache hits {hits}; {rate['tuned']:.4f} (tuned) and "
+            f"{rate['built-in']:.4f} (built-in) resolutions/s, each the "
+            f"mean of two runs of {n} taken in turn, on {card} (no claim)")
+        del x8
+        torch.cuda.empty_cache()
+
+        rq, eq = TUNE_DEPTH_SHAPE
+        t0 = time.perf_counter()
+        e = autotune_pipeline_depth(rq, eq, path=path, force=True,
+                                    repeats=TUNE_DEPTH_REPEATS,
+                                    dispatches=TUNE_DEPTH_DISPATCHES)
+        times = ", ".join(
+            f"{d}: {e['timings_ms'][str(d)]:.3f} "
+            f"[{e['iqr_ms'][str(d)][0]:.3f}, {e['iqr_ms'][str(d)][1]:.3f}]"
+            for d in e["candidates"])
+        log(f"pipeline depth at {rq}x{eq} ({e['requests']} requests with "
+            f"one scaled event a candidate, a service at each depth, every "
+            f"one served on the {e['route']} ring route, the same bits at "
+            f"every depth): fastest median {e['fastest']}, persisted "
+            f"{e['value']} (fallback {e['builtin']}), median [first, third "
+            f"quartile] wall ms by depth ({TUNE_DEPTH_REPEATS} interleaved "
+            f"rounds) {{{times}}} "
+            f"on {card} ({time.perf_counter() - t0:.3f} s)")
+        bw = stream_bandwidth_bytes_per_s(mbytes=TUNE_STREAM_MBYTES,
+                                          repeats=5, device=dev)
+        log(f"stream bandwidth (y = x + 0.5 over {TUNE_STREAM_MBYTES} MiB "
+            f"float32, CUDA events, median of 5): {bw / 1e12:.4f} TB/s, "
+            f"{bw / HBM_BYTES_PER_S:.4f} of the nominal 3.35 TB/s, on "
+            f"{card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_result(torch, out, R, E, algorithm="sztorc", lattice=None):
     """Finite values of the expected shapes, outcomes on the lattice (on
     the events of ``lattice``, a slice, where some are scaled)."""
@@ -6206,12 +6431,13 @@ def main(argv=None) -> int:
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")
     ap.add_argument("--only", choices=("process", "fleet", "stateplane",
-                                       "elastic"),
+                                       "elastic", "tune"),
                     help="run only this phase after the build (the process "
                     "mesh, with --mesh-devices after the streaming "
                     "phase's one-host stream that it compares with; the "
-                    "fleet; the state plane and kernel store; or the "
-                    "elastic fleet and economy)")
+                    "fleet; the state plane and kernel store; the "
+                    "elastic fleet and economy; or the launch-shape "
+                    "autotuner)")
     ap.add_argument("--process-worker", type=int, default=None,
                     metavar="RANK", help=argparse.SUPPRESS)
     ap.add_argument("--process-world", type=int, default=1,

@@ -47,17 +47,19 @@ import numpy as np
 __all__ = ["FAULT_SITES", "FaultRule", "FaultPlan", "SimulatedCrash",
            "arm", "disarm", "armed", "active_plan", "fire", "corrupt"]
 
-#: The 38 named injection sites of the port — every :func:`fire` /
+#: The 39 named injection sites of the port — every :func:`fire` /
 #: :func:`corrupt` hook call in the package names exactly one of these,
 #: and every entry here is reached by at least one hook call (the tests
-#: check both directions against the source). Each is a site of the JAX
-#: package's catalog, so a plan written for it arms the same sites here:
+#: check both directions against the source). They are the JAX package's
+#: catalog, site for site, so a plan written for it arms the same sites here:
 #: persistence (``io.*``, ``ledger.*``, ``sweep.chunk.*``), the front
 #: doors (``sharded.reports``, ``oracle.*``), the out-of-core driver
 #: (``streaming.panel``: each host panel before its upload), the serve
 #: tier (``serve.*``: submit, dispatch, the executable cache's store and
 #: a session's append), the kernel-build store (``aot.cache_write``
 #: after an entry's atomic write, ``aot.cache_load`` before its read),
+#: the launch-shape autotuner (``tune.cache_write`` before a winner's
+#: atomic write),
 #: the fleet (``fleet.*``: routing, a worker's heartbeat, a takeover and
 #: the replay of a replication log), the autoscaler (``autoscale.*``: a
 #: control decision, a scale-up's spawn, a scale-down's drain), the
@@ -80,6 +82,7 @@ FAULT_SITES = (
     "serve.enqueue", "serve.dispatch", "serve.cache_store",
     "serve.session_append",
     "aot.cache_write", "aot.cache_load",
+    "tune.cache_write",
     "fleet.route", "fleet.heartbeat", "fleet.takeover",
     "fleet.ledger_replay",
     "autoscale.decide", "autoscale.spawn", "autoscale.drain",

@@ -58,7 +58,8 @@ from .. import obs
 from ..faults.errors import InputError
 from ..ops import numpy_kernels as nk
 from ..ops import torch_kernels as tk
-from ..ops.cuda_kernels import fill_stats_pass, resolve_certainty_fused
+from ..ops.cuda_kernels import (fill_stats_kernel_fits, fill_stats_pass,
+                                resolve_certainty_fused)
 from . import clustering as cl
 from .ica import ica_k, ica_scores, ica_scores_np, ica_scores_storage
 from .sztorc import (fixed_variance_k, fixed_variance_scores,
@@ -148,7 +149,7 @@ def _fill_stats(reports: torch.Tensor, reputation: torch.Tensor,
     acc = reputation.dtype
     if storage_dtype == "int8":
         x = reports if reports.dtype == torch.int8 else encode_reports(reports)
-        if _FILL_STATS_KERNEL:
+        if _FILL_STATS_KERNEL and fill_stats_kernel_fits(x.shape[1], 1):
             tw, numer = fill_stats_pass(x, reputation)
             return (x, *_snap_fill(tw.to(acc), numer.to(acc), tolerance,
                                    scaled))

@@ -71,6 +71,11 @@ __all__ = ["apply_weighted_cov", "apply_weighted_cov_plain",
            "resolve_certainty_fused_plain", "fused_pca_fits",
            "cov_block_kernel_fits", "matmat_kernels_fit",
            "resolve_kernel_fits", "resolve_block_cols", "resolve_smem_bytes",
+           "wave_splits", "row_tile_splits", "col_tile_splits",
+           "split_candidates", "split_fits", "resolve_block_fits",
+           "resolve_block_candidates", "fill_stats_chunk_rows",
+           "fill_stats_kernel_fits", "set_tune_provider", "tuned_shapes",
+           "row_splits", "col_splits", "resolve_cols", "NOMINAL_SMS",
            "launch_counts", "reset_launch_counts", "hopper", "require_hopper",
            "SMEM_PER_BLOCK",
            "MAX_BLOCK_K", "MAX_TILE_K", "MAX_ROWS_K"]
@@ -239,6 +244,277 @@ def resolve_kernel_fits(n_reporters: int, itemsize: int) -> bool:
         _RES_MAX_PANEL_BYTES
 
 
+# -- launch-shape models -------------------------------------------------------
+#
+# The Hopper counterparts of the Pallas kernels' shape models
+# (``pallas_kernels._panel_rows``, ``cov_tile_fits``, ``cov_tile_candidates``,
+# ``resolve_block_fits``, ``resolve_block_candidates``, ``matmat_tile_rows``).
+# The tile of both tile passes is a compile-time constant (64 rows x 512
+# bytes, csrc/storage_sweeps.cu); what a launch chooses is how many ranges
+# of its reduction axis it splits into partials (``n_splits``), and
+# resolve's column-panel width. The built-in choices are copies of the
+# library's own (``wave_splits``, ``row_tile_splits``, ``col_tile_splits``;
+# tests/test_torch_cuda.py holds them to ``pyc_row_tile_splits`` and
+# ``pyc_col_tile_splits``), so the CPU and the deterministic sweep know
+# them without ``nvcc``. Each is a function of R, E, the storage type and
+# the card, never of k, and so is every value a provider may install: a
+# column of a k = 12 launch is summed in the same order as at k = 1.
+
+#: rows of a tile and bytes of a row a tile takes (kTileRows, kTileBytes)
+_TILE_ROWS = 64
+_TILE_BYTES = 512
+#: most partials of one tile-pass launch (kMaxSplits)
+_MAX_SPLITS = 16
+#: resident column-tile blocks an SM (kColTileBlocksPerSm); the row-tile
+#: pass counts one
+_COL_TILE_BLOCKS_PER_SM = 2
+#: the SMs of an H100 SXM: the card the deterministic CPU sweep ranks for
+NOMINAL_SMS = 132
+
+
+def wave_splits(tiles: int, chunks: int, slots: int) -> int:
+    """Of 1 .. ``_MAX_SPLITS`` ranges (at most one a chunk), the fewest
+    whose ``tiles x ranges`` blocks fill the last wave of ``slots``
+    resident blocks best (``csrc/storage_sweeps.cu wave_splits``)."""
+    best, best_fill = 1, 0.0
+    for s in range(1, min(_MAX_SPLITS, chunks) + 1):
+        blocks = tiles * s
+        waves = (blocks + slots - 1) // slots
+        fill = blocks / (waves * slots)
+        if fill > best_fill + 1e-3:
+            best, best_fill = s, fill
+    return best
+
+
+def _row_chunks(n_events: int, itemsize: int) -> int:
+    """The 512-byte chunks of a row: the row-tile pass's reduction axis."""
+    cols = _TILE_BYTES // itemsize
+    return -(-n_events // cols)
+
+
+def _col_chunks(n_reporters: int) -> int:
+    """The 64-row chunks of a column: the column-tile pass's reduction
+    axis."""
+    return -(-n_reporters // _TILE_ROWS)
+
+
+@functools.lru_cache(maxsize=4096)
+def row_tile_splits(n_reporters: int, n_events: int, itemsize: int,
+                    n_sm: int) -> int:
+    """The built-in E ranges of the row-tile pass, one block an SM
+    (``pyc_row_tile_splits``; 10,000 x 100,000 int8 on 132 SMs: 157
+    tiles x 5 ranges)."""
+    return wave_splits(_col_chunks(n_reporters),
+                       _row_chunks(n_events, itemsize), max(1, n_sm))
+
+
+@functools.lru_cache(maxsize=4096)
+def col_tile_splits(n_reporters: int, n_events: int, itemsize: int,
+                    n_sm: int) -> int:
+    """The built-in row ranges of the column-tile pass, two blocks an SM
+    (``pyc_col_tile_splits``; 10,000 x 100,000 int8 on 132 SMs: 196
+    tiles x 4 ranges)."""
+    return wave_splits(_row_chunks(n_events, itemsize),
+                       _col_chunks(n_reporters),
+                       _COL_TILE_BLOCKS_PER_SM * max(1, n_sm))
+
+
+def split_candidates(kind: str, n_reporters: int, n_events: int,
+                     itemsize: int) -> list:
+    """The legal split counts of a tile pass (``kind`` ``"row_tile_splits"``
+    or ``"col_tile_splits"``), ascending: ``1 .. min(_MAX_SPLITS, chunks)``
+    over the pass's reduction axis, where the built-in always lies."""
+    chunks = (_row_chunks(n_events, itemsize) if kind == "row_tile_splits"
+              else _col_chunks(n_reporters))
+    return list(range(1, min(_MAX_SPLITS, chunks) + 1))
+
+
+def split_fits(kind: str, n_splits: int, n_reporters: int, n_events: int,
+               itemsize: int) -> bool:
+    """Whether ``n_splits`` is a legal split count of that pass."""
+    legal = split_candidates(kind, n_reporters, n_events, itemsize)
+    return bool(legal) and 1 <= n_splits <= legal[-1]
+
+
+def resolve_block_fits(n_reporters: int, block_cols: int,
+                       itemsize: int) -> bool:
+    """Whether resolve's column kernel takes ``block_cols``-wide panels at
+    this R: an R the gate admits (:func:`resolve_kernel_fits`) and one of
+    the instantiated widths (``_RES_COLS``) whose ``R x C`` chunks fit one
+    block's shared memory."""
+    return (block_cols in _RES_COLS
+            and resolve_kernel_fits(n_reporters, itemsize)
+            and resolve_smem_bytes(n_reporters, block_cols, itemsize)
+            <= SMEM_PER_BLOCK)
+
+
+def resolve_block_candidates(n_reporters: int, itemsize: int) -> list:
+    """The legal column-panel widths of resolve at this R, ascending (the
+    built-in :func:`resolve_block_cols` is the widest); empty when even
+    one column does not fit."""
+    return sorted(c for c in _RES_COLS
+                  if resolve_block_fits(n_reporters, c, itemsize))
+
+
+def fill_stats_chunk_rows(n_reporters: int) -> int:
+    """The rows of one chunk of :func:`fill_stats_pass`: at most
+    ``_COL_CHUNK_MAX`` chunks, so the partials hold at most ``64 * 2 * E``
+    floats while enough blocks stay in flight (10,000 rows: 64 chunks of
+    157). The counterpart of ``pallas_kernels._fill_stats_tile_rows``;
+    untuned, as the reference's."""
+    return max(1, -(-n_reporters // _COL_CHUNK_MAX))
+
+
+def fill_stats_kernel_fits(n_events: int, itemsize: int) -> bool:
+    """Whether :func:`fill_stats_pass` takes an E-wide matrix of
+    ``itemsize`` bytes: int8 or float32 storage, as the reference runs it
+    (``pallas_kernels.fill_stats_kernel_fits``). A block keeps a strip of
+    columns and streams its rows, so nothing E-wide sits on chip."""
+    return itemsize in (1, 4) and 1 <= n_events < 2 ** 31
+
+
+# -- tuned launch shapes (pyconsensus_tpu_torch.tune) --------------------------
+#
+# ``tune`` may install a PROVIDER that overrides the built-in choices per
+# (card generation, storage type, shape class). It is asked at each
+# launch, through :func:`_tuned`, which remembers its answer per shape for
+# the provider it asked; every value is re-validated against the legal
+# sets above, so a stale or hand-edited cache entry can cost speed but
+# can never launch an illegal shape.
+
+_TUNE_PROVIDER = None
+_TUNE_AUTOLOAD = True
+#: ``(provider, {(kind, ctx): value})``: the answers of the provider that
+#: gave them, dropped when another provider is installed
+_TUNE_MEMO = (None, {})
+
+
+def set_tune_provider(provider):
+    """Install (or clear, with None) the launch-shape provider —
+    ``provider(kind, **ctx) -> int | None`` with kinds
+    ``"row_tile_splits"`` and ``"col_tile_splits"`` (ctx: n_reporters,
+    n_events, itemsize) and ``"resolve_block_cols"`` (ctx: n_reporters,
+    itemsize). Returns the previous provider. Installing one explicitly
+    (even None) disables the lazy default-cache autoload."""
+    global _TUNE_PROVIDER, _TUNE_AUTOLOAD
+    prev = _TUNE_PROVIDER
+    _TUNE_PROVIDER = provider
+    _TUNE_AUTOLOAD = False
+    return prev
+
+
+@contextlib.contextmanager
+def tuned_shapes(provider):
+    """Run the block with ``provider`` installed, then put the provider
+    and the autoload back as they were."""
+    global _TUNE_PROVIDER, _TUNE_AUTOLOAD
+    prev = (_TUNE_PROVIDER, _TUNE_AUTOLOAD)
+    set_tune_provider(provider)
+    try:
+        yield provider
+    finally:
+        _TUNE_PROVIDER, _TUNE_AUTOLOAD = prev
+
+
+def _tuned(kind: str, device=None, **ctx):
+    """The provider's override for ``kind`` at ``ctx`` (None: the
+    built-in). The first call on a card lazily installs the tune
+    runtime's default provider for ``device`` (a persisted-cache lookup)
+    unless one was installed explicitly.
+
+    Hardened as the reference's: a provider that raises, or returns
+    anything but a positive integral number (a hand-edited cache file can
+    put ANY JSON value behind ``"value"``), yields None — tuning is never
+    load-bearing."""
+    global _TUNE_PROVIDER, _TUNE_AUTOLOAD, _TUNE_MEMO
+    if _TUNE_PROVIDER is None and _TUNE_AUTOLOAD and device is not None:
+        _TUNE_AUTOLOAD = False
+        try:
+            from ..tune.autotune import default_provider
+
+            _TUNE_PROVIDER = default_provider(device=device)
+        except Exception:      # noqa: BLE001 — tuning is never load-bearing
+            _TUNE_PROVIDER = None
+    provider = _TUNE_PROVIDER
+    if provider is None:
+        return None
+    owner, memo = _TUNE_MEMO
+    if owner is not provider:
+        memo = {}
+        _TUNE_MEMO = (provider, memo)
+    key = (kind, tuple(sorted(ctx.items())))
+    if key in memo:
+        return memo[key]
+    try:
+        v = provider(kind, **ctx)
+    except Exception:          # noqa: BLE001 — same rule as the autoload
+        v = None
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        v = None
+    elif isinstance(v, float) and not v.is_integer():
+        v = None
+    else:
+        v = int(v) if v > 0 else None
+    memo[key] = v
+    return v
+
+
+def row_splits(n_reporters: int, n_events: int, itemsize: int, n_sm: int,
+               device=None) -> int:
+    """The E ranges a row-tile launch takes: the provider's legal value,
+    else the built-in :func:`row_tile_splits`."""
+    t = _tuned("row_tile_splits", device, n_reporters=n_reporters,
+               n_events=n_events, itemsize=itemsize)
+    if t and split_fits("row_tile_splits", t, n_reporters, n_events,
+                        itemsize):
+        return t
+    return row_tile_splits(n_reporters, n_events, itemsize, n_sm)
+
+
+def col_splits(n_reporters: int, n_events: int, itemsize: int, n_sm: int,
+               device=None) -> int:
+    """The row ranges a column-tile launch takes: the provider's legal
+    value, else the built-in :func:`col_tile_splits`."""
+    t = _tuned("col_tile_splits", device, n_reporters=n_reporters,
+               n_events=n_events, itemsize=itemsize)
+    if t and split_fits("col_tile_splits", t, n_reporters, n_events,
+                        itemsize):
+        return t
+    return col_tile_splits(n_reporters, n_events, itemsize, n_sm)
+
+
+def resolve_cols(n_reporters: int, itemsize: int,
+                 device=None) -> Optional[int]:
+    """The panel width a resolve launch takes: the provider's legal
+    value, else the built-in :func:`resolve_block_cols`."""
+    t = _tuned("resolve_block_cols", device, n_reporters=n_reporters,
+               itemsize=itemsize)
+    if t and resolve_block_fits(n_reporters, t, itemsize):
+        return t
+    return resolve_block_cols(n_reporters, itemsize)
+
+
+def _check_override(kind: str, value, n_reporters: int, n_events: int,
+                    itemsize: int) -> None:
+    """Refuse an explicit launch-shape override outside its legal set."""
+    if value is None:
+        return
+    legal = (resolve_block_candidates(n_reporters, itemsize)
+             if kind == "resolve_block_cols"
+             else split_candidates(kind, n_reporters, n_events, itemsize))
+    if value not in legal:
+        raise ValueError(f"{kind}={value!r} is not legal at {n_reporters} x "
+                         f"{n_events}, {itemsize}-byte storage: {legal}")
+
+
+def _check_splits(x: torch.Tensor, row, col) -> None:
+    """Refuse an illegal ``row_splits`` / ``col_splits`` override for
+    storage ``x``."""
+    R, E = x.shape
+    _check_override("row_tile_splits", row, R, E, x.element_size())
+    _check_override("col_tile_splits", col, R, E, x.element_size())
+
+
 # -- shared checks -----------------------------------------------------------
 
 #: the storage codes of the C entry points (csrc/*.cu)
@@ -329,31 +605,23 @@ def _raise_on(err: int, what: str) -> None:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     """The SMs of CUDA device ``index``, queried once per device: the
-    tile passes' split counts (``pyc_row_tile_splits``,
-    ``pyc_col_tile_splits``) depend on R, E, the storage type and this,
+    tile passes' split counts depend on R, E, the storage type and this,
     never on k."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-@functools.lru_cache(maxsize=None)
-def _row_tile_splits(R: int, E: int, storage: int, index: int) -> int:
-    """``pyc_row_tile_splits`` for a matrix on CUDA device ``index``,
-    asked once per shape and storage code."""
-    return _storage_lib().pyc_row_tile_splits(R, E, storage,
-                                              _sm_count(index))
-
-
-def _col_pass(lib, x, m, a, w):
+def _col_pass(lib, x, m, a, w, splits=None):
     """``out = w xc`` (k, E) for a (k, R) stack ``w`` through one
     column-tile launch: centered on ``m`` for k <= 8, uncentered (``m``
     None) for k <= 16. The launch sums ``n_splits`` ranges of rows into
-    partials (fixed by R, E, the storage type and the card, never by k)
-    and reduces them in a fixed order."""
+    partials (``splits``, else :func:`col_splits`: fixed by R, E, the
+    storage type and the card, never by k) and reduces them in a fixed
+    order."""
     R, E = x.shape
     k = w.shape[0]
     storage, stream = _launch_args(x)
-    n_splits = lib.pyc_col_tile_splits(R, E, storage,
-                                       _sm_count(x.device.index))
+    n_splits = splits or col_splits(R, E, x.element_size(),
+                                    _sm_count(x.device.index), x.device)
     out = torch.empty((k, E), dtype=torch.float32, device=x.device)
     partial = (torch.empty((n_splits, k, E), dtype=torch.float32,
                            device=x.device) if n_splits > 1 else out)
@@ -363,10 +631,6 @@ def _col_pass(lib, x, m, a, w):
         a.data_ptr() if a is not None else None, w.data_ptr(), k, n_splits,
         partial.data_ptr(), out.data_ptr(), stream), "pyc_col_pass")
     return out
-
-
-def _chunks(R: int) -> int:
-    return -(-R // max(1, -(-R // _COL_CHUNK_MAX)))
 
 
 def _grouped(x: torch.Tensor, k: int, width: int, part,
@@ -414,13 +678,16 @@ def apply_weighted_cov_plain(x, mu, rep, v, fill=None):
     return (rep.to(torch.float32) * t) @ xc
 
 
-def apply_weighted_cov(x, mu, rep, v, fill=None):
+def apply_weighted_cov(x, mu, rep, v, fill=None, *, row_splits=None,
+                       col_splits=None):
     """``(X - mu)^T (rep * ((X - mu) v))`` over storage ``x`` (R, E),
     centered in-register; with ``fill`` the absent entries take
     ``fill - mu``. Returns (E,) f32; the caller divides by the
-    unbiased-weight denominator. Replaces
-    ``pallas_kernels.apply_weighted_cov``."""
+    unbiased-weight denominator. ``row_splits`` / ``col_splits`` override
+    the passes' split counts (the autotuner's sweep; a legal value or
+    ValueError). Replaces ``pallas_kernels.apply_weighted_cov``."""
     R, E = _check_matrix(x)
+    _check_splits(x, row_splits, col_splits)
     mu, rep, v = (_vec(mu, E, x, "mu"), _vec(rep, R, x, "rep"),
                   _vec(v, E, x, "v"))
     fill = _vec(fill, E, x, "fill") if fill is not None else None
@@ -429,9 +696,9 @@ def apply_weighted_cov(x, mu, rep, v, fill=None):
     lib = _storage_lib()
     with torch.cuda.device(x.device):
         a = (fill - mu).contiguous() if fill is not None else None
-        t = _row_tile(lib, x, mu, a, v[:, None])[0]
+        t = _row_tile(lib, x, mu, a, v[:, None], splits=row_splits)[0]
         w = (rep * t).reshape(1, R).contiguous()
-        y = _col_pass(lib, x, mu, a, w)[0]
+        y = _col_pass(lib, x, mu, a, w, splits=col_splits)[0]
     _count("apply_weighted_cov")
     return y
 
@@ -564,14 +831,15 @@ def storage_matmat_plain(x, V, fill=None):
     return _filled(x, _lattice_fill(x, fill)) @ V.to(torch.float32)
 
 
-def _row_tile(lib, x, m, a, V, absent: bool = False):
+def _row_tile(lib, x, m, a, V, absent: bool = False, splits=None):
     """``T = (xc V)^T`` (k, R) through one row-tile launch: centered on
     ``m`` for k <= 8, uncentered (``m`` None) for k <= 16; every row
     contraction of the port, k = 1 included. ``absent``: xc is the
     absent indicator, uncentered with no fill, at k = 2 (resolve's row
     half). The launch sums
-    ``n_splits`` ranges of E into partials (fixed by R, E, the storage
-    type and the card, never by k) and reduces them in a fixed order.
+    ``n_splits`` ranges of E into partials (``splits``, else
+    :func:`row_splits`: fixed by R, E, the storage type and the card,
+    never by k) and reduces them in a fixed order.
     ``vt``, ``a`` and ``m`` are staged 16 bytes at a time only when all
     three start on a 16-byte boundary, so an unaligned view (a k = 1
     column ``V`` is ``v`` itself) is copied first."""
@@ -580,7 +848,8 @@ def _row_tile(lib, x, m, a, V, absent: bool = False):
     vt = _aligned(V.T.contiguous())                             # (k, E)
     m, a = _aligned(m), _aligned(a)
     storage, stream = _launch_args(x)
-    n_splits = _row_tile_splits(R, E, storage, x.device.index)
+    n_splits = splits or row_splits(R, E, x.element_size(),
+                                    _sm_count(x.device.index), x.device)
     t = torch.empty((k, R), dtype=torch.float32, device=x.device)
     partial = (torch.empty((n_splits, k, R), dtype=torch.float32,
                            device=x.device) if n_splits > 1 else t)
@@ -695,7 +964,7 @@ def fill_stats_pass(x, rep):
         return fill_stats_pass_plain(x, rep)
     lib = _storage_lib()
     with torch.cuda.device(x.device):
-        n_chunks = _chunks(R)
+        n_chunks = -(-R // fill_stats_chunk_rows(R))
         partial = torch.empty((n_chunks, 2, E), dtype=torch.float32,
                               device=x.device)
         out = torch.empty((2, E), dtype=torch.float32, device=x.device)
@@ -745,16 +1014,23 @@ def resolve_certainty_fused_plain(x, rep, fill, full_total, tolerance):
     return means, out, cert, pcol, naf @ cert, naf.sum(dim=1)
 
 
-def resolve_certainty_fused(x, rep, fill, full_total, tolerance: float):
+def resolve_certainty_fused(x, rep, fill, full_total, tolerance: float, *,
+                            block_cols=None, row_splits=None):
     """Outcome resolution, certainty and participation over storage ``x``
     (binary events): returns ``(outcomes_raw, outcomes_adjusted,
     certainty, pcol, prow, na_count_rows)`` f32, where
     ``pcol = rep^T [absent]`` clamped to ``[0, sum(rep)]`` and
     ``prow = [absent] @ certainty``. Means fall back to the
     full-reputation filled mean where no reputation is present; outcomes
-    are catch-snapped with ``catch_tie_atol(float32)``. Replaces
+    are catch-snapped with ``catch_tie_atol(float32)``. ``block_cols``
+    overrides the column kernel's panel width and ``row_splits`` the row
+    half's split count (the autotuner's sweep; a legal value or
+    ValueError), as the reference's ``block_cols=``. Replaces
     ``pallas_kernels.resolve_certainty_fused``."""
     R, E = _check_matrix(x)
+    _check_override("resolve_block_cols", block_cols, R, E,
+                    x.element_size())
+    _check_splits(x, row_splits, None)
     rep, fill = _vec(rep, R, x, "rep"), _vec(fill, E, x, "fill")
     if x.device.type == "cpu":
         return resolve_certainty_fused_plain(x, rep, fill, full_total,
@@ -767,23 +1043,25 @@ def resolve_certainty_fused(x, rep, fill, full_total, tolerance: float):
         # the certainty goes straight into row 0 of the row half's V^T
         vt = torch.empty((2, E), dtype=torch.float32, device=x.device)
         raw, out, cert, pcol = _resolve_columns(x, rep, fill, full_total,
-                                                tolerance, vt[0])
+                                                tolerance, vt[0], block_cols)
         vt[1].fill_(1.0)
-        prow, narow = _absent_rows(x, vt)
+        prow, narow = _absent_rows(x, vt, row_splits)
     _count("resolve_certainty_fused")
     return raw, out, cert, pcol, prow, narow
 
 
-def _resolve_columns(x, rep, fill, full_total, tolerance: float, cert=None):
+def _resolve_columns(x, rep, fill, full_total, tolerance: float, cert=None,
+                     block_cols=None):
     """The column half of :func:`resolve_certainty_fused` on the card:
     ``(raw, out, cert, pcol)`` from one launch of the column-panel kernel
-    (``pyc_resolve_cols``, a persistent grid of one block an SM), the
-    certainty into ``cert`` when it is given."""
+    (``pyc_resolve_cols``, a persistent grid of one block an SM) at
+    ``block_cols`` (else :func:`resolve_cols`), the certainty into
+    ``cert`` when it is given."""
     from .build import load
 
     R, E = x.shape
     lib = load("resolve.cu")
-    C = resolve_block_cols(R, x.element_size())
+    C = block_cols or resolve_cols(R, x.element_size(), x.device)
     lo, hi = _catch_bounds(tolerance)
     f32 = torch.float32
     ft = (full_total.to(device=x.device, dtype=f32)
@@ -800,10 +1078,11 @@ def _resolve_columns(x, rep, fill, full_total, tolerance: float, cert=None):
     return tuple(outs)
 
 
-def _absent_rows(x, vt):
+def _absent_rows(x, vt, splits=None):
     """The row half of :func:`resolve_certainty_fused` on the card:
     ``(prow, narow) = [absent] vt^T`` for ``vt = [cert; 1]`` (2, E), one
     row-tile launch at k = 2 with the absent-indicator op, its E ranges
     summed in a fixed order."""
-    t = _row_tile(_storage_lib(), x, None, None, vt.T, absent=True)
+    t = _row_tile(_storage_lib(), x, None, None, vt.T, absent=True,
+                  splits=splits)
     return t[0], t[1]

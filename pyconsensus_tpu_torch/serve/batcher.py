@@ -10,9 +10,11 @@ A request's bits never depend on what it was co-batched with: a lane's
 arithmetic reads its own slices alone (``serve.kernels``).
 
 **Pipelined dispatch.** A padded dispatch leaves its result on the
-device and joins a bounded in-flight ring (``ServeConfig.pipeline_depth``,
-0 meaning 2); results are fetched — the blocking step — only when the
-ring exceeds its depth, the queue goes idle or the service drains, or
+device and joins a bounded in-flight ring (``ServeConfig.pipeline_depth``;
+0 is the tuned depth of the event ladder's top class,
+``tune.autotune.tuned_pipeline_depth``, 2 without a cache entry);
+results are fetched — the blocking step — only when the ring exceeds
+its depth, the queue goes idle or the service drains, or
 before any other route's dispatch. The pad buffers are per-key
 :class:`~.kernels.BucketTemplates`, reused across dispatches: their
 ``non_blocking`` uploads are pinned by a CUDA event the template waits
@@ -52,14 +54,10 @@ from .cuda import CUDA_KERNEL_PATH, cuda_bucket_inputs
 from .incremental import kernel_path_counter
 from .sharded import SINGLE_TOPOLOGY, topology_event_shards
 
-__all__ = ["Microbatcher", "OCCUPANCY_BUCKETS", "DEFAULT_PIPELINE_DEPTH"]
+__all__ = ["Microbatcher", "OCCUPANCY_BUCKETS"]
 
 #: batch-occupancy histogram edges (requests per padded dispatch)
 OCCUPANCY_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 32.0)
-
-#: the depth ``pipeline_depth=0`` resolves to: the reference's default
-#: without a tuning cache (its ``tune/`` is ROADMAP.md §A.12)
-DEFAULT_PIPELINE_DEPTH = 2
 
 #: keys of the flat light dict a lane must carry into assemble_result
 _SCALAR_KEYS = ("iterations", "convergence", "percent_na",
@@ -123,8 +121,15 @@ class Microbatcher:
         self._kernel_path = kernel_path_counter()
         self._ring: deque = deque()
         self._templates: OrderedDict = OrderedDict()
+        # 0 = auto: the tune/ winner for this ladder's top event class on
+        # this device, else the fallback table's 2
         depth = int(getattr(config, "pipeline_depth", 1) or 0)
-        self._depth = max(1, depth or DEFAULT_PIPELINE_DEPTH)
+        if depth == 0:
+            from ..tune.autotune import tuned_pipeline_depth
+
+            depth = tuned_pipeline_depth(config.event_buckets[-1],
+                                         device=self.device)
+        self._depth = max(1, depth)
         obs.gauge(
             "pyconsensus_serve_pipeline_depth",
             "configured dispatch pipeline depth (in-flight bucketed "

@@ -117,7 +117,8 @@ class ServeConfig:
     #: lanes of every padded dispatch (fixed; 1 disables batching)
     max_batch: int = 8
     #: padded dispatches kept in flight before a result fetch blocks:
-    #: 1 = synchronous, 0 (default) = 2
+    #: 1 = synchronous, 0 (default) = the tuned depth (``tune.autotune.
+    #: tuned_pipeline_depth``), 2 without a cache entry
     pipeline_depth: int = 0
     #: default per-request shed deadline (ms; None = no deadline)
     default_deadline_ms: Optional[float] = 30_000.0
@@ -226,7 +227,7 @@ def _validate(cfg: ServeConfig) -> None:
         raise InputError("max_batch must be >= 1")
     if int(cfg.pipeline_depth) < 0:
         raise InputError(
-            f"pipeline_depth must be >= 0 (0 = the default of 2, 1 = "
+            f"pipeline_depth must be >= 0 (0 = auto-tuned, 1 = "
             f"synchronous dispatch, N = N in-flight dispatches), got "
             f"{cfg.pipeline_depth}", pipeline_depth=cfg.pipeline_depth)
     if int(cfg.incremental_refresh_every) < 1:

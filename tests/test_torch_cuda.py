@@ -2538,3 +2538,188 @@ def test_two_batchers_first_linalg_calls_at_once(dev, tmp_path):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600)
     assert run.returncode == 0 and "ok" in run.stdout, run.stderr[-3000:]
+
+
+# -- the launch-shape autotuner (tune/) ---------------------------------------
+
+TUNE_SHAPES = [(24, 12), (1000, 4099), (517, 2048), (10000, 100000),
+               (64, 300), (4096, 65536), (1, 70000)]
+
+
+@pytest.mark.cuda
+def test_split_model_matches_the_library(dev):
+    """The Python copies of the library's split choices equal
+    ``pyc_row_tile_splits`` and ``pyc_col_tile_splits`` over a grid of
+    shapes, storage types and SM counts (the card's own among them)."""
+    lib = build.load("storage_sweeps.cu")
+    n_sms = (1, 7, 66, 114, 132, ck._sm_count(dev.index or 0))
+    for R, E in TUNE_SHAPES + [(R, E) for R in (63, 64, 65, 8192)
+                               for E in (511, 512, 513, 16384)]:
+        for dtype, code in ck._STORAGE_CODES.items():
+            item = torch.empty((), dtype=dtype).element_size()
+            for n_sm in n_sms:
+                assert ck.row_tile_splits(R, E, item, n_sm) == \
+                    lib.pyc_row_tile_splits(R, E, code, n_sm), (R, E, code)
+                assert ck.col_tile_splits(R, E, item, n_sm) == \
+                    lib.pyc_col_tile_splits(R, E, code, n_sm), (R, E, code)
+
+
+def _tune_storages(seed, R, E):
+    x_f, x_i, rep, fill, mu, v = make_storage(seed, R, E)
+    xb = bf16_storage(seed, R, E)[0]
+    return [(_t(x_i), "int8"), (_t(x_f), "float32"), (xb, "bfloat16")], \
+        rep, fill, mu, v
+
+
+def _splits(kind, s):
+    """A provider that sets one tile pass's split count to ``s``."""
+    return lambda k, **ctx: s if k == kind else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,E", [(1000, 4099), (517, 2048)])
+def test_every_legal_split_and_width_agrees_with_the_builtin(dev, R, E):
+    """Every legal split count of both tile passes and every legal resolve
+    width gives the built-in shape's results (resolve's outcomes and
+    absent counts bit for bit, every sum within the kernel band) and the
+    plain versions' results within the kernel band."""
+    storages, rep, fill, mu, v = _tune_storages(31, R, E)
+    repd, fd, mud, vd = (_t(a).to(dev) for a in (rep, fill, mu, v))
+    for x, name in storages:
+        xd = x.to(dev)
+        item = x.element_size()
+        base = ck.apply_weighted_cov(xd, mud, repd, vd, fd)
+        base_s = ck.scores_dirfix_pass(xd, repd, vd, fd)
+        plain = ck.apply_weighted_cov_plain(xd, mud, repd, vd, fd)
+        plain_s = ck.scores_dirfix_pass_plain(xd, repd, vd, fd)
+        for kind in ("row_tile_splits", "col_tile_splits"):
+            for s in ck.split_candidates(kind, R, E, item):
+                with ck.tuned_shapes(_splits(kind, s)):
+                    got = ck.apply_weighted_cov(xd, mud, repd, vd, fd)
+                    got_s = ck.scores_dirfix_pass(xd, repd, vd, fd)
+                what = f"{name} {kind}={s}"
+                _close(got, base, f"{what} B.1 vs the built-in")
+                _close(got, plain, f"{what} B.1 vs plain")
+                for g, b, r in zip(got_s, base_s, plain_s):
+                    _close(g, b, f"{what} B.2 vs the built-in")
+                    _close(g, r, f"{what} B.2 vs plain")
+        ref = ck.resolve_certainty_fused(xd, repd, fd, 1.0, 0.1)
+        plain_r = ck.resolve_certainty_fused_plain(xd, repd, fd, 1.0, 0.1)
+        for C in ck.resolve_block_candidates(R, item):
+            for s in (1, ck.split_candidates("row_tile_splits", R, E,
+                                             item)[-1]):
+                got = ck.resolve_certainty_fused(xd, repd, fd, 1.0, 0.1,
+                                                 block_cols=C, row_splits=s)
+                assert torch.equal(got[1], ref[1]), (name, C, s)
+                assert torch.equal(got[5], ref[5]), (name, C, s)
+                for g, r, q in zip(got, ref, plain_r):
+                    _close(g, r, f"{name} resolve C={C} splits={s}")
+                    _close(g, q, f"{name} resolve C={C} splits={s} vs plain")
+
+
+@pytest.mark.cuda
+def test_tuned_shapes_reach_the_launch_and_stay_k_independent(dev):
+    """Under an installed provider every tile-pass wrapper asks it for its
+    pass's split count and takes it (bit for bit the sweep's explicit
+    override, within the band of the plain versions), and the tiling
+    stays independent of k: the first columns of a k = 16 launch equal a
+    k = 3 launch, the matvec the k = 1 block call, a k = 8 block's first
+    two columns a k = 2 block."""
+    R, E = 1000, 4099
+    storages, rep, fill, mu, v = _tune_storages(37, R, E)
+    repd, fd, mud, vd = (_t(a).to(dev) for a in (rep, fill, mu, v))
+    g = torch.Generator().manual_seed(2)
+    V = torch.randn((E, 16), generator=g).to(dev)
+    W = torch.randn((16, R), generator=g).to(dev)
+    for x, name in storages:
+        xd = x.to(dev)
+        item = x.element_size()
+        row = ck.split_candidates("row_tile_splits", R, E, item)[-1]
+        col = ck.split_candidates("col_tile_splits", R, E, item)[1]
+
+        def provider():
+            asked = []
+
+            def ask(kind, **ctx):
+                asked.append(kind)
+                return {"row_tile_splits": row,
+                        "col_tile_splits": col}.get(kind)
+            return ask, asked
+
+        def under(call, kinds):
+            ask, asked = provider()
+            with ck.tuned_shapes(ask):
+                out = call()
+            assert set(asked) == set(kinds), (name, asked)
+            return out
+
+        both = ("row_tile_splits", "col_tile_splits")
+        tuned = under(lambda: ck.apply_weighted_cov(xd, mud, repd, vd, fd),
+                      both)
+        assert torch.equal(tuned, ck.apply_weighted_cov(
+            xd, mud, repd, vd, fd, row_splits=row, col_splits=col)), name
+        wide = under(lambda: ck.storage_matmat(xd, V, fd),
+                     ("row_tile_splits",))
+        _close(wide, ck.storage_matmat_plain(xd, V, fd), f"{name} B.7")
+        rows = under(lambda: ck.storage_rows_matmat(xd, W, fd),
+                     ("col_tile_splits",))
+        _close(rows, ck.storage_rows_matmat_plain(xd, W, fd), f"{name} B.6")
+        vec = under(lambda: ck.storage_matvec(xd, vd, fd),
+                    ("row_tile_splits",))
+        y8 = under(lambda: ck.apply_weighted_cov_block(
+            xd, mud, repd, V[:, :8], fd)[0], both)
+        _close(y8, ck.apply_weighted_cov_block_plain(
+            xd, mud, repd, V[:, :8], fd)[0], f"{name} B.8")
+        with ck.tuned_shapes(provider()[0]):
+            assert torch.equal(wide[:, :3], ck.storage_matmat(xd, V[:, :3],
+                                                              fd))
+            assert torch.equal(rows[:3], ck.storage_rows_matmat(xd, W[:3],
+                                                                fd))
+            assert torch.equal(vec, ck.storage_matmat(xd, vd[:, None],
+                                                      fd)[:, 0])
+            y2 = ck.apply_weighted_cov_block(xd, mud, repd, V[:, :2], fd)[0]
+            assert torch.equal(y8[:, :2], y2)
+
+
+@pytest.mark.cuda
+def test_timed_sweeps_persist_and_are_served(dev, tmp_path):
+    """The card's sweeps time every candidate, persist a legal winner under
+    the card's generation, and a provider built from the file serves it
+    to the launches; the depth sweep runs the bucket ring on the card."""
+    import json
+
+    from pyconsensus_tpu_torch.tune import (autotune_cov,
+                                            autotune_pipeline_depth,
+                                            autotune_resolve,
+                                            default_provider,
+                                            device_generation)
+
+    path = tmp_path / "cache.json"
+    cov = autotune_cov(4099, n_reporters=1000, storage_dtype="int8",
+                       path=path, repeats=2)
+    res = autotune_resolve(1000, n_events=4099, storage_dtype="int8",
+                           path=path, repeats=2)
+    for e in (*cov.values(), res):
+        assert e["mode"] == "timed"
+        assert e["value"] in e["candidates"]
+        assert set(e["timings_ms"]) == {str(c) for c in e["candidates"]}
+    raw = json.loads(path.read_text())
+    gen = device_generation(dev)
+    assert all(k.startswith(gen + "/") for k in raw["entries"])
+    with ck.tuned_shapes(default_provider(path, device=dev)):
+        assert ck.row_splits(1000, 4099, 1, 132, dev) == \
+            cov["row_tile_splits"]["value"]
+        assert ck.col_splits(1000, 4099, 1, 132, dev) == \
+            cov["col_tile_splits"]["value"]
+        assert ck.resolve_cols(1000, 1, dev) == res["value"]
+    depth = autotune_pipeline_depth(32, 256, path=path, repeats=1,
+                                    dispatches=4)
+    assert depth["mode"] == "timed" and depth["value"] in (1, 2, 3, 4)
+
+
+@pytest.mark.cuda
+def test_stream_bandwidth_on_the_card(dev):
+    from pyconsensus_tpu_torch.tune import stream_bandwidth_bytes_per_s
+
+    bw = stream_bandwidth_bytes_per_s(mbytes=256, repeats=3)
+    assert 1e11 < bw < 3.35e12 * 1.05

@@ -365,10 +365,12 @@ def test_catalog_has_the_fleet_sites():
     # the fleet's five, since the socket transport its four
     # (tests/test_torch_transport.py fires them), since the state plane
     # its five (tests/test_torch_stateplane.py,
-    # tests/test_torch_aotcache.py), and since the autoscaler and the
+    # tests/test_torch_aotcache.py), since the autoscaler and the
     # economy their six (tests/test_torch_autoscale.py,
-    # tests/test_torch_econ.py)
-    assert len(faults.FAULT_SITES) == 38
+    # tests/test_torch_econ.py), and since the tuner its one
+    # (tests/test_torch_tune.py): the reference's 39
+    assert len(faults.FAULT_SITES) == 39
+    assert set(faults.FAULT_SITES) == set(ref_faults.FAULT_SITES)
     assert set(NEW_SITES) <= set(faults.FAULT_SITES)
     assert set(faults.FAULT_SITES) <= set(ref_faults.FAULT_SITES)
 

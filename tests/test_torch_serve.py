@@ -1171,7 +1171,7 @@ def test_fault_sites_count_in_the_catalog_comment():
 
     src = open(plan.__file__).read()
     assert int(re.search(r"The (\d+) named injection sites", src)
-               .group(1)) == len(faults.FAULT_SITES) == 38
+               .group(1)) == len(faults.FAULT_SITES) == 39
     assert {"serve.enqueue", "serve.dispatch", "serve.cache_store",
             "serve.session_append", "streaming.panel", "fleet.route",
             "fleet.heartbeat", "fleet.takeover", "fleet.ledger_replay",

@@ -809,7 +809,7 @@ class TestFleet:
 
 
 def test_the_catalog_has_the_state_plane_sites():
-    assert len(faults.FAULT_SITES) == 38
+    assert len(faults.FAULT_SITES) == 39
     assert {"aot.cache_write", "aot.cache_load", "state.snapshot",
             "state.compact", "state.hydrate"} <= set(faults.FAULT_SITES)
     assert set(faults.FAULT_SITES) <= set(ref_faults.FAULT_SITES)

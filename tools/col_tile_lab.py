@@ -28,7 +28,7 @@ Variants (each a text edit of the source, asserted to apply):
 
 Each variant is built with ``nvcc`` into the ignored build directory, all
 at once, and its ``pyc_col_pass`` is launched directly (the split count
-of ``pyc_col_tile_splits``) on the 10,000 x 100,000 matrix of
+of ``ck.col_tile_splits``) on the 10,000 x 100,000 matrix of
 ``chip_smoke.py``: int8 with a fill vector at k = 1 and 5 centered (the
 covariance sweeps) and k = 3, 6, 8, 12 and 16 uncentered, int8 k = 12
 without a fill, and float32+NaN at k = 6 and 12. Medians of 10 CUDA-event
@@ -139,6 +139,8 @@ def ptxas_summary(text: str) -> list:
 
 def launcher(torch, name, path, x, k, m, a, W, n_sm):
     """A function that runs the variant's column pass once on ``x``."""
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(path)
     run = lib.pyc_col_pass
@@ -162,8 +164,7 @@ def launcher(torch, name, path, x, k, m, a, W, n_sm):
                   out[g[0]:g[1]].data_ptr(), stream) for g in groups]
     else:
         run.argtypes = [P, I, LL, LL, P, P, P, I, I, P, P, P]
-        lib.pyc_col_tile_splits.argtypes = [LL, LL, I, I]
-        S = lib.pyc_col_tile_splits(R, E, is8, n_sm)
+        S = ck.col_tile_splits(R, E, x.element_size(), n_sm)
         part = torch.empty((S, k, E), device=dev)
         calls = [(x.data_ptr(), is8, R, E,
                   None if m is None else m.data_ptr(),

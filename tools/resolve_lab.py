@@ -279,7 +279,7 @@ def main(argv=None) -> int:
         if name == "rows":
             vt = torch.stack([refs[case][2].to(dev),
                               torch.ones(E, device=dev)])
-            S = storage.pyc_row_tile_splits(R, E, is8, n_sm)
+            S = ck.row_tile_splits(R, E, x.element_size(), n_sm)
             t = torch.empty((2, R), device=dev)
             part = torch.empty((S, 2, R), device=dev)
 

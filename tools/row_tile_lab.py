@@ -27,7 +27,7 @@ Variants (each a text edit of the source, asserted to apply):
 
 Each variant is built with ``nvcc`` into the ignored build directory, all
 at once, and its ``pyc_row_tile_pass`` is launched directly (the split
-count of ``pyc_row_tile_splits``) on the 10,000 x 100,000 matrix of
+count of ``ck.row_tile_splits``) on the 10,000 x 100,000 matrix of
 ``chip_smoke.py``. The cases: at k = 1 the three matvecs (int8 centered
 with ``fill - mu``, as ``apply_weighted_cov`` calls it; int8 uncentered
 with and without a fill, as ``storage_matvec`` and ``scores_dirfix_pass``
@@ -150,6 +150,8 @@ def ptxas_summary(text: str) -> list:
 
 def launcher(torch, name, path, x, k, m, a, vt, n_sm):
     """A function that runs the variant's row pass once on ``x``."""
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib = ctypes.CDLL(path)
     dev = x.device
@@ -167,8 +169,7 @@ def launcher(torch, name, path, x, k, m, a, vt, n_sm):
     else:
         run = lib.pyc_row_tile_pass
         run.argtypes = [P, I, LL, LL, P, P, P, I, I, P, P, P]
-        lib.pyc_row_tile_splits.argtypes = [LL, LL, I, I]
-        S = lib.pyc_row_tile_splits(R, E, is8, n_sm)
+        S = ck.row_tile_splits(R, E, x.element_size(), n_sm)
         part = torch.empty((S, k, R), device=dev)
         args = (x.data_ptr(), is8, R, E,
                 None if m is None else m.data_ptr(),
