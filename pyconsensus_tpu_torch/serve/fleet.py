@@ -83,6 +83,20 @@ from .transport.base import WorkerBase, resolve_transport
 
 __all__ = ["FleetConfig", "FleetWorker", "ConsensusFleet"]
 
+# The fleet's lock hierarchy, declared for the port's static analysis
+# (CL801 flags any acquisition contradicting an order below, even
+# without a full cycle) and mirrored at runtime by the lock witness: a
+# worker's declare lock is always outermost — the takeover path holds
+# it across fleet-state, ring, and capacity updates.
+# consensus-lint: lock-order WorkerBase.declare_lock < ConsensusFleet._lock
+# consensus-lint: lock-order ConsensusFleet._lock < HashRing._lock
+# consensus-lint: lock-order ConsensusFleet._lock < ClusterCapacity._lock
+# The autoscaler's control lock is OUTERMOST of all: one membership
+# change in flight means the loop holds its lock across
+# add_worker/drain_worker, which take a worker's declare lock and then
+# the fleet lock.
+# consensus-lint: lock-order AutoScaler._lock < WorkerBase.declare_lock
+
 
 @dataclass(frozen=True)
 class FleetConfig:
@@ -301,6 +315,12 @@ class FleetWorker(WorkerBase):
         process-wide ``obs.REGISTRY``, so every handle answers the same
         process view."""
         return {"worker": self.name, "metrics": obs.REGISTRY.snapshot()}
+
+    def metrics_render(self) -> dict:
+        """This worker's Prometheus text exposition (the same
+        process-wide view as :meth:`metrics_snapshot`), as the socket
+        handle's ``metrics_render`` answers it."""
+        return {"worker": self.name, "text": obs.render_prom()}
 
 
 class ConsensusFleet:

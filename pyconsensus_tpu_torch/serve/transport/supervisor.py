@@ -214,7 +214,7 @@ class SocketWorkerHandle(WorkerBase):
     # -- liveness -------------------------------------------------------
 
     @property
-    def alive(self) -> bool:
+    def alive(self) -> bool:  # consensus-lint: disable=CL902 — the same surface as FleetWorker's plain alive attribute (WorkerBase): a property here only so a process that exited reads as dead
         """False once the router fenced this worker or its process
         exited: a death the router did not cause is seen at the next
         routing or scan, not only after the heartbeat timeout."""
@@ -424,7 +424,7 @@ class SocketWorkerHandle(WorkerBase):
 
     # -- introspection ---------------------------------------------------
 
-    def call(self, method: str, params: Optional[dict] = None,
+    def call(self, method: str, params: Optional[dict] = None,  # consensus-lint: disable=CL902 — deliberate escape hatch: raw RPC for tests/bench/operator tooling, not part of the Transport contract FleetWorker must mirror
              timeout_s: Optional[float] = None):
         """Raw RPC (tests, operator tooling, the command line's warm-up
         and ``stats``)."""

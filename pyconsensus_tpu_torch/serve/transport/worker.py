@@ -395,7 +395,7 @@ class FleetWorkerProcess:
                 "release_session": self.release_session,
                 "warm_from_disk": self.warm_from_disk,
                 "warm": self.warm,
-                "metric": self.metric, "stats": self.stats,
+                "metric": self.metric, "stats": self.stats,  # consensus-lint: disable=CL902 — operator surface: read through the raw call() hatch (chip_smoke.py, the tests), not by the fleet client
                 "metrics.snapshot": self.metrics_snapshot,
                 "metrics.render": self.metrics_render,
                 "drain": self.drain}

@@ -34,6 +34,19 @@ from pyconsensus_tpu_torch.serve import (ConsensusFleet, ConsensusService,
                                          FleetConfig, ServeConfig)
 from pyconsensus_tpu_torch.serve.autoscale import (AutoScaler,
                                                    AutoscaleConfig)
+from torch_witness import (  # noqa: F401
+    torch_lock_witness, torch_protocol_witness, torch_digest_witness)
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_lock_witness,
+               torch_protocol_witness,
+               torch_digest_witness):
+    """Every test here runs under the port's lock, protocol and digest
+    witnesses (the counterpart of the reference's test_autoscale opt-
+    in)."""
+    yield
+
 
 #: the six sites of the autoscaler and the economy
 NEW_SITES = ("autoscale.decide", "autoscale.spawn", "autoscale.drain",

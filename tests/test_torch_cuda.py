@@ -2723,3 +2723,55 @@ def test_stream_bandwidth_on_the_card(dev):
 
     bw = stream_bandwidth_bytes_per_s(mbytes=256, repeats=3)
     assert 1e11 < bw < 3.35e12 * 1.05
+
+
+_WITNESS_SCRIPT = r"""
+import importlib.util, json, sys
+repo = sys.argv[1]
+spec = importlib.util.spec_from_file_location(
+    "boot_witness", repo + "/pyconsensus_tpu_torch/analysis/witness.py")
+wmod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(wmod)
+w = wmod.LockWitness().install()
+sys.path.insert(0, repo)
+import numpy as np
+from pyconsensus_tpu_torch import obs
+from pyconsensus_tpu_torch.analysis.concurrency import lock_order_edges
+from pyconsensus_tpu_torch.serve import ConsensusService, ServeConfig
+rng = np.random.default_rng(0)
+x = rng.choice([0.0, 1.0], size=(200, 2000))
+with ConsensusService(ServeConfig(), device="cuda") as svc:
+    svc.submit(reports=x).result(300)
+w.uninstall()
+static = lock_order_edges()
+w.check(static=static)
+names = static["locks"]
+print(json.dumps({
+    "taken": sorted(names.get(k, k) for k in w.taken),
+    "cuda": obs.value("pyconsensus_serve_requests_total",
+                      path="bucket_cuda", outcome="ok")}))
+"""
+
+
+@pytest.mark.cuda
+def test_the_lock_witness_sees_the_cards_locks(dev):
+    """A fresh process installs the lock witness from its file before it
+    imports the package, then serves one request on ``bucket_cuda``: the
+    locks only the card's paths take (the kernel build, the first
+    ``torch.linalg`` call, the class's executable cache, the launch
+    counters) are witnessed and taken, and the observed order is
+    consistent with the static graph."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _WITNESS_SCRIPT, repo],
+                       capture_output=True, text=True, cwd=repo,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["cuda"] == 1.0
+    assert {"build._LOCK", "service._LINALG_LOCK", "ExecutableCache._lock",
+            "cuda_kernels._COUNTS_LOCK"} <= set(out["taken"])

@@ -52,6 +52,16 @@ from pyconsensus_tpu_torch.econ import (STRATEGIES, MarketEconomy,
                                         strategy_rng)
 from pyconsensus_tpu_torch.serve import (ConsensusFleet, ConsensusService,
                                          FleetConfig, ServeConfig)
+from torch_witness import (  # noqa: F401
+    torch_lock_witness, torch_digest_witness)
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_lock_witness, torch_digest_witness):
+    """Every test here runs under the port's lock and digest witnesses
+    (the counterpart of the reference's test_econ opt-in)."""
+    yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: reputations against the reference (float64; the session band)

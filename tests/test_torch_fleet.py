@@ -69,6 +69,18 @@ from pyconsensus_tpu_torch.serve.transport import (SocketTransport,
                                                    resolve_transport)
 from test_oracle import CANONICAL, MISSING, SCALED_BOUNDS, SCALED_REPORTS
 from torch_fleet_worker import BLOCKS_PER_ROUND, N_REPORTERS, make_block
+from torch_witness import (  # noqa: F401
+    torch_lock_witness, torch_protocol_witness, torch_digest_witness)
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_lock_witness,
+               torch_protocol_witness,
+               torch_digest_witness):
+    """Every test here runs under the port's lock, protocol and digest
+    witnesses (the counterpart of the reference's test_fleet opt-in)."""
+    yield
+
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)

@@ -50,6 +50,16 @@ from pyconsensus_tpu_torch.serve import (CUDA_KERNEL_PATH, PLAIN_KERNEL_PATH,
                                          cuda_bucket_params,
                                          padded_consensus, slice_result)
 from pyconsensus_tpu_torch.serve.kernels import place_bucket_operands
+from torch_witness import torch_lock_witness  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_lock_witness):
+    """Every test here runs under the port's lock witness (the
+    counterpart of the reference's test_serve and the pipeline tests
+    opt-in)."""
+    yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the continuous band against direct resolution in float64 (the

@@ -35,6 +35,15 @@ from pyconsensus_tpu_torch.serve import (INCREMENTAL_KERNEL_PATH, BucketKey,
                                          incremental_drift_band, share_of)
 from pyconsensus_tpu_torch.serve.cache import SINGLE_TOPOLOGY
 from pyconsensus_tpu_torch.serve.incremental import incremental_params
+from torch_witness import torch_lock_witness  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_lock_witness):
+    """Every test here runs under the port's lock witness (the
+    counterpart of the reference's test_serve_incremental opt-in)."""
+    yield
+
 
 #: continuous keys against the reference (float64; torch's and XLA's
 #: eigensolvers and reductions agree to about 1e-14 here)

@@ -54,6 +54,16 @@ from pyconsensus_tpu_torch.serve.stateplane import (CompactionPolicy,
                                                     snapshot_hint,
                                                     write_snapshot)
 from torch_fleet_worker import N_REPORTERS, make_block
+from torch_witness import (  # noqa: F401
+    torch_lock_witness, torch_protocol_witness)
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_lock_witness, torch_protocol_witness):
+    """Every test here runs under the port's lock and protocol witnesses
+    (the counterpart of the reference's test_stateplane opt-in)."""
+    yield
+
 
 BITS_KEYS = ("smooth_rep", "outcomes_final", "outcomes_adjusted",
              "old_rep", "avg_certainty")

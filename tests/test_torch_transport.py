@@ -65,6 +65,15 @@ from pyconsensus_tpu_torch.serve.transport.supervisor import (
     WorkerProcess, worker_subprocess_env)
 from pyconsensus_tpu_torch.tune.fingerprint import runtime_fingerprint
 from test_torch_fleet import _assert_parity, _corpus
+from torch_witness import torch_protocol_witness  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _witnessed(torch_protocol_witness):
+    """Every test here runs under the port's protocol witness (the
+    counterpart of the reference's test_transport opt-in)."""
+    yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: wait bound of every future in this file
